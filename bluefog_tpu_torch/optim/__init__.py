@@ -1,0 +1,8 @@
+"""Decentralized optimizers: ``torch.optim`` plus gossip."""
+
+from bluefog_tpu_torch.optim.optimizers import (  # noqa: F401
+    CommunicationType,
+    DecentralizedOptimizer,
+    DistributedNeighborAllreduceOptimizer,
+    decentralized_optimizer,
+)

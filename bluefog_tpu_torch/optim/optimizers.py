@@ -1,0 +1,195 @@
+"""Decentralized optimizers: a ``torch.optim`` optimizer plus gossip.
+
+Counterpart of ``bluefog_tpu/optim/optimizers.py`` for
+:class:`CommunicationType`, :func:`decentralized_optimizer` (the
+``neighbor_allreduce`` and ``empty`` types) and
+:func:`DistributedNeighborAllreduceOptimizer`.
+
+The wrapped optimizer holds rank-stacked parameters, ``p[r]`` being rank
+``r``'s copy, with rank-stacked gradients in ``.grad``.  Every
+``torch.optim`` update is element-wise, so one optimizer over stacked tensors
+is ``n`` independent optimizers with the same hyper-parameters.  Modes:
+
+- **ATC** (adapt-then-combine): ``p' = W (p + update)``: the local step,
+  then gossip of the result.
+- **AWC** (adapt-with-combine, the default): ``p' = W p + update``: gossip of
+  the pre-step parameters, then the local step on the mixed ones.  The base
+  update is the same as on the pre-step parameters unless it reads them
+  (weight decay), in which case it sees the mixed ones, as in upstream
+  bluefog's torch optimizers.
+
+``num_steps_per_communication=k`` gossips on every k-th step only and runs
+plain local steps in between.
+"""
+
+from __future__ import annotations
+
+import enum
+from typing import List
+
+import torch
+
+from bluefog_tpu_torch.ops import collectives as C
+from bluefog_tpu_torch.topology.graphs import Topology
+from bluefog_tpu_torch.topology.schedule import GossipSchedule, build_schedule
+
+__all__ = [
+    "CommunicationType",
+    "DecentralizedOptimizer",
+    "decentralized_optimizer",
+    "DistributedNeighborAllreduceOptimizer",
+]
+
+
+class CommunicationType(enum.Enum):
+    """Reference ``optimizers.CommunicationType`` (upstream)."""
+
+    neighbor_allreduce = "neighbor.allreduce"
+    hierarchical_neighbor_allreduce = "hierarchical.neighbor.allreduce"
+    allreduce = "allreduce"
+    win_put = "win.put"
+    empty = "empty"
+
+
+_PORTED = (CommunicationType.neighbor_allreduce, CommunicationType.empty)
+
+
+class DecentralizedOptimizer:
+    """A base ``torch.optim.Optimizer`` over rank-stacked parameters whose
+    :meth:`step` also runs the decentralized combine (see the module
+    docstring).  Built by :func:`decentralized_optimizer`."""
+
+    def __init__(self, base: torch.optim.Optimizer, schedule, *,
+                 communication_type: CommunicationType, atc: bool,
+                 num_steps_per_communication: int, backend: str):
+        self.base = base
+        self.schedule = schedule
+        self.communication_type = communication_type
+        self.atc = atc
+        self.num_steps_per_communication = num_steps_per_communication
+        self.backend = backend
+        self.count = 0
+        if schedule is not None:
+            for p in self._params():
+                if p.dim() == 0 or p.shape[0] != schedule.size:
+                    raise ValueError(
+                        "parameters must be rank-stacked with leading axis "
+                        f"{schedule.size}, got shape {tuple(p.shape)}")
+
+    @property
+    def param_groups(self):
+        return self.base.param_groups
+
+    @property
+    def state(self):
+        return self.base.state
+
+    def _params(self) -> List[torch.Tensor]:
+        return [p for g in self.base.param_groups for p in g["params"]]
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.base.zero_grad(set_to_none=set_to_none)
+
+    def _combine(self) -> None:
+        """Gossip every parameter in place, fused: one buffer per dtype."""
+        params = self._params()
+        mixed = C.fuse_apply(
+            lambda t: C.neighbor_allreduce(t, self.schedule,
+                                           backend=self.backend), params)
+        for p, m in zip(params, mixed):
+            p.copy_(m)
+
+    def _communicates(self) -> bool:
+        if self.communication_type != CommunicationType.neighbor_allreduce:
+            return False
+        k = self.num_steps_per_communication
+        return k <= 1 or (self.count + 1) % k == 0
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        """One update of every rank: the base step, and on communicating steps
+        the gossip before it (AWC) or after it (ATC)."""
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        if not self._communicates():
+            self.base.step()
+        elif self.atc:
+            self.base.step()
+            self._combine()
+        else:
+            self._combine()
+            self.base.step()
+        self.count += 1
+        return loss
+
+    def state_dict(self):
+        return {"base": self.base.state_dict(), "count": self.count}
+
+    def load_state_dict(self, state) -> None:
+        self.base.load_state_dict(state["base"])
+        self.count = int(state["count"])
+
+
+def decentralized_optimizer(
+    base: torch.optim.Optimizer,
+    topology,
+    *,
+    communication_type: CommunicationType = CommunicationType.neighbor_allreduce,
+    atc: bool = False,
+    num_steps_per_communication: int = 1,
+    backend: str = "auto",
+) -> DecentralizedOptimizer:
+    """Wrap ``base`` so each :meth:`~DecentralizedOptimizer.step` also
+    performs decentralized averaging.
+
+    Args:
+      base: a ``torch.optim`` optimizer over rank-stacked parameters.
+      topology: a static :class:`Topology` or :class:`GossipSchedule`
+        (``None`` for the ``empty`` type).
+      communication_type: ``neighbor_allreduce`` or ``empty``; the other
+        reference types are not ported yet and raise.
+      atc: adapt-then-combine when True, adapt-with-combine when False.
+      num_steps_per_communication: gossip every k-th step (local SGD).
+      backend: gossip path, ``'kernel'``, ``'plain'`` or ``'auto'`` (see
+        :func:`bluefog_tpu_torch.ops.collectives.neighbor_allreduce`).
+    """
+    ct = communication_type
+    if ct not in _PORTED:
+        raise NotImplementedError(
+            f"communication_type {ct.value!r} is not ported yet")
+    schedule = None
+    if ct == CommunicationType.neighbor_allreduce:
+        if isinstance(topology, Topology):
+            schedule = build_schedule(topology)
+        elif isinstance(topology, GossipSchedule):
+            schedule = topology
+        elif topology is None:
+            raise ValueError(
+                "communication_type=neighbor_allreduce requires a topology")
+        else:
+            raise NotImplementedError(
+                "dynamic (sequence or callable) topologies are not ported yet;"
+                " pass one Topology or GossipSchedule")
+    return DecentralizedOptimizer(
+        base, schedule, communication_type=ct, atc=atc,
+        num_steps_per_communication=num_steps_per_communication,
+        backend=backend)
+
+
+def DistributedNeighborAllreduceOptimizer(
+    base: torch.optim.Optimizer,
+    *,
+    topology,
+    atc: bool = False,
+    num_steps_per_communication: int = 1,
+    backend: str = "auto",
+) -> DecentralizedOptimizer:
+    """Reference ``bf.DistributedNeighborAllreduceOptimizer``: decentralized
+    gossip averaging of the parameters each step."""
+    return decentralized_optimizer(
+        base, topology,
+        communication_type=CommunicationType.neighbor_allreduce,
+        atc=atc, num_steps_per_communication=num_steps_per_communication,
+        backend=backend)
