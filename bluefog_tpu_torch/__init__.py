@@ -9,11 +9,15 @@ names, so a reader finds each counterpart:
 topology.graphs / topology.schedule             topology.graphs / .schedule
 parallel.context (init/size/set_topology/...)   parallel.context
 parallel.api (rank_stack, neighbor_allreduce)   parallel.api
+parallel.api (win_create ... win_update_...)    parallel.api
 ops.pallas_gossip.neighbor_allreduce_pallas     ops.gossip_kernel (K1, CUDA)
+ops.pallas_gossip.deliver_pallas                ops.deliver_kernel (K2, CUDA)
 ops.collectives (fuse_apply, neighbor_...)      ops.collectives
-optim.optimizers                                optim.optimizers
+ops.windows (WindowState, win_put, ...)         ops.windows
+optim.optimizers (incl. WinPut, sync mode)      optim.optimizers
 models.resnet                                   models.resnet
 examples/synthetic_benchmark.py                 examples.synthetic_benchmark
+examples/decentralized_optimization.py          examples.decentralized_...
 ==============================================  ===============================
 
 Ranks are virtual: ``n`` gossip ranks live on one device as the leading axis
@@ -36,10 +40,21 @@ from bluefog_tpu_torch.parallel.context import (
     shutdown,
     size,
 )
-from bluefog_tpu_torch.parallel.api import neighbor_allreduce, rank_stack
+from bluefog_tpu_torch.parallel.api import (
+    neighbor_allreduce,
+    rank_stack,
+    win_accumulate,
+    win_create,
+    win_free,
+    win_get,
+    win_put,
+    win_update,
+    win_update_then_collect,
+)
 from bluefog_tpu_torch.optim import (
     CommunicationType,
     DistributedNeighborAllreduceOptimizer,
+    DistributedWinPutOptimizer,
     decentralized_optimizer,
 )
 

@@ -16,7 +16,9 @@ flax leaf           port name                   layout
 ==================  ==========================  ===========================
 
 Everything here works on numpy arrays (anything ``np.asarray`` takes), so
-neither side needs the other's framework.
+neither side needs the other's framework.  :func:`window_from_numpy` carries
+a window's buffers the same way, so a run can hand a window to the port
+mid-way.
 """
 
 from __future__ import annotations
@@ -25,8 +27,10 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
-__all__ = ["state_dict_from_flax", "flax_from_state_dict", "load_flax"]
+__all__ = ["state_dict_from_flax", "flax_from_state_dict", "load_flax",
+           "window_from_numpy"]
 
 _PARAM_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
@@ -112,3 +116,48 @@ def load_flax(model: torch.nn.Module, params: Mapping,
         raise KeyError(f"flax variables do not match the model: missing "
                        f"{missing}, unexpected {res.unexpected_keys}")
     return model
+
+
+def _tensor(arr) -> torch.Tensor:
+    """A CPU tensor of ``arr``'s values and dtype; numpy's ml_dtypes bfloat16
+    (what a JAX bf16 array converts to) becomes torch.bfloat16."""
+    arr = np.ascontiguousarray(np.asarray(arr))
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(arr.copy())
+
+
+def window_from_numpy(self_buf, peer_bufs, assoc_self=None, assoc_peers=None,
+                      *, schedule, device="cuda", name: str = "win"):
+    """A port window holding the given buffers: ``self_buf`` a pytree of
+    rank-stacked ``(n, ...)`` arrays, ``peer_bufs`` the matching pytree of
+    ``(n, K, ...)`` landing buffers, and, for an associated-p window,
+    ``assoc_self`` ``(n,)`` and ``assoc_peers`` ``(n, K)``.  ``schedule`` is
+    the port's :class:`~bluefog_tpu_torch.topology.GossipSchedule` (or
+    Topology) the window was created with; ``device`` defaults to the GPU."""
+    from bluefog_tpu_torch.ops import windows as W
+    from bluefog_tpu_torch.parallel.context import resolve_device
+
+    dev = resolve_device(device)
+    to_dev = lambda t: _tensor(t).to(dev)  # noqa: E731
+    state = W.win_create(pytree.tree_map(to_dev, self_buf), schedule,
+                         name=name, associated_p=assoc_self is not None)
+    k = state.spec.schedule.num_slots
+    # the landing buffers flattened per rank and slot, in the layout's order
+    peers = [to_dev(a) for a in pytree.tree_leaves(peer_bufs)]
+    if len(peers) != len(state.layout.leaves):
+        raise ValueError(f"peer_bufs has {len(peers)} leaves, self_buf "
+                         f"{len(state.layout.leaves)}")
+    for t, (dt, off, shape) in zip(peers, state.layout.leaves):
+        if tuple(t.shape) != (state.layout.n, k, *shape):
+            raise ValueError(f"peer leaf of shape {tuple(t.shape)} where the "
+                             f"window holds {(state.layout.n, k, *shape)}")
+        n_el = int(np.prod(shape, dtype=np.int64))
+        state.peers[dt][:, :, off:off + n_el] = t.reshape(
+            state.layout.n, k, -1)
+    if assoc_self is not None:
+        state.assoc_self.copy_(_tensor(assoc_self).reshape(-1))
+        state.assoc_peers.copy_(_tensor(assoc_peers).reshape(
+            state.assoc_peers.shape))
+    return state

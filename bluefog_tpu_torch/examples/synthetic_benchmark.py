@@ -2,11 +2,14 @@
 virtual ranks on one device.
 
 Counterpart of ``examples/synthetic_benchmark.py`` of the JAX package for its
-ResNet models and its ``neighbor`` and ``none`` communication flavors.  Each
-rank holds its own copy of the model as a row of rank-stacked parameters; a
-step runs every rank's forward and backward in turn on that rank's batch,
-then one :func:`~bluefog_tpu_torch.optim.DistributedNeighborAllreduceOptimizer`
-step, whose gossip is one call of the kernel K1 per fused buffer.
+ResNet models and its ``neighbor``, ``winput`` and ``none`` communication
+flavors.  Each rank holds its own copy of the model as a row of rank-stacked
+parameters; a step runs every rank's forward and backward in turn on that
+rank's batch, then one optimizer step: with ``neighbor``,
+:func:`~bluefog_tpu_torch.optim.DistributedNeighborAllreduceOptimizer`, whose
+gossip is one call of the kernel K1 per fused buffer; with ``winput``,
+:func:`~bluefog_tpu_torch.optim.DistributedWinPutOptimizer`, whose put is one
+call of the kernel K2 per dtype of the parameters.
 
 BatchNorm runs in train mode with per-rank batch statistics that are not
 gossiped, as in the JAX package's decentralized training step
@@ -18,7 +21,8 @@ Run on the GPU (the default device; it raises without one)::
   python -m bluefog_tpu_torch.examples.synthetic_benchmark \\
       --model resnet50 --comm neighbor --topology exp2 --size 8
 
-and on the CPU at a toy size::
+(``--comm winput`` for the one-sided window optimizer) and on the CPU at a
+toy size::
 
   python -m bluefog_tpu_torch.examples.synthetic_benchmark --device cpu \\
       --model resnet18 --image-size 32 --batch-size 2 --size 4 --iters 2
@@ -41,6 +45,7 @@ from bluefog_tpu_torch.optim import (
     CommunicationType,
     DecentralizedOptimizer,
     DistributedNeighborAllreduceOptimizer,
+    DistributedWinPutOptimizer,
     decentralized_optimizer,
 )
 from bluefog_tpu_torch.parallel.api import rank_stack
@@ -94,14 +99,20 @@ class Trainer:
         return losses
 
     def state(self) -> Dict[str, torch.Tensor]:
-        """Every tensor a step reads and writes: parameters, buffers and the
-        optimizer's momentum."""
+        """Every tensor a step reads and writes: parameters, buffers, the
+        optimizer's momentum and, with ``winput``, the window's self and
+        landing buffers."""
         out = {f"param.{k}": v for k, v in self.params.items()}
         out.update({f"buffer.{k}": v for k, v in self.buffers.items()})
         for k, v in self.params.items():
             buf = self.opt.state.get(v, {}).get("momentum_buffer")
             if buf is not None:
                 out[f"momentum.{k}"] = buf
+        win = self.opt.window
+        if win is not None:
+            for dt, buf in win.bufs.items():
+                out[f"window.self.{dt}"] = buf
+                out[f"window.peers.{dt}"] = win.peers[dt]
         return out
 
 
@@ -125,6 +136,9 @@ def build(model: str = "resnet50", comm: str = "neighbor",
     base = torch.optim.SGD(list(params.values()), lr=0.01, momentum=0.9)
     if comm == "neighbor":
         opt = DistributedNeighborAllreduceOptimizer(
+            base, topology=TOPOLOGIES[topology](size))
+    elif comm == "winput":
+        opt = DistributedWinPutOptimizer(
             base, topology=TOPOLOGIES[topology](size))
     elif comm == "none":
         opt = decentralized_optimizer(
@@ -199,7 +213,7 @@ def profile_step(trainer: Trainer, top: int = 10) -> Dict[str, object]:
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", choices=sorted(MODELS), default="resnet50")
-    ap.add_argument("--comm", choices=["neighbor", "none"],
+    ap.add_argument("--comm", choices=["neighbor", "winput", "none"],
                     default="neighbor")
     ap.add_argument("--topology", choices=sorted(TOPOLOGIES), default="exp2")
     ap.add_argument("--size", type=int, default=8, help="virtual ranks")

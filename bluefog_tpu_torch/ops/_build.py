@@ -103,7 +103,7 @@ def load() -> ctypes.CDLL:
             if nvcc is None:
                 raise RuntimeError(
                     "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin):"
-                    " the CUDA toolkit is needed to build the gossip kernel")
+                    " the CUDA toolkit is needed to build the kernels")
             _log = _compile(nvcc, path)
         lib = ctypes.CDLL(str(path))
         fn = lib.bf_gossip_mix
@@ -111,6 +111,12 @@ def load() -> ctypes.CDLL:
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                        ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = lib.bf_window_deliver
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_double, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
         return lib

@@ -28,6 +28,7 @@ __all__ = [
     "gossip_mix",
     "gossip_mix_plain",
     "schedule_tables",
+    "slot_tables",
     "BACKENDS",
 ]
 
@@ -67,12 +68,25 @@ def _wire_dtype(dtype: torch.dtype) -> torch.dtype:
 
 
 @functools.lru_cache(maxsize=64)
-def _cached_tables(sched: GossipSchedule, device: str, dtype: torch.dtype):
+def _cached_slots(sched: GossipSchedule, device: str):
+    src = torch.as_tensor(sched.recv_src[:, :sched.num_slots],
+                          dtype=torch.int32, device=device).contiguous()
+    return src, (src >= 0).to(torch.int32)
+
+
+def slot_tables(sched: GossipSchedule, device
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(recv_src (n, K), mask (n, K))``, both int32 on ``device``: the rank
+    feeding slot ``k`` of rank ``i`` (-1 where no edge) and whether that slot
+    has an in-edge (``recv_src >= 0``).  Cached per schedule and device."""
+    return _cached_slots(sched, str(torch.device(device)))
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_weights(sched: GossipSchedule, device: str, dtype: torch.dtype):
     return (torch.as_tensor(sched.self_weights, dtype=dtype, device=device),
             torch.as_tensor(sched.recv_weights[:, :sched.num_slots],
-                            dtype=dtype, device=device).contiguous(),
-            torch.as_tensor(sched.recv_src[:, :sched.num_slots],
-                            dtype=torch.int32, device=device).contiguous())
+                            dtype=dtype, device=device).contiguous())
 
 
 def schedule_tables(sched: GossipSchedule, device, self_weight=None,
@@ -85,7 +99,8 @@ def schedule_tables(sched: GossipSchedule, device, self_weight=None,
     receive weights: ``(K,)`` for every rank or an ``(n, K)`` table.  The
     schedule's own tables are cached per device and dtype."""
     n, k = sched.size, sched.num_slots
-    sw, rw, src = _cached_tables(sched, str(torch.device(device)), dtype)
+    sw, rw = _cached_weights(sched, str(torch.device(device)), dtype)
+    src = slot_tables(sched, device)[0]
     if self_weight is not None:
         sw = torch.as_tensor(self_weight, dtype=dtype, device=device)
         sw = sw.expand(n).contiguous() if sw.dim() == 0 else sw
@@ -141,8 +156,8 @@ def gossip_mix_plain(x: torch.Tensor, sw: torch.Tensor, rw: torch.Tensor,
 
 
 def _vector_width(x: torch.Tensor, out: torch.Tensor) -> int:
-    """16 bytes' worth of elements when every row starts 16-byte aligned,
-    else 1."""
+    """16 bytes' worth of elements when every row of ``x`` and ``out`` (rows
+    of ``x.shape[1]`` elements) starts 16-byte aligned, else 1."""
     vec = 16 // x.element_size()
     aligned = (x.shape[1] % vec == 0 and x.data_ptr() % 16 == 0
                and out.data_ptr() % 16 == 0)

@@ -4,5 +4,6 @@ from bluefog_tpu_torch.optim.optimizers import (  # noqa: F401
     CommunicationType,
     DecentralizedOptimizer,
     DistributedNeighborAllreduceOptimizer,
+    DistributedWinPutOptimizer,
     decentralized_optimizer,
 )

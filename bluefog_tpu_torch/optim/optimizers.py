@@ -2,8 +2,9 @@
 
 Counterpart of ``bluefog_tpu/optim/optimizers.py`` for
 :class:`CommunicationType`, :func:`decentralized_optimizer` (the
-``neighbor_allreduce`` and ``empty`` types) and
-:func:`DistributedNeighborAllreduceOptimizer`.
+``neighbor_allreduce`` and ``empty`` types),
+:func:`DistributedNeighborAllreduceOptimizer` and the synchronous
+:func:`DistributedWinPutOptimizer`.
 
 The wrapped optimizer holds rank-stacked parameters, ``p[r]`` being rank
 ``r``'s copy, with rank-stacked gradients in ``.grad``.  Every
@@ -17,6 +18,10 @@ is ``n`` independent optimizers with the same hyper-parameters.  Modes:
   update is the same as on the pre-step parameters unless it reads them
   (weight decay), in which case it sees the mixed ones, as in upstream
   bluefog's torch optimizers.
+- **WinPut**: the local step, then the one-sided window round: publish the
+  new parameters (``win_sync``), put them into every out-neighbour's landing
+  slot (``win_put``, kernel K2) and merge self and slots (``win_update``).
+  With one static topology that equals an ATC gossip step.
 
 ``num_steps_per_communication=k`` gossips on every k-th step only and runs
 plain local steps in between.
@@ -30,6 +35,7 @@ from typing import List
 import torch
 
 from bluefog_tpu_torch.ops import collectives as C
+from bluefog_tpu_torch.ops import windows as W
 from bluefog_tpu_torch.topology.graphs import Topology
 from bluefog_tpu_torch.topology.schedule import GossipSchedule, build_schedule
 
@@ -38,6 +44,7 @@ __all__ = [
     "DecentralizedOptimizer",
     "decentralized_optimizer",
     "DistributedNeighborAllreduceOptimizer",
+    "DistributedWinPutOptimizer",
 ]
 
 
@@ -57,7 +64,9 @@ _PORTED = (CommunicationType.neighbor_allreduce, CommunicationType.empty)
 class DecentralizedOptimizer:
     """A base ``torch.optim.Optimizer`` over rank-stacked parameters whose
     :meth:`step` also runs the decentralized combine (see the module
-    docstring).  Built by :func:`decentralized_optimizer`."""
+    docstring).  Built by :func:`decentralized_optimizer` and
+    :func:`DistributedWinPutOptimizer`; the ``win_put`` type keeps its
+    window in :attr:`window`."""
 
     def __init__(self, base: torch.optim.Optimizer, schedule, *,
                  communication_type: CommunicationType, atc: bool,
@@ -69,12 +78,16 @@ class DecentralizedOptimizer:
         self.num_steps_per_communication = num_steps_per_communication
         self.backend = backend
         self.count = 0
+        self.window = None
         if schedule is not None:
             for p in self._params():
                 if p.dim() == 0 or p.shape[0] != schedule.size:
                     raise ValueError(
                         "parameters must be rank-stacked with leading axis "
                         f"{schedule.size}, got shape {tuple(p.shape)}")
+        if communication_type == CommunicationType.win_put:
+            self.window = W.win_create(self._params(), schedule,
+                                       name="winput_opt")
 
     @property
     def param_groups(self):
@@ -91,16 +104,23 @@ class DecentralizedOptimizer:
         self.base.zero_grad(set_to_none=set_to_none)
 
     def _combine(self) -> None:
-        """Gossip every parameter in place, fused: one buffer per dtype."""
+        """Mix every parameter in place: gossip fused into one buffer per
+        dtype, or the window round over the window's one buffer per
+        dtype."""
         params = self._params()
-        mixed = C.fuse_apply(
-            lambda t: C.neighbor_allreduce(t, self.schedule,
-                                           backend=self.backend), params)
+        if self.window is not None:
+            W.win_sync(self.window, params)
+            W.win_put(self.window, None, backend=self.backend)
+            mixed, _ = W.win_update(self.window)
+        else:
+            mixed = C.fuse_apply(
+                lambda t: C.neighbor_allreduce(t, self.schedule,
+                                               backend=self.backend), params)
         for p, m in zip(params, mixed):
             p.copy_(m)
 
     def _communicates(self) -> bool:
-        if self.communication_type != CommunicationType.neighbor_allreduce:
+        if self.schedule is None:
             return False
         k = self.num_steps_per_communication
         return k <= 1 or (self.count + 1) % k == 0
@@ -193,3 +213,58 @@ def DistributedNeighborAllreduceOptimizer(
         communication_type=CommunicationType.neighbor_allreduce,
         atc=atc, num_steps_per_communication=num_steps_per_communication,
         backend=backend)
+
+
+def DistributedWinPutOptimizer(
+    base: torch.optim.Optimizer,
+    *,
+    topology,
+    num_steps_per_communication: int = 1,
+    async_: bool = False,
+    lr=None,
+) -> DecentralizedOptimizer:
+    """Reference ``bf.DistributedWinPutOptimizer``, synchronous mode: after
+    the local step, push the parameters to the out-neighbours with
+    ``win_put`` and merge the landed ones with ``win_update`` (see the module
+    docstring).  The window is created from the parameters at construction
+    and lives in the optimizer's ``window``.
+
+    Args:
+      base: a ``torch.optim`` optimizer over rank-stacked parameters.
+      topology: one static :class:`Topology` or :class:`GossipSchedule` (a
+        sequence of exactly one is accepted; longer ones raise).
+      num_steps_per_communication: run the window round every k-th step;
+        the window keeps its stale slots in between.
+      async_: the host-runtime mode (rank loops at independent rates); not
+        ported yet, raises ``NotImplementedError``.
+      lr: the async mode's learning rate; passing it without ``async_``
+        raises, as in the JAX package.
+
+    The put takes the ``'auto'`` route (K2 for a circulant schedule); the
+    returned optimizer's ``backend`` attribute selects another.
+    """
+    if async_:
+        raise NotImplementedError(
+            "DistributedWinPutOptimizer(async_=True) runs on the host runtime "
+            "(rank loops at independent rates), which is not ported yet; it "
+            "comes with slice 6")
+    if lr is not None:
+        raise ValueError(
+            "lr= applies only to async_=True (the sync path takes its "
+            "learning rate from `base`); remove lr= or set async_=True")
+    if topology is None:
+        raise ValueError("DistributedWinPutOptimizer requires a topology")
+    scheds = ([topology] if isinstance(topology, (Topology, GossipSchedule))
+              else list(topology))
+    if len(scheds) != 1:
+        raise ValueError(
+            "DistributedWinPutOptimizer takes a single static topology "
+            "(dynamic schedule lists are only supported by the "
+            "neighbor_allreduce optimizer)")
+    sched = scheds[0]
+    if isinstance(sched, Topology):
+        sched = build_schedule(sched)
+    return DecentralizedOptimizer(
+        base, sched, communication_type=CommunicationType.win_put, atc=True,
+        num_steps_per_communication=num_steps_per_communication,
+        backend="auto")

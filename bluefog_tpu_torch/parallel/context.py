@@ -10,7 +10,7 @@ passes an explicit rank to neighbor queries, as in the JAX package.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -35,12 +35,14 @@ __all__ = [
 
 @dataclasses.dataclass
 class BluefogContext:
-    """Everything the framework holds between calls."""
+    """Everything the framework holds between calls; ``windows`` maps each
+    registered window's name to its ``ops.windows.WindowState``."""
 
     size: int
     device: torch.device
     topology: Topology
     schedule: GossipSchedule
+    windows: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
 _CTX: Optional[BluefogContext] = None
@@ -79,8 +81,11 @@ def init(*, topology: Optional[Topology] = None, size: Optional[int] = None,
 
 
 def shutdown() -> None:
-    """Tear down the context (reference ``bf.shutdown()``)."""
+    """Tear down the context and free its windows (reference
+    ``bf.shutdown()``)."""
     global _CTX
+    if _CTX is not None:
+        _CTX.windows.clear()
     _CTX = None
 
 

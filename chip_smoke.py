@@ -7,7 +7,8 @@ Phases, in order; any failure raises and the script exits non-zero without
 its last line:
 
 1. Build: compile the hand-written CUDA kernels from ``bluefog_tpu_torch/csrc``
-   with nvcc for sm_90a, and print the seconds it took and ptxas's report.
+   (K1 ``gossip_mix.cu``, K2 ``window_deliver.cu``) with nvcc for sm_90a, one
+   process per source, and print the seconds it took and ptxas's report.
 2. K1 against its plain version on the card: ``gossip_mix`` against
    ``gossip_mix_plain`` in f32 and bf16, over Exponential-2(8) and Ring(8), at
    an unaligned length and at the lengths the main path gives it, plus the
@@ -22,13 +23,48 @@ its last line:
    synthetic_benchmark``: 2 warm-up and 3 timed steps.  Checks finite losses,
    K1's launch count against the fuse plan, and one step through K1 against
    the same step through the plain gossip path; one more step under
-   ``torch.profiler`` gives the device's busy time and idle share.
-4. Report: a ``kernels:`` line, the kernels' JSON line, the card's name and
+   ``torch.profiler`` gives the device's busy time and idle share.  A full
+   garbage collection runs before the timed steps of each path, and each
+   step prints the time Python's garbage collector ran in it and the
+   caching allocator's cudaMalloc and cudaFree calls; three more steps
+   split the host time into the ranks' forward and backward, the SGD step
+   and the gossip.
+4. K2 against its plain version on the card: ``window_deliver`` against
+   ``window_deliver_plain``, put then acc, in f32 and bf16 (and f16, f64),
+   at dst_weight 1.0, 0.5 and 1/3, over Exponential-2(8) and the directed
+   Ring(8), at an unaligned length and at the WinPut path's window length
+   (an aligned 1,000,000 for f16 and f64), plus the closed form
+   ``2 * dst_weight * recv_src`` on rank-valued rows.  Then times at the
+   main-path shapes (put and acc on Exponential-2, push-sum's acc on the
+   directed ring): the kernel, its plain version, its bound, and the PyTorch
+   yardstick the port never calls (``torch.index_select`` of the source rows
+   for put; the same plus ``add_`` for acc, two calls).
+5. The WinPut main path: the same ResNet-50 over 8 virtual ranks with
+   ``DistributedWinPutOptimizer`` (``--comm winput``), 2 warm-up and 3 timed
+   steps.  Checks finite losses, K2's launch count against the window's
+   layout (one launch per dtype per put); profiles one step; splits three
+   more steps' host time as in phase 3, with the window round split into
+   ``win_sync``, ``win_put``, ``win_update`` and the copy back, and three
+   more under deterministic cuDNN.  Then every rank's parameters get their
+   own seeded offset, and one step through K2 is held against the same step
+   through the plain window path, and against an ATC
+   ``DistributedNeighborAllreduceOptimizer`` step from the same state (the
+   closed form); last, ``win_update`` is timed.
+6. Push-sum: ``win_accumulate`` with the associated scalar ``p`` on the
+   directed Ring(8), dst_weight 0.5, over 25,557,032 f32 per rank (ResNet-50's
+   parameter count), from unequal weights p_r = 1 + r/8.  Checks that sum(p)
+   stays 11.5 exactly and p equals its closed form, that the mass sum(x)
+   stays within f32 rounding of its start, that the spread of x / p falls,
+   and that the rounds through K2 equal the rounds through the plain path;
+   times the rounds and ``win_update_then_collect``.
+7. Report: a ``kernels:`` line, the kernels' JSON line, the card's name and
    power limit from nvidia-smi, and the result line.
 
 It needs one CUDA device and exits with status 2 when there is none.
 """
 
+import contextlib
+import gc
 import json
 import math
 import os
@@ -45,7 +81,10 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 F32_TOL = 1e-6                # |kernel - plain| <= tol * (1 + |plain|)
 BF16_TOL = 2.0 ** -7          # one bf16 ulp, relative
+F16_TOL = 2.0 ** -10          # one f16 ulp, relative
+F64_TOL = 1e-15
 STEP_TOL = 2.0 ** -7          # kernel-path step vs plain-path step
+PUSH_ROUNDS = 6
 
 
 def check(cond, msg):
@@ -81,7 +120,8 @@ def phase_build():
     t0 = time.perf_counter()
     _build.load()
     secs = time.perf_counter() - t0
-    print(f"[build] gossip_mix.cu -> sm_90a in {secs:.2f} s")
+    print(f"[build] {', '.join(p.name for p in _build._sources())} -> "
+          f"sm_90a in {secs:.2f} s")
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
@@ -166,74 +206,460 @@ def phase_k1(device, main_lengths):
             "library_ms": lib_ms}
 
 
-def phase_main_path(trainer, launches_per_step):
+@contextlib.contextmanager
+def step_probe(trainer):
+    """Per-step host counters around ``trainer.step``, one dict per step in
+    the yielded list: the milliseconds Python's garbage collector ran and
+    the generations it collected, and the cudaMalloc and cudaFree calls of
+    PyTorch's caching allocator (``torch.cuda.memory_stats`` segment
+    counts)."""
+    rows = []
+    gc_now = {"t0": 0.0, "ms": 0.0, "gens": []}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_now["t0"] = time.perf_counter()
+        else:
+            gc_now["ms"] += (time.perf_counter() - gc_now["t0"]) * 1e3
+            gc_now["gens"].append(info["generation"])
+
+    inner = trainer.step
+
+    def step():
+        before = torch.cuda.memory_stats()
+        gc_now["ms"], gc_now["gens"] = 0.0, []
+        out = inner()
+        after = torch.cuda.memory_stats()
+        rows.append({
+            "gc_ms": gc_now["ms"], "gc_gens": list(gc_now["gens"]),
+            "mallocs": (after["segment.all.allocated"]
+                        - before["segment.all.allocated"]),
+            "frees": after["segment.all.freed"] - before["segment.all.freed"]})
+        return out
+
+    gc.callbacks.append(on_gc)
+    trainer.step = step
+    try:
+        yield rows
+    finally:
+        gc.callbacks.remove(on_gc)
+        del trainer.step
+
+
+def _probe_text(row):
+    return (f"gc {row['gc_ms']:.2f} ms (generations {row['gc_gens']}), "
+            f"cudaMalloc {row['mallocs']}, cudaFree {row['frees']}")
+
+
+def phase_main_path(trainer, kernel, per_step, tag):
+    """Drive a trainer's path: the kernel wrapper's launch count is set to 0
+    just before the run and read just after it, and must equal ``per_step``
+    times the steps."""
     from bluefog_tpu_torch.examples.synthetic_benchmark import (
         profile_step, run)
-    from bluefog_tpu_torch.ops.gossip_kernel import gossip_mix
 
+    # collect the garbage of earlier phases (the profiler's events among it)
+    # here, so that no path's steps pay for another's
+    tracked = len(gc.get_objects())
+    t0 = time.perf_counter()
+    unreachable = gc.collect()
+    gc_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[{tag}] before the run: gc.collect() {gc_ms:.2f} ms, "
+          f"{unreachable} unreachable of {tracked} tracked objects")
     torch.cuda.reset_peak_memory_stats()
-    gossip_mix.launches = 0
-    res = run(trainer, WARMUP, TIMED)
-    launches = gossip_mix.launches
+    with step_probe(trainer) as probe:
+        kernel.launches = 0
+        res = run(trainer, WARMUP, TIMED)
+        launches = kernel.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for i, loss in enumerate(res["losses"]):
-        print(f"[main] step {i}: mean loss {loss.mean():.5f} "
-              f"(per rank {[round(float(v), 4) for v in loss]})")
+        ms = (f"{res['step_ms'][i - WARMUP]:.2f} ms, " if i >= WARMUP
+              else "warm-up, ")
+        print(f"[{tag}] step {i}: {ms}mean loss {loss.mean():.5f} "
+              f"(per rank {[round(float(v), 4) for v in loss]}); "
+              f"{_probe_text(probe[i])}")
         check(all(math.isfinite(float(v)) for v in loss),
-              f"non-finite loss at step {i}")
+              f"non-finite loss at step {i} of the {tag} path")
     steps = WARMUP + TIMED
-    print(f"[main] ResNet-50 x {N_RANKS} virtual ranks, exp2, batch {BATCH}"
-          f"/rank, bf16: step ms {[round(t, 2) for t in res['step_ms']]}, "
-          f"mean {sum(res['step_ms']) / TIMED:.2f} ms, "
-          f"{res['img_per_s']:.1f} img/s over all ranks, peak memory "
-          f"{peak_gb:.2f} GB")
-    print(f"[main] K1 launches {launches} = {launches_per_step} per step x "
-          f"{steps} steps expected")
-    check(launches == launches_per_step * steps,
-          f"K1 launched {launches} times, expected "
-          f"{launches_per_step * steps}")
-    prof = profile_step(trainer, top=5)
     mean_ms = sum(res["step_ms"]) / TIMED
-    print(f"[main] one more step under torch.profiler: {prof['busy_ms']:.2f}"
+    print(f"[{tag}] ResNet-50 x {N_RANKS} virtual ranks, exp2, batch {BATCH}"
+          f"/rank, bf16: step ms {[round(t, 2) for t in res['step_ms']]}, "
+          f"mean {mean_ms:.2f} ms, {res['img_per_s']:.1f} img/s over all "
+          f"ranks, peak memory {peak_gb:.2f} GB")
+    print(f"[{tag}] {kernel.__name__} launches {launches} = {per_step} per "
+          f"step x {steps} steps expected")
+    check(launches == per_step * steps,
+          f"{kernel.__name__} launched {launches} times on the {tag} path, "
+          f"expected {per_step * steps}")
+    prof = profile_step(trainer, top=5)
+    print(f"[{tag}] one more step under torch.profiler: {prof['busy_ms']:.2f}"
           f" ms on the device in {prof['kernels']} kernels, copies and "
           f"fills; device idle {1 - prof['busy_ms'] / mean_ms:.1%} of the "
           f"unprofiled mean step ({prof['idle_share']:.1%} of the profiled "
           f"one, {prof['wall_ms']:.2f} ms)")
     for name, ms, count in prof["top"]:
-        print(f"[main]   {ms:8.3f} ms {count:5d}x {name[:90]}")
+        print(f"[{tag}]   {ms:8.3f} ms {count:5d}x {name[:90]}")
     return launches
 
 
-def phase_step_parity(trainer):
-    """One step through K1 against the same step through the plain gossip
-    path, from the same state, with deterministic cuDNN."""
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-    opt = trainer.opt
-    # detached views: the same storage, outside autograd
-    state = {k: v.detach() for k, v in trainer.state().items()}
-    snap = {k: v.clone() for k, v in state.items()}
-    count = opt.count
-    opt.backend = "kernel"
-    loss_k = trainer.step()
-    after_k = {k: v.clone() for k, v in state.items()}
-    for k, v in state.items():
-        v.copy_(snap[k])
-    opt.count = count
-    opt.backend = "plain"
-    loss_p = trainer.step()
-    torch.cuda.synchronize()
+def _snapshot(trainer, skip=()):
+    """Detached views of the trainer's state (the same storage, outside
+    autograd) and a copy of each."""
+    state = {k: v.detach() for k, v in trainer.state().items()
+             if not k.startswith(skip)}
+    return state, {k: v.clone() for k, v in state.items()}
+
+
+def _compare(state, after, tag, what, loss_a, loss_b):
     worst = 0.0
     for k, v in state.items():
-        d = float((after_k[k].double() - v.double()).abs().max())
+        d = float((after[k].double() - v.double()).abs().max())
         scale = float(v.double().abs().max())
         worst = max(worst, d / max(scale, 1e-12))
-    loss_d = float((loss_k - loss_p).abs().max())
-    print(f"[parity] kernel-path step vs plain-path step over "
-          f"{len(state)} tensors: max |diff| / max |value| {worst:.3e} "
-          f"(tol {STEP_TOL:.3e}), max loss diff {loss_d:.3e}")
-    check(worst <= STEP_TOL, f"kernel-path step differs: {worst}")
-    check(loss_d <= STEP_TOL, f"losses differ: {loss_d}")
+    loss_d = float((loss_a - loss_b).abs().max())
+    print(f"[{tag}] {what} over {len(state)} tensors: max |diff| / max "
+          f"|value| {worst:.3e} (tol {STEP_TOL:.3e}), max loss diff "
+          f"{loss_d:.3e}")
+    check(worst <= STEP_TOL, f"{tag}: {what} differs: {worst}")
+    check(loss_d <= STEP_TOL, f"{tag}: {what}: losses differ: {loss_d}")
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """Deterministic cuDNN algorithms inside, the caller's settings after."""
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+
+
+def phase_step_parity(trainer, tag):
+    """One step through the kernel backend against the same step through the
+    plain backend, from the same state, with deterministic cuDNN."""
+    opt = trainer.opt
+    state, snap = _snapshot(trainer)
+    count = opt.count
+    try:
+        with deterministic_cudnn():
+            opt.backend = "kernel"
+            loss_k = trainer.step()
+            after_k = {k: v.clone() for k, v in state.items()}
+            for k, v in state.items():
+                v.copy_(snap[k])
+            opt.count = count
+            opt.backend = "plain"
+            loss_p = trainer.step()
+            torch.cuda.synchronize()
+    finally:
+        opt.backend = "auto"
+    _compare(state, after_k, tag, "kernel-path step vs plain-path step",
+             loss_k, loss_p)
+
+
+def spread_ranks(trainer, seed):
+    """Give every rank's parameters their own seeded offset, 10% of each
+    tensor's mean magnitude, so that a step reading a wrong rank's slot
+    lands well outside the parity tolerance."""
+    gen = torch.Generator(device=trainer.images.device).manual_seed(seed)
+    with torch.no_grad():
+        for p in trainer.params.values():
+            p.add_(torch.randn(p.shape, generator=gen, device=p.device)
+                   * (0.1 * p.abs().mean()))
+
+
+def phase_closed_form(trainer):
+    """A WinPut step against an ATC gossip step (K1) from the same state:
+    with one static topology the put lands every neighbour's new parameters
+    before the merge, so the two are the same step."""
+    from bluefog_tpu_torch.optim import DistributedNeighborAllreduceOptimizer
+    from bluefog_tpu_torch.topology import ExponentialTwoGraph
+
+    win_opt = trainer.opt
+    state, snap = _snapshot(trainer, skip=("window.",))
+    count = win_opt.count
+    try:
+        with deterministic_cudnn():
+            loss_w = trainer.step()
+            after_w = {k: v.clone() for k, v in state.items()}
+            for k, v in state.items():
+                v.copy_(snap[k])
+            trainer.opt = DistributedNeighborAllreduceOptimizer(
+                win_opt.base, topology=ExponentialTwoGraph(N_RANKS), atc=True)
+            trainer.opt.count = count
+            loss_a = trainer.step()
+            torch.cuda.synchronize()
+    finally:
+        trainer.opt = win_opt
+    _compare(state, after_w, "winput", "WinPut step vs ATC "
+             "neighbor_allreduce step (closed form)", loss_w, loss_a)
+
+
+def phase_host_breakdown(trainer, tag, steps=3):
+    """Where a step's host time goes: ``steps`` more steps with each part of
+    the optimizer's step between two device synchronizes on the host clock
+    (the ranks' forward and backward are the rest of the step), beside the
+    step probe's counters."""
+    from bluefog_tpu_torch.ops import windows as W
+
+    opt = trainer.opt
+    parts = {}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                parts[name] = (parts.get(name, 0.0)
+                               + (time.perf_counter() - t0) * 1e3)
+        return call
+
+    names = (["win_sync", "win_put", "win_update"] if opt.window is not None
+             else [])
+    saved = {n: getattr(W, n) for n in names}
+    opt.base.step = timed("base", opt.base.step)
+    opt._combine = timed("combine", opt._combine)
+    for n in names:
+        setattr(W, n, timed(n, saved[n]))
+    rows = []
+    try:
+        with step_probe(trainer) as probe:
+            for _ in range(steps):
+                parts.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trainer.step()
+                torch.cuda.synchronize()
+                rows.append(((time.perf_counter() - t0) * 1e3, dict(parts)))
+    finally:
+        del opt.base.step, opt._combine
+        for n, fn in saved.items():
+            setattr(W, n, fn)
+    for i, ((total, t), row) in enumerate(zip(rows, probe)):
+        window = ""
+        if names:
+            copy_back = t["combine"] - sum(t[n] for n in names)
+            window = (f" (win_sync {t['win_sync']:.2f}, win_put "
+                      f"{t['win_put']:.2f}, win_update {t['win_update']:.2f},"
+                      f" copy back {copy_back:.2f})")
+        print(f"[{tag}] host breakdown, step {i}: {total:.2f} ms = ranks' "
+              f"forward and backward {total - t['base'] - t['combine']:.2f} "
+              f"+ SGD step {t['base']:.2f} + combine {t['combine']:.2f}"
+              f"{window}; {_probe_text(row)}")
+
+
+def _bound(n_bytes, n_flops):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_flops = n_flops / F32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops
+                                   else "operations")
+
+
+def phase_k2(device, win_len):
+    """K2 against its plain version, the closed form, and K2's times at the
+    main-path shapes.  ``win_len``: the per-rank length of the WinPut
+    path's one f32 window buffer."""
+    from bluefog_tpu_torch.ops.deliver_kernel import (
+        deliver_tables, window_deliver, window_deliver_plain)
+    from bluefog_tpu_torch.topology import (
+        ExponentialTwoGraph, RingGraph, build_schedule)
+
+    gen = torch.Generator(device=device).manual_seed(4321)
+    main_err = 0.0
+    for topo in (ExponentialTwoGraph(N_RANKS),
+                 RingGraph(N_RANKS, connect_style=1)):
+        sched = build_schedule(topo)
+        src, mask = deliver_tables(sched, device)
+        k = sched.num_slots
+        # f32 and bf16 at the WinPut path's length; f16 (f32 arithmetic) and
+        # f64 at an aligned one, which takes the 16-byte vector path
+        for dtype, tol, lengths in (
+                (torch.float32, F32_TOL, (1_000_003, win_len)),
+                (torch.bfloat16, BF16_TOL, (1_000_003, win_len)),
+                (torch.float16, F16_TOL, (1_000_003, 1_000_000)),
+                (torch.float64, F64_TOL, (1_000_003, 1_000_000))):
+            for length in lengths:
+                x = torch.randn(N_RANKS, length, generator=gen,
+                                device=device).to(dtype)
+                start = torch.randn(N_RANKS, k, length, generator=gen,
+                                    device=device).to(dtype)
+                for w in (1.0, 0.5, 1 / 3):
+                    b_k, b_p = start.clone(), start.clone()
+                    for acc in (False, True):
+                        window_deliver(x, b_k, src, mask, w, accumulate=acc)
+                        window_deliver_plain(x, b_p, src, mask, w,
+                                             accumulate=acc)
+                        torch.cuda.synchronize()
+                        abs_err, rel_err = max_err(b_k, b_p)
+                        mode = "acc" if acc else "put"
+                        print(f"[k2] {topo.name} {str(dtype)[6:]} "
+                              f"L={length} dst_weight={w:.6g} {mode}: max abs "
+                              f"err {abs_err:.3e}, max rel err "
+                              f"{rel_err:.3e} (tol {tol:.3e})")
+                        check(rel_err <= tol,
+                              f"K2 disagrees with its plain version on "
+                              f"{topo.name} {dtype} L={length} {mode}: "
+                              f"{rel_err} > {tol}")
+                        if dtype == torch.float32 and length == win_len:
+                            main_err = max(main_err, abs_err)
+                    del b_k, b_p
+                del x, start
+        # closed form on rank-valued rows: put then acc leave 2 w recv_src
+        xr = torch.arange(N_RANKS, device=device, dtype=torch.float32)
+        bufs = torch.full((N_RANKS, k, 257), -1.0, device=device)
+        for acc in (False, True):
+            window_deliver(xr[:, None].expand(N_RANKS, 257).contiguous(),
+                           bufs, src, mask, 0.5, accumulate=acc)
+        want = 2 * 0.5 * src.double()[:, :, None]
+        err = float((bufs.double() - want).abs().max())
+        print(f"[k2] {topo.name} closed form put+acc = 2 w recv_src: max abs "
+              f"err {err:.3e}")
+        check(err == 0.0, f"K2 misses the closed form on {topo.name}")
+
+    def timed(topo, accumulate, w, label):
+        sched = build_schedule(topo)
+        src, mask = deliver_tables(sched, device)
+        k = sched.num_slots
+        x = torch.randn(N_RANKS, win_len, generator=gen, device=device)
+        bufs = torch.randn(N_RANKS, k, win_len, generator=gen, device=device)
+        t_k = time_ms(lambda: window_deliver(x, bufs, src, mask, w,
+                                             accumulate=accumulate), reps=20)
+        t_p = time_ms(lambda: window_deliver_plain(
+            x, bufs, src, mask, w, accumulate=accumulate), reps=5)
+        idx = src.reshape(-1).long()
+        if accumulate:
+            flat = bufs.view(N_RANKS * k, win_len)
+            t_l = time_ms(lambda: flat.add_(torch.index_select(x, 0, idx)),
+                          reps=20)
+        else:
+            t_l = time_ms(lambda: torch.index_select(x, 0, idx), reps=20)
+        # the payload read once, every slot written once (and read once for
+        # acc), the (n, K) int32 tables read once
+        n_bytes = (x.numel() * 4 + (2 if accumulate else 1) * bufs.numel() * 4
+                   + 2 * N_RANKS * k * 4)
+        n_flops = bufs.numel() * (2 if accumulate else 1)
+        bound_ms, bound_by = _bound(n_bytes, n_flops)
+        lib = ("torch.index_select + add_ (two calls)" if accumulate
+               else "torch.index_select")
+        print(f"[k2] time {label} f32 ({N_RANKS}, {k}, {win_len}), "
+              f"dst_weight={w}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+              f"{lib} {t_l:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+              f"{n_bytes / 1e9:.3f} GB), {bound_ms / t_k:.1%} of the bound")
+        del x, bufs
+        return {"ms": t_k, "plain_ms": t_p, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": t_l}
+
+    put = timed(ExponentialTwoGraph(N_RANKS), False, 1.0, "put exp2")
+    acc = timed(ExponentialTwoGraph(N_RANKS), True, 1.0, "acc exp2")
+    push = timed(RingGraph(N_RANKS, connect_style=1), True, 0.5,
+                 "push-sum acc ring(directed)")
+    return {"max_abs_err": main_err, **put}, acc, push
+
+
+def phase_window_update(window):
+    """``win_update`` (plain PyTorch) on the WinPut path's window."""
+    from bluefog_tpu_torch.ops import windows as W
+
+    t = time_ms(lambda: W.win_update(window), reps=5)
+    print(f"[winput] win_update on the ({N_RANKS}, "
+          f"{window.spec.schedule.num_slots}, "
+          f"{next(iter(window.bufs.values())).shape[1]}) f32 window: "
+          f"{t:.4f} ms")
+    return t
+
+
+def phase_pushsum(device, win_len):
+    """Push-sum rounds on the directed ring through K2's acc mode, against
+    the same rounds through the plain path."""
+    from bluefog_tpu_torch.ops import windows as W
+    from bluefog_tpu_torch.ops.deliver_kernel import window_deliver
+    from bluefog_tpu_torch.topology import RingGraph, build_schedule
+
+    sched = build_schedule(RingGraph(N_RANKS, connect_style=1))
+    gen = torch.Generator(device=device).manual_seed(99)
+    # unequal starting weights p_r = 1 + r / n, so that p's delivery and
+    # merge move it (with p = 1 everywhere the ring keeps it 1), and x
+    # scaled to match: the de-biased start x / p is the random z0
+    p0 = 1 + torch.arange(N_RANKS, dtype=torch.float64) / N_RANKS
+    z0 = torch.randn(N_RANKS, win_len, generator=gen, device=device)
+    x0 = z0 * p0.to(device=device, dtype=torch.float32)[:, None]
+
+    def window():
+        st = W.win_create(torch.zeros(N_RANKS, win_len, device=device),
+                          sched, associated_p=True)
+        st.assoc_self.copy_(p0)
+        return W.win_sync(st, x0)
+
+    def one_round(st, backend):
+        # send half the (x, p) mass to the out-neighbour, keep half, collect
+        W.win_accumulate(st, None, dst_weight=0.5, backend=backend)
+        st.self_buf.mul_(0.5)
+        st.assoc_self.mul_(0.5)
+        W.win_update_then_collect(st)
+
+    # p after the rounds, on the host in f64: each rank keeps half its p and
+    # receives half of its in-neighbour's; dyadic, so f32 holds it exactly
+    src = sched.recv_src[:, 0]
+    p_want = p0.clone()
+    for _ in range(PUSH_ROUNDS):
+        p_want = 0.5 * p_want + 0.5 * p_want[src]
+    mass0 = x0.double().sum(0)
+    spread0 = float((z0.max(0).values - z0.min(0).values).max())
+    st = window()
+    round_ms = []
+    window_deliver.launches = 0
+    for _ in range(PUSH_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_round(st, "kernel")
+        torch.cuda.synchronize()
+        round_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = window_deliver.launches
+    check(launches == PUSH_ROUNDS,
+          f"push-sum launched K2 {launches} times, expected {PUSH_ROUNDS}")
+    ref = window()
+    for _ in range(PUSH_ROUNDS):
+        one_round(ref, "plain")
+    torch.cuda.synchronize()
+    abs_err, rel_err = max_err(st.self_buf, ref.self_buf)
+    p_err = float((st.assoc_self - ref.assoc_self).abs().max())
+    print(f"[pushsum] {PUSH_ROUNDS} rounds through K2 vs the plain path: x "
+          f"max abs err {abs_err:.3e}, max rel err {rel_err:.3e} (tol "
+          f"{F32_TOL:.3e}); p max abs err {p_err:.3e}")
+    check(rel_err <= F32_TOL and p_err == 0.0,
+          "push-sum through K2 differs from the plain path")
+    p_sum = float(st.assoc_self.double().sum())
+    p_closed = float((st.assoc_self.double().cpu() - p_want).abs().max())
+    mass_err = float((st.self_buf.double().sum(0) - mass0).abs().max())
+    # one rounding per element per round (the collect's add), summed over
+    # the ranks
+    mass_tol = PUSH_ROUNDS * N_RANKS * float(x0.abs().max()) * 2.0 ** -24
+    z = st.self_buf / st.assoc_self[:, None]
+    spread = float((z.max(0).values - z.min(0).values).max())
+    print(f"[pushsum] ring(directed) x {N_RANKS} ranks x {win_len} f32, "
+          f"dst_weight 0.5, p from {[float(v) for v in p0]}: sum(p) = "
+          f"{p_sum!r} (want {float(p0.sum())!r}), p against its closed form:"
+          f" max abs err {p_closed!r}; max |sum(x) - sum(x0)| {mass_err:.3e} "
+          f"(tol {mass_tol:.3e}), spread of x / p {spread0:.4f} -> "
+          f"{spread:.4f}; p = {[float(v) for v in st.assoc_self]}")
+    check(p_sum == float(p0.sum()),
+          f"push-sum p mass {p_sum} != {float(p0.sum())}")
+    check(p_closed == 0.0, f"push-sum p misses its closed form: {p_closed}")
+    check(mass_err <= mass_tol, f"push-sum lost mass: {mass_err}")
+    check(spread < spread0, "push-sum consensus spread did not fall")
+    collect_ms = time_ms(lambda: W.win_update_then_collect(st), reps=5)
+    print(f"[pushsum] round ms {[round(t, 3) for t in round_ms]}, mean "
+          f"{sum(round_ms) / PUSH_ROUNDS:.3f} ms; K2 launches {launches} "
+          f"({PUSH_ROUNDS} rounds x 1); win_update_then_collect "
+          f"{collect_ms:.4f} ms")
+    return launches
 
 
 def main():
@@ -244,6 +670,8 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from bluefog_tpu_torch.examples.synthetic_benchmark import build
     from bluefog_tpu_torch.ops.collectives import fuse_plan
+    from bluefog_tpu_torch.ops.deliver_kernel import window_deliver
+    from bluefog_tpu_torch.ops.gossip_kernel import gossip_mix
 
     # f32 convolutions and matmuls in full f32 wherever a comparison runs
     torch.backends.cudnn.allow_tf32 = False
@@ -260,26 +688,69 @@ def main():
     main_lengths = ([sum(leaves[i][0].numel() for i in idx)
                      for idx in groups.values()]
                     + [leaves[i][0].numel() for i in big])
-    print(f"[plan] ResNet-50: {sum(p[0].numel() for p in leaves):,} f32 "
-          f"params in {len(leaves)} leaves; fuse plan = {len(groups)} fused "
-          f"buffer(s) + {len(big)} leaves >= 8 MiB -> per-rank lengths "
-          f"{main_lengths}")
+    win_len = sum(p[0].numel() for p in leaves)
+    print(f"[plan] ResNet-50: {win_len:,} f32 params in {len(leaves)} "
+          f"leaves; fuse plan = {len(groups)} fused buffer(s) + {len(big)} "
+          f"leaves >= 8 MiB -> per-rank lengths {main_lengths}")
     k1 = phase_k1(device, main_lengths)
-    launches = phase_main_path(trainer, len(main_lengths))
-    phase_step_parity(trainer)
+    k1_launches = phase_main_path(trainer, gossip_mix, len(main_lengths),
+                                  "main")
+    phase_step_parity(trainer, "parity")
+    phase_host_breakdown(trainer, "main")
+    del trainer, leaves
+    torch.cuda.empty_cache()
+
+    k2, k2_acc, k2_push = phase_k2(device, win_len)
+    torch.cuda.empty_cache()
+    trainer = build("resnet50", "winput", "exp2", size=N_RANKS,
+                    batch_size=BATCH, image_size=224, device=device)
+    window = trainer.opt.window
+    per_put = len(window.bufs)
+    print(f"[winput] window layout: {per_put} buffer(s) "
+          f"{[(str(dt)[6:], tuple(b.shape)) for dt, b in window.bufs.items()]}"
+          f" + landing slots "
+          f"{[tuple(b.shape) for b in window.peers.values()]} -> {per_put} "
+          f"K2 launch(es) per put, one put per step")
+    check(per_put == 1, f"ResNet-50's f32 window should be one buffer, got "
+          f"{per_put}")
+    k2_launches = phase_main_path(trainer, window_deliver, per_put, "winput")
+    phase_host_breakdown(trainer, "winput")
+    with deterministic_cudnn():
+        phase_host_breakdown(trainer, "winput, deterministic cuDNN")
+    spread_ranks(trainer, seed=7)
+    phase_step_parity(trainer, "winput")
+    phase_closed_form(trainer)
+    update_ms = phase_window_update(window)
+    del trainer, window
+    torch.cuda.empty_cache()
+    push_launches = phase_pushsum(device, win_len)
 
     kernels = [{
         "name": "gossip_mix",
         "route": "cuda",
         "source": "bluefog_tpu_torch/csrc/gossip_mix.cu",
         "replaces": "bluefog_tpu/ops/pallas_gossip.py:388",
-        "launches": launches,
+        "launches": k1_launches,
         **k1,
+    }, {
+        "name": "window_deliver",
+        "route": "cuda",
+        "source": "bluefog_tpu_torch/csrc/window_deliver.cu",
+        "replaces": "bluefog_tpu/ops/pallas_gossip.py:460",
+        "launches": k2_launches,
+        **k2,
     }]
     print("kernels: K1 gossip_mix (cuda, bluefog_tpu_torch/csrc/gossip_mix.cu"
-          f", replaces neighbor_allreduce_pallas): {launches} launches on "
+          f", replaces neighbor_allreduce_pallas): {k1_launches} launches on "
           f"the main path, {k1['ms']:.4f} ms per step against a "
-          f"{k1['bound_ms']:.4f} ms bound")
+          f"{k1['bound_ms']:.4f} ms bound; K2 window_deliver (cuda, "
+          "bluefog_tpu_torch/csrc/window_deliver.cu, replaces deliver_pallas)"
+          f": {k2_launches} launches on the WinPut path, put {k2['ms']:.4f} "
+          f"ms per step against a {k2['bound_ms']:.4f} ms bound, acc "
+          f"{k2_acc['ms']:.4f} ms against {k2_acc['bound_ms']:.4f} ms, "
+          f"push-sum acc {k2_push['ms']:.4f} ms against "
+          f"{k2_push['bound_ms']:.4f} ms ({push_launches} launches in "
+          f"{PUSH_ROUNDS} rounds); win_update {update_ms:.4f} ms")
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

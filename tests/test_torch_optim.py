@@ -115,6 +115,63 @@ def test_ring_schedule_and_plain_backend_match():
         _assert_close(got, want)
 
 
+@pytest.mark.parametrize("every", [1, 2], ids=["comm_every_step",
+                                               "comm_every_2nd"])
+def test_win_put_optimizer_matches_reference(every):
+    """Three steps of the WinPut optimizer: the JAX one returns ``merged -
+    params`` and adds it back, the port writes ``merged``; the two differ by
+    at most an f32 ulp, inside rtol 1e-6."""
+    params, grads = _data(3)
+    want = _jax_run(jopt.DistributedWinPutOptimizer(
+        optax.sgd(LR, momentum=MOMENTUM), topology=jt.ExponentialTwoGraph(N),
+        axis_name="bf", num_steps_per_communication=every), params, grads)
+    got = _port_run(lambda base: popt.DistributedWinPutOptimizer(
+        base, topology=pt.ExponentialTwoGraph(N),
+        num_steps_per_communication=every), params, grads)
+    _assert_close(got, want)
+
+
+def test_win_put_step_is_an_atc_gossip_step():
+    """With one static topology the put lands every neighbour's fresh
+    parameters before each merge, so a WinPut step equals an ATC
+    neighbor_allreduce step from the same state (the closed form
+    chip_smoke also checks on the card)."""
+    params, grads = _data(4)
+    win = _port_run(lambda base: popt.DistributedWinPutOptimizer(
+        base, topology=pt.RingGraph(N, connect_style=1)), params, grads)
+    atc = _port_run(lambda base: popt.DistributedNeighborAllreduceOptimizer(
+        base, topology=pt.RingGraph(N, connect_style=1), atc=True),
+        params, grads)
+    _assert_close(win, atc)
+
+
+def test_win_put_optimizer_checks():
+    base = torch.optim.SGD([torch.zeros(N, 2, requires_grad=True)], lr=0.1)
+    phases = [pt.Topology(weights=np.asarray(t.weights))
+              for t in jt.one_peer_exponential_two_schedules(N)]
+    with pytest.raises(ValueError, match="single static topology"):
+        jopt.DistributedWinPutOptimizer(
+            optax.sgd(0.1),
+            topology=jt.one_peer_exponential_two_schedules(N),
+            axis_name="bf")
+    with pytest.raises(ValueError, match="single static topology"):
+        popt.DistributedWinPutOptimizer(base, topology=phases)
+    opt = popt.DistributedWinPutOptimizer(base, topology=phases[:1])
+    assert opt.window is not None and opt.schedule.size == N
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        popt.DistributedWinPutOptimizer(base, topology=pt.RingGraph(N),
+                                        async_=True, lr=0.1)
+    with pytest.raises(ValueError, match="async_"):
+        jopt.DistributedWinPutOptimizer(optax.sgd(0.1),
+                                        topology=jt.RingGraph(N),
+                                        axis_name="bf", lr=0.1)
+    with pytest.raises(ValueError, match="async_"):
+        popt.DistributedWinPutOptimizer(base, topology=pt.RingGraph(N),
+                                        lr=0.1)
+    with pytest.raises(ValueError):
+        popt.DistributedWinPutOptimizer(base, topology=pt.RingGraph(N - 1))
+
+
 def test_unported_modes_and_bad_shapes_raise():
     base = torch.optim.SGD([torch.zeros(N, 2, requires_grad=True)], lr=0.1)
     with pytest.raises(NotImplementedError):

@@ -1,5 +1,6 @@
-"""The slice end to end: decentralized SGD of a narrow ResNet over 8 virtual
-ranks on Exponential-2, the port against the JAX package.
+"""The slices end to end: decentralized SGD of a narrow ResNet over 8 virtual
+ranks on Exponential-2, the port against the JAX package, with the gossip
+optimizer (slice 1's main path) and with the one-sided WinPut optimizer.
 
 The JAX side is the ``shard_map`` step of ``__graft_entry__.py::
 dryrun_multichip`` (its first optimizer loop) on the 8-device CPU mesh, with
@@ -31,6 +32,7 @@ from jax.sharding import PartitionSpec as P
 import bluefog_tpu as bf
 from bluefog_tpu.models import resnet as jres
 from bluefog_tpu.optim import DistributedNeighborAllreduceOptimizer as JOpt
+from bluefog_tpu.optim import DistributedWinPutOptimizer as JWinPut
 from bluefog_tpu.parallel.api import shard_map
 from bluefog_tpu.topology import ExponentialTwoGraph as JExp2
 import bluefog_tpu_torch as pbf
@@ -78,13 +80,14 @@ def _data():
     return x, y
 
 
-def _jax_steps(params, stats, x, y):
+def _jax_steps(params, stats, x, y, winput=False):
     """Per step: (losses (n,), params tree, batch_stats tree), stacked."""
     model = jres.ResNet(stage_sizes=[1, 1, 1, 1],
                         block_cls=jres.BottleneckBlock, num_classes=CLASSES,
                         num_filters=FILTERS, dtype=jnp.float64)
     ctx = bf.init(topology=JExp2(N))
-    opt = JOpt(optax.sgd(LR, momentum=MOMENTUM), topology=ctx.schedule,
+    make = JWinPut if winput else JOpt
+    opt = make(optax.sgd(LR, momentum=MOMENTUM), topology=ctx.schedule,
                axis_name=ctx.axis_name)
 
     def train_step(p_blk, bs_blk, st_blk, x_blk, y_blk):
@@ -121,13 +124,12 @@ def _jax_steps(params, stats, x, y):
     return out
 
 
-@pytest.fixture(scope="module")
-def runs():
+def _both_runs(winput):
     x, y = _data()
     pm = _port_model()
     params, stats = convert.flax_from_state_dict(pm.state_dict())
     with jax.enable_x64(True):
-        want = _jax_steps(params, stats, x, y)
+        want = _jax_steps(params, stats, x, y, winput)
     bf.shutdown()
 
     dev = torch.device("cpu")
@@ -135,9 +137,10 @@ def runs():
     for p in ps.values():
         p.requires_grad_(True)
         p.grad = torch.zeros_like(p)
-    opt = pbf.DistributedNeighborAllreduceOptimizer(
-        torch.optim.SGD(list(ps.values()), lr=LR, momentum=MOMENTUM),
-        topology=pbf.topology.ExponentialTwoGraph(N))
+    make = (pbf.DistributedWinPutOptimizer if winput
+            else pbf.DistributedNeighborAllreduceOptimizer)
+    opt = make(torch.optim.SGD(list(ps.values()), lr=LR, momentum=MOMENTUM),
+               topology=pbf.topology.ExponentialTwoGraph(N))
     trainer = sb.Trainer(pm, ps, pbf.rank_stack(dict(pm.named_buffers()), N,
                                                  dev),
                          opt, torch.from_numpy(x), torch.from_numpy(y).long())
@@ -151,6 +154,16 @@ def runs():
     return want, got
 
 
+@pytest.fixture(scope="module")
+def runs():
+    return _both_runs(winput=False)
+
+
+@pytest.fixture(scope="module")
+def winput_runs():
+    return _both_runs(winput=True)
+
+
 def _close(got, want, name):
     want = np.asarray(want, np.float64)
     np.testing.assert_allclose(
@@ -158,8 +171,7 @@ def _close(got, want, name):
         atol=RTOL * max(float(np.abs(want).max()), 1e-30), err_msg=name)
 
 
-@pytest.mark.parametrize("step", range(STEPS), ids=["one_step", "two_steps"])
-def test_decentralized_steps_match_jax_shard_map(runs, step):
+def _check_step(runs, step):
     want, got = runs
     jloss, jparams, jstats = want[step]
     ploss, pparams, pstats = got[step]
@@ -178,6 +190,18 @@ def test_decentralized_steps_match_jax_shard_map(runs, step):
                            pparams["head.weight"][1])
 
 
+@pytest.mark.parametrize("step", range(STEPS), ids=["one_step", "two_steps"])
+def test_decentralized_steps_match_jax_shard_map(runs, step):
+    _check_step(runs, step)
+
+
+@pytest.mark.parametrize("step", range(STEPS), ids=["one_step", "two_steps"])
+def test_winput_steps_match_jax_shard_map(winput_runs, step):
+    """The same steps with ``DistributedWinPutOptimizer`` on both sides: the
+    port's window put rides K2's wrapper (its plain version here)."""
+    _check_step(winput_runs, step)
+
+
 def test_build_and_run_at_a_toy_size_on_the_cpu():
     trainer = sb.build("resnet18", "neighbor", "ring", size=2, batch_size=1,
                        image_size=32, num_classes=10, num_filters=4,
@@ -193,3 +217,12 @@ def test_build_and_run_at_a_toy_size_on_the_cpu():
                      image_size=32, num_classes=10, num_filters=4,
                      dtype=torch.float32, device="cpu")
     assert local.opt.schedule is None
+    winput = sb.build("resnet18", "winput", "ring", size=2, batch_size=1,
+                      image_size=32, num_classes=10, num_filters=4,
+                      dtype=torch.float32, device="cpu")
+    res = sb.run(winput, warmup=0, iters=1)
+    assert all(np.isfinite(v).all() for v in res["losses"])
+    state = winput.state()
+    assert {"window.self.torch.float32",
+            "window.peers.torch.float32"} <= set(state)
+    assert state["window.peers.torch.float32"].shape[:2] == (2, 1)
