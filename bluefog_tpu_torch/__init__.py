@@ -12,10 +12,13 @@ parallel.api (rank_stack, neighbor_allreduce)   parallel.api
 parallel.api (win_create ... win_update_...)    parallel.api
 ops.pallas_gossip.neighbor_allreduce_pallas     ops.gossip_kernel (K1, CUDA)
 ops.pallas_gossip.deliver_pallas                ops.deliver_kernel (K2, CUDA)
+ops.ring_attention.local_attention              ops.ring_attention
+library flash_attention (Pallas TPU)            ops.flash_kernel (K3, CUDA)
 ops.collectives (fuse_apply, neighbor_...)      ops.collectives
 ops.windows (WindowState, win_put, ...)         ops.windows
 optim.optimizers (incl. WinPut, sync mode)      optim.optimizers
 models.resnet                                   models.resnet
+models.transformer (GPTConfig, TransformerLM)   models.transformer
 examples/synthetic_benchmark.py                 examples.synthetic_benchmark
 examples/decentralized_optimization.py          examples.decentralized_...
 ==============================================  ===============================

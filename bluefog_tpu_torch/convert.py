@@ -15,6 +15,9 @@ flax leaf           port name                   layout
 ``mean`` / ``var``  ``running_mean`` / ``_var``  as is (``batch_stats``)
 ==================  ==========================  ===========================
 
+The transformer (:func:`gpt_from_flax`, :func:`flax_from_gpt`) adds flax's
+``embedding`` leaf, which carries over as ``weight`` unchanged.
+
 Everything here works on numpy arrays (anything ``np.asarray`` takes), so
 neither side needs the other's framework.  :func:`window_from_numpy` carries
 a window's buffers the same way, so a run can hand a window to the port
@@ -30,7 +33,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 __all__ = ["state_dict_from_flax", "flax_from_state_dict", "load_flax",
-           "window_from_numpy"]
+           "gpt_from_flax", "flax_from_gpt", "window_from_numpy"]
 
 _PARAM_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
@@ -116,6 +119,51 @@ def load_flax(model: torch.nn.Module, params: Mapping,
         raise KeyError(f"flax variables do not match the model: missing "
                        f"{missing}, unexpected {res.unexpected_keys}")
     return model
+
+
+def gpt_from_flax(variables: Mapping) -> Dict[str, np.ndarray]:
+    """The state dict of a
+    :class:`~bluefog_tpu_torch.models.transformer.TransformerLM` for the
+    JAX package's ``TransformerLM`` variables (``{"params": ...}`` or the
+    params alone): ``embedding`` tables and LayerNorm ``scale`` and ``bias``
+    as they are, Dense ``kernel`` ``(in, out)`` as ``weight`` ``(out, in)``.
+    Exact: nothing is rounded."""
+    params = variables.get("params", variables)
+    out: Dict[str, np.ndarray] = {}
+    for path, arr in _walk(params):
+        leaf = path[-1]
+        if leaf not in ("embedding", "kernel", "scale", "bias"):
+            raise KeyError(f"unknown flax GPT leaf {'/'.join(path)}")
+        arr = np.asarray(arr)
+        name = ".".join(path[:-1] + ("bias" if leaf == "bias" else "weight",))
+        out[name] = np.ascontiguousarray(arr.T if leaf == "kernel" else arr)
+    return out
+
+
+def flax_from_gpt(state: Mapping[str, object]) -> Dict:
+    """``{"params": ...}`` in the JAX package's ``TransformerLM`` layout, as
+    nested dicts of numpy arrays, from a port state dict (tensors or
+    arrays); the inverse of :func:`gpt_from_flax`."""
+    params: Dict = {}
+    for name, val in state.items():
+        arr = (val.detach().cpu().numpy() if isinstance(val, torch.Tensor)
+               else np.asarray(val))
+        *mods, leaf = name.split(".")
+        if leaf == "bias":
+            key = "bias"
+        elif leaf != "weight":
+            raise KeyError(f"unknown port GPT leaf {name}")
+        elif mods[-1] in ("tok", "pos"):
+            key = "embedding"
+        elif arr.ndim == 1:
+            key = "scale"
+        else:
+            key, arr = "kernel", arr.T
+        tree = params
+        for m in mods:
+            tree = tree.setdefault(m, {})
+        tree[key] = np.ascontiguousarray(arr)
+    return {"params": params}
 
 
 def _tensor(arr) -> torch.Tensor:

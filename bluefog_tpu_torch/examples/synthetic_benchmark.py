@@ -1,25 +1,34 @@
-"""Synthetic throughput benchmark: decentralized SGD of a ResNet over ``n``
+"""Synthetic throughput benchmark: decentralized SGD of a model over ``n``
 virtual ranks on one device.
 
 Counterpart of ``examples/synthetic_benchmark.py`` of the JAX package for its
-ResNet models and its ``neighbor``, ``winput`` and ``none`` communication
-flavors.  Each rank holds its own copy of the model as a row of rank-stacked
-parameters; a step runs every rank's forward and backward in turn on that
-rank's batch, then one optimizer step: with ``neighbor``,
+ResNet models and GPT-small, and its ``neighbor``, ``winput`` and ``none``
+communication flavors.  Each rank holds its own copy of the model as a row of
+rank-stacked parameters; a step runs every rank's forward and backward in
+turn on that rank's batch, through the model's own per-rank loss, then one
+optimizer step: with ``neighbor``,
 :func:`~bluefog_tpu_torch.optim.DistributedNeighborAllreduceOptimizer`, whose
 gossip is one call of the kernel K1 per fused buffer; with ``winput``,
 :func:`~bluefog_tpu_torch.optim.DistributedWinPutOptimizer`, whose put is one
 call of the kernel K2 per dtype of the parameters.
 
-BatchNorm runs in train mode with per-rank batch statistics that are not
-gossiped, as in the JAX package's decentralized training step
+The ResNets classify random NHWC images (softmax cross-entropy against random
+labels).  BatchNorm runs in train mode with per-rank batch statistics that
+are not gossiped, as in the JAX package's decentralized training step
 (``__graft_entry__.py::dryrun_multichip``, ``examples/imagenet_resnet.py``);
-the JAX benchmark instead freezes BatchNorm.
+the JAX benchmark instead freezes BatchNorm.  ``gpt-small`` is
+``TransformerLM(GPTConfig.small())`` on random tokens of ``--seq-len``
+(default 128, at most its 8192 positions), with the JAX benchmark's loss:
+softmax cross-entropy of the logits against the tokens rolled by one
+(``jnp.roll(ids, -1)``: the last position's target is the first token); its
+attention runs on the kernel K3 wherever ``local_attention`` allows it.
 
 Run on the GPU (the default device; it raises without one)::
 
   python -m bluefog_tpu_torch.examples.synthetic_benchmark \\
       --model resnet50 --comm neighbor --topology exp2 --size 8
+  python -m bluefog_tpu_torch.examples.synthetic_benchmark \\
+      --model gpt-small --comm neighbor --batch-size 8 --seq-len 1024
 
 (``--comm winput`` for the one-sided window optimizer) and on the CPU at a
 toy size::
@@ -33,14 +42,15 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
-from bluefog_tpu_torch.models import ResNet18, ResNet50
+from bluefog_tpu_torch.models import (
+    GPTConfig, ResNet18, ResNet50, TransformerLM)
 from bluefog_tpu_torch.optim import (
     CommunicationType,
     DecentralizedOptimizer,
@@ -52,44 +62,98 @@ from bluefog_tpu_torch.parallel.api import rank_stack
 from bluefog_tpu_torch.parallel.context import resolve_device
 from bluefog_tpu_torch.topology import ExponentialTwoGraph, RingGraph
 
-__all__ = ["MODELS", "TOPOLOGIES", "Trainer", "build", "run",
-           "profile_step", "main"]
+__all__ = ["MODELS", "TOPOLOGIES", "Trainer", "image_loss", "lm_loss",
+           "build", "run", "profile_step", "main"]
 
-MODELS = {"resnet50": ResNet50, "resnet18": ResNet18}
+# (params, buffers) of one rank, its batch -> its scalar loss
+LossFn = Callable[[torch.nn.Module, Tuple[Dict, Dict],
+                   Tuple[torch.Tensor, ...]], torch.Tensor]
+
+
+def image_loss(model, variables, batch) -> torch.Tensor:
+    """Softmax cross-entropy of a train-mode ResNet on ``(images, labels)``;
+    BatchNorm updates the rank's buffers in place."""
+    images, labels = batch
+    logits = functional_call(model, variables, (images,), {"train": True})
+    return F.cross_entropy(logits, labels)
+
+
+def lm_loss(model, variables, batch) -> torch.Tensor:
+    """The JAX benchmark's GPT loss on ``(ids,)``: mean softmax
+    cross-entropy of the f32 logits against ``roll(ids, -1)``."""
+    (ids,) = batch
+    logits = functional_call(model, variables, (ids,))
+    targets = torch.roll(ids, -1, dims=-1)
+    return F.cross_entropy(logits.flatten(0, -2), targets.flatten())
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSpec:
+    """How to build one of the benchmark's models and what it trains on:
+    ``make(dtype, generator, num_classes, num_filters)`` builds it,
+    ``tokens`` says whether its batch is ``(ids,)`` (else ``(images,
+    labels)``), and ``loss`` is its per-rank loss."""
+
+    make: Callable[..., torch.nn.Module]
+    loss: LossFn
+    tokens: bool = False
+
+
+def _resnet(cls):
+    return lambda dtype, gen, classes, filters: cls(
+        num_classes=classes, num_filters=filters, dtype=dtype, generator=gen)
+
+
+def _gpt_small(dtype, gen, classes, filters):
+    # the ResNets' widths; and, as in the JAX benchmark, GPT-small computes
+    # in bf16 even under --fp32
+    del dtype, classes, filters
+    return TransformerLM(GPTConfig.small(), generator=gen)
+
+
+MODELS = {
+    "resnet50": ModelSpec(_resnet(ResNet50), image_loss),
+    "resnet18": ModelSpec(_resnet(ResNet18), image_loss),
+    "gpt-small": ModelSpec(_gpt_small, lm_loss, tokens=True),
+}
 TOPOLOGIES = {"exp2": ExponentialTwoGraph, "ring": RingGraph}
 
 
 @dataclasses.dataclass
 class Trainer:
     """``n`` virtual ranks of one model: rank-stacked parameters (leaf
-    tensors with a stacked ``.grad``) and BatchNorm buffers, a decentralized
-    optimizer over the parameters, and one fixed synthetic batch per rank
-    (NHWC images, integer labels)."""
+    tensors with a stacked ``.grad``) and buffers (BatchNorm statistics; a
+    GPT has none), a decentralized optimizer over the parameters, one fixed
+    synthetic batch per rank (a tuple of rank-stacked tensors: NHWC images
+    and integer labels, or token ids), and the model's per-rank loss."""
 
     model: torch.nn.Module
     params: Dict[str, torch.Tensor]
     buffers: Dict[str, torch.Tensor]
     opt: DecentralizedOptimizer
-    images: torch.Tensor
-    labels: torch.Tensor
+    batch: Tuple[torch.Tensor, ...]
+    loss_fn: LossFn
 
     @property
     def size(self) -> int:
-        return self.images.shape[0]
+        return self.batch[0].shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.batch[0].device
 
     def step(self) -> torch.Tensor:
         """One decentralized SGD step of every rank; returns the ``(n,)``
         f32 losses (before the update).  One rank's activations are live at
         a time."""
-        losses = torch.empty(self.size, device=self.images.device)
+        losses = torch.empty(self.size, device=self.device)
         names = list(self.params)
         for r in range(self.size):
             p_r = {k: v[r] for k, v in self.params.items()}
+            # rank r's row of the buffers, updated in place by BatchNorm
             b_r = {k: v[r] for k, v in self.buffers.items()}
-            # BatchNorm updates b_r in place: rank r's row of the buffers
-            logits = functional_call(self.model, (p_r, b_r),
-                                     (self.images[r],), {"train": True})
-            loss = F.cross_entropy(logits, self.labels[r])
+            loss = self.loss_fn(self.model, (p_r, b_r),
+                                tuple(t[r] for t in self.batch))
             grads = torch.autograd.grad(loss, list(p_r.values()))
             with torch.no_grad():
                 for k, g in zip(names, grads):
@@ -118,16 +182,18 @@ class Trainer:
 
 def build(model: str = "resnet50", comm: str = "neighbor",
           topology: str = "exp2", size: int = 8, batch_size: int = 32,
-          image_size: int = 224, num_classes: int = 1000,
+          image_size: int = 224, seq_len: int = 128, num_classes: int = 1000,
           num_filters: int = 64, dtype: torch.dtype = torch.bfloat16,
           seed: int = 0, device="cuda") -> Trainer:
     """A :class:`Trainer` with the model's weights made from ``seed`` and
-    copied to every rank, synthetic data from ``seed + 1``, and SGD with the
-    JAX benchmark's lr 0.01 and momentum 0.9."""
+    copied to every rank, synthetic data from ``seed + 1`` (images and
+    labels, or ``(size, batch_size, min(seq_len, max_position))`` token
+    ids), and SGD with the JAX benchmark's lr 0.01 and momentum 0.9.
+    ``num_classes`` and ``num_filters`` shape the ResNets only."""
     dev = resolve_device(device)
-    net = MODELS[model](num_classes=num_classes, num_filters=num_filters,
-                        dtype=dtype,
-                        generator=torch.Generator().manual_seed(seed)).to(dev)
+    spec = MODELS[model]
+    net = spec.make(dtype, torch.Generator().manual_seed(seed), num_classes,
+                    num_filters).to(dev)
     params = rank_stack(dict(net.named_parameters()), size, dev)
     for p in params.values():
         p.requires_grad_(True)
@@ -146,11 +212,18 @@ def build(model: str = "resnet50", comm: str = "neighbor",
     else:
         raise ValueError(f"unknown comm {comm!r}")
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
-    images = torch.randn(size, batch_size, image_size, image_size, 3,
-                         generator=gen, device=dev).to(dtype)
-    labels = torch.randint(0, num_classes, (size, batch_size), generator=gen,
-                           device=dev)
-    return Trainer(net, params, buffers, opt, images, labels)
+    if spec.tokens:
+        cfg = net.cfg
+        batch = (torch.randint(0, cfg.vocab_size,
+                               (size, batch_size, min(seq_len,
+                                                      cfg.max_position)),
+                               generator=gen, device=dev),)
+    else:
+        batch = (torch.randn(size, batch_size, image_size, image_size, 3,
+                             generator=gen, device=dev).to(dtype),
+                 torch.randint(0, num_classes, (size, batch_size),
+                               generator=gen, device=dev))
+    return Trainer(net, params, buffers, opt, batch, spec.loss)
 
 
 def _sync(device: torch.device) -> None:
@@ -161,9 +234,9 @@ def _sync(device: torch.device) -> None:
 def run(trainer: Trainer, warmup: int, iters: int) -> Dict[str, object]:
     """``warmup`` untimed steps, then ``iters`` steps each timed on the host
     clock up to a device synchronize.  Returns the per-step losses
-    (``(n,)`` numpy arrays), the timed steps' milliseconds, and images per
-    second over all ranks."""
-    dev = trainer.images.device
+    (``(n,)`` numpy arrays), the timed steps' milliseconds, and samples
+    (images or sequences) per second over all ranks."""
+    dev = trainer.device
     losses: List[np.ndarray] = []
     step_ms: List[float] = []
     for i in range(warmup + iters):
@@ -174,9 +247,9 @@ def run(trainer: Trainer, warmup: int, iters: int) -> Dict[str, object]:
         if i >= warmup:
             step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(loss.cpu().numpy())
-    images = trainer.images.shape[0] * trainer.images.shape[1]
-    rate = images / (np.mean(step_ms) / 1e3) if step_ms else float("nan")
-    return {"losses": losses, "step_ms": step_ms, "img_per_s": rate}
+    samples = trainer.batch[0].shape[0] * trainer.batch[0].shape[1]
+    rate = samples / (np.mean(step_ms) / 1e3) if step_ms else float("nan")
+    return {"losses": losses, "step_ms": step_ms, "samples_per_s": rate}
 
 
 def profile_step(trainer: Trainer, top: int = 10) -> Dict[str, object]:
@@ -187,7 +260,7 @@ def profile_step(trainer: Trainer, top: int = 10) -> Dict[str, object]:
     and the ``top`` of them by device time as ``(name, ms, count)``."""
     from torch.profiler import ProfilerActivity, profile
 
-    dev = trainer.images.device
+    dev = trainer.device
     if dev.type != "cuda":
         raise ValueError("profile_step measures the device; it needs cuda")
     _sync(dev)
@@ -219,6 +292,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     ap.add_argument("--size", type=int, default=8, help="virtual ranks")
     ap.add_argument("--batch-size", type=int, default=32, help="per rank")
     ap.add_argument("--image-size", type=int, default=224)
+    ap.add_argument("--seq-len", type=int, default=128,
+                    help="tokens per sequence (gpt-small)")
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--fp32", action="store_true")
@@ -231,17 +306,18 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     args = ap.parse_args(argv)
 
     trainer = build(args.model, args.comm, args.topology, args.size,
-                    args.batch_size, args.image_size,
+                    args.batch_size, args.image_size, args.seq_len,
                     dtype=torch.float32 if args.fp32 else torch.bfloat16,
                     seed=args.seed, device=args.device)
     res = run(trainer, args.warmup, args.iters)
+    unit = "seq" if MODELS[args.model].tokens else "img"
     for i, ms in enumerate(res["step_ms"]):
         print(f"iter {i:3d}: {ms:.1f} ms/step, "
-              f"{args.size * args.batch_size / ms * 1e3:,.1f} img/s")
+              f"{args.size * args.batch_size / ms * 1e3:,.1f} {unit}/s")
     print(f"\nmodel={args.model} comm={args.comm} topology={args.topology} "
           f"ranks={args.size} batch={args.batch_size} device={args.device}")
-    print(f"img/sec: {res['img_per_s']:,.1f} over all ranks, "
-          f"{res['img_per_s'] / args.size:,.1f} per rank; final mean loss "
+    print(f"{unit}/sec: {res['samples_per_s']:,.1f} over all ranks, "
+          f"{res['samples_per_s'] / args.size:,.1f} per rank; final mean loss "
           f"{float(np.mean(res['losses'][-1])):.4f}")
     if args.profile:
         prof = profile_step(trainer)

@@ -9,3 +9,8 @@ from bluefog_tpu_torch.models.resnet import (  # noqa: F401
     ResNetBlock,
     space_to_depth,
 )
+from bluefog_tpu_torch.models.transformer import (  # noqa: F401
+    Block,
+    GPTConfig,
+    TransformerLM,
+)

@@ -1,5 +1,5 @@
-"""Collectives and windows over rank-stacked tensors, and the kernels K1
-(gossip) and K2 (window deliver)."""
+"""Collectives and windows over rank-stacked tensors, local attention, and
+the kernels K1 (gossip), K2 (window deliver) and K3 (flash attention)."""
 
 from bluefog_tpu_torch.ops.collectives import (  # noqa: F401
     fuse_apply,
@@ -14,3 +14,13 @@ from bluefog_tpu_torch.ops.deliver_kernel import (  # noqa: F401
     window_deliver,
     window_deliver_plain,
 )
+from bluefog_tpu_torch.ops.flash_kernel import (  # noqa: F401
+    flash_attention,
+    flash_backward_dkv,
+    flash_backward_dkv_plain,
+    flash_backward_dq,
+    flash_backward_dq_plain,
+    flash_forward,
+    flash_forward_plain,
+)
+from bluefog_tpu_torch.ops.ring_attention import local_attention  # noqa: F401

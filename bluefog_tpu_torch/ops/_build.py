@@ -1,11 +1,13 @@
 """Build and bind the hand-written CUDA kernels at first use.
 
 ``nvcc`` compiles each ``bluefog_tpu_torch/csrc/*.cu`` for Hopper
-(``-gencode arch=compute_90a,code=sm_90a``) into an object file, all sources
-at once in parallel processes, and links them into one shared library with a
-plain C interface, which :func:`load` binds with ctypes.  The library lands in
-``bluefog_tpu_torch/_build/`` under a name that carries a hash of the sources
-and flags, so an edited source is rebuilt and a stale library is never loaded.
+(``-gencode arch=compute_90a,code=sm_90a``) into an object file (K1
+``gossip_mix.cu``, K2 ``window_deliver.cu``, K3 ``flash_attention.cu``),
+all sources at once in parallel processes, and links them into one shared
+library with a plain C interface, which :func:`load` binds with ctypes.  The
+library lands in ``bluefog_tpu_torch/_build/`` under a name that carries a
+hash of the sources and flags, so an edited source is rebuilt and a stale
+library is never loaded.
 Nothing here runs at import time: the CPU tests import every module on a
 machine without ``nvcc``.
 """
@@ -118,6 +120,16 @@ def load() -> ctypes.CDLL:
                        ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        # K3: tensor pointers, the host int64 strides, B, H, T, D, causal,
+        # scale, dtype, vec, stream
+        tail = [ctypes.POINTER(ctypes.c_longlong), i32, i32, i32, i32, i32,
+                ctypes.c_double, i32, i32, ptr]
+        for name, n_ptr in (("bf_flash_fwd", 6), ("bf_flash_bwd_dkv", 9),
+                            ("bf_flash_bwd_dq", 8)):
+            fn = getattr(lib, name)
+            fn.argtypes = [ptr] * n_ptr + tail
+            fn.restype = ctypes.c_int
         _lib = lib
         return lib
 

@@ -7,8 +7,9 @@ Phases, in order; any failure raises and the script exits non-zero without
 its last line:
 
 1. Build: compile the hand-written CUDA kernels from ``bluefog_tpu_torch/csrc``
-   (K1 ``gossip_mix.cu``, K2 ``window_deliver.cu``) with nvcc for sm_90a, one
-   process per source, and print the seconds it took and ptxas's report.
+   (K1 ``gossip_mix.cu``, K2 ``window_deliver.cu``, K3
+   ``flash_attention.cu``) with nvcc for sm_90a, one process per source, and
+   print the seconds it took and ptxas's report.
 2. K1 against its plain version on the card: ``gossip_mix`` against
    ``gossip_mix_plain`` in f32 and bf16, over Exponential-2(8) and Ring(8), at
    an unaligned length and at the lengths the main path gives it, plus the
@@ -57,8 +58,30 @@ its last line:
    stays within f32 rounding of its start, that the spread of x / p falls,
    and that the rounds through K2 equal the rounds through the plain path;
    times the rounds and ``win_update_then_collect``.
-7. Report: a ``kernels:`` line, the kernels' JSON line, the card's name and
-   power limit from nvidia-smi, and the result line.
+7. K3 against its twins on the card: the forward kernel's ``o``, ``l`` and
+   ``m`` and the backward kernels' ``dk``, ``dv`` and ``dq``, each kernel fed
+   the same inputs as its twin, at (B, H, T, D) = (8, 12, 1024, 64) bf16
+   causal (the GPT path's, q, k and v views of one projection), (32, 12,
+   128, 64) bf16 causal, (2, 4, 256, 64) f32 causal and not, and (1, 2, 384,
+   32) in bf16 and f32.  Then the three kernels' times at the path's shape:
+   each against its bound, its twin and, for the forward,
+   ``F.scaled_dot_product_attention``; the backward through the autograd
+   function against the library call's backward, which the port never
+   calls.
+8. The transformer path: decentralized SGD of a full-width GPT-small (vocab
+   50304, width 768, 12 layers, 12 heads, bf16 compute, f32 params) over 8
+   virtual ranks on Exponential-2 with
+   ``DistributedNeighborAllreduceOptimizer`` over SGD (lr 0.01, momentum
+   0.9), ``--model gpt-small --seq-len 1024`` of the synthetic benchmark at
+   a per-rank batch of 8: 2 warm-up and 3 timed steps.  Checks finite and
+   falling losses, K1's launches against the fuse plan and K3's (12 layers x
+   8 ranks = 96 of each kernel per step); one step through K3 against the
+   same step through K3's twins from the same state (every gradient, the
+   losses and the state after the step); a profiled step and the host
+   breakdown, as for the ResNet paths.
+9. Report: a ``kernels:`` line, the kernels' JSON line (K1, K2 and K3's
+   three kernels), the card's name and power limit from nvidia-smi, and the
+   result line.
 
 It needs one CUDA device and exits with status 2 when there is none.
 """
@@ -106,6 +129,22 @@ def time_ms(fn, reps, warm=2):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps, warm=2):
+    """Mean device milliseconds of ``fn``'s kernels, copies and fills per
+    call, summed from a ``torch.profiler`` trace of ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
 
 
 def max_err(out, ref):
@@ -251,10 +290,11 @@ def _probe_text(row):
             f"cudaMalloc {row['mallocs']}, cudaFree {row['frees']}")
 
 
-def phase_main_path(trainer, kernel, per_step, tag):
-    """Drive a trainer's path: the kernel wrapper's launch count is set to 0
-    just before the run and read just after it, and must equal ``per_step``
-    times the steps."""
+def phase_main_path(trainer, kernels, tag, what, unit="img"):
+    """Drive a trainer's path: every kernel wrapper's launch count in
+    ``kernels`` (wrapper -> launches per step) is set to 0 just before the
+    run and read just after it, and must equal its launches per step times
+    the steps.  Returns the counts, wrapper name -> launches."""
     from bluefog_tpu_torch.examples.synthetic_benchmark import (
         profile_step, run)
 
@@ -268,9 +308,10 @@ def phase_main_path(trainer, kernel, per_step, tag):
           f"{unreachable} unreachable of {tracked} tracked objects")
     torch.cuda.reset_peak_memory_stats()
     with step_probe(trainer) as probe:
-        kernel.launches = 0
+        for kernel in kernels:
+            kernel.launches = 0
         res = run(trainer, WARMUP, TIMED)
-        launches = kernel.launches
+        launches = {kernel.__name__: kernel.launches for kernel in kernels}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for i, loss in enumerate(res["losses"]):
         ms = (f"{res['step_ms'][i - WARMUP]:.2f} ms, " if i >= WARMUP
@@ -282,16 +323,17 @@ def phase_main_path(trainer, kernel, per_step, tag):
               f"non-finite loss at step {i} of the {tag} path")
     steps = WARMUP + TIMED
     mean_ms = sum(res["step_ms"]) / TIMED
-    print(f"[{tag}] ResNet-50 x {N_RANKS} virtual ranks, exp2, batch {BATCH}"
-          f"/rank, bf16: step ms {[round(t, 2) for t in res['step_ms']]}, "
-          f"mean {mean_ms:.2f} ms, {res['img_per_s']:.1f} img/s over all "
-          f"ranks, peak memory {peak_gb:.2f} GB")
-    print(f"[{tag}] {kernel.__name__} launches {launches} = {per_step} per "
-          f"step x {steps} steps expected")
-    check(launches == per_step * steps,
-          f"{kernel.__name__} launched {launches} times on the {tag} path, "
-          f"expected {per_step * steps}")
-    prof = profile_step(trainer, top=5)
+    print(f"[{tag}] {what}: step ms {[round(t, 2) for t in res['step_ms']]}, "
+          f"mean {mean_ms:.2f} ms, {res['samples_per_s']:.1f} {unit}/s over "
+          f"all ranks, peak memory {peak_gb:.2f} GB")
+    for kernel, per_step in kernels.items():
+        got = launches[kernel.__name__]
+        print(f"[{tag}] {kernel.__name__} launches {got} = {per_step} per "
+              f"step x {steps} steps expected")
+        check(got == per_step * steps,
+              f"{kernel.__name__} launched {got} times on the {tag} path, "
+              f"expected {per_step * steps}")
+    prof = profile_step(trainer, top=8)
     print(f"[{tag}] one more step under torch.profiler: {prof['busy_ms']:.2f}"
           f" ms on the device in {prof['kernels']} kernels, copies and "
           f"fills; device idle {1 - prof['busy_ms'] / mean_ms:.1%} of the "
@@ -299,7 +341,7 @@ def phase_main_path(trainer, kernel, per_step, tag):
           f"one, {prof['wall_ms']:.2f} ms)")
     for name, ms, count in prof["top"]:
         print(f"[{tag}]   {ms:8.3f} ms {count:5d}x {name[:90]}")
-    return launches
+    return launches, res
 
 
 def _snapshot(trainer, skip=()):
@@ -365,7 +407,7 @@ def spread_ranks(trainer, seed):
     """Give every rank's parameters their own seeded offset, 10% of each
     tensor's mean magnitude, so that a step reading a wrong rank's slot
     lands well outside the parity tolerance."""
-    gen = torch.Generator(device=trainer.images.device).manual_seed(seed)
+    gen = torch.Generator(device=trainer.device).manual_seed(seed)
     with torch.no_grad():
         for p in trainer.params.values():
             p.add_(torch.randn(p.shape, generator=gen, device=p.device)
@@ -455,9 +497,9 @@ def phase_host_breakdown(trainer, tag, steps=3):
               f"{window}; {_probe_text(row)}")
 
 
-def _bound(n_bytes, n_flops):
+def _bound(n_bytes, n_flops, flops_per_s=F32_FLOPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_flops = n_flops / F32_FLOPS_PER_S * 1e3
+    t_flops = n_flops / flops_per_s * 1e3
     return max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops
                                    else "operations")
 
@@ -563,6 +605,171 @@ def phase_k2(device, win_len):
     return {"max_abs_err": main_err, **put}, acc, push
 
 
+BF16_PEAK_FLOPS_PER_S = 989e12  # H100 SXM dense bf16, NVIDIA's data sheet
+K3_PATH_SHAPE = (8, 12, 1024, 64)  # GPT-small at T = 1024, per-rank batch 8
+# (B, H, T, D, dtype, causal): the path's shape, the JAX default seq-len,
+# the reference's own f32 shape both ways, a T that is no power of two at
+# the least eligible D
+K3_CASES = [(*K3_PATH_SHAPE, torch.bfloat16, True),
+            (32, 12, 128, 64, torch.bfloat16, True),
+            (2, 4, 256, 64, torch.float32, True),
+            (2, 4, 256, 64, torch.float32, False),
+            (1, 2, 384, 32, torch.bfloat16, True),
+            (1, 2, 384, 32, torch.float32, True)]
+# max |kernel - twin| over max |twin|: o and the gradients one bf16 step
+# (2^-8) of slack past a rounding the two may place differently; f32 sums in
+# another order; l and m are f32 in both
+K3_TOL = {torch.bfloat16: {"o": 2.0 ** -7, "grad": 2.0 ** -6},
+          torch.float32: {"o": 1e-5, "grad": 1e-5}}
+K3_RESIDUAL_TOL = 1e-5
+
+
+def _qkv_views(b, h, t, d, dtype, gen, device):
+    """q, k, v as the GPT passes them to K3: (B, H, T, D) views of one
+    (B, T, 3 H D) projection."""
+    qkv = torch.randn(b, t, 3 * h * d, generator=gen, device=device,
+                      dtype=torch.float32).to(dtype)
+    return [x.unflatten(-1, (h, d)).transpose(1, 2)
+            for x in qkv.split(h * d, dim=-1)]
+
+
+def _k3_work(b, h, t, d, causal, elem):
+    """(flops, bytes) of each K3 kernel on these inputs: the (query, key)
+    pairs the mask keeps times 2 D per product (forward: S and P V; dK/dV: S,
+    dP, dV, dK; dQ: S, dP, dQ), and each input read and each output written
+    once."""
+    pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
+    tile = b * h * t * d * elem
+    rows = b * h * t * 4
+    return {"fwd": (4 * d * pairs, 4 * tile + 2 * rows),
+            "dkv": (8 * d * pairs, 6 * tile + 3 * rows),
+            "dq": (6 * d * pairs, 5 * tile + 3 * rows)}
+
+
+def phase_k3(device):
+    """K3's three kernels against their twins at every shape of K3_CASES,
+    each kernel fed the same inputs as its twin; then their times at the
+    GPT path's shape against their bounds, their twins and
+    ``F.scaled_dot_product_attention``, which the port never calls."""
+    import torch.nn.functional as F
+    from bluefog_tpu_torch.ops import flash_kernel as fk
+
+    gen = torch.Generator(device=device).manual_seed(2024)
+    path_err = {}
+    for b, h, t, d, dtype, causal in K3_CASES:
+        scale = 1.0 / math.sqrt(d)
+        if (b, h, t, d) == K3_PATH_SHAPE:
+            q, k, v = _qkv_views(b, h, t, d, dtype, gen, device)
+        else:
+            q, k, v = (torch.randn(b, h, t, d, generator=gen, device=device)
+                       .to(dtype) for _ in range(3))
+        do = torch.randn(b, h, t, d, generator=gen, device=device).to(dtype)
+        kw = {"causal": causal, "scale": scale}
+        o, l, m = fk.flash_forward(q, k, v, **kw)
+        o_p, l_p, m_p = fk.flash_forward_plain(q, k, v, **kw)
+        di = (o_p.float() * do.float()).sum(-1)
+        dk, dv = fk.flash_backward_dkv(q, k, v, do, l_p, m_p, di, **kw)
+        dk_p, dv_p = fk.flash_backward_dkv_plain(q, k, v, do, l_p, m_p, di,
+                                                 **kw)
+        dq = fk.flash_backward_dq(q, k, v, do, l_p, m_p, di, **kw)
+        dq_p = fk.flash_backward_dq_plain(q, k, v, do, l_p, m_p, di, **kw)
+        torch.cuda.synchronize()
+        tol = K3_TOL[dtype]
+        readings = []
+        for name, got, ref, lim in (
+                ("o", o, o_p, tol["o"]), ("l", l, l_p, K3_RESIDUAL_TOL),
+                ("m", m, m_p, K3_RESIDUAL_TOL), ("dk", dk, dk_p, tol["grad"]),
+                ("dv", dv, dv_p, tol["grad"]), ("dq", dq, dq_p, tol["grad"])):
+            check(got.dtype == ref.dtype and got.shape == ref.shape,
+                  f"K3 {name} is {got.dtype} {tuple(got.shape)}, its twin "
+                  f"{ref.dtype} {tuple(ref.shape)}")
+            abs_err = float((got.double() - ref.double()).abs().max())
+            rel = abs_err / max(float(ref.double().abs().max()), 1e-30)
+            readings.append(f"{name} {rel:.2e}/{lim:.1e}")
+            check(math.isfinite(rel) and rel <= lim,
+                  f"K3 {name} disagrees with its twin at (B, H, T, D) = "
+                  f"({b}, {h}, {t}, {d}) {dtype} causal={causal}: {rel} > "
+                  f"{lim}")
+            if (b, h, t, d) == K3_PATH_SHAPE:
+                kernel = {"o": "fwd", "l": "fwd", "m": "fwd", "dk": "dkv",
+                          "dv": "dkv", "dq": "dq"}[name]
+                path_err[kernel] = max(path_err.get(kernel, 0.0), abs_err)
+        print(f"[k3] (B, H, T, D) = ({b}, {h}, {t}, {d}) {str(dtype)[6:]} "
+              f"causal={causal}: max |kernel - twin| / max |twin| (tol): "
+              f"{', '.join(readings)}")
+        del q, k, v, do, o, l, m, o_p, l_p, m_p, di, dk, dv, dk_p, dv_p
+        del dq, dq_p
+
+    # times at the path's shape, causal bf16, q, k, v views of one projection
+    b, h, t, d = K3_PATH_SHAPE
+    kw = {"causal": True, "scale": 1.0 / math.sqrt(d)}
+    q, k, v = _qkv_views(b, h, t, d, torch.bfloat16, gen, device)
+    do = torch.randn(b, h, t, d, generator=gen, device=device).to(
+        torch.bfloat16)
+    o, l, m = fk.flash_forward(q, k, v, **kw)
+    di = (o.float() * do.float()).sum(-1)
+    calls = {
+        "fwd": (lambda: fk.flash_forward(q, k, v, **kw),
+                lambda: fk.flash_forward_plain(q, k, v, **kw)),
+        "dkv": (lambda: fk.flash_backward_dkv(q, k, v, do, l, m, di, **kw),
+                lambda: fk.flash_backward_dkv_plain(q, k, v, do, l, m, di,
+                                                    **kw)),
+        "dq": (lambda: fk.flash_backward_dq(q, k, v, do, l, m, di, **kw),
+               lambda: fk.flash_backward_dq_plain(q, k, v, do, l, m, di,
+                                                  **kw)),
+    }
+    # the library's fused attention on the same (B, H, T, D) views
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), reps=20)
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    sdpa_bwd = time_ms(lambda: torch.autograd.grad(
+        out, (qs, ks, vs), do, retain_graph=True), reps=20)
+    work = _k3_work(b, h, t, d, True, 2)
+    res = {}
+    for name, (kernel, plain) in calls.items():
+        t_k = time_ms(kernel, reps=20)
+        t_p = time_ms(plain, reps=3)
+        n_flops, n_bytes = work[name]
+        bound_ms, bound_by = _bound(n_bytes, n_flops, BF16_PEAK_FLOPS_PER_S)
+        lib = sdpa_fwd if name == "fwd" else None
+        print(f"[k3] time {name} bf16 causal (B, H, T, D) = ({b}, {h}, {t}, "
+              f"{d}): kernel {t_k:.4f} ms, twin {t_p:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {n_flops / 1e9:.2f} GFLOP, "
+              f"{n_bytes / 1e6:.2f} MB), {bound_ms / t_k:.1%} of "
+              f"the bound" + (f"; scaled_dot_product_attention forward "
+                              f"{lib:.4f} ms" if lib is not None else ""))
+        res[name] = {"max_abs_err": path_err[name], "ms": t_k,
+                     "plain_ms": t_p, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib}
+    # the backward as the autograd function runs it: di, dK/dV and dQ
+    qa, ka, va = (x.detach().requires_grad_() for x in (q, k, v))
+    oa = fk.flash_attention(qa, ka, va, causal=True, sm_scale=kw["scale"])
+    t_bwd = time_ms(lambda: torch.autograd.grad(
+        oa, (qa, ka, va), do, retain_graph=True), reps=20)
+    print(f"[k3] backward through FlashAttention (di + dK/dV + dQ) "
+          f"{t_bwd:.4f} ms against scaled_dot_product_attention's backward "
+          f"{sdpa_bwd:.4f} ms; forward {res['fwd']['ms']:.4f} ms against "
+          f"{sdpa_fwd:.4f} ms (CUDA events around back-to-back calls)")
+    # the same calls by the device time of their kernels, which the host's
+    # pace of issuing autograd calls cannot inflate
+    dev = {name: device_ms(fn, reps=10) for name, fn in (
+        ("k3_fwd", lambda: fk.flash_attention(q, k, v, causal=True,
+                                              sm_scale=kw["scale"])),
+        ("sdpa_fwd", lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True)),
+        ("k3_bwd", lambda: torch.autograd.grad(
+            oa, (qa, ka, va), do, retain_graph=True)),
+        ("sdpa_bwd", lambda: torch.autograd.grad(
+            out, (qs, ks, vs), do, retain_graph=True)))}
+    print(f"[k3] device time per call (torch.profiler, the call's kernels, "
+          f"copies and fills summed): forward K3 {dev['k3_fwd']:.4f} ms, "
+          f"scaled_dot_product_attention {dev['sdpa_fwd']:.4f} ms; backward "
+          f"K3 (di + dK/dV + dQ) {dev['k3_bwd']:.4f} ms, "
+          f"scaled_dot_product_attention {dev['sdpa_bwd']:.4f} ms")
+    return res
+
+
 def phase_window_update(window):
     """``win_update`` (plain PyTorch) on the WinPut path's window."""
     from bluefog_tpu_torch.ops import windows as W
@@ -662,6 +869,98 @@ def phase_pushsum(device, win_len):
     return launches
 
 
+GPT_BATCH, GPT_SEQ = 8, 1024    # per rank; GPT-2's published context
+GPT_GRAD_TOL = 2.0 ** -5        # K3 step vs twin step, per gradient tensor
+
+
+def phase_k3_step_parity(trainer):
+    """One GPT step through K3 against the same step from the same state
+    with K3's three wrappers swapped for their twins (run on the card):
+    losses, every rank's gradient of every parameter, and the state after
+    the optimizer step."""
+    from bluefog_tpu_torch.ops import flash_kernel as fk
+
+    opt = trainer.opt
+    state, snap = _snapshot(trainer)
+    count = opt.count
+    names = ("flash_forward", "flash_backward_dkv", "flash_backward_dq")
+    saved = {n: getattr(fk, n) for n in names}
+    loss_k = trainer.step()
+    grads_k = {k: v.grad.clone() for k, v in trainer.params.items()}
+    after_k = {k: v.clone() for k, v in state.items()}
+    for k, v in state.items():
+        v.copy_(snap[k])
+    opt.count = count
+    try:
+        for n in names:
+            setattr(fk, n, getattr(fk, n + "_plain"))
+        loss_p = trainer.step()
+        torch.cuda.synchronize()
+    finally:
+        for n, fn in saved.items():
+            setattr(fk, n, fn)
+    worst, where = -1.0, ""
+    for k, v in trainer.params.items():
+        ref = v.grad.double()
+        d = float((grads_k[k].double() - ref).abs().max())
+        rel = d / max(float(ref.abs().max()), 1e-30)
+        if rel > worst:
+            worst, where = rel, k
+    print(f"[gpt parity] K3 step vs twin step over {len(grads_k)} gradients "
+          f"({N_RANKS} ranks each): max |diff| / max |grad| {worst:.3e} "
+          f"({where}; tol {GPT_GRAD_TOL:.3e}); losses {loss_k.mean():.6f} / "
+          f"{loss_p.mean():.6f}")
+    check(worst <= GPT_GRAD_TOL, f"K3 step gradients differ from the twin "
+          f"step's: {worst} at {where}")
+    del grads_k, snap
+    _compare(state, after_k, "gpt parity", "K3 step vs twin step", loss_k,
+             loss_p)
+
+
+def phase_gpt(device):
+    """The transformer path: decentralized SGD of a full-width GPT-small
+    over 8 virtual ranks on Exponential-2 at T = GPT_SEQ, K3 in every block
+    and K1 in the gossip; launch counts, falling losses, parity with the
+    twins, profile and host breakdown.  Returns K3's launch counts."""
+    from bluefog_tpu_torch.examples.synthetic_benchmark import build
+    from bluefog_tpu_torch.ops import flash_kernel as fk
+    from bluefog_tpu_torch.ops.collectives import fuse_plan
+    from bluefog_tpu_torch.ops.gossip_kernel import gossip_mix
+
+    t0 = time.perf_counter()
+    trainer = build("gpt-small", "neighbor", "exp2", size=N_RANKS,
+                    batch_size=GPT_BATCH, seq_len=GPT_SEQ, device=device)
+    cfg = trainer.model.cfg
+    leaves = list(trainer.params.values())
+    groups, big = fuse_plan(leaves)
+    per_rank = sum(p[0].numel() for p in leaves)
+    k3_per_step = cfg.num_layers * N_RANKS
+    print(f"[gpt] GPT-small (vocab {cfg.vocab_size}, width "
+          f"{cfg.hidden_size}, {cfg.num_layers} layers, {cfg.num_heads} "
+          f"heads): {per_rank:,} f32 params per rank in {len(leaves)} "
+          f"leaves, built in {time.perf_counter() - t0:.2f} s; fuse plan = "
+          f"{len(groups)} fused buffer(s) + {len(big)} leaves >= 8 MiB; "
+          f"tokens {tuple(trainer.batch[0].shape)}")
+    launches, res = phase_main_path(
+        trainer, {gossip_mix: len(groups) + len(big),
+                  fk.flash_forward: k3_per_step,
+                  fk.flash_backward_dkv: k3_per_step,
+                  fk.flash_backward_dq: k3_per_step}, "gpt",
+        f"GPT-small x {N_RANKS} virtual ranks, exp2, batch {GPT_BATCH} x seq "
+        f"{GPT_SEQ}/rank, bf16", unit="seq")
+    mean_ms = sum(res["step_ms"]) / TIMED
+    first, last = res["losses"][0].mean(), res["losses"][-1].mean()
+    print(f"[gpt] {N_RANKS * GPT_BATCH * GPT_SEQ / mean_ms * 1e3:.1f} tokens/s"
+          f" over all ranks; mean loss {first:.5f} -> {last:.5f} in "
+          f"{WARMUP + TIMED} steps")
+    check(last < first, f"GPT losses did not fall: {first} -> {last}")
+    phase_k3_step_parity(trainer)
+    phase_host_breakdown(trainer, "gpt")
+    del trainer, leaves
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -693,8 +992,10 @@ def main():
           f"leaves; fuse plan = {len(groups)} fused buffer(s) + {len(big)} "
           f"leaves >= 8 MiB -> per-rank lengths {main_lengths}")
     k1 = phase_k1(device, main_lengths)
-    k1_launches = phase_main_path(trainer, gossip_mix, len(main_lengths),
-                                  "main")
+    k1_launches = phase_main_path(
+        trainer, {gossip_mix: len(main_lengths)}, "main",
+        f"ResNet-50 x {N_RANKS} virtual ranks, exp2, batch {BATCH}/rank, "
+        "bf16")[0]["gossip_mix"]
     phase_step_parity(trainer, "parity")
     phase_host_breakdown(trainer, "main")
     del trainer, leaves
@@ -713,7 +1014,10 @@ def main():
           f"K2 launch(es) per put, one put per step")
     check(per_put == 1, f"ResNet-50's f32 window should be one buffer, got "
           f"{per_put}")
-    k2_launches = phase_main_path(trainer, window_deliver, per_put, "winput")
+    k2_launches = phase_main_path(
+        trainer, {window_deliver: per_put}, "winput",
+        f"ResNet-50 x {N_RANKS} virtual ranks, exp2, WinPut, batch "
+        f"{BATCH}/rank, bf16")[0]["window_deliver"]
     phase_host_breakdown(trainer, "winput")
     with deterministic_cudnn():
         phase_host_breakdown(trainer, "winput, deterministic cuDNN")
@@ -725,6 +1029,12 @@ def main():
     torch.cuda.empty_cache()
     push_launches = phase_pushsum(device, win_len)
 
+    k3 = phase_k3(device)
+    torch.cuda.empty_cache()
+    k3_launches = phase_gpt(device)
+
+    fa = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+    via = "(via bluefog_tpu/ops/ring_attention.py:122)"
     kernels = [{
         "name": "gossip_mix",
         "route": "cuda",
@@ -739,7 +1049,16 @@ def main():
         "replaces": "bluefog_tpu/ops/pallas_gossip.py:460",
         "launches": k2_launches,
         **k2,
-    }]
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "bluefog_tpu_torch/csrc/flash_attention.cu",
+        "replaces": f"{fa}:{line} {via}",
+        "launches": k3_launches[name],
+        **k3[part],
+    } for name, part, line in (("flash_forward", "fwd", 589),
+                               ("flash_backward_dkv", "dkv", 941),
+                               ("flash_backward_dq", "dq", 1287))]
     print("kernels: K1 gossip_mix (cuda, bluefog_tpu_torch/csrc/gossip_mix.cu"
           f", replaces neighbor_allreduce_pallas): {k1_launches} launches on "
           f"the main path, {k1['ms']:.4f} ms per step against a "
@@ -750,7 +1069,14 @@ def main():
           f"{k2_acc['ms']:.4f} ms against {k2_acc['bound_ms']:.4f} ms, "
           f"push-sum acc {k2_push['ms']:.4f} ms against "
           f"{k2_push['bound_ms']:.4f} ms ({push_launches} launches in "
-          f"{PUSH_ROUNDS} rounds); win_update {update_ms:.4f} ms")
+          f"{PUSH_ROUNDS} rounds); win_update {update_ms:.4f} ms; K3 (cuda,"
+          " bluefog_tpu_torch/csrc/flash_attention.cu, replaces the library "
+          "flash_attention of local_attention) on the GPT path: "
+          + ", ".join(f"{n} {k3_launches[n]} launches, {k3[p]['ms']:.4f} ms "
+                      f"against a {k3[p]['bound_ms']:.4f} ms bound"
+                      for n, p in (("flash_forward", "fwd"),
+                                   ("flash_backward_dkv", "dkv"),
+                                   ("flash_backward_dq", "dq"))))
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

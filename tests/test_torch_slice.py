@@ -1,6 +1,7 @@
 """The slices end to end: decentralized SGD of a narrow ResNet over 8 virtual
 ranks on Exponential-2, the port against the JAX package, with the gossip
-optimizer (slice 1's main path) and with the one-sided WinPut optimizer.
+optimizer (slice 1's main path) and with the one-sided WinPut optimizer; and
+the transformer slice, the same gossip SGD of a narrow GPT.
 
 The JAX side is the ``shard_map`` step of ``__graft_entry__.py::
 dryrun_multichip`` (its first optimizer loop) on the 8-device CPU mesh, with
@@ -31,6 +32,7 @@ from jax.sharding import PartitionSpec as P
 
 import bluefog_tpu as bf
 from bluefog_tpu.models import resnet as jres
+from bluefog_tpu.models import transformer as jtr
 from bluefog_tpu.optim import DistributedNeighborAllreduceOptimizer as JOpt
 from bluefog_tpu.optim import DistributedWinPutOptimizer as JWinPut
 from bluefog_tpu.parallel.api import shard_map
@@ -39,6 +41,7 @@ import bluefog_tpu_torch as pbf
 from bluefog_tpu_torch import convert
 from bluefog_tpu_torch.examples import synthetic_benchmark as sb
 from bluefog_tpu_torch.models import resnet as pres
+from bluefog_tpu_torch.models import transformer as ptr
 from bluefog_tpu_torch.ops import gossip_kernel
 
 N, BATCH, IMG, CLASSES, FILTERS = 8, 16, 32, 10, 8
@@ -143,7 +146,9 @@ def _both_runs(winput):
                topology=pbf.topology.ExponentialTwoGraph(N))
     trainer = sb.Trainer(pm, ps, pbf.rank_stack(dict(pm.named_buffers()), N,
                                                  dev),
-                         opt, torch.from_numpy(x), torch.from_numpy(y).long())
+                         opt,
+                         (torch.from_numpy(x), torch.from_numpy(y).long()),
+                         sb.image_loss)
     got = []
     for _ in range(STEPS):
         loss = trainer.step()
@@ -206,7 +211,7 @@ def test_build_and_run_at_a_toy_size_on_the_cpu():
     trainer = sb.build("resnet18", "neighbor", "ring", size=2, batch_size=1,
                        image_size=32, num_classes=10, num_filters=4,
                        dtype=torch.float32, device="cpu")
-    assert trainer.images.shape == (2, 1, 32, 32, 3)
+    assert trainer.batch[0].shape == (2, 1, 32, 32, 3)
     gossip_kernel.gossip_mix.launches = 0
     res = sb.run(trainer, warmup=1, iters=1)
     assert len(res["losses"]) == 2 and len(res["step_ms"]) == 1
@@ -226,3 +231,135 @@ def test_build_and_run_at_a_toy_size_on_the_cpu():
     assert {"window.self.torch.float32",
             "window.peers.torch.float32"} <= set(state)
     assert state["window.peers.torch.float32"].shape[:2] == (2, 1)
+
+
+# --- the transformer slice ---------------------------------------------------
+#
+# ``examples/synthetic_benchmark.py --model gpt-small --comm neighbor`` of the
+# JAX package, at the narrow width of ``test_torch_transformer.py`` (vocab
+# 512, hidden 128, 4 heads, 2 layers, T = 128, f32, batch 2 per rank): its
+# ``train_step`` (``:232-245``, rebuilt here on the CPU mesh, since ``main()``
+# cannot be imported) under ``DistributedNeighborAllreduceOptimizer`` over SGD
+# with lr 0.01 and momentum 0.9, against the port's ``Trainer.step`` with
+# ``lm_loss``, where K3's wrappers take their twins and K1's its plain
+# version.  f32 on both sides: the narrow GPT's f32 logits and gradients
+# already meet flax's to 1.4e-6, so no f64 oracle is needed; the same RTOL.
+
+GPT = dict(vocab_size=512, hidden_size=128, num_layers=2, num_heads=4,
+           max_position=256)
+GPT_T, GPT_BATCH = 128, 2
+
+
+def _gpt_params():
+    """flax's initial params, LayerNorm scales and biases moved by seeded
+    noise (numpy arrays)."""
+    model = jtr.TransformerLM(jtr.GPTConfig(dtype=jnp.float32, **GPT))
+    params = model.init(jax.random.PRNGKey(0),
+                        jnp.zeros((1, GPT_T), jnp.int32))["params"]
+    rng = np.random.default_rng(1)
+    return jax.tree_util.tree_map_with_path(
+        lambda path, a: np.asarray(a) + (
+            0.1 * rng.standard_normal(a.shape).astype(np.float32)
+            if path[-1].key in ("bias", "scale") else 0), params)
+
+
+def _jax_gpt_steps(params, ids):
+    """Per step: (losses (n,), params tree), stacked."""
+    model = jtr.TransformerLM(jtr.GPTConfig(dtype=jnp.float32, **GPT))
+    ctx = bf.init(topology=JExp2(N))
+    opt = JOpt(optax.sgd(LR, momentum=MOMENTUM), topology=ctx.schedule,
+               axis_name=ctx.axis_name)
+
+    def loss_fn(p, ids):
+        logits = model.apply({"params": p}, ids)
+        return optax.softmax_cross_entropy_with_integer_labels(
+            logits, jnp.roll(ids, -1, axis=-1)).mean()
+
+    def train_step(p_blk, st_blk, ids_blk):
+        p, st = jax.tree_util.tree_map(lambda t: t[0], (p_blk, st_blk))
+        loss, g = jax.value_and_grad(loss_fn)(p, ids_blk[0])
+        upd, st = opt.update(g, st, p)
+        p = optax.apply_updates(p, upd)
+        return jax.tree_util.tree_map(lambda t: t[None], (p, st)) + (
+            loss[None],)
+
+    step = jax.jit(shard_map(
+        train_step, mesh=ctx.mesh, in_specs=(P(ctx.axis_name),) * 3,
+        out_specs=(P(ctx.axis_name),) * 3, check_vma=False))
+    stack = lambda t: jax.tree_util.tree_map(  # noqa: E731
+        lambda a: jnp.broadcast_to(a[None], (N,) + jnp.shape(a)), t)
+    p, st = stack(params), stack(opt.init(params))
+    out = []
+    for _ in range(STEPS):
+        p, st, loss = step(p, st, jnp.asarray(ids))
+        out.append(jax.tree_util.tree_map(np.asarray, (loss, p)))
+    return out
+
+
+@pytest.fixture(scope="module")
+def gpt_runs():
+    params = _gpt_params()
+    ids = np.random.default_rng(2).integers(
+        0, GPT["vocab_size"], (N, GPT_BATCH, GPT_T)).astype(np.int32)
+    want = _jax_gpt_steps(params, ids)
+    bf.shutdown()
+
+    model = ptr.TransformerLM(ptr.GPTConfig(dtype=torch.float32, **GPT))
+    model.load_state_dict({k: torch.tensor(v) for k, v in
+                           convert.gpt_from_flax(params).items()})
+    ps = pbf.rank_stack(dict(model.named_parameters()), N, "cpu")
+    for p in ps.values():
+        p.requires_grad_(True)
+        p.grad = torch.zeros_like(p)
+    opt = pbf.DistributedNeighborAllreduceOptimizer(
+        torch.optim.SGD(list(ps.values()), lr=LR, momentum=MOMENTUM),
+        topology=pbf.topology.ExponentialTwoGraph(N))
+    trainer = sb.Trainer(model, ps, {}, opt, (torch.from_numpy(ids).long(),),
+                         sb.lm_loss)
+    got = []
+    for _ in range(STEPS):
+        loss = trainer.step()
+        got.append((loss.numpy().copy(),
+                    {k: v.detach().numpy().copy() for k, v in ps.items()}))
+    return want, got
+
+
+@pytest.mark.parametrize("step", range(STEPS), ids=["one_step", "two_steps"])
+def test_gpt_steps_match_jax_shard_map(gpt_runs, step):
+    want, got = gpt_runs
+    jloss, jparams = want[step]
+    ploss, pparams = got[step]
+    assert np.isfinite(ploss).all()
+    _close(ploss, jloss, "losses")
+    for r in range(N):
+        ref = convert.gpt_from_flax(
+            jax.tree_util.tree_map(lambda t: t[r], jparams))
+        assert set(ref) == set(pparams)
+        for k, v in pparams.items():
+            _close(v[r], ref[k], f"rank {r} param {k}")
+    # ranks saw different tokens, so one gossip round leaves them apart
+    assert not np.allclose(pparams["lm_head.weight"][0],
+                           pparams["lm_head.weight"][1])
+
+
+def test_gpt_build_and_run_at_a_narrow_width_on_the_cpu(monkeypatch):
+    """``build`` makes the token batch and the trainer of ``gpt-small``;
+    here with the narrow GPT in its place (gpt-small itself is full width,
+    168.6M parameters per rank)."""
+    from bluefog_tpu_torch.ops import flash_kernel
+
+    spec = sb.MODELS["gpt-small"]
+    monkeypatch.setitem(sb.MODELS, "gpt-small", sb.ModelSpec(
+        lambda dtype, gen, classes, filters: ptr.TransformerLM(
+            ptr.GPTConfig(dtype=dtype, **GPT), generator=gen),
+        spec.loss, tokens=True))
+    trainer = sb.build("gpt-small", "neighbor", "exp2", size=2, batch_size=1,
+                       seq_len=1000, dtype=torch.float32, device="cpu")
+    # the sequence is cut to the model's positions, as in the JAX benchmark
+    assert trainer.batch[0].shape == (2, 1, GPT["max_position"])
+    assert trainer.batch[0].dtype == torch.int64 and not trainer.buffers
+    flash_kernel.flash_forward.launches = 0
+    res = sb.run(trainer, warmup=1, iters=1)
+    assert len(res["losses"]) == 2 and np.isfinite(res["losses"]).all()
+    assert flash_kernel.flash_forward.launches == 0  # no card here
+    assert trainer.opt.count == 2
