@@ -7,7 +7,7 @@
 //
 //   flash_fwd      <- _flash_attention_impl     O = softmax(Q K^T s) V, l, m
 //   flash_bwd_dkv  <- _flash_attention_bwd_dkv  dK, dV
-//   flash_bwd_dq   <- _flash_attention_bwd_dq   dQ
+//   flash_bwd_dq   <- _flash_attention_bwd_dq   dQ, and D_i = rowsum(O * dO)
 //
 // with s the softmax scale, l the row sum exp(S s - m) and m the row max of
 // S s, both f32 (B, H, T): the library's residuals, which it broadcasts over
@@ -22,37 +22,41 @@
 //   softmax in f32 (running max and sum per row), O += P V with P rounded to
 //   the input dtype, as the library rounds it.  O is stored in the input
 //   dtype, l and m in f32.
-// - dK/dV: one block per 64-key tile loops over the query tiles (from the
+// - dQ, launched first: one block per query tile computes D_i = rowsum(O *
+//   dO) of its rows (the library computes it in XLA between its kernels),
+//   writes it, and loops over the key tiles: dS = P (dO V^T - D_i) s, dQ +=
+//   dS K.
+// - dK/dV: one block per key tile loops over the query tiles (from the
 //   diagonal when causal), rebuilds P = exp(Q K^T s - m) / l, and accumulates
-//   dV += P^T dO, dS = P (dO V^T - D_i) s, dK += dS^T Q.
-// - dQ: one block per 64-row query tile loops over the key tiles and
-//   accumulates dQ += dS K.  No block writes what another reads, so there are
-//   no atomics and the gradients are the same from run to run.
+//   dV += P^T dO and dK += dS^T Q with dQ's D_i.  No block writes what
+//   another reads, so there are no atomics and the gradients are the same
+//   from run to run.
 //
-// D_i = rowsum(O * dO) is computed by the wrapper in PyTorch, as the library
-// computes it outside its kernels.  The causal mask is the aligned one: key
-// tiles above the diagonal are skipped whole, and inside the diagonal tile a
-// key after its query gets probability 0 (the library adds -0.7 * FLT_MAX to
-// its score, which exp takes to 0).  Tensors are (B, H, T, D) with any batch,
-// head and token strides and D contiguous: the model's q, k and v are views of
-// its fused qkv projection, read in place.
+// The causal mask is the aligned one: key tiles above the diagonal are
+// skipped whole, and inside the diagonal tile a key after its query gets
+// probability 0 (the library adds -0.7 * FLT_MAX to its score, which exp
+// takes to 0).  Tensors are (B, H, T, D) with any batch, head and token
+// strides and D contiguous: the model's q, k and v are views of its fused
+// qkv projection, read in place.
 //
-// bf16 runs on the tensor cores: mma.sync.m16n8k16 with f32 accumulation,
-// four warps per block, each warp owning 16 rows of the tile; S and dP stay in
-// registers, and the accumulator fragment of S is reused as the A operand of
-// the next product (FA2's register reuse).  Head dims 32, 64, 96 and 128 are
-// instantiated.  f32 runs on plain f32 FMA (32-row tiles in shared memory,
-// any head dim up to 128), never in TF32.
+// This file holds the forward in both dtypes and the f32 backward; the bf16
+// backward is flash_attention_bwd.cu (wgmma, pipelined cp.async tile loads),
+// which states its own design and bound.  The bf16 forward runs on the
+// tensor cores: mma.sync.m16n8k16 with f32 accumulation, four warps per
+// block, each warp owning 16 rows of the tile; S stays in registers, and its
+// accumulator fragment is reused as the A operand of P V (FA2's register
+// reuse).  Head dims 32, 64, 96 and 128 are instantiated.  f32 runs on plain
+// f32 FMA (32-row tiles in shared memory, any head dim up to 128), never in
+// TF32.
 //
 // What bounds it: at the transformer path's shape (B=8, H=12, T=1024, D=64,
 // causal) the forward does 4 B H D T(T+1)/2 = 1.29e10 flops against 5.1e7
 // bytes of q, k, v, o, l and m: 0.013 ms at 989 TFLOP/s against 0.015 ms at
-// 3.35 TB/s, so the two bounds nearly meet; the backward does twice the
-// forward's products per byte and is bound by operations.  This first version
-// is simple: mma.sync from padded shared memory (row stride D + 8 halves,
-// free of bank conflicts for the fragment loads), synchronous tile loads, no
-// wgmma, TMA, pipelining or warp specialisation; it reaches a fraction of the
-// bound, and PERF.md records how much.
+// 3.35 TB/s, so the two bounds nearly meet.  The forward is still the simple
+// first version: mma.sync from padded shared memory (row stride D + 8
+// halves, free of bank conflicts for the fragment loads), synchronous tile
+// loads, no wgmma, TMA, pipelining or warp specialisation; it reaches a
+// fraction of the bound, and PERF.md records how much.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,11 +74,11 @@ constexpr float kLn2 = 0.6931471805599453f;
 enum { kQ = 0, kK, kV, kDO, kO, kDQ, kDK, kDV, kNumTensors };
 
 struct Args {
-  const void* in[4];     // q, k, v, dout
+  const void* in[5];     // q, k, v, dout, o (an input of dQ)
   void* out[4];          // o, dq, dk, dv
   float* l;              // (B, H, T) f32 row sums
   float* m;              // (B, H, T) f32 row maxima
-  const float* di;       // (B, H, T) f32
+  float* di;             // (B, H, T) f32: written by dQ, read by dK/dV
   long long st[kNumTensors][3];  // (batch, head, token) strides, elements
   int B, H, T, D, causal, vec;
   float scale;
@@ -207,13 +211,6 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// log2 of a row's softmax denominator: m log2(e) + log2(l), so that the
-// backward's P = exp2(S s log2(e) - lse2) = exp(S s - m) / l
-__device__ __forceinline__ float lse2(const float* l, const float* m,
-                                      long long i) {
-  return m[i] * kLog2e + log2f(l[i]);
-}
-
 // --- tensor-core kernels (bf16) ---------------------------------------------
 
 template <typename E, int D>
@@ -330,231 +327,6 @@ __global__ void __launch_bounds__(kThreads) fwd_mma(Args a) {
     a.m[r + row0] = m0 * kLn2;
     a.m[r + row1] = m1 * kLn2;
   }
-}
-
-template <typename E, int D>
-__global__ void __launch_bounds__(kThreads) bwd_dkv_mma(Args a) {
-  constexpr int LD = D + 8;
-  extern __shared__ uint4 smem_raw[];
-  uint16_t* sK = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* sV = sK + kTile * LD;
-  uint16_t* sQ = sV + kTile * LD;
-  uint16_t* sO = sQ + kTile * LD;  // dO
-  float* sL = reinterpret_cast<float*>(sO + kTile * LD);  // lse2 per query
-  float* sDi = sL + kTile;
-
-  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
-  const int kt = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = kt * kTile;
-  const uint16_t* q = static_cast<const uint16_t*>(a.in[kQ]) +
-                      base_off(a, kQ, b, h);
-  const uint16_t* k = static_cast<const uint16_t*>(a.in[kK]) +
-                      base_off(a, kK, b, h);
-  const uint16_t* v = static_cast<const uint16_t*>(a.in[kV]) +
-                      base_off(a, kV, b, h);
-  const uint16_t* dout = static_cast<const uint16_t*>(a.in[kDO]) +
-                         base_off(a, kDO, b, h);
-  const long long rows = static_cast<long long>(bh) * a.T;
-  load_tile<D>(sK, k + k0 * a.st[kK][2], a.st[kK][2], a.vec);
-  load_tile<D>(sV, v + k0 * a.st[kV][2], a.st[kV][2], a.vec);
-
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dk[n][i] = dv[n][i] = 0.f;
-  }
-  const float sl2 = a.scale * kLog2e;
-  const int key0 = k0 + warp * 16 + g, key1 = key0 + 8;
-
-  for (int qt = a.causal ? kt : 0; qt < a.T / kTile; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();  // every warp is done with the previous Q and dO tiles
-    load_tile<D>(sQ, q + q0 * a.st[kQ][2], a.st[kQ][2], a.vec);
-    load_tile<D>(sO, dout + q0 * a.st[kDO][2], a.st[kDO][2], a.vec);
-    for (int i = threadIdx.x; i < kTile; i += kThreads) {
-      sL[i] = lse2(a.l, a.m, rows + q0 + i);
-      sDi[i] = a.di[rows + q0 + i];
-    }
-    __syncthreads();
-
-    // S^T = K Q^T for this warp's 16 keys x 64 queries, then P^T
-    float p[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) p[n][0] = p[n][1] = p[n][2] = p[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t af[4];
-      frag_a<LD>(af, sK, warp * 16, kk * 16, g, t);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        uint32_t bf[2];
-        frag_b_rows<LD>(bf, sQ, n * 8, kk * 16, g, t);
-        E::mma(p[n], af, bf);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int ql = n * 8 + 2 * t + (i & 1);
-        const int key = i < 2 ? key0 : key1;
-        const float x = exp2f(p[n][i] * sl2 - sL[ql]);
-        p[n][i] = (a.causal && key > q0 + ql) ? 0.f : x;
-      }
-    }
-    // dV += P^T dO
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t af[4];
-      frag_a_from_c<E>(af, p[2 * kk], p[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t bf[2];
-        frag_b_cols<LD>(bf, sO, kk * 16, n * 8, g, t);
-        E::mma(dv[n], af, bf);
-      }
-    }
-    // dP^T = V dO^T, then dS^T = P^T (dP^T - D_i) s, kept in p
-    float dp[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t af[4];
-      frag_a<LD>(af, sV, warp * 16, kk * 16, g, t);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        uint32_t bf[2];
-        frag_b_rows<LD>(bf, sO, n * 8, kk * 16, g, t);
-        E::mma(dp[n], af, bf);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int ql = n * 8 + 2 * t + (i & 1);
-        p[n][i] = (dp[n][i] - sDi[ql]) * p[n][i] * a.scale;
-      }
-    }
-    // dK += dS^T Q
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t af[4];
-      frag_a_from_c<E>(af, p[2 * kk], p[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t bf[2];
-        frag_b_cols<LD>(bf, sQ, kk * 16, n * 8, g, t);
-        E::mma(dk[n], af, bf);
-      }
-    }
-  }
-
-  uint16_t* gdk = static_cast<uint16_t*>(a.out[2]) + base_off(a, kDK, b, h);
-  uint16_t* gdv = static_cast<uint16_t*>(a.out[3]) + base_off(a, kDV, b, h);
-  store_rows<E, D>(gdk, a.st[kDK][2], dk, 1.f, 1.f, key0, t);
-  store_rows<E, D>(gdv, a.st[kDV][2], dv, 1.f, 1.f, key0, t);
-}
-
-template <typename E, int D>
-__global__ void __launch_bounds__(kThreads) bwd_dq_mma(Args a) {
-  constexpr int LD = D + 8;
-  extern __shared__ uint4 smem_raw[];
-  uint16_t* sQ = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* sO = sQ + kTile * LD;  // dO
-  uint16_t* sK = sO + kTile * LD;
-  uint16_t* sV = sK + kTile * LD;
-
-  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
-  const int qt = gridDim.y - 1 - blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = qt * kTile;
-  const uint16_t* q = static_cast<const uint16_t*>(a.in[kQ]) +
-                      base_off(a, kQ, b, h);
-  const uint16_t* k = static_cast<const uint16_t*>(a.in[kK]) +
-                      base_off(a, kK, b, h);
-  const uint16_t* v = static_cast<const uint16_t*>(a.in[kV]) +
-                      base_off(a, kV, b, h);
-  const uint16_t* dout = static_cast<const uint16_t*>(a.in[kDO]) +
-                         base_off(a, kDO, b, h);
-  load_tile<D>(sQ, q + q0 * a.st[kQ][2], a.st[kQ][2], a.vec);
-  load_tile<D>(sO, dout + q0 * a.st[kDO][2], a.st[kDO][2], a.vec);
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
-  const long long rows = static_cast<long long>(bh) * a.T;
-  const float sl2 = a.scale * kLog2e;
-  const float lse0 = lse2(a.l, a.m, rows + row0);
-  const float lse1 = lse2(a.l, a.m, rows + row1);
-  const float di0 = a.di[rows + row0], di1 = a.di[rows + row1];
-
-  float dq[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
-  }
-  const int n_kt = a.causal ? qt + 1 : a.T / kTile;
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    __syncthreads();
-    load_tile<D>(sK, k + kt * kTile * a.st[kK][2], a.st[kK][2], a.vec);
-    load_tile<D>(sV, v + kt * kTile * a.st[kV][2], a.st[kV][2], a.vec);
-    __syncthreads();
-
-    float p[8][4], dp[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[n][i] = dp[n][i] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[4], ao[4];
-      frag_a<LD>(aq, sQ, warp * 16, kk * 16, g, t);
-      frag_a<LD>(ao, sO, warp * 16, kk * 16, g, t);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        uint32_t bk[2], bv[2];
-        frag_b_rows<LD>(bk, sK, n * 8, kk * 16, g, t);
-        frag_b_rows<LD>(bv, sV, n * 8, kk * 16, g, t);
-        E::mma(p[n], aq, bk);
-        E::mma(dp[n], ao, bv);
-      }
-    }
-    // P = exp(S s - m) / l, dS = P (dP - D_i) s
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = kt * kTile + n * 8 + 2 * t + (i & 1);
-        const bool lo = i < 2;
-        const int row = lo ? row0 : row1;
-        float x = exp2f(p[n][i] * sl2 - (lo ? lse0 : lse1));
-        if (a.causal && col > row) x = 0.f;
-        p[n][i] = (dp[n][i] - (lo ? di0 : di1)) * x * a.scale;
-      }
-    }
-    // dQ += dS K
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t af[4];
-      frag_a_from_c<E>(af, p[2 * kk], p[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t bf[2];
-        frag_b_cols<LD>(bf, sK, kk * 16, n * 8, g, t);
-        E::mma(dq[n], af, bf);
-      }
-    }
-  }
-
-  uint16_t* gdq = static_cast<uint16_t*>(a.out[1]) + base_off(a, kDQ, b, h);
-  store_rows<E, D>(gdq, a.st[kDQ][2], dq, 1.f, 1.f, row0, t);
 }
 
 // --- f32 kernels (plain FMA, 32-row tiles, any D <= 128) --------------------
@@ -721,6 +493,8 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_f32(Args a) {
   }
 }
 
+// dQ, and di = sum(o * dO) of the block's rows, which it writes for the
+// dK/dV kernel, as the bf16 dQ kernel does
 __global__ void __launch_bounds__(kThreads) bwd_dq_f32(Args a) {
   extern __shared__ uint4 smem_raw[];
   const int D = a.D, LD = D + 1, R = kTile32;
@@ -741,6 +515,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_f32(Args a) {
   const float* v = static_cast<const float*>(a.in[kV]) + base_off(a, kV, b, h);
   const float* dout = static_cast<const float*>(a.in[kDO]) +
                       base_off(a, kDO, b, h);
+  const float* o = static_cast<const float*>(a.in[kO]) + base_off(a, kO, b, h);
   const long long rows = static_cast<long long>(bh) * a.T;
   load_tile32(sQ, q + q0 * a.st[kQ][2], a.st[kQ][2], D);
   load_tile32(sO, dout + q0 * a.st[kDO][2], a.st[kDO][2], D);
@@ -748,7 +523,14 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_f32(Args a) {
   for (int i = threadIdx.x; i < R; i += kThreads) {
     sM[i] = a.m[rows + q0 + i];
     sIL[i] = 1.f / a.l[rows + q0 + i];
-    sDi[i] = a.di[rows + q0 + i];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < R; i += kThreads) {
+    const float* orow = o + (q0 + i) * a.st[kO][2];
+    float acc = 0.f;
+    for (int d = 0; d < D; ++d) acc = fmaf(orow[d], sO[i * LD + d], acc);
+    sDi[i] = acc;
+    a.di[rows + q0 + i] = acc;
   }
   const int n_kt = a.causal ? qt + 1 : a.T / R;
   for (int kt = 0; kt < n_kt; ++kt) {
@@ -798,26 +580,18 @@ cudaError_t launch(Kernel kernel, const Args& a, int rows, size_t smem,
   return cudaGetLastError();
 }
 
-template <typename E, int D>
-cudaError_t launch_mma(Kind kind, const Args& a, cudaStream_t stream) {
-  const size_t tile = sizeof(uint16_t) * kTile * (D + 8);
-  switch (kind) {
-    case kFwd:
-      return launch(fwd_mma<E, D>, a, kTile, 3 * tile, stream);
-    case kDkv:
-      return launch(bwd_dkv_mma<E, D>, a, kTile,
-                    4 * tile + 2 * kTile * sizeof(float), stream);
-    default:
-      return launch(bwd_dq_mma<E, D>, a, kTile, 4 * tile, stream);
-  }
+template <int D>
+cudaError_t launch_fwd_mma(const Args& a, cudaStream_t stream) {
+  return launch(fwd_mma<BF16, D>, a, kTile,
+                3 * sizeof(uint16_t) * kTile * (D + 8), stream);
 }
 
-cudaError_t dispatch_bf16(Kind kind, const Args& a, cudaStream_t stream) {
+cudaError_t launch_fwd_bf16(const Args& a, cudaStream_t stream) {
   switch (a.D) {
-    case 32: return launch_mma<BF16, 32>(kind, a, stream);
-    case 64: return launch_mma<BF16, 64>(kind, a, stream);
-    case 96: return launch_mma<BF16, 96>(kind, a, stream);
-    case 128: return launch_mma<BF16, 128>(kind, a, stream);
+    case 32: return launch_fwd_mma<32>(a, stream);
+    case 64: return launch_fwd_mma<64>(a, stream);
+    case 96: return launch_fwd_mma<96>(a, stream);
+    case 128: return launch_fwd_mma<128>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -839,7 +613,8 @@ cudaError_t launch_f32(Kind kind, const Args& a, cudaStream_t stream) {
 }
 
 // strides: host array of (batch, head, token) element strides, three per
-// tensor in the order the entry point lists its tensors
+// tensor in the order the entry point lists its tensors; bf16 reaches here
+// for the forward only
 int run(Kind kind, const Args& base, const long long* strides,
         const int* which, int n_tensors, int dtype, void* stream) {
   Args a = base;
@@ -855,8 +630,8 @@ int run(Kind kind, const Args& base, const long long* strides,
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
     err = launch_f32(kind, a, s);
-  } else if (dtype == 1) {
-    err = dispatch_bf16(kind, a, s);
+  } else if (dtype == 1 && kind == kFwd) {
+    err = launch_fwd_bf16(a, s);
   }
   return static_cast<int>(err);
 }
@@ -876,14 +651,27 @@ Args make_args(int B, int H, int T, int D, int causal, double scale,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q, k, v, dout and the outputs are
+// the bf16 backward kernels, in flash_attention_bwd.cu
+int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
+                       const void* dout, const float* l, const float* m,
+                       const float* di, void* dk, void* dv,
+                       const long long* strides, int B, int H, int T, int D,
+                       int causal, double scale, void* stream);
+int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
+                      const void* dout, const void* o, const float* l,
+                      const float* m, float* di, void* dq,
+                      const long long* strides, int B, int H, int T, int D,
+                      int causal, double scale, void* stream);
+
+// dtype: 0 = float32, 1 = bfloat16.  q, k, v, dout, o and the outputs are
 // (B, H, T, D) with D contiguous; strides (host int64) hold (batch, head,
 // token) element strides per tensor, in argument order.  l, m and di are
-// contiguous (B, H, T) f32.  vec = 1 allows 16-byte loads of the inputs
-// (bf16, every input stride a multiple of 8 elements, pointers 16-byte
-// aligned).  T must be a multiple of 64 (bf16) or 32 (f32); D one of 32, 64,
-// 96, 128 for bf16, at most 128 for f32.  Each returns the cudaError_t of the
-// launch (0 on success).
+// contiguous (B, H, T) f32.  vec = 1 allows the forward 16-byte loads of the
+// inputs (bf16, every input stride a multiple of 8 elements, pointers
+// 16-byte aligned); the bf16 backward needs them so aligned.  T must be a
+// multiple of 64 (bf16) or 32 (f32); D one of 32, 64, 96, 128 for bf16, at
+// most 128 for f32.  Each returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int bf_flash_fwd(const void* q, const void* k, const void* v,
                             void* o, float* l, float* m,
                             const long long* strides, int B, int H, int T,
@@ -900,13 +688,18 @@ extern "C" int bf_flash_fwd(const void* q, const void* k, const void* v,
   return run(kFwd, a, strides, which, 4, dtype, stream);
 }
 
+// dK and dV from di, which bf_flash_bwd_dq wrote
 extern "C" int bf_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 const void* dout, float* l, float* m,
                                 const float* di, void* dk, void* dv,
                                 const long long* strides, int B, int H, int T,
                                 int D, int causal, double scale, int dtype,
-                                int vec, void* stream) {
-  Args a = make_args(B, H, T, D, causal, scale, vec);
+                                void* stream) {
+  if (dtype == 1) {
+    return flash_bwd_dkv_bf16(q, k, v, dout, l, m, di, dk, dv, strides, B, H,
+                              T, D, causal, scale, stream);
+  }
+  Args a = make_args(B, H, T, D, causal, scale, 0);
   a.in[kQ] = q;
   a.in[kK] = k;
   a.in[kV] = v;
@@ -915,26 +708,32 @@ extern "C" int bf_flash_bwd_dkv(const void* q, const void* k, const void* v,
   a.out[3] = dv;
   a.l = l;
   a.m = m;
-  a.di = di;
+  a.di = const_cast<float*>(di);
   const int which[] = {kQ, kK, kV, kDO, kDK, kDV};
   return run(kDkv, a, strides, which, 6, dtype, stream);
 }
 
+// dQ, and di = sum(o * dout) in f32
 extern "C" int bf_flash_bwd_dq(const void* q, const void* k, const void* v,
-                               const void* dout, float* l, float* m,
-                               const float* di, void* dq,
+                               const void* dout, const void* o, float* l,
+                               float* m, float* di, void* dq,
                                const long long* strides, int B, int H, int T,
                                int D, int causal, double scale, int dtype,
-                               int vec, void* stream) {
-  Args a = make_args(B, H, T, D, causal, scale, vec);
+                               void* stream) {
+  if (dtype == 1) {
+    return flash_bwd_dq_bf16(q, k, v, dout, o, l, m, di, dq, strides, B, H, T,
+                             D, causal, scale, stream);
+  }
+  Args a = make_args(B, H, T, D, causal, scale, 0);
   a.in[kQ] = q;
   a.in[kK] = k;
   a.in[kV] = v;
   a.in[kDO] = dout;
+  a.in[kO] = o;
   a.out[1] = dq;
   a.l = l;
   a.m = m;
   a.di = di;
-  const int which[] = {kQ, kK, kV, kDO, kDQ};
-  return run(kDq, a, strides, which, 5, dtype, stream);
+  const int which[] = {kQ, kK, kV, kDO, kO, kDQ};
+  return run(kDq, a, strides, which, 6, dtype, stream);
 }

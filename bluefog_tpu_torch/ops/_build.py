@@ -2,12 +2,13 @@
 
 ``nvcc`` compiles each ``bluefog_tpu_torch/csrc/*.cu`` for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``) into an object file (K1
-``gossip_mix.cu``, K2 ``window_deliver.cu``, K3 ``flash_attention.cu``),
-all sources at once in parallel processes, and links them into one shared
-library with a plain C interface, which :func:`load` binds with ctypes.  The
-library lands in ``bluefog_tpu_torch/_build/`` under a name that carries a
-hash of the sources and flags, so an edited source is rebuilt and a stale
-library is never loaded.
+``gossip_mix.cu``, K2 ``window_deliver.cu``, K3 ``flash_attention.cu`` and
+``flash_attention_bwd.cu``), all sources at once in parallel processes, and
+links them into one shared library with a plain C interface, which
+:func:`load` binds with ctypes.  The library lands in
+``bluefog_tpu_torch/_build/`` under a name that carries a hash of the
+sources and flags, so an edited source is rebuilt and a stale library is
+never loaded.
 Nothing here runs at import time: the CPU tests import every module on a
 machine without ``nvcc``.
 """
@@ -122,13 +123,14 @@ def load() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         # K3: tensor pointers, the host int64 strides, B, H, T, D, causal,
-        # scale, dtype, vec, stream
+        # scale, dtype, then vec (the forward's alone) and the stream
         tail = [ctypes.POINTER(ctypes.c_longlong), i32, i32, i32, i32, i32,
-                ctypes.c_double, i32, i32, ptr]
-        for name, n_ptr in (("bf_flash_fwd", 6), ("bf_flash_bwd_dkv", 9),
-                            ("bf_flash_bwd_dq", 8)):
+                ctypes.c_double, i32]
+        for name, n_ptr, vec in (("bf_flash_fwd", 6, [i32]),
+                                 ("bf_flash_bwd_dkv", 9, []),
+                                 ("bf_flash_bwd_dq", 9, [])):
             fn = getattr(lib, name)
-            fn.argtypes = [ptr] * n_ptr + tail
+            fn.argtypes = [ptr] * n_ptr + tail + vec + [ptr]
             fn.restype = ctypes.c_int
         _lib = lib
         return lib

@@ -10,25 +10,32 @@ split into three ``pallas_call``\\ s and its layout, ``(B, H, T, D)``:
   ``save_residuals``): the output in the input dtype and, per query row, the
   f32 ``(B, H, T)`` sum ``l`` of ``exp(s - m)`` and maximum ``m`` of the
   scaled scores ``s``;
-- :func:`flash_backward_dkv` -> ``(dk, dv)`` (``_flash_attention_bwd_dkv``);
-- :func:`flash_backward_dq` -> ``dq`` (``_flash_attention_bwd_dq``).
+- :func:`flash_backward_dq` -> ``(dq, di)`` (``_flash_attention_bwd_dq``),
+  which also computes ``di = sum(o * do, -1)`` in f32, the library's
+  ``di`` (computed in XLA between its two backward kernels);
+- :func:`flash_backward_dkv` -> ``(dk, dv)`` (``_flash_attention_bwd_dkv``),
+  from that ``di``.
 
-The CUDA source is ``bluefog_tpu_torch/csrc/flash_attention.cu``; its header
-states the bound and the design.  Each wrapper takes any batch, head and
-token strides with ``D`` contiguous (the model's q, k and v are views of its
-fused projection), writes its outputs into ``(B, T, H, D)`` memory (so the
-model's transpose back is a view), launches its kernel on a CUDA tensor (or
-raises) and adds one to its ``launches``; on a CPU tensor, and only there,
-it runs its ``*_plain`` twin, which computes the same function as the
-library: f32 scores of the inputs, ``p = exp(s - m) / l``, ``p`` rounded to
-the input dtype before ``p v`` and ``p^T do``, ``ds = (do v^T - di) p s``
-rounded likewise before ``ds^T q`` and ``ds k``.  On the card the twins are
-the kernels' oracle in ``chip_smoke.py``, never on the path.
+The CUDA sources are ``bluefog_tpu_torch/csrc/flash_attention.cu`` (the
+forward, and the f32 backward) and ``csrc/flash_attention_bwd.cu`` (the bf16
+backward on wgmma); their headers state the bounds and the designs.  Each
+wrapper takes any batch, head and token strides with ``D`` contiguous (the
+model's q, k and v are views of its fused projection), writes its outputs
+into ``(B, T, H, D)`` memory (so the model's transpose back is a view),
+launches its kernel on a CUDA tensor (or raises) and adds one to its
+``launches``; on a CPU tensor, and only there, it runs its ``*_plain`` twin,
+which computes the same function as the library: f32 scores of the inputs,
+``p = exp(s - m) / l``, ``p`` rounded to the input dtype before ``p v`` and
+``p^T do``, ``ds = (do v^T - di) p s`` rounded likewise before ``ds^T q`` and
+``ds k``.  On the card the twins are the kernels' oracle in
+``chip_smoke.py``, never on the path.  The bf16 backward kernels read 16-byte
+vectors: a backward wrapper copies an input whose batch, head or token
+stride is not a multiple of 8 elements, or whose pointer is not 16-byte
+aligned, and counts it in its ``copies`` (the model's views take none).
 
 :class:`FlashAttention` is the ``torch.autograd.Function`` whose forward is
-the forward wrapper and whose backward computes ``di = sum(o * do)`` in f32
-in PyTorch, as the library does between its kernels, then the two backward
-wrappers.  :func:`flash_attention` is the library's entry point.
+the forward wrapper and whose backward launches dQ (with ``di``) and then
+dK/dV.  :func:`flash_attention` is the library's entry point.
 """
 
 from __future__ import annotations
@@ -109,12 +116,15 @@ def flash_backward_dkv_plain(q, k, v, do, l, m, di, *, causal: bool,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_backward_dq_plain(q, k, v, do, l, m, di, *, causal: bool,
-                            scale: float) -> torch.Tensor:
-    """Twin of the dQ kernel: ``dq = ds k``, ``ds`` rounded to ``k``'s dtype
-    first."""
+def flash_backward_dq_plain(q, k, v, do, l, m, o, *, causal: bool,
+                            scale: float
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Twin of the dQ kernel: ``(dq, di)`` with ``di = sum(o * do, -1)`` in
+    f32, as the library computes it, and ``dq = ds k``, ``ds`` rounded to
+    ``k``'s dtype first."""
+    di = (o.float() * do.float()).sum(dim=-1)
     ds = _dscores(_probs(q, k, l, m, scale, causal), v, do, di, scale)
-    return torch.matmul(ds.to(k.dtype).float(), k.float()).to(q.dtype)
+    return torch.matmul(ds.to(k.dtype).float(), k.float()).to(q.dtype), di
 
 
 # --- the kernels' wrappers ---------------------------------------------------
@@ -166,20 +176,39 @@ def _on_card(q, name: str) -> bool:
     return True
 
 
+def _vec16(t: torch.Tensor) -> bool:
+    """Whether a 16-bit tensor's rows allow 16-byte loads: batch, head and
+    token strides a multiple of 8 elements, the pointer 16-byte aligned."""
+    return (t.element_size() == 2 and all(s % 8 == 0 for s in t.stride()[:3])
+            and t.data_ptr() % 16 == 0)
+
+
 def _launch_args(inputs, outputs):
     """The kernels' host array of (batch, head, token) strides, inputs then
-    outputs, and whether every input allows 16-byte loads (bf16, strides a
-    multiple of 8 elements, 16-byte aligned)."""
+    outputs, and whether every input allows 16-byte loads."""
     for t in inputs + outputs:
         if t.stride(-1) != 1:
             raise ValueError("K3 needs the head dim contiguous (stride 1), "
                              f"got strides {t.stride()}")
-    in_strides = [s for t in inputs for s in t.stride()[:3]]
-    vec = int(inputs[0].element_size() == 2
-              and all(s % 8 == 0 for s in in_strides)
-              and all(t.data_ptr() % 16 == 0 for t in inputs))
-    strides = in_strides + [s for t in outputs for s in t.stride()[:3]]
+    vec = int(all(_vec16(t) for t in inputs))
+    strides = [s for t in inputs + outputs for s in t.stride()[:3]]
     return (ctypes.c_longlong * len(strides))(*strides), vec
+
+
+def _aligned(wrapper, inputs):
+    """The bf16 backward kernels' inputs, each copied to fresh contiguous
+    memory (and counted in ``wrapper.copies``) unless it allows 16-byte
+    loads."""
+    if inputs[0].dtype != torch.bfloat16:
+        return inputs
+    out = []
+    for t in inputs:
+        if t.stride(-1) == 1 and not _vec16(t):
+            t = torch.empty(t.shape, dtype=t.dtype,
+                            device=t.device).copy_(t)
+            wrapper.copies += 1
+        out.append(t)
+    return out
 
 
 def _btdh(like: torch.Tensor) -> torch.Tensor:
@@ -222,8 +251,8 @@ def flash_forward(q, k, v, *, causal: bool, scale: float
 def flash_backward_dkv(q, k, v, do, l, m, di, *, causal: bool, scale: float
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dK/dV kernel: ``l`` and ``m`` from :func:`flash_forward`, ``di =
-    sum(o * do, -1)`` in f32 (see :func:`flash_backward_dkv_plain`, which CPU
-    tensors take)."""
+    sum(o * do, -1)`` in f32 from :func:`flash_backward_dq` (see
+    :func:`flash_backward_dkv_plain`, which CPU tensors take)."""
     _check(q, k, v, ("do", do))
     _check_rows(q, ("l", l), ("m", m), ("di", di))
     if not _on_card(q, "flash_backward_dkv"):
@@ -233,15 +262,16 @@ def flash_backward_dkv(q, k, v, do, l, m, di, *, causal: bool, scale: float
 
     lib = _build.load()
     b, h, t, d = q.shape
+    q, k, v, do = _aligned(flash_backward_dkv, [q, k, v, do])
     dk, dv = _btdh(k), _btdh(v)
     l, m, di = l.contiguous(), m.contiguous(), di.contiguous()
-    strides, vec = _launch_args([q, k, v, do], [dk, dv])
+    strides, _ = _launch_args([q, k, v, do], [dk, dv])
     with torch.cuda.device(q.device):
         err = lib.bf_flash_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             l.data_ptr(), m.data_ptr(), di.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), strides, b, h, t, d, int(causal), float(scale),
-            DTYPES[q.dtype][0], vec, _stream(q))
+            DTYPES[q.dtype][0], _stream(q))
     if err != 0:
         raise RuntimeError(f"flash_backward_dkv launch failed: cudaError "
                            f"{err}")
@@ -249,37 +279,43 @@ def flash_backward_dkv(q, k, v, do, l, m, di, *, causal: bool, scale: float
     return dk, dv
 
 
-def flash_backward_dq(q, k, v, do, l, m, di, *, causal: bool, scale: float
-                      ) -> torch.Tensor:
-    """The dQ kernel (arguments as :func:`flash_backward_dkv`; CPU tensors
-    take :func:`flash_backward_dq_plain`)."""
-    _check(q, k, v, ("do", do))
-    _check_rows(q, ("l", l), ("m", m), ("di", di))
+def flash_backward_dq(q, k, v, do, l, m, o, *, causal: bool, scale: float
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dQ kernel: ``(dq, di)``, with ``o`` the forward's output and
+    ``di = sum(o * do, -1)`` in f32, which :func:`flash_backward_dkv` takes
+    (``l`` and ``m`` as there; CPU tensors take
+    :func:`flash_backward_dq_plain`)."""
+    _check(q, k, v, ("do", do), ("o", o))
+    _check_rows(q, ("l", l), ("m", m))
     if not _on_card(q, "flash_backward_dq"):
-        return flash_backward_dq_plain(q, k, v, do, l, m, di, causal=causal,
+        return flash_backward_dq_plain(q, k, v, do, l, m, o, causal=causal,
                                        scale=scale)
     from bluefog_tpu_torch.ops import _build
 
     lib = _build.load()
     b, h, t, d = q.shape
+    q, k, v, do, o = _aligned(flash_backward_dq, [q, k, v, do, o])
     dq = _btdh(q)
-    l, m, di = l.contiguous(), m.contiguous(), di.contiguous()
-    strides, vec = _launch_args([q, k, v, do], [dq])
+    di = torch.empty(b, h, t, dtype=torch.float32, device=q.device)
+    l, m = l.contiguous(), m.contiguous()
+    strides, _ = _launch_args([q, k, v, do, o], [dq])
     with torch.cuda.device(q.device):
         err = lib.bf_flash_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            l.data_ptr(), m.data_ptr(), di.data_ptr(), dq.data_ptr(),
-            strides, b, h, t, d, int(causal), float(scale),
-            DTYPES[q.dtype][0], vec, _stream(q))
+            o.data_ptr(), l.data_ptr(), m.data_ptr(), di.data_ptr(),
+            dq.data_ptr(), strides, b, h, t, d, int(causal), float(scale),
+            DTYPES[q.dtype][0], _stream(q))
     if err != 0:
         raise RuntimeError(f"flash_backward_dq launch failed: cudaError {err}")
     flash_backward_dq.launches += 1
-    return dq
+    return dq, di
 
 
 flash_forward.launches = 0
 flash_backward_dkv.launches = 0
 flash_backward_dq.launches = 0
+flash_backward_dkv.copies = 0
+flash_backward_dq.copies = 0
 
 
 class FlashAttention(torch.autograd.Function):
@@ -299,11 +335,10 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, o, l, m = ctx.saved_tensors
         if do.stride(-1) != 1:
             do = do.contiguous()
-        di = (o.float() * do.float()).sum(dim=-1)
+        dq, di = flash_backward_dq(q, k, v, do, l, m, o, causal=ctx.causal,
+                                   scale=ctx.scale)
         dk, dv = flash_backward_dkv(q, k, v, do, l, m, di, causal=ctx.causal,
                                     scale=ctx.scale)
-        dq = flash_backward_dq(q, k, v, do, l, m, di, causal=ctx.causal,
-                               scale=ctx.scale)
         return dq, dk, dv, None, None
 
 

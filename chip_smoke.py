@@ -8,8 +8,9 @@ its last line:
 
 1. Build: compile the hand-written CUDA kernels from ``bluefog_tpu_torch/csrc``
    (K1 ``gossip_mix.cu``, K2 ``window_deliver.cu``, K3
-   ``flash_attention.cu``) with nvcc for sm_90a, one process per source, and
-   print the seconds it took and ptxas's report.
+   ``flash_attention.cu`` and ``flash_attention_bwd.cu``) with nvcc for
+   sm_90a, one process per source, and print the seconds it took and
+   ptxas's report.
 2. K1 against its plain version on the card: ``gossip_mix`` against
    ``gossip_mix_plain`` in f32 and bf16, over Exponential-2(8) and Ring(8), at
    an unaligned length and at the lengths the main path gives it, plus the
@@ -59,15 +60,21 @@ its last line:
    and that the rounds through K2 equal the rounds through the plain path;
    times the rounds and ``win_update_then_collect``.
 7. K3 against its twins on the card: the forward kernel's ``o``, ``l`` and
-   ``m`` and the backward kernels' ``dk``, ``dv`` and ``dq``, each kernel fed
-   the same inputs as its twin, at (B, H, T, D) = (8, 12, 1024, 64) bf16
-   causal (the GPT path's, q, k and v views of one projection), (32, 12,
-   128, 64) bf16 causal, (2, 4, 256, 64) f32 causal and not, and (1, 2, 384,
-   32) in bf16 and f32.  Then the three kernels' times at the path's shape:
-   each against its bound, its twin and, for the forward,
+   ``m`` and the backward kernels' ``dq``, ``di``, ``dk`` and ``dv``, each
+   kernel fed the same inputs as its twin, at (B, H, T, D) = (8, 12, 1024,
+   64) bf16 causal (the GPT path's, q, k and v views of one projection) and
+   at small shapes that cover every instantiated kernel: bf16 at D = 32, 64,
+   96 and 128, causal and full, and f32 both ways; q, k and v as views of
+   one projection, contiguous, or views whose token stride refuses 16-byte
+   loads (which the bf16 backward wrappers must copy, and no other case
+   may).  Each backward kernel runs twice on the same inputs and must give
+   bit-equal results.  Then the three kernels' times at the path's shape,
+   by profiler device time per call (and by CUDA events, which also count
+   the host's pace): each against its bound, its twin and, for the forward,
    ``F.scaled_dot_product_attention``; the backward through the autograd
-   function against the library call's backward, which the port never
-   calls.
+   function (dQ with di, then dK/dV) against the library call's backward,
+   which the port never calls, by CUDA events and by profiler device time,
+   kernel by kernel.
 8. The transformer path: decentralized SGD of a full-width GPT-small (vocab
    50304, width 768, 12 layers, 12 heads, bf16 compute, f32 params) over 8
    virtual ranks on Exponential-2 with
@@ -75,7 +82,8 @@ its last line:
    0.9), ``--model gpt-small --seq-len 1024`` of the synthetic benchmark at
    a per-rank batch of 8: 2 warm-up and 3 timed steps.  Checks finite and
    falling losses, K1's launches against the fuse plan and K3's (12 layers x
-   8 ranks = 96 of each kernel per step); one step through K3 against the
+   8 ranks = 96 of each kernel per step), and that K3's backward copied none
+   of the path's q, k, v and dO; one step through K3 against the
    same step through K3's twins from the same state (every gradient, the
    losses and the state after the step); a profiled step and the host
    breakdown, as for the ResNet paths.
@@ -133,7 +141,8 @@ def time_ms(fn, reps, warm=2):
 
 def device_ms(fn, reps, warm=2):
     """Mean device milliseconds of ``fn``'s kernels, copies and fills per
-    call, summed from a ``torch.profiler`` trace of ``reps`` calls."""
+    call, summed from a ``torch.profiler`` trace of ``reps`` calls, and the
+    same per kernel name, largest first."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warm):
@@ -143,8 +152,13 @@ def device_ms(fn, reps, warm=2):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3 / reps)
+    return (sum(by_name.values()),
+            sorted(by_name.items(), key=lambda kv: -kv[1]))
 
 
 def max_err(out, ref):
@@ -162,7 +176,8 @@ def phase_build():
     print(f"[build] {', '.join(p.name for p in _build._sources())} -> "
           f"sm_90a in {secs:.2f} s")
     for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line:
+        if any(w in line for w in ("registers", "spill", "wgmma",
+                                   "arning")):
             print(f"[build] {line.strip()}")
     return secs
 
@@ -290,7 +305,7 @@ def _probe_text(row):
             f"cudaMalloc {row['mallocs']}, cudaFree {row['frees']}")
 
 
-def phase_main_path(trainer, kernels, tag, what, unit="img"):
+def phase_main_path(trainer, kernels, tag, what, unit="img", top=8):
     """Drive a trainer's path: every kernel wrapper's launch count in
     ``kernels`` (wrapper -> launches per step) is set to 0 just before the
     run and read just after it, and must equal its launches per step times
@@ -333,7 +348,7 @@ def phase_main_path(trainer, kernels, tag, what, unit="img"):
         check(got == per_step * steps,
               f"{kernel.__name__} launched {got} times on the {tag} path, "
               f"expected {per_step * steps}")
-    prof = profile_step(trainer, top=8)
+    prof = profile_step(trainer, top=top)
     print(f"[{tag}] one more step under torch.profiler: {prof['busy_ms']:.2f}"
           f" ms on the device in {prof['kernels']} kernels, copies and "
           f"fills; device idle {1 - prof['busy_ms'] / mean_ms:.1%} of the "
@@ -607,98 +622,138 @@ def phase_k2(device, win_len):
 
 BF16_PEAK_FLOPS_PER_S = 989e12  # H100 SXM dense bf16, NVIDIA's data sheet
 K3_PATH_SHAPE = (8, 12, 1024, 64)  # GPT-small at T = 1024, per-rank batch 8
-# (B, H, T, D, dtype, causal): the path's shape, the JAX default seq-len,
-# the reference's own f32 shape both ways, a T that is no power of two at
-# the least eligible D
-K3_CASES = [(*K3_PATH_SHAPE, torch.bfloat16, True),
-            (32, 12, 128, 64, torch.bfloat16, True),
-            (2, 4, 256, 64, torch.float32, True),
-            (2, 4, 256, 64, torch.float32, False),
-            (1, 2, 384, 32, torch.bfloat16, True),
-            (1, 2, 384, 32, torch.float32, True)]
+# (B, H, T, D, dtype, causal, layout): the path's shape; the JAX default
+# seq-len; the reference's own f32 shape both ways; every bf16 head dim the
+# kernels instantiate, causal and full, at T that are no power of two among
+# them; a T that is no power of two at the least eligible D.  Layout "proj":
+# q, k and v are views of one (B, T, 3 H D) projection, as the GPT passes
+# them; "dense": contiguous (B, H, T, D); "odd": views of a (B, T, 3 H D +
+# 4) buffer, whose token stride refuses 16-byte loads, so that the bf16
+# backward wrappers copy them first.
+K3_CASES = [(*K3_PATH_SHAPE, torch.bfloat16, True, "proj"),
+            (32, 12, 128, 64, torch.bfloat16, True, "dense"),
+            (2, 4, 256, 64, torch.bfloat16, False, "proj"),
+            (2, 4, 256, 64, torch.bfloat16, True, "odd"),
+            (2, 4, 256, 64, torch.float32, True, "dense"),
+            (2, 4, 256, 64, torch.float32, False, "dense"),
+            (1, 2, 384, 32, torch.bfloat16, True, "dense"),
+            (1, 2, 384, 32, torch.bfloat16, False, "proj"),
+            (1, 2, 384, 32, torch.float32, True, "dense"),
+            (2, 3, 320, 96, torch.bfloat16, True, "proj"),
+            (2, 3, 320, 96, torch.bfloat16, False, "dense"),
+            (2, 3, 192, 128, torch.bfloat16, True, "dense"),
+            (2, 3, 192, 128, torch.bfloat16, False, "proj")]
 # max |kernel - twin| over max |twin|: o and the gradients one bf16 step
 # (2^-8) of slack past a rounding the two may place differently; f32 sums in
-# another order; l and m are f32 in both
+# another order; l, m and di are f32 in both
 K3_TOL = {torch.bfloat16: {"o": 2.0 ** -7, "grad": 2.0 ** -6},
           torch.float32: {"o": 1e-5, "grad": 1e-5}}
 K3_RESIDUAL_TOL = 1e-5
 
 
-def _qkv_views(b, h, t, d, dtype, gen, device):
+def _qkv_views(b, h, t, d, dtype, gen, device, pad=0):
     """q, k, v as the GPT passes them to K3: (B, H, T, D) views of one
-    (B, T, 3 H D) projection."""
-    qkv = torch.randn(b, t, 3 * h * d, generator=gen, device=device,
+    (B, T, 3 H D + pad) projection."""
+    qkv = torch.randn(b, t, 3 * h * d + pad, generator=gen, device=device,
                       dtype=torch.float32).to(dtype)
     return [x.unflatten(-1, (h, d)).transpose(1, 2)
-            for x in qkv.split(h * d, dim=-1)]
+            for x in qkv[..., :3 * h * d].split(h * d, dim=-1)]
+
+
+def _k3_inputs(b, h, t, d, dtype, layout, gen, device):
+    if layout == "dense":
+        return [torch.randn(b, h, t, d, generator=gen, device=device)
+                .to(dtype) for _ in range(3)]
+    return _qkv_views(b, h, t, d, dtype, gen, device,
+                      pad=4 if layout == "odd" else 0)
 
 
 def _k3_work(b, h, t, d, causal, elem):
     """(flops, bytes) of each K3 kernel on these inputs: the (query, key)
     pairs the mask keeps times 2 D per product (forward: S and P V; dK/dV: S,
     dP, dV, dK; dQ: S, dP, dQ), and each input read and each output written
-    once."""
+    once (dQ reads o too and writes di)."""
     pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
     tile = b * h * t * d * elem
     rows = b * h * t * 4
     return {"fwd": (4 * d * pairs, 4 * tile + 2 * rows),
             "dkv": (8 * d * pairs, 6 * tile + 3 * rows),
-            "dq": (6 * d * pairs, 5 * tile + 3 * rows)}
+            "dq": (6 * d * pairs, 6 * tile + 3 * rows)}
+
+
+def _rel(got, ref):
+    """(max |got - ref|, that over max |ref|) in f64."""
+    abs_err = float((got.double() - ref.double()).abs().max())
+    return abs_err, abs_err / max(float(ref.double().abs().max()), 1e-30)
 
 
 def phase_k3(device):
     """K3's three kernels against their twins at every shape of K3_CASES,
-    each kernel fed the same inputs as its twin; then their times at the
-    GPT path's shape against their bounds, their twins and
-    ``F.scaled_dot_product_attention``, which the port never calls."""
+    each kernel fed the same inputs as its twin, dQ's di against the f32
+    sum, and each backward kernel launched twice on the same inputs for
+    bit-equal results; then their times at the GPT path's shape against
+    their bounds, their twins and ``F.scaled_dot_product_attention``, which
+    the port never calls."""
     import torch.nn.functional as F
     from bluefog_tpu_torch.ops import flash_kernel as fk
 
     gen = torch.Generator(device=device).manual_seed(2024)
     path_err = {}
-    for b, h, t, d, dtype, causal in K3_CASES:
+    for b, h, t, d, dtype, causal, layout in K3_CASES:
         scale = 1.0 / math.sqrt(d)
-        if (b, h, t, d) == K3_PATH_SHAPE:
-            q, k, v = _qkv_views(b, h, t, d, dtype, gen, device)
-        else:
-            q, k, v = (torch.randn(b, h, t, d, generator=gen, device=device)
-                       .to(dtype) for _ in range(3))
+        q, k, v = _k3_inputs(b, h, t, d, dtype, layout, gen, device)
         do = torch.randn(b, h, t, d, generator=gen, device=device).to(dtype)
         kw = {"causal": causal, "scale": scale}
+        copies = fk.flash_backward_dq.copies + fk.flash_backward_dkv.copies
         o, l, m = fk.flash_forward(q, k, v, **kw)
         o_p, l_p, m_p = fk.flash_forward_plain(q, k, v, **kw)
-        di = (o_p.float() * do.float()).sum(-1)
-        dk, dv = fk.flash_backward_dkv(q, k, v, do, l_p, m_p, di, **kw)
-        dk_p, dv_p = fk.flash_backward_dkv_plain(q, k, v, do, l_p, m_p, di,
+        dq, di = fk.flash_backward_dq(q, k, v, do, l_p, m_p, o_p, **kw)
+        dq_p, di_p = fk.flash_backward_dq_plain(q, k, v, do, l_p, m_p, o_p,
+                                                **kw)
+        dk, dv = fk.flash_backward_dkv(q, k, v, do, l_p, m_p, di_p, **kw)
+        dk_p, dv_p = fk.flash_backward_dkv_plain(q, k, v, do, l_p, m_p, di_p,
                                                  **kw)
-        dq = fk.flash_backward_dq(q, k, v, do, l_p, m_p, di, **kw)
-        dq_p = fk.flash_backward_dq_plain(q, k, v, do, l_p, m_p, di, **kw)
+        # a second launch of each backward kernel on the same inputs
+        dq_2, di_2 = fk.flash_backward_dq(q, k, v, do, l_p, m_p, o_p, **kw)
+        dk_2, dv_2 = fk.flash_backward_dkv(q, k, v, do, l_p, m_p, di_p, **kw)
         torch.cuda.synchronize()
+        copies = (fk.flash_backward_dq.copies + fk.flash_backward_dkv.copies
+                  - copies)
+        # q, k and v of the four backward calls
+        want = 12 if layout == "odd" and dtype == torch.bfloat16 else 0
+        check(copies == want, f"K3's backward wrappers copied {copies} "
+              f"inputs of a {layout} {dtype} case, expected {want}")
+        same = all(torch.equal(x, y) for x, y in (
+            (dq, dq_2), (di, di_2), (dk, dk_2), (dv, dv_2)))
+        check(same, f"two launches of K3's backward differ at ({b}, {h}, "
+              f"{t}, {d}) {dtype} causal={causal}")
         tol = K3_TOL[dtype]
         readings = []
         for name, got, ref, lim in (
                 ("o", o, o_p, tol["o"]), ("l", l, l_p, K3_RESIDUAL_TOL),
-                ("m", m, m_p, K3_RESIDUAL_TOL), ("dk", dk, dk_p, tol["grad"]),
-                ("dv", dv, dv_p, tol["grad"]), ("dq", dq, dq_p, tol["grad"])):
+                ("m", m, m_p, K3_RESIDUAL_TOL),
+                ("di", di, di_p, K3_RESIDUAL_TOL),
+                ("dk", dk, dk_p, tol["grad"]), ("dv", dv, dv_p, tol["grad"]),
+                ("dq", dq, dq_p, tol["grad"])):
             check(got.dtype == ref.dtype and got.shape == ref.shape,
                   f"K3 {name} is {got.dtype} {tuple(got.shape)}, its twin "
                   f"{ref.dtype} {tuple(ref.shape)}")
-            abs_err = float((got.double() - ref.double()).abs().max())
-            rel = abs_err / max(float(ref.double().abs().max()), 1e-30)
+            abs_err, rel = _rel(got, ref)
             readings.append(f"{name} {rel:.2e}/{lim:.1e}")
             check(math.isfinite(rel) and rel <= lim,
                   f"K3 {name} disagrees with its twin at (B, H, T, D) = "
                   f"({b}, {h}, {t}, {d}) {dtype} causal={causal}: {rel} > "
                   f"{lim}")
             if (b, h, t, d) == K3_PATH_SHAPE:
-                kernel = {"o": "fwd", "l": "fwd", "m": "fwd", "dk": "dkv",
-                          "dv": "dkv", "dq": "dq"}[name]
+                kernel = {"o": "fwd", "l": "fwd", "m": "fwd", "di": "dq",
+                          "dk": "dkv", "dv": "dkv", "dq": "dq"}[name]
                 path_err[kernel] = max(path_err.get(kernel, 0.0), abs_err)
         print(f"[k3] (B, H, T, D) = ({b}, {h}, {t}, {d}) {str(dtype)[6:]} "
-              f"causal={causal}: max |kernel - twin| / max |twin| (tol): "
-              f"{', '.join(readings)}")
-        del q, k, v, do, o, l, m, o_p, l_p, m_p, di, dk, dv, dk_p, dv_p
-        del dq, dq_p
+              f"causal={causal} {layout}: max |kernel - twin| / max |twin| "
+              f"(tol): {', '.join(readings)}; backward twice bit-equal; "
+              f"{copies} inputs copied")
+        del q, k, v, do, o, l, m, o_p, l_p, m_p, di, di_p, dk, dv, dk_p
+        del dv_p, dq, dq_p, dq_2, di_2, dk_2, dv_2
 
     # times at the path's shape, causal bf16, q, k, v views of one projection
     b, h, t, d = K3_PATH_SHAPE
@@ -707,50 +762,55 @@ def phase_k3(device):
     do = torch.randn(b, h, t, d, generator=gen, device=device).to(
         torch.bfloat16)
     o, l, m = fk.flash_forward(q, k, v, **kw)
-    di = (o.float() * do.float()).sum(-1)
+    _, di = fk.flash_backward_dq(q, k, v, do, l, m, o, **kw)
     calls = {
         "fwd": (lambda: fk.flash_forward(q, k, v, **kw),
                 lambda: fk.flash_forward_plain(q, k, v, **kw)),
         "dkv": (lambda: fk.flash_backward_dkv(q, k, v, do, l, m, di, **kw),
                 lambda: fk.flash_backward_dkv_plain(q, k, v, do, l, m, di,
                                                     **kw)),
-        "dq": (lambda: fk.flash_backward_dq(q, k, v, do, l, m, di, **kw),
-               lambda: fk.flash_backward_dq_plain(q, k, v, do, l, m, di,
+        "dq": (lambda: fk.flash_backward_dq(q, k, v, do, l, m, o, **kw),
+               lambda: fk.flash_backward_dq_plain(q, k, v, do, l, m, o,
                                                   **kw)),
     }
     # the library's fused attention on the same (B, H, T, D) views
     qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
-    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True), reps=20)
+    sdpa_fwd = device_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), reps=20)[0]
     out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
     sdpa_bwd = time_ms(lambda: torch.autograd.grad(
         out, (qs, ks, vs), do, retain_graph=True), reps=20)
     work = _k3_work(b, h, t, d, True, 2)
     res = {}
     for name, (kernel, plain) in calls.items():
-        t_k = time_ms(kernel, reps=20)
+        # the kernel's time is its device time per call: CUDA events around
+        # back-to-back calls also count the host's pace of issuing them,
+        # which is near a backward kernel's own time
+        t_k = device_ms(kernel, reps=20)[0]
+        t_ev = time_ms(kernel, reps=20)
         t_p = time_ms(plain, reps=3)
         n_flops, n_bytes = work[name]
         bound_ms, bound_by = _bound(n_bytes, n_flops, BF16_PEAK_FLOPS_PER_S)
         lib = sdpa_fwd if name == "fwd" else None
         print(f"[k3] time {name} bf16 causal (B, H, T, D) = ({b}, {h}, {t}, "
-              f"{d}): kernel {t_k:.4f} ms, twin {t_p:.4f} ms, bound "
+              f"{d}): kernel {t_k:.4f} ms by device time ({t_ev:.4f} ms by "
+              f"CUDA events), twin {t_p:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}: {n_flops / 1e9:.2f} GFLOP, "
               f"{n_bytes / 1e6:.2f} MB), {bound_ms / t_k:.1%} of "
               f"the bound" + (f"; scaled_dot_product_attention forward "
-                              f"{lib:.4f} ms" if lib is not None else ""))
+                              f"{lib:.4f} ms by device time"
+                              if lib is not None else ""))
         res[name] = {"max_abs_err": path_err[name], "ms": t_k,
                      "plain_ms": t_p, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": lib}
-    # the backward as the autograd function runs it: di, dK/dV and dQ
+    # the backward as the autograd function runs it: dQ with di, then dK/dV
     qa, ka, va = (x.detach().requires_grad_() for x in (q, k, v))
     oa = fk.flash_attention(qa, ka, va, causal=True, sm_scale=kw["scale"])
     t_bwd = time_ms(lambda: torch.autograd.grad(
         oa, (qa, ka, va), do, retain_graph=True), reps=20)
-    print(f"[k3] backward through FlashAttention (di + dK/dV + dQ) "
+    print(f"[k3] backward through FlashAttention (dQ with di, then dK/dV) "
           f"{t_bwd:.4f} ms against scaled_dot_product_attention's backward "
-          f"{sdpa_bwd:.4f} ms; forward {res['fwd']['ms']:.4f} ms against "
-          f"{sdpa_fwd:.4f} ms (CUDA events around back-to-back calls)")
+          f"{sdpa_bwd:.4f} ms (CUDA events around back-to-back calls)")
     # the same calls by the device time of their kernels, which the host's
     # pace of issuing autograd calls cannot inflate
     dev = {name: device_ms(fn, reps=10) for name, fn in (
@@ -763,10 +823,13 @@ def phase_k3(device):
         ("sdpa_bwd", lambda: torch.autograd.grad(
             out, (qs, ks, vs), do, retain_graph=True)))}
     print(f"[k3] device time per call (torch.profiler, the call's kernels, "
-          f"copies and fills summed): forward K3 {dev['k3_fwd']:.4f} ms, "
-          f"scaled_dot_product_attention {dev['sdpa_fwd']:.4f} ms; backward "
-          f"K3 (di + dK/dV + dQ) {dev['k3_bwd']:.4f} ms, "
-          f"scaled_dot_product_attention {dev['sdpa_bwd']:.4f} ms")
+          f"copies and fills summed): forward K3 {dev['k3_fwd'][0]:.4f} ms, "
+          f"scaled_dot_product_attention {dev['sdpa_fwd'][0]:.4f} ms; "
+          f"backward K3 (dQ with di + dK/dV) {dev['k3_bwd'][0]:.4f} ms, "
+          f"scaled_dot_product_attention {dev['sdpa_bwd'][0]:.4f} ms")
+    for name in ("k3_bwd", "sdpa_bwd"):
+        for kname, ms in dev[name][1]:
+            print(f"[k3]   {name}: {ms:.4f} ms per call in {kname[:90]}")
     return res
 
 
@@ -941,13 +1004,18 @@ def phase_gpt(device):
           f"leaves, built in {time.perf_counter() - t0:.2f} s; fuse plan = "
           f"{len(groups)} fused buffer(s) + {len(big)} leaves >= 8 MiB; "
           f"tokens {tuple(trainer.batch[0].shape)}")
+    fk.flash_backward_dq.copies = fk.flash_backward_dkv.copies = 0
     launches, res = phase_main_path(
         trainer, {gossip_mix: len(groups) + len(big),
                   fk.flash_forward: k3_per_step,
                   fk.flash_backward_dkv: k3_per_step,
                   fk.flash_backward_dq: k3_per_step}, "gpt",
         f"GPT-small x {N_RANKS} virtual ranks, exp2, batch {GPT_BATCH} x seq "
-        f"{GPT_SEQ}/rank, bf16", unit="seq")
+        f"{GPT_SEQ}/rank, bf16", unit="seq", top=16)
+    copies = fk.flash_backward_dq.copies + fk.flash_backward_dkv.copies
+    print(f"[gpt] inputs the K3 backward wrappers copied for 16-byte loads: "
+          f"{copies}")
+    check(copies == 0, f"the GPT path's q, k, v or dO took {copies} copies")
     mean_ms = sum(res["step_ms"]) / TIMED
     first, last = res["losses"][0].mean(), res["losses"][-1].mean()
     print(f"[gpt] {N_RANKS * GPT_BATCH * GPT_SEQ / mean_ms * 1e3:.1f} tokens/s"
@@ -1052,13 +1120,14 @@ def main():
     }] + [{
         "name": name,
         "route": "cuda",
-        "source": "bluefog_tpu_torch/csrc/flash_attention.cu",
+        "source": f"bluefog_tpu_torch/csrc/{src}",
         "replaces": f"{fa}:{line} {via}",
         "launches": k3_launches[name],
         **k3[part],
-    } for name, part, line in (("flash_forward", "fwd", 589),
-                               ("flash_backward_dkv", "dkv", 941),
-                               ("flash_backward_dq", "dq", 1287))]
+    } for name, part, src, line in (
+        ("flash_forward", "fwd", "flash_attention.cu", 589),
+        ("flash_backward_dkv", "dkv", "flash_attention_bwd.cu", 941),
+        ("flash_backward_dq", "dq", "flash_attention_bwd.cu", 1287))]
     print("kernels: K1 gossip_mix (cuda, bluefog_tpu_torch/csrc/gossip_mix.cu"
           f", replaces neighbor_allreduce_pallas): {k1_launches} launches on "
           f"the main path, {k1['ms']:.4f} ms per step against a "
@@ -1071,7 +1140,8 @@ def main():
           f"{k2_push['bound_ms']:.4f} ms ({push_launches} launches in "
           f"{PUSH_ROUNDS} rounds); win_update {update_ms:.4f} ms; K3 (cuda,"
           " bluefog_tpu_torch/csrc/flash_attention.cu, replaces the library "
-          "flash_attention of local_attention) on the GPT path: "
+          "flash_attention of local_attention; the bf16 backward in "
+          "flash_attention_bwd.cu) on the GPT path: "
           + ", ".join(f"{n} {k3_launches[n]} launches, {k3[p]['ms']:.4f} ms "
                       f"against a {k3[p]['bound_ms']:.4f} ms bound"
                       for n, p in (("flash_forward", "fwd"),

@@ -7,9 +7,11 @@ the CUDA kernels themselves are held against the same twins on the card by
 - the library kernel the JAX model takes on a TPU,
   ``jax.experimental.pallas.ops.tpu.flash_attention``, run here under
   ``pltpu.force_tpu_interpret_mode()`` with the tiles ``_flash_block_sizes``
-  gives it: its ``(o, l, m)`` residuals and the gradients of ``sum(o * w)``,
-  against the twins' ``(o, l, m)`` and the gradients through the port's
-  ``FlashAttention`` autograd function, at (B, H, T, D) = (1, 2, 256, 64);
+  gives it: its ``(o, l, m)`` residuals and the gradients of ``sum(o * w)``
+  (its custom VJP's forward and backward rules, jitted, one forward for
+  both), against the twins' ``(o, l, m)`` and the gradients through the
+  port's ``FlashAttention`` autograd function, at (B, H, T, D) = (1, 2, 256,
+  64), and its ``di`` formula against the dQ twin's ``di``;
 - the JAX ``local_attention(backend="dense")``, against the port's
   ``local_attention`` on eligible and ineligible calls.
 
@@ -51,6 +53,22 @@ def _pinned_torch_threads():
     torch.set_num_threads(prev)
 
 
+@pytest.fixture(scope="module")
+def _warm_interpreter():
+    """One small library call in interpret mode and one through the port's
+    autograd function, so that the one-time start-up of JAX's CPU compiler,
+    the Pallas interpreter and torch's CPU kernels is paid once per module
+    and not by whichever interpret-mode case runs first."""
+    t = 128
+    x = jnp.zeros((1, 1, t, 64), jnp.float32)
+    with pltpu.force_tpu_interpret_mode():
+        jax.block_until_ready(jax.jit(_library_vjp, static_argnums=(4, 5, 6))(
+            x, x, x, x, True, 1.0, jra._flash_block_sizes(t)))
+    y = torch.zeros(1, 1, t, 64, requires_grad=True)
+    torch.autograd.grad(fk.flash_attention(y, y, y, causal=True), (y,),
+                        torch.ones(1, 1, t, 64))
+
+
 def _arrays(shape, n, seed):
     rng = np.random.default_rng(seed)
     return [rng.standard_normal(shape).astype(np.float32) for _ in range(n)]
@@ -70,9 +88,22 @@ def _rel_err(got, want):
                  / max(float(np.abs(want).max()), 1e-30))
 
 
+def _library_vjp(q, k, v, w, causal, scale, blocks):
+    """The library's ``(o, l, m)`` and the gradients of ``sum(o * w)``: its
+    custom VJP's forward rule (which keeps ``o``, ``l`` and ``m`` as
+    residuals) and backward rule, as ``jax.vjp`` of ``flash_attention``
+    runs them, with one forward for both."""
+    o, res = lib_fa._flash_attention_fwd(q, k, v, None, None, False, causal,
+                                         scale, blocks, False)
+    dq, dk, dv = lib_fa._flash_attention_bwd(False, causal, scale, blocks,
+                                             False, res, w)[:3]
+    return o, res[-2], res[-1], dq, dk, dv
+
+
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_twins_match_the_library_kernel_in_interpret_mode(dtype, causal):
+def test_twins_match_the_library_kernel_in_interpret_mode(dtype, causal,
+                                                         _warm_interpreter):
     b, h, t, d = 1, 2, 256, 64
     scale = 1.0 / np.sqrt(d)
     q, k, v, w = _arrays((b, h, t, d), 4, seed=11 + causal)
@@ -80,15 +111,12 @@ def test_twins_match_the_library_kernel_in_interpret_mode(dtype, causal):
     jq, jk, jv, jw = (jnp.asarray(a).astype(jdt) for a in (q, k, v, w))
     blocks = jra._flash_block_sizes(t)
     with pltpu.force_tpu_interpret_mode():
-        o, l, m = lib_fa._flash_attention(jq, jk, jv, None, None, True,
-                                          causal, scale, blocks, False)
-        _, vjp = jax.vjp(lambda *x: lib_fa.flash_attention(
-            *x, causal=causal, sm_scale=scale, block_sizes=blocks),
-            jq, jk, jv)
-        grads = vjp(jw)
-    want = {"o": o, "l": l, "m": m, "dq": grads[0], "dk": grads[1],
-            "dv": grads[2]}
-    want = {n: np.asarray(x.astype(jnp.float32)) for n, x in want.items()}
+        # jitted: the interpreter's trace compiles once instead of running
+        # op by op
+        got_lib = jax.jit(_library_vjp, static_argnums=(4, 5, 6))(
+            jq, jk, jv, jw, causal, scale, blocks)
+    want = {n: np.asarray(x.astype(jnp.float32))
+            for n, x in zip(("o", "l", "m", "dq", "dk", "dv"), got_lib)}
 
     launches = (fk.flash_forward.launches, fk.flash_backward_dkv.launches,
                 fk.flash_backward_dq.launches)
@@ -214,22 +242,111 @@ def test_forced_flash_on_ineligible_raises():
 
 
 def test_wrappers_check_and_count_only_card_launches():
-    q, k, v = (torch.randn(1, 2, 128, 32) for _ in range(3))
-    before = (fk.flash_forward.launches, fk.flash_backward_dkv.launches,
-              fk.flash_backward_dq.launches)
+    q, k, v, do = (torch.randn(1, 2, 128, 32) for _ in range(4))
+    def counts():
+        return (fk.flash_forward.launches, fk.flash_backward_dkv.launches,
+                fk.flash_backward_dq.launches, fk.flash_backward_dkv.copies,
+                fk.flash_backward_dq.copies)
+
+    before = counts()
     o, l, m = fk.flash_forward(q, k, v, causal=True, scale=0.5)
-    di = (o * o).sum(-1)
-    fk.flash_backward_dkv(q, k, v, o, l, m, di, causal=True, scale=0.5)
-    fk.flash_backward_dq(q, k, v, o, l, m, di, causal=True, scale=0.5)
-    assert (fk.flash_forward.launches, fk.flash_backward_dkv.launches,
-            fk.flash_backward_dq.launches) == before
+    dq, di = fk.flash_backward_dq(q, k, v, do, l, m, o, causal=True,
+                                  scale=0.5)
+    dk, dv = fk.flash_backward_dkv(q, k, v, do, l, m, di, causal=True,
+                                   scale=0.5)
+    assert dq.shape == dk.shape == dv.shape == q.shape
+    assert di.shape == l.shape and di.dtype == torch.float32
+    assert counts() == before
     with pytest.raises(ValueError, match="shape"):
         fk.flash_forward(q, k[:, :, :64], v, causal=True, scale=0.5)
     with pytest.raises(TypeError):
         fk.flash_forward(q, k.double(), v, causal=True, scale=0.5)
     with pytest.raises(ValueError, match="float32"):
-        fk.flash_backward_dq(q, k, v, o, l.double(), m, di, causal=True,
+        fk.flash_backward_dq(q, k, v, do, l.double(), m, o, causal=True,
+                             scale=0.5)
+    with pytest.raises(ValueError, match="float32"):
+        fk.flash_backward_dkv(q, k, v, do, l, m, di[..., :64], causal=True,
+                              scale=0.5)
+    # dQ takes the forward's o, of q's shape and dtype
+    with pytest.raises(ValueError, match="shape"):
+        fk.flash_backward_dq(q, k, v, do, l, m, o[:, :, :64], causal=True,
+                             scale=0.5)
+    with pytest.raises(TypeError):
+        fk.flash_backward_dq(q, k, v, do, l, m, o.double(), causal=True,
                              scale=0.5)
     meta = [t.to("meta") for t in (q, k, v)]
     with pytest.raises(ValueError, match="cuda or cpu"):
         fk.flash_forward(*meta, causal=True, scale=0.5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dq_twin_returns_the_library_di(dtype):
+    """The dQ twin's ``di`` is ``sum(o * do, -1)`` in f32: the same as
+    torch's sum and as the library's formula (``flash_attention.py``'s VJP
+    rule) on the same values."""
+    b, h, t, d = 2, 3, 128, 64
+    q, k, v, do = _arrays((b, h, t, d), 4, seed=21)
+    tdt = getattr(torch, dtype)
+    tq, tk, tv, tdo = (_to_torch(a, tdt) for a in (q, k, v, do))
+    o, l, m = fk.flash_forward(tq, tk, tv, causal=True, scale=0.125)
+    dq, di = fk.flash_backward_dq(tq, tk, tv, tdo, l, m, o, causal=True,
+                                  scale=0.125)
+    assert di.dtype == torch.float32 and di.shape == (b, h, t)
+    assert dq.dtype == tdt
+    ref = (o.float() * tdo.float()).sum(-1)
+    assert _rel_err(_np(di), _np(ref)) <= RESIDUAL_TOL
+    jo = jnp.asarray(_np(o)).astype(getattr(jnp, dtype))
+    jdo = jnp.asarray(do).astype(getattr(jnp, dtype))
+    lib = jnp.sum(jo.astype(jnp.float32) * jdo.astype(jnp.float32), axis=-1)
+    assert _rel_err(_np(di), np.asarray(lib)) <= RESIDUAL_TOL
+
+
+def test_backward_runs_dq_first_and_hands_its_di_to_dkv(monkeypatch):
+    calls = []
+    dq_fn, dkv_fn = fk.flash_backward_dq, fk.flash_backward_dkv
+
+    def dq(*args, **kw):
+        out = dq_fn(*args, **kw)
+        calls.append(("dq", out[1]))
+        return out
+
+    def dkv(q, k, v, do, l, m, di, **kw):
+        calls.append(("dkv", di))
+        return dkv_fn(q, k, v, do, l, m, di, **kw)
+
+    monkeypatch.setattr(fk, "flash_backward_dq", dq)
+    monkeypatch.setattr(fk, "flash_backward_dkv", dkv)
+    q, k, v, w = (_to_torch(a, torch.float32).requires_grad_()
+                  for a in _arrays((1, 2, 128, 32), 4, seed=8))
+    out = fk.flash_attention(q, k, v, causal=True, sm_scale=0.25)
+    torch.autograd.grad(out, (q, k, v), w.detach())
+    assert [name for name, _ in calls] == ["dq", "dkv"]
+    assert calls[1][1] is calls[0][1]
+
+
+def test_backward_copies_only_views_that_refuse_16_byte_loads():
+    """The bf16 backward kernels' alignment gate, which runs before a
+    launch: the model's q, k and v (views of one (B, T, 3 H D) projection)
+    and a (B, T, H, D) gradient pass as they are; a view with a token
+    stride that is no multiple of 8 elements, or at an odd offset, is
+    copied to fresh memory and counted; f32 passes untouched."""
+    b, t, h, d = 2, 64, 3, 32
+    qkv = torch.randn(b, t, 3 * h * d).to(torch.bfloat16)
+    views = [x.unflatten(-1, (h, d)).transpose(1, 2)
+             for x in qkv.split(h * d, dim=-1)]
+    grad = torch.randn(b, t, h, d).to(torch.bfloat16).transpose(1, 2)
+    counter = type("Wrapper", (), {"copies": 0})
+    got = fk._aligned(counter, views + [grad])
+    assert all(x is y for x, y in zip(got, views + [grad]))
+    assert counter.copies == 0
+    wide = torch.randn(b, t, h * d + 4).to(torch.bfloat16)
+    odd_stride = wide[..., :h * d].unflatten(-1, (h, d)).transpose(1, 2)
+    flat = torch.randn(b * t * h * d + 1).to(torch.bfloat16)
+    odd_offset = flat[1:].view(b, t, h, d).transpose(1, 2)
+    assert fk._vec16(flat[:-1].view(b, t, h, d).transpose(1, 2))
+    got = fk._aligned(counter, [views[0], odd_stride, odd_offset])
+    assert got[0] is views[0] and counter.copies == 2
+    for x, y in zip(got[1:], (odd_stride, odd_offset)):
+        assert x is not y and torch.equal(x, y) and fk._vec16(x)
+    f32 = [x.float() for x in (odd_stride, odd_offset)]
+    assert fk._aligned(counter, f32) == f32 and counter.copies == 2
