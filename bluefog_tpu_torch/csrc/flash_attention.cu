@@ -17,11 +17,10 @@
 // over the other axis itself (FlashAttention-2's shape), since CUDA blocks run
 // in parallel, in no order:
 //
-// - forward: one block per (batch*head, 64-row query tile) loops over the
-//   64-key tiles (up to the diagonal when causal): S = Q K^T s, an online
-//   softmax in f32 (running max and sum per row), O += P V with P rounded to
-//   the input dtype, as the library rounds it.  O is stored in the input
-//   dtype, l and m in f32.
+// - forward: each 64-row query tile loops over the 64-key tiles (up to the
+//   diagonal when causal): S = Q K^T s, an online softmax in f32 (running
+//   max and sum per row), O += P V with P rounded to the input dtype, as the
+//   library rounds it.  O is stored in the input dtype, l and m in f32.
 // - dQ, launched first: one block per query tile computes D_i = rowsum(O *
 //   dO) of its rows (the library computes it in XLA between its kernels),
 //   writes it, and loops over the key tiles: dS = P (dO V^T - D_i) s, dQ +=
@@ -40,35 +39,53 @@
 // qkv projection, read in place.
 //
 // This file holds the forward in both dtypes and the f32 backward; the bf16
-// backward is flash_attention_bwd.cu (wgmma, pipelined cp.async tile loads),
-// which states its own design and bound.  The bf16 forward runs on the
-// tensor cores: mma.sync.m16n8k16 with f32 accumulation, four warps per
-// block, each warp owning 16 rows of the tile; S stays in registers, and its
-// accumulator fragment is reused as the A operand of P V (FA2's register
-// reuse).  Head dims 32, 64, 96 and 128 are instantiated.  f32 runs on plain
-// f32 FMA (32-row tiles in shared memory, any head dim up to 128), never in
+// backward is flash_attention_bwd.cu, and the wgmma, swizzle and cp.async
+// helpers both bf16 files use are flash_wgmma.cuh.  f32 runs on plain f32
+// FMA (32-row tiles in shared memory, any head dim up to 128), never in
 // TF32.
+//
+// The bf16 forward (fwd_wgmma, head dims 32, 64, 96 and 128) on Hopper:
+// - One warpgroup (128 threads) a block owns 64 query rows.  S = Q K^T runs
+//   on wgmma.mma_async m64n64k16 with Q (resident for the whole loop) and K
+//   from shared memory, both K-major; the online softmax works on the
+//   accumulator in registers (the quad of threads that holds a row reduces
+//   its max with two shuffles, and its sum once, at the end); P, rounded to
+//   bf16, is the A operand of O += P V straight from registers, with V read
+//   MN-major (D contiguous) from the same swizzled tile layout.
+// - Step j issues S_j and the previous tile's P V back to back, eight
+//   products in one batch, and runs tile j's softmax once S_j is in (the
+//   shape of FlashAttention-3's overlap within a warpgroup; ptxas still
+//   waits for P V before the softmax, so the two take turns, and PERF.md
+//   has what that costs).  Both products are waited on inside the step,
+//   and the first and last steps are peeled, so every wgmma pipeline is
+//   straight-line code: ptxas serialises the products of a pipeline that
+//   spans a branch (its note C7520), which made each product wait for the
+//   one before.
+// - K and V come through two slots each, filled by cp.async one tile ahead
+//   (V a step after its K); one block barrier per step orders the loads and
+//   the products.  The wrapper copies a q, k or v whose strides or pointer
+//   refuse 16-byte loads; the model's views never do.
+// - Each row's maximum is taken on the unscaled scores and each exponent
+//   is one FMA and one ex2.approx.ftz, the scale folded into log2(e) (the
+//   wrapper folds a negative scale into q); O is rescaled only when a
+//   warp's maxima moved; only the diagonal tile pays for the causal mask;
+//   the longest causal rows get the lowest block ids; the launch asks for
+//   the largest shared-memory carveout, which the four blocks an SM that
+//   the registers allow at D = 64 need (4 x 41 KB).
 //
 // What bounds it: at the transformer path's shape (B=8, H=12, T=1024, D=64,
 // causal) the forward does 4 B H D T(T+1)/2 = 1.29e10 flops against 5.1e7
 // bytes of q, k, v, o, l and m: 0.013 ms at 989 TFLOP/s against 0.015 ms at
-// 3.35 TB/s, so the two bounds nearly meet.  The forward is still the simple
-// first version: mma.sync from padded shared memory (row stride D + 8
-// halves, free of bank conflicts for the fragment loads), synchronous tile
-// loads, no wgmma, TMA, pipelining or warp specialisation; it reaches a
-// fraction of the bound, and PERF.md records how much.
+// 3.35 TB/s, so the two bounds nearly meet; the exponentials (one per
+// score, on the special function units) take about as long as the products
+// beside them.  PERF.md has how far from the bound it runs.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_wgmma.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;        // four warps
-constexpr int kTile = 64;            // rows per tile, tensor-core kernels
+constexpr int kThreads = 128;        // f32 kernels: four warps
 constexpr int kTile32 = 32;          // rows per tile, f32 kernels
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 enum { kQ = 0, kK, kV, kDO, kO, kDQ, kDK, kDV, kNumTensors };
@@ -80,7 +97,7 @@ struct Args {
   float* m;              // (B, H, T) f32 row maxima
   float* di;             // (B, H, T) f32: written by dQ, read by dK/dV
   long long st[kNumTensors][3];  // (batch, head, token) strides, elements
-  int B, H, T, D, causal, vec;
+  int B, H, T, D, causal;
   float scale;
 };
 
@@ -90,242 +107,194 @@ __device__ __forceinline__ long long base_off(const Args& a, int which, int b,
   return b * a.st[which][0] + h * a.st[which][1];
 }
 
-// --- bf16 -------------------------------------------------------------------
+// --- bf16 forward (wgmma) ---------------------------------------------------
 
-struct BF16 {
-  static __device__ __forceinline__ uint16_t bits(float x) {
-    return __bfloat16_as_ushort(__float2bfloat16_rn(x));
-  }
-  static __device__ __forceinline__ void mma(float (&c)[4],
-                                             const uint32_t (&a)[4],
-                                             const uint32_t (&b)[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
+// per head dim: the blocks per SM the registers are budgeted for (chosen
+// by timing on the card)
+template <int D>
+struct FwdCfg : Tile<D> {
+  static constexpr int kMinBlocks = D <= 64 ? 4 : 2;
 };
 
-// two values rounded to the element type, the first in the low half
-template <typename E>
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  return static_cast<uint32_t>(E::bits(lo)) |
-         (static_cast<uint32_t>(E::bits(hi)) << 16);
-}
-
-// A 64 x D tile of 16-bit elements from global rows (row stride `st`) into
-// shared memory rows of stride D + 8; 16-byte vectors when `vec`.
-template <int D>
-__device__ __forceinline__ void load_tile(uint16_t* s, const uint16_t* g,
-                                          long long st, int vec) {
-  constexpr int LD = D + 8;
-  if (vec) {
-    constexpr int V = D / 8;
-    for (int i = threadIdx.x; i < kTile * V; i += kThreads) {
-      const int r = i / V, c = (i % V) * 8;
-      *reinterpret_cast<uint4*>(s + r * LD + c) =
-          __ldg(reinterpret_cast<const uint4*>(g + r * st + c));
-    }
-  } else {
-    for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
-      const int r = i / D, c = i % D;
-      s[r * LD + c] = g[r * st + c];
-    }
-  }
-}
-
-// mma.m16n8k16 fragments (PTX ISA, "Matrix fragments for mma.m16n8k16"):
-// lane = 4 g + t.  A (16 x 16, row-major): a0 (g, 2t..2t+1), a1 (g+8, 2t..),
-// a2 (g, 2t+8..), a3 (g+8, 2t+8..).  B (16 x 8): b0 (k = 2t..2t+1, n = g),
-// b1 (k = 2t+8.., n = g).  C (16 x 8, f32): c0 c1 (g, 2t..2t+1), c2 c3 (g+8,
-// 2t..2t+1).
-
-// A fragment from rows row0.. and columns col0.. of a row-major tile
-template <int LD>
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const uint16_t* s,
-                                       int row0, int col0, int g, int t) {
-  const uint16_t* p = s + (row0 + g) * LD + col0 + 2 * t;
-  a[0] = *reinterpret_cast<const uint32_t*>(p);
-  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * LD);
-  a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * LD + 8);
-}
-
-// B fragment with B[k][n] = s[n0 + n][k0 + k]: the tile's rows are B's columns
-template <int LD>
-__device__ __forceinline__ void frag_b_rows(uint32_t (&b)[2],
-                                            const uint16_t* s, int n0, int k0,
-                                            int g, int t) {
-  const uint16_t* p = s + (n0 + g) * LD + k0 + 2 * t;
-  b[0] = *reinterpret_cast<const uint32_t*>(p);
-  b[1] = *reinterpret_cast<const uint32_t*>(p + 8);
-}
-
-// B fragment with B[k][n] = s[k0 + k][n0 + n]: the tile's rows are B's rows
-template <int LD>
-__device__ __forceinline__ void frag_b_cols(uint32_t (&b)[2],
-                                            const uint16_t* s, int k0, int n0,
-                                            int g, int t) {
-  const uint16_t* p = s + (k0 + 2 * t) * LD + n0 + g;
-  b[0] = static_cast<uint32_t>(p[0]) | (static_cast<uint32_t>(p[LD]) << 16);
-  b[1] = static_cast<uint32_t>(p[8 * LD]) |
-         (static_cast<uint32_t>(p[9 * LD]) << 16);
-}
-
-// A fragment (16 rows x 16 columns) from the C fragments of two adjacent
-// n8 column tiles, rounded to the element type
-template <typename E>
-__device__ __forceinline__ void frag_a_from_c(uint32_t (&a)[4],
-                                              const float (&c0)[4],
-                                              const float (&c1)[4]) {
-  a[0] = pack<E>(c0[0], c0[1]);
-  a[1] = pack<E>(c0[2], c0[3]);
-  a[2] = pack<E>(c1[0], c1[1]);
-  a[3] = pack<E>(c1[2], c1[3]);
-}
-
-// C fragments (16 rows x D) stored to global rows of stride st at row gi
-template <typename E, int D>
-__device__ __forceinline__ void store_rows(uint16_t* g, long long st,
-                                           const float (&c)[D / 8][4],
-                                           float scale0, float scale1, int gi,
-                                           int t) {
+// One key tile's online softmax for this thread's rows r0 and r0 + 8
+// (acc[4 j + e] is key 8 j + 2 t + (e & 1) of row r0 + 8 (e >> 1)): the
+// scores s become P = 2^(S s log2(e) - m) at the rows' new running maxima m
+// (log2 units), and the row sums l (this thread's keys only: the quad's
+// partial sums are added once, at the end) are rescaled to those maxima
+// before they gain P's sums; alpha gets the factors that rescale the output
+// accumulator.  The scale sl2 = s log2(e) is not negative (the wrapper
+// folds a negative one into q), so the maxima are taken on the raw scores
+// and each exponent is one FMA.  kMask: the diagonal tile, where a key
+// after its query gets P = 0.  Every row keeps at least one key in every
+// tile it runs (the diagonal tile holds its own), so the maxima are finite
+// from the first tile on, and a first tile's factor is 2^-inf = 0.
+template <bool kMask>
+__device__ __forceinline__ void softmax_tile(float* s, float* m, float* l,
+                                             float* alpha, float sl2, int r0,
+                                             int t) {
+  auto masked = [&](int i) {
+    return kMask && i / 4 * 8 + 2 * t + (i & 1) > r0 + ((i >> 1) & 1) * 8;
+  };
+  float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int col = n * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(g + gi * st + col) =
-        pack<E>(c[n][0] * scale0, c[n][1] * scale0);
-    *reinterpret_cast<uint32_t*>(g + (gi + 8) * st + col) =
-        pack<E>(c[n][2] * scale1, c[n][3] * scale1);
+  for (int i = 0; i < 32; ++i) {
+    if (!masked(i)) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mn = fmaxf(m[r], quad_max(mx[r]) * sl2);
+    alpha[r] = ex2(m[r] - mn);
+    m[r] = mn;
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const float p = ex2(fmaf(s[i], sl2, -m[(i >> 1) & 1]));
+    s[i] = masked(i) ? 0.f : p;
+    sum[(i >> 1) & 1] += s[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+}
+
+// One step of the forward's loop: with kS, issue S = Q K^T on the key tile
+// at sK; with kPV, issue O += P V with the previous tile's P (pa) and V
+// (sV); with kS, run the tile's softmax once S is in, then rescale O and
+// pack the tile's P into pa once both products are done.  Every product is
+// issued and waited on inside the step, in straight-line code.
+template <int D, bool kS, bool kPV, bool kMask>
+__device__ __forceinline__ void fwd_step(float* s, float* o, uint32_t* pa,
+                                         float* m, float* l, uint32_t sQ,
+                                         uint32_t sK, uint32_t sV, float sl2,
+                                         int r0, int t) {
+  float alpha[2];
+  if constexpr (kS) {
+    pin<32>(s);
+    wgmma_fence();
+    mma_abt<D>(s, sQ, sK);  // S = Q K^T
+    wgmma_commit();
+  }
+  if constexpr (kPV) {
+    pin<D / 2>(o);
+    pin_u32<16>(pa);
+    wgmma_fence();
+    mma_ab<D>(o, pa, sV);  // O += P V, the previous tile's
+    wgmma_commit();
+  }
+  if constexpr (kS) {
+    if constexpr (kPV) {
+      wgmma_wait<1>();
+    } else {
+      wgmma_wait<0>();
+    }
+    pin<32>(s);
+    softmax_tile<kMask>(s, m, l, alpha, sl2, r0, t);
+  }
+  wgmma_wait<0>();
+  pin<D / 2>(o);
+  pin_u32<16>(pa);
+  if constexpr (kS) {
+    // once the maxima settle, most tiles leave every factor 1
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) o[j] *= alpha[(j >> 1) & 1];
+    }
+    acc_to_a(pa, s);  // P rounded to bf16
   }
 }
 
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
+// Shared memory: Q | K slots 0, 1 | V slots 0, 1.  Step j issues S_j = Q
+// K_j^T and then O += P_{j-1} V_{j-1}, and loads K_{j+1} and V_j, each into
+// the slot its predecessor two tiles back has left.  One block barrier per
+// step orders the loads and the products.
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, FwdCfg<D>::kMinBlocks)
+    fwd_wgmma(const Args a) {
+  using C = FwdCfg<D>;
+  extern __shared__ uint8_t fwd_smem[];  // the f32 kernels' is uint4
+  uint8_t* gbase;
+  const uint32_t sQ = aligned_base(fwd_smem, &gbase);
+  const uint32_t sK0 = sQ + C::kTileBytes, sV0 = sK0 + 2 * C::kTileBytes;
 
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// --- tensor-core kernels (bf16) ---------------------------------------------
-
-template <typename E, int D>
-__global__ void __launch_bounds__(kThreads) fwd_mma(Args a) {
-  constexpr int LD = D + 8;
-  extern __shared__ uint4 smem_raw[];
-  uint16_t* sQ = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* sK = sQ + kTile * LD;
-  uint16_t* sV = sK + kTile * LD;
-
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
   // the longest causal rows first: they have the most key tiles
   const int qt = gridDim.y - 1 - blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = qt * kTile;
+  const int n = a.causal ? qt + 1 : a.T / kRows;
   const uint16_t* q = static_cast<const uint16_t*>(a.in[kQ]) +
                       base_off(a, kQ, b, h);
   const uint16_t* k = static_cast<const uint16_t*>(a.in[kK]) +
                       base_off(a, kK, b, h);
   const uint16_t* v = static_cast<const uint16_t*>(a.in[kV]) +
                       base_off(a, kV, b, h);
-  load_tile<D>(sQ, q + q0 * a.st[kQ][2], a.st[kQ][2], a.vec);
-
-  float o[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  const float sl2 = a.scale * kLog2e;
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
-  const int n_kt = a.causal ? qt + 1 : a.T / kTile;
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    __syncthreads();  // every warp is done with the previous K and V tiles
-    load_tile<D>(sK, k + kt * kTile * a.st[kK][2], a.st[kK][2], a.vec);
-    load_tile<D>(sV, v + kt * kTile * a.st[kV][2], a.st[kV][2], a.vec);
+  const long long stk = a.st[kK][2], stv = a.st[kV][2];
+  auto kslot = [&](int i) { return sK0 + (i & 1) * C::kTileBytes; };
+  auto vslot = [&](int i) { return sV0 + (i & 1) * C::kTileBytes; };
+  // tile i's K (step i - 1 loads it) and V (step i): every earlier load
+  // landed, and every thread is past the previous step
+  auto next = [&](int i) {
+    cp_async_wait<0>();
+    fence_proxy_async();
     __syncthreads();
+    if (i + 1 < n) {
+      load_tile<D>(kslot(i + 1), k + (i + 1) * kRows * stk, stk, tid);
+    }
+    if (i < n) load_tile<D>(vslot(i), v + i * kRows * stv, stv, tid);
+    cp_async_commit();
+  };
 
-    float s[8][4];
+  load_tile<D>(sQ, q + qt * kRows * a.st[kQ][2], a.st[kQ][2], tid);
+  load_tile<D>(kslot(0), k, stk, tid);
+  cp_async_commit();
+
+  float o[D / 2], s[32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  uint32_t pa[16];
 #pragma unroll
-    for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t af[4];
-      frag_a<LD>(af, sQ, warp * 16, kk * 16, g, t);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        uint32_t bf[2];
-        frag_b_rows<LD>(bf, sK, n * 8, kk * 16, g, t);
-        E::mma(s[n], af, bf);
-      }
-    }
-    // scores in the log2 domain, causal mask, row max over the tile
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = kt * kTile + n * 8 + 2 * t + (i & 1);
-        const int row = i < 2 ? row0 : row1;
-        float x = s[n][i] * sl2;
-        if (a.causal && col > row) x = -INFINITY;
-        s[n][i] = x;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
-    }
-    // every row sees at least one key per tile: the diagonal tile holds
-    // its own key, and earlier tiles are unmasked
-    const float mn0 = fmaxf(m0, quad_max(mx0));
-    const float mn1 = fmaxf(m1, quad_max(mx1));
-    const float alpha0 = exp2f(m0 - mn0), alpha1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      s[n][0] = exp2f(s[n][0] - mn0);
-      s[n][1] = exp2f(s[n][1] - mn0);
-      s[n][2] = exp2f(s[n][2] - mn1);
-      s[n][3] = exp2f(s[n][3] - mn1);
-      sum0 += s[n][0] + s[n][1];
-      sum1 += s[n][2] + s[n][3];
-    }
-    l0 = l0 * alpha0 + quad_sum(sum0);
-    l1 = l1 * alpha1 + quad_sum(sum1);
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      o[n][0] *= alpha0;
-      o[n][1] *= alpha0;
-      o[n][2] *= alpha1;
-      o[n][3] *= alpha1;
-    }
-    // O += P V, P rounded to the element type
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t af[4];
-      frag_a_from_c<E>(af, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t bf[2];
-        frag_b_cols<LD>(bf, sV, kk * 16, n * 8, g, t);
-        E::mma(o[n], af, bf);
-      }
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  const float sl2 = a.scale * kLog2e;
+  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
+
+  // tile 0 (the diagonal one when it is the only one), tiles 1 .. n - 2,
+  // tile n - 1 (the diagonal one when causal), then the last P V; each
+  // branch holds whole products
+  next(0);
+  if (n > 1 || !a.causal) {
+    fwd_step<D, true, false, false>(s, o, pa, m, l, sQ, kslot(0), 0, sl2,
+                                    r0, t);
+  } else {
+    fwd_step<D, true, false, true>(s, o, pa, m, l, sQ, kslot(0), 0, sl2,
+                                   r0, t);
+  }
+  for (int j = 1; j < n - 1; ++j) {
+    next(j);
+    fwd_step<D, true, true, false>(s, o, pa, m, l, sQ, kslot(j),
+                                   vslot(j - 1), sl2, r0, t);
+  }
+  if (n > 1) {
+    next(n - 1);
+    if (a.causal) {
+      fwd_step<D, true, true, true>(s, o, pa, m, l, sQ, kslot(n - 1),
+                                    vslot(n - 2), sl2, r0, t);
+    } else {
+      fwd_step<D, true, true, false>(s, o, pa, m, l, sQ, kslot(n - 1),
+                                     vslot(n - 2), sl2, r0, t);
     }
   }
+  next(n);
+  fwd_step<D, false, true, false>(s, o, pa, m, l, sQ, 0, vslot(n - 1), sl2,
+                                  r0, t);
 
+  const float l0 = quad_sum(l[0]), l1 = quad_sum(l[1]);
+  const int row = qt * kRows + r0;
   uint16_t* out = static_cast<uint16_t*>(a.out[0]) + base_off(a, kO, b, h);
-  store_rows<E, D>(out, a.st[kO][2], o, 1.f / l0, 1.f / l1, row0, t);
+  store_acc<D>(out, a.st[kO][2], o, row, t, 1.f / l0, 1.f / l1);
   if (t == 0) {
-    const long long r = static_cast<long long>(bh) * a.T;
-    a.l[r + row0] = l0;
-    a.l[r + row1] = l1;
-    a.m[r + row0] = m0 * kLn2;
-    a.m[r + row1] = m1 * kLn2;
+    const long long r = static_cast<long long>(bh) * a.T + row;
+    a.l[r] = l0;
+    a.l[r + 8] = l1;
+    a.m[r] = m[0] * kLn2;
+    a.m[r + 8] = m[1] * kLn2;
   }
 }
 
@@ -569,29 +538,39 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_f32(Args a) {
 enum Kind { kFwd = 0, kDkv = 1, kDq = 2 };
 
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, const Args& a, int rows, size_t smem,
-                   cudaStream_t stream) {
+cudaError_t launch(Kernel kernel, const Args& a, dim3 grid, int threads,
+                   size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.B * a.H, a.T / rows);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  kernel<<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
+// dynamic shared memory: 1 KB to align the tiles to their swizzle pattern,
+// Q, and two slots each for K and V
 template <int D>
-cudaError_t launch_fwd_mma(const Args& a, cudaStream_t stream) {
-  return launch(fwd_mma<BF16, D>, a, kTile,
-                3 * sizeof(uint16_t) * kTile * (D + 8), stream);
+cudaError_t launch_fwd_wgmma(const Args& a, cudaStream_t stream) {
+  using C = FwdCfg<D>;
+  const size_t smem = 1024 + 5 * C::kTileBytes;
+  // the largest shared-memory carveout, so that as many blocks run on an
+  // SM as the registers allow: left to the driver, the carveout it picked
+  // for the same kernel varied, and with it the blocks per SM
+  const cudaError_t err = cudaFuncSetAttribute(
+      fwd_wgmma<D>, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  return launch(fwd_wgmma<D>, a, dim3(a.B * a.H, a.T / kRows), kWgThreads,
+                smem, stream);
 }
 
 cudaError_t launch_fwd_bf16(const Args& a, cudaStream_t stream) {
   switch (a.D) {
-    case 32: return launch_fwd_mma<32>(a, stream);
-    case 64: return launch_fwd_mma<64>(a, stream);
-    case 96: return launch_fwd_mma<96>(a, stream);
-    case 128: return launch_fwd_mma<128>(a, stream);
+    case 32: return launch_fwd_wgmma<32>(a, stream);
+    case 64: return launch_fwd_wgmma<64>(a, stream);
+    case 96: return launch_fwd_wgmma<96>(a, stream);
+    case 128: return launch_fwd_wgmma<128>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -600,15 +579,17 @@ cudaError_t launch_f32(Kind kind, const Args& a, cudaStream_t stream) {
   const size_t tile = sizeof(float) * kTile32 * (a.D + 1);
   const size_t scores = sizeof(float) * kTile32 * (kTile32 + 1);
   const size_t rows = sizeof(float) * kTile32;
+  const dim3 grid(a.B * a.H, a.T / kTile32);
   switch (kind) {
     case kFwd:
-      return launch(fwd_f32, a, kTile32, 4 * tile + scores + 3 * rows, stream);
+      return launch(fwd_f32, a, grid, kThreads, 4 * tile + scores + 3 * rows,
+                    stream);
     case kDkv:
-      return launch(bwd_dkv_f32, a, kTile32, 6 * tile + 2 * scores + 3 * rows,
-                    stream);
+      return launch(bwd_dkv_f32, a, grid, kThreads,
+                    6 * tile + 2 * scores + 3 * rows, stream);
     default:
-      return launch(bwd_dq_f32, a, kTile32, 5 * tile + scores + 3 * rows,
-                    stream);
+      return launch(bwd_dq_f32, a, grid, kThreads,
+                    5 * tile + scores + 3 * rows, stream);
   }
 }
 
@@ -621,7 +602,7 @@ int run(Kind kind, const Args& base, const long long* strides,
   for (int i = 0; i < n_tensors; ++i) {
     for (int j = 0; j < 3; ++j) a.st[which[i]][j] = strides[3 * i + j];
   }
-  const int rows = dtype == 0 ? kTile32 : kTile;
+  const int rows = dtype == 0 ? kTile32 : kRows;
   if (a.B <= 0 || a.H <= 0 || a.T <= 0 || a.T % rows != 0 || a.D <= 0 ||
       a.D > 128 || a.T / rows > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -636,8 +617,7 @@ int run(Kind kind, const Args& base, const long long* strides,
   return static_cast<int>(err);
 }
 
-Args make_args(int B, int H, int T, int D, int causal, double scale,
-               int vec) {
+Args make_args(int B, int H, int T, int D, int causal, double scale) {
   Args a = {};
   a.B = B;
   a.H = H;
@@ -645,7 +625,6 @@ Args make_args(int B, int H, int T, int D, int causal, double scale,
   a.D = D;
   a.causal = causal;
   a.scale = static_cast<float>(scale);
-  a.vec = vec;
   return a;
 }
 
@@ -666,18 +645,17 @@ int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
 // dtype: 0 = float32, 1 = bfloat16.  q, k, v, dout, o and the outputs are
 // (B, H, T, D) with D contiguous; strides (host int64) hold (batch, head,
 // token) element strides per tensor, in argument order.  l, m and di are
-// contiguous (B, H, T) f32.  vec = 1 allows the forward 16-byte loads of the
-// inputs (bf16, every input stride a multiple of 8 elements, pointers
-// 16-byte aligned); the bf16 backward needs them so aligned.  T must be a
-// multiple of 64 (bf16) or 32 (f32); D one of 32, 64, 96, 128 for bf16, at
-// most 128 for f32.  Each returns the cudaError_t of the launch (0 on
-// success).
+// contiguous (B, H, T) f32.  The bf16 kernels read 16-byte vectors: every
+// bf16 input's strides are multiples of 8 elements and its pointer 16-byte
+// aligned (the wrappers copy a view that is not).  T must be a multiple of
+// 64 (bf16) or 32 (f32); D one of 32, 64, 96, 128 for bf16, at most 128 for
+// f32.  Each returns the cudaError_t of the launch (0 on success).
 extern "C" int bf_flash_fwd(const void* q, const void* k, const void* v,
                             void* o, float* l, float* m,
                             const long long* strides, int B, int H, int T,
                             int D, int causal, double scale, int dtype,
-                            int vec, void* stream) {
-  Args a = make_args(B, H, T, D, causal, scale, vec);
+                            void* stream) {
+  Args a = make_args(B, H, T, D, causal, scale);
   a.in[kQ] = q;
   a.in[kK] = k;
   a.in[kV] = v;
@@ -699,7 +677,7 @@ extern "C" int bf_flash_bwd_dkv(const void* q, const void* k, const void* v,
     return flash_bwd_dkv_bf16(q, k, v, dout, l, m, di, dk, dv, strides, B, H,
                               T, D, causal, scale, stream);
   }
-  Args a = make_args(B, H, T, D, causal, scale, 0);
+  Args a = make_args(B, H, T, D, causal, scale);
   a.in[kQ] = q;
   a.in[kK] = k;
   a.in[kV] = v;
@@ -724,7 +702,7 @@ extern "C" int bf_flash_bwd_dq(const void* q, const void* k, const void* v,
     return flash_bwd_dq_bf16(q, k, v, dout, o, l, m, di, dq, strides, B, H, T,
                              D, causal, scale, stream);
   }
-  Args a = make_args(B, H, T, D, causal, scale, 0);
+  Args a = make_args(B, H, T, D, causal, scale);
   a.in[kQ] = q;
   a.in[kK] = k;
   a.in[kV] = v;

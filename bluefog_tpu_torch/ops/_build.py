@@ -7,8 +7,8 @@
 links them into one shared library with a plain C interface, which
 :func:`load` binds with ctypes.  The library lands in
 ``bluefog_tpu_torch/_build/`` under a name that carries a hash of the
-sources and flags, so an edited source is rebuilt and a stale library is
-never loaded.
+flags, the sources and the headers they include (``csrc/*.cuh``), so an
+edited source or header is rebuilt and a stale library is never loaded.
 Nothing here runs at import time: the CPU tests import every module on a
 machine without ``nvcc``.
 """
@@ -57,8 +57,11 @@ def _sources() -> List[Path]:
 
 
 def _library_path() -> Path:
+    """The library's path, named by a hash of the flags and of every file
+    the kernels compile from: the sources and the headers beside them."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(p for p in _CSRC.iterdir()
+                      if p.suffix in (".cu", ".cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return _BUILD_DIR / f"libbf_torch_kernels-{h.hexdigest()[:16]}.so"
@@ -123,14 +126,13 @@ def load() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         # K3: tensor pointers, the host int64 strides, B, H, T, D, causal,
-        # scale, dtype, then vec (the forward's alone) and the stream
+        # scale, dtype and the stream
         tail = [ctypes.POINTER(ctypes.c_longlong), i32, i32, i32, i32, i32,
-                ctypes.c_double, i32]
-        for name, n_ptr, vec in (("bf_flash_fwd", 6, [i32]),
-                                 ("bf_flash_bwd_dkv", 9, []),
-                                 ("bf_flash_bwd_dq", 9, [])):
+                ctypes.c_double, i32, ptr]
+        for name, n_ptr in (("bf_flash_fwd", 6), ("bf_flash_bwd_dkv", 9),
+                            ("bf_flash_bwd_dq", 9)):
             fn = getattr(lib, name)
-            fn.argtypes = [ptr] * n_ptr + tail + vec + [ptr]
+            fn.argtypes = [ptr] * n_ptr + tail
             fn.restype = ctypes.c_int
         _lib = lib
         return lib

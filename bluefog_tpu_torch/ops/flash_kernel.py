@@ -17,8 +17,10 @@ split into three ``pallas_call``\\ s and its layout, ``(B, H, T, D)``:
   from that ``di``.
 
 The CUDA sources are ``bluefog_tpu_torch/csrc/flash_attention.cu`` (the
-forward, and the f32 backward) and ``csrc/flash_attention_bwd.cu`` (the bf16
-backward on wgmma); their headers state the bounds and the designs.  Each
+forward, bf16 on wgmma, and the f32 backward) and
+``csrc/flash_attention_bwd.cu`` (the bf16 backward on wgmma), with the
+wgmma helpers both share in ``csrc/flash_wgmma.cuh``; their headers state
+the bounds and the designs.  Each
 wrapper takes any batch, head and token strides with ``D`` contiguous (the
 model's q, k and v are views of its fused projection), writes its outputs
 into ``(B, T, H, D)`` memory (so the model's transpose back is a view),
@@ -28,10 +30,10 @@ which computes the same function as the library: f32 scores of the inputs,
 ``p = exp(s - m) / l``, ``p`` rounded to the input dtype before ``p v`` and
 ``p^T do``, ``ds = (do v^T - di) p s`` rounded likewise before ``ds^T q`` and
 ``ds k``.  On the card the twins are the kernels' oracle in
-``chip_smoke.py``, never on the path.  The bf16 backward kernels read 16-byte
-vectors: a backward wrapper copies an input whose batch, head or token
-stride is not a multiple of 8 elements, or whose pointer is not 16-byte
-aligned, and counts it in its ``copies`` (the model's views take none).
+``chip_smoke.py``, never on the path.  The bf16 kernels read 16-byte
+vectors: a wrapper copies a bf16 input whose batch, head or token stride is
+not a multiple of 8 elements, or whose pointer is not 16-byte aligned, and
+counts it in its ``copies`` (the model's views take none).
 
 :class:`FlashAttention` is the ``torch.autograd.Function`` whose forward is
 the forward wrapper and whose backward launches dQ (with ``di``) and then
@@ -46,6 +48,7 @@ from typing import Tuple
 import torch
 
 __all__ = [
+    "BUILT",
     "HEAD_DIMS",
     "DTYPES",
     "flash_attention",
@@ -64,6 +67,7 @@ DTYPES = {torch.float32: (0, 32), torch.bfloat16: (1, 64)}
 # f32 ones take any D up to 128
 HEAD_DIMS = {torch.bfloat16: (32, 64, 96, 128),
              torch.float32: tuple(range(1, 129))}
+BUILT = "bf16 with D in 32, 64, 96, 128; f32 with D up to 128"
 
 
 # --- the plain twins ---------------------------------------------------------
@@ -168,7 +172,7 @@ def _on_card(q, name: str) -> bool:
     t, d = q.shape[2], q.shape[3]
     if d not in HEAD_DIMS[q.dtype]:
         raise ValueError(f"{name}: head dim {d} is not built for {q.dtype} "
-                         "(bf16: 32, 64, 96, 128; f32: up to 128)")
+                         f"({BUILT})")
     tile = DTYPES[q.dtype][1]
     if t == 0 or t % tile:
         raise ValueError(f"{name}: T={t} must be a positive multiple of "
@@ -185,20 +189,18 @@ def _vec16(t: torch.Tensor) -> bool:
 
 def _launch_args(inputs, outputs):
     """The kernels' host array of (batch, head, token) strides, inputs then
-    outputs, and whether every input allows 16-byte loads."""
+    outputs."""
     for t in inputs + outputs:
         if t.stride(-1) != 1:
             raise ValueError("K3 needs the head dim contiguous (stride 1), "
                              f"got strides {t.stride()}")
-    vec = int(all(_vec16(t) for t in inputs))
     strides = [s for t in inputs + outputs for s in t.stride()[:3]]
-    return (ctypes.c_longlong * len(strides))(*strides), vec
+    return (ctypes.c_longlong * len(strides))(*strides)
 
 
 def _aligned(wrapper, inputs):
-    """The bf16 backward kernels' inputs, each copied to fresh contiguous
-    memory (and counted in ``wrapper.copies``) unless it allows 16-byte
-    loads."""
+    """The bf16 kernels' inputs, each copied to fresh contiguous memory (and
+    counted in ``wrapper.copies``) unless it allows 16-byte loads."""
     if inputs[0].dtype != torch.bfloat16:
         return inputs
     out = []
@@ -233,15 +235,20 @@ def flash_forward(q, k, v, *, causal: bool, scale: float
 
     lib = _build.load()
     b, h, t, d = q.shape
+    if scale < 0 and q.dtype == torch.bfloat16:
+        # the bf16 kernel takes each row's maximum of the unscaled scores,
+        # which holds for a scale that is not negative: (-q) k^T (-scale)
+        q, scale = -q, -scale
+    q, k, v = _aligned(flash_forward, [q, k, v])
     o = _btdh(q)
     l = torch.empty(b, h, t, dtype=torch.float32, device=q.device)
     m = torch.empty_like(l)
-    strides, vec = _launch_args([q, k, v], [o])
+    strides = _launch_args([q, k, v], [o])
     with torch.cuda.device(q.device):
         err = lib.bf_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             l.data_ptr(), m.data_ptr(), strides, b, h, t, d, int(causal),
-            float(scale), DTYPES[q.dtype][0], vec, _stream(q))
+            float(scale), DTYPES[q.dtype][0], _stream(q))
     if err != 0:
         raise RuntimeError(f"flash_forward launch failed: cudaError {err}")
     flash_forward.launches += 1
@@ -265,7 +272,7 @@ def flash_backward_dkv(q, k, v, do, l, m, di, *, causal: bool, scale: float
     q, k, v, do = _aligned(flash_backward_dkv, [q, k, v, do])
     dk, dv = _btdh(k), _btdh(v)
     l, m, di = l.contiguous(), m.contiguous(), di.contiguous()
-    strides, _ = _launch_args([q, k, v, do], [dk, dv])
+    strides = _launch_args([q, k, v, do], [dk, dv])
     with torch.cuda.device(q.device):
         err = lib.bf_flash_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -298,7 +305,7 @@ def flash_backward_dq(q, k, v, do, l, m, o, *, causal: bool, scale: float
     dq = _btdh(q)
     di = torch.empty(b, h, t, dtype=torch.float32, device=q.device)
     l, m = l.contiguous(), m.contiguous()
-    strides, _ = _launch_args([q, k, v, do, o], [dq])
+    strides = _launch_args([q, k, v, do, o], [dq])
     with torch.cuda.device(q.device):
         err = lib.bf_flash_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -314,6 +321,7 @@ def flash_backward_dq(q, k, v, do, l, m, o, *, causal: bool, scale: float
 flash_forward.launches = 0
 flash_backward_dkv.launches = 0
 flash_backward_dq.launches = 0
+flash_forward.copies = 0
 flash_backward_dkv.copies = 0
 flash_backward_dq.copies = 0
 

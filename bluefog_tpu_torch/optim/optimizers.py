@@ -13,11 +13,11 @@ is ``n`` independent optimizers with the same hyper-parameters.  Modes:
 
 - **ATC** (adapt-then-combine): ``p' = W (p + update)``: the local step,
   then gossip of the result.
-- **AWC** (adapt-with-combine, the default): ``p' = W p + update``: gossip of
-  the pre-step parameters, then the local step on the mixed ones.  The base
-  update is the same as on the pre-step parameters unless it reads them
-  (weight decay), in which case it sees the mixed ones, as in upstream
-  bluefog's torch optimizers.
+- **AWC** (adapt-with-combine, the default): ``p' = W p + update``, as the
+  JAX package computes it: the local step runs on the un-mixed parameters,
+  so an update that reads them (weight decay) sees the pre-step values, and
+  the gossip's change ``(W - I) p``, computed out of place before it, is
+  then added.
 - **WinPut**: the local step, then the one-sided window round: publish the
   new parameters (``win_sync``), put them into every out-neighbour's landing
   slot (``win_put``, kernel K2) and merge self and slots (``win_update``).
@@ -103,21 +103,21 @@ class DecentralizedOptimizer:
     def zero_grad(self, set_to_none: bool = True) -> None:
         self.base.zero_grad(set_to_none=set_to_none)
 
-    def _combine(self) -> None:
-        """Mix every parameter in place: gossip fused into one buffer per
-        dtype, or the window round over the window's one buffer per
-        dtype."""
+    def _mix(self, change: bool = False) -> List[torch.Tensor]:
+        """The mixed parameters, out of place: gossip fused into one buffer
+        per dtype, or the window round over the window's one buffer per
+        dtype.  With ``change``, the gossip's change to each parameter (the
+        mixed value less the parameter) instead: the same gossip with every
+        self weight one less."""
         params = self._params()
         if self.window is not None:
             W.win_sync(self.window, params)
             W.win_put(self.window, None, backend=self.backend)
-            mixed, _ = W.win_update(self.window)
-        else:
-            mixed = C.fuse_apply(
-                lambda t: C.neighbor_allreduce(t, self.schedule,
-                                               backend=self.backend), params)
-        for p, m in zip(params, mixed):
-            p.copy_(m)
+            return W.win_update(self.window)[0]
+        sw = self.schedule.self_weights - 1.0 if change else None
+        return C.fuse_apply(
+            lambda t: C.neighbor_allreduce(t, self.schedule, self_weight=sw,
+                                           backend=self.backend), params)
 
     def _communicates(self) -> bool:
         if self.schedule is None:
@@ -137,10 +137,16 @@ class DecentralizedOptimizer:
             self.base.step()
         elif self.atc:
             self.base.step()
-            self._combine()
+            for p, m in zip(self._params(), self._mix()):
+                p.copy_(m)
         else:
-            self._combine()
+            # the mix's change to each parameter, then the base step on the
+            # un-mixed parameters
+            params = self._params()
+            change = self._mix(change=True)
             self.base.step()
+            for p, d in zip(params, change):
+                p.add_(d)
         self.count += 1
         return loss
 

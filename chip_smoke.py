@@ -8,9 +8,11 @@ its last line:
 
 1. Build: compile the hand-written CUDA kernels from ``bluefog_tpu_torch/csrc``
    (K1 ``gossip_mix.cu``, K2 ``window_deliver.cu``, K3
-   ``flash_attention.cu`` and ``flash_attention_bwd.cu``) with nvcc for
-   sm_90a, one process per source, and print the seconds it took and
-   ptxas's report.
+   ``flash_attention.cu`` and ``flash_attention_bwd.cu``, which share
+   ``flash_wgmma.cuh``) with nvcc for sm_90a, one process per source, and
+   print the seconds it took and ptxas's report: each kernel's registers
+   and spills (the bf16 forward's four instantiations among them) and any
+   warning.
 2. K1 against its plain version on the card: ``gossip_mix`` against
    ``gossip_mix_plain`` in f32 and bf16, over Exponential-2(8) and Ring(8), at
    an unaligned length and at the lengths the main path gives it, plus the
@@ -67,14 +69,16 @@ its last line:
    96 and 128, causal and full, and f32 both ways; q, k and v as views of
    one projection, contiguous, or views whose token stride refuses 16-byte
    loads (which the bf16 backward wrappers must copy, and no other case
-   may).  Each backward kernel runs twice on the same inputs and must give
-   bit-equal results.  Then the three kernels' times at the path's shape,
+   may; the forward wrapper copies those too), and the bf16 forward at a
+   negative scale.  Each kernel runs twice on the same inputs and must give
+   bit-equal results.  Then the three
+   kernels' times at the path's shape,
    by profiler device time per call (and by CUDA events, which also count
    the host's pace): each against its bound, its twin and, for the forward,
    ``F.scaled_dot_product_attention``; the backward through the autograd
    function (dQ with di, then dK/dV) against the library call's backward,
    which the port never calls, by CUDA events and by profiler device time,
-   kernel by kernel.
+   kernel by kernel, and the forwards' device time kernel by kernel too.
 8. The transformer path: decentralized SGD of a full-width GPT-small (vocab
    50304, width 768, 12 layers, 12 heads, bf16 compute, f32 params) over 8
    virtual ranks on Exponential-2 with
@@ -82,8 +86,8 @@ its last line:
    0.9), ``--model gpt-small --seq-len 1024`` of the synthetic benchmark at
    a per-rank batch of 8: 2 warm-up and 3 timed steps.  Checks finite and
    falling losses, K1's launches against the fuse plan and K3's (12 layers x
-   8 ranks = 96 of each kernel per step), and that K3's backward copied none
-   of the path's q, k, v and dO; one step through K3 against the
+   8 ranks = 96 of each kernel per step), and that K3's wrappers copied
+   none of the path's q, k, v and dO; one step through K3 against the
    same step through K3's twins from the same state (every gradient, the
    losses and the state after the step); a profiled step and the host
    breakdown, as for the ResNet paths.
@@ -99,6 +103,8 @@ import gc
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -167,6 +173,37 @@ def max_err(out, ref):
     return float(d.max()), float((d / (1 + ref.double().abs())).max())
 
 
+def _ptxas_report(log):
+    """ptxas's ``-v`` report per kernel: (name, registers, spill stores,
+    spill loads), in build order, and the log's warning lines and notes on
+    wgmma.  Names are demangled by ``c++filt`` where the host has it."""
+    rows, name, spills, warnings = [], None, (0, 0), []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            rows.append([name, int(m.group(1)), *spills])
+            name, spills = None, (0, 0)
+        # warnings, and ptxas's notes on serialised wgmma (C7512, C7519,
+        # C7520)
+        if "arning" in line or "C75" in line:
+            warnings.append(line.strip())
+    cxxfilt = shutil.which("c++filt")
+    if cxxfilt and rows:
+        names = subprocess.run([cxxfilt], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True, timeout=60,
+                               check=True).stdout.splitlines()
+        for row, pretty in zip(rows, names):
+            row[0] = pretty.replace("(anonymous namespace)::", "")
+    return rows, warnings
+
+
 def phase_build():
     from bluefog_tpu_torch.ops import _build
 
@@ -175,10 +212,18 @@ def phase_build():
     secs = time.perf_counter() - t0
     print(f"[build] {', '.join(p.name for p in _build._sources())} -> "
           f"sm_90a in {secs:.2f} s")
-    for line in _build.build_log().splitlines():
-        if any(w in line for w in ("registers", "spill", "wgmma",
-                                   "arning")):
-            print(f"[build] {line.strip()}")
+    rows, warnings = _ptxas_report(_build.build_log())
+    if not rows:
+        print("[build] the library was already built: no ptxas report")
+    for name, regs, st, ld in rows:
+        print(f"[build] {name[:70]}: {regs} registers, spill stores {st} "
+              f"bytes, spill loads {ld} bytes")
+    for line in warnings:
+        print(f"[build] {line}")
+    fwd = [r for r in rows if "fwd_wgmma" in r[0]]
+    check(not rows or len(fwd) == 4,
+          f"ptxas reported {len(fwd)} instantiations of the bf16 forward, "
+          "expected 4 (D = 32, 64, 96, 128)")
     return secs
 
 
@@ -459,8 +504,10 @@ def phase_closed_form(trainer):
 def phase_host_breakdown(trainer, tag, steps=3):
     """Where a step's host time goes: ``steps`` more steps with each part of
     the optimizer's step between two device synchronizes on the host clock
-    (the ranks' forward and backward are the rest of the step), beside the
-    step probe's counters."""
+    (the base step, and the combine: the gossip or the window round that
+    computes the mixed parameters; the ranks' forward and backward and the
+    writes of the mix into the parameters are the rest of the step),
+    beside the step probe's counters."""
     from bluefog_tpu_torch.ops import windows as W
 
     opt = trainer.opt
@@ -482,7 +529,7 @@ def phase_host_breakdown(trainer, tag, steps=3):
              else [])
     saved = {n: getattr(W, n) for n in names}
     opt.base.step = timed("base", opt.base.step)
-    opt._combine = timed("combine", opt._combine)
+    opt._mix = timed("combine", opt._mix)
     for n in names:
         setattr(W, n, timed(n, saved[n]))
     rows = []
@@ -496,18 +543,19 @@ def phase_host_breakdown(trainer, tag, steps=3):
                 torch.cuda.synchronize()
                 rows.append(((time.perf_counter() - t0) * 1e3, dict(parts)))
     finally:
-        del opt.base.step, opt._combine
+        del opt.base.step, opt._mix
         for n, fn in saved.items():
             setattr(W, n, fn)
     for i, ((total, t), row) in enumerate(zip(rows, probe)):
         window = ""
         if names:
-            copy_back = t["combine"] - sum(t[n] for n in names)
+            rest = t["combine"] - sum(t[n] for n in names)
             window = (f" (win_sync {t['win_sync']:.2f}, win_put "
                       f"{t['win_put']:.2f}, win_update {t['win_update']:.2f},"
-                      f" copy back {copy_back:.2f})")
+                      f" rest {rest:.2f})")
         print(f"[{tag}] host breakdown, step {i}: {total:.2f} ms = ranks' "
-              f"forward and backward {total - t['base'] - t['combine']:.2f} "
+              f"forward and backward, and the mix's writes "
+              f"{total - t['base'] - t['combine']:.2f} "
               f"+ SGD step {t['base']:.2f} + combine {t['combine']:.2f}"
               f"{window}; {_probe_text(row)}")
 
@@ -690,10 +738,10 @@ def _rel(got, ref):
 def phase_k3(device):
     """K3's three kernels against their twins at every shape of K3_CASES,
     each kernel fed the same inputs as its twin, dQ's di against the f32
-    sum, and each backward kernel launched twice on the same inputs for
-    bit-equal results; then their times at the GPT path's shape against
-    their bounds, their twins and ``F.scaled_dot_product_attention``, which
-    the port never calls."""
+    sum, and each kernel launched twice on the same inputs for bit-equal
+    results; then their times at the GPT path's shape against their bounds,
+    their twins and ``F.scaled_dot_product_attention``, which the port never
+    calls."""
     import torch.nn.functional as F
     from bluefog_tpu_torch.ops import flash_kernel as fk
 
@@ -705,7 +753,9 @@ def phase_k3(device):
         do = torch.randn(b, h, t, d, generator=gen, device=device).to(dtype)
         kw = {"causal": causal, "scale": scale}
         copies = fk.flash_backward_dq.copies + fk.flash_backward_dkv.copies
+        fwd_copies = fk.flash_forward.copies
         o, l, m = fk.flash_forward(q, k, v, **kw)
+        o_2, l_2, m_2 = fk.flash_forward(q, k, v, **kw)
         o_p, l_p, m_p = fk.flash_forward_plain(q, k, v, **kw)
         dq, di = fk.flash_backward_dq(q, k, v, do, l_p, m_p, o_p, **kw)
         dq_p, di_p = fk.flash_backward_dq_plain(q, k, v, do, l_p, m_p, o_p,
@@ -719,10 +769,19 @@ def phase_k3(device):
         torch.cuda.synchronize()
         copies = (fk.flash_backward_dq.copies + fk.flash_backward_dkv.copies
                   - copies)
-        # q, k and v of the four backward calls
-        want = 12 if layout == "odd" and dtype == torch.bfloat16 else 0
+        fwd_copies = fk.flash_forward.copies - fwd_copies
+        # q, k and v of the four backward calls and of the two forward ones
+        odd = layout == "odd" and dtype == torch.bfloat16
+        want, fwd_want = (12, 6) if odd else (0, 0)
         check(copies == want, f"K3's backward wrappers copied {copies} "
               f"inputs of a {layout} {dtype} case, expected {want}")
+        check(fwd_copies == fwd_want, f"K3's forward wrapper copied "
+              f"{fwd_copies} inputs of a {layout} {dtype} case, expected "
+              f"{fwd_want}")
+        same = all(torch.equal(x, y) for x, y in (
+            (o, o_2), (l, l_2), (m, m_2)))
+        check(same, f"two launches of K3's forward differ at ({b}, {h}, "
+              f"{t}, {d}) {dtype} causal={causal}")
         same = all(torch.equal(x, y) for x, y in (
             (dq, dq_2), (di, di_2), (dk, dk_2), (dv, dv_2)))
         check(same, f"two launches of K3's backward differ at ({b}, {h}, "
@@ -750,10 +809,24 @@ def phase_k3(device):
                 path_err[kernel] = max(path_err.get(kernel, 0.0), abs_err)
         print(f"[k3] (B, H, T, D) = ({b}, {h}, {t}, {d}) {str(dtype)[6:]} "
               f"causal={causal} {layout}: max |kernel - twin| / max |twin| "
-              f"(tol): {', '.join(readings)}; backward twice bit-equal; "
-              f"{copies} inputs copied")
+              f"(tol): {', '.join(readings)}; forward and backward twice "
+              f"bit-equal; inputs copied: {fwd_copies} by the forward, "
+              f"{copies} by the backward")
         del q, k, v, do, o, l, m, o_p, l_p, m_p, di, di_p, dk, dv, dk_p
-        del dv_p, dq, dq_p, dq_2, di_2, dk_2, dv_2
+        del dv_p, dq, dq_p, dq_2, di_2, dk_2, dv_2, o_2, l_2, m_2
+
+    # a negative scale, which the bf16 forward's wrapper folds into q
+    q, k, v = _qkv_views(2, 4, 256, 64, torch.bfloat16, gen, device)
+    kw = {"causal": True, "scale": -0.125}
+    readings = [_rel(x, y)[1] for x, y in zip(
+        fk.flash_forward(q, k, v, **kw),
+        fk.flash_forward_plain(q, k, v, **kw))]
+    print(f"[k3] bf16 causal forward at scale -0.125: o, l, m "
+          f"{', '.join(f'{r:.2e}' for r in readings)} of the twin's scale")
+    check(readings[0] <= K3_TOL[torch.bfloat16]["o"]
+          and max(readings[1:]) <= K3_RESIDUAL_TOL,
+          f"K3's forward disagrees with its twin at a negative scale: "
+          f"{readings}")
 
     # times at the path's shape, causal bf16, q, k, v views of one projection
     b, h, t, d = K3_PATH_SHAPE
@@ -827,7 +900,7 @@ def phase_k3(device):
           f"scaled_dot_product_attention {dev['sdpa_fwd'][0]:.4f} ms; "
           f"backward K3 (dQ with di + dK/dV) {dev['k3_bwd'][0]:.4f} ms, "
           f"scaled_dot_product_attention {dev['sdpa_bwd'][0]:.4f} ms")
-    for name in ("k3_bwd", "sdpa_bwd"):
+    for name in ("k3_fwd", "sdpa_fwd", "k3_bwd", "sdpa_bwd"):
         for kname, ms in dev[name][1]:
             print(f"[k3]   {name}: {ms:.4f} ms per call in {kname[:90]}")
     return res
@@ -1004,6 +1077,7 @@ def phase_gpt(device):
           f"leaves, built in {time.perf_counter() - t0:.2f} s; fuse plan = "
           f"{len(groups)} fused buffer(s) + {len(big)} leaves >= 8 MiB; "
           f"tokens {tuple(trainer.batch[0].shape)}")
+    fk.flash_forward.copies = 0
     fk.flash_backward_dq.copies = fk.flash_backward_dkv.copies = 0
     launches, res = phase_main_path(
         trainer, {gossip_mix: len(groups) + len(big),
@@ -1011,9 +1085,10 @@ def phase_gpt(device):
                   fk.flash_backward_dkv: k3_per_step,
                   fk.flash_backward_dq: k3_per_step}, "gpt",
         f"GPT-small x {N_RANKS} virtual ranks, exp2, batch {GPT_BATCH} x seq "
-        f"{GPT_SEQ}/rank, bf16", unit="seq", top=16)
-    copies = fk.flash_backward_dq.copies + fk.flash_backward_dkv.copies
-    print(f"[gpt] inputs the K3 backward wrappers copied for 16-byte loads: "
+        f"{GPT_SEQ}/rank, bf16", unit="seq", top=24)
+    copies = (fk.flash_forward.copies + fk.flash_backward_dq.copies
+              + fk.flash_backward_dkv.copies)
+    print(f"[gpt] inputs the K3 wrappers copied for 16-byte loads: "
           f"{copies}")
     check(copies == 0, f"the GPT path's q, k, v or dO took {copies} copies")
     mean_ms = sum(res["step_ms"]) / TIMED

@@ -229,6 +229,53 @@ def test_eligibility_gate_matches_jax(monkeypatch, tq, tk, d, causal, q_off,
                                    k_off)
 
 
+@pytest.mark.parametrize("dtype,d", [("bfloat16", 48), ("float16", 64)])
+def test_auto_takes_dense_where_k3_is_not_built(monkeypatch, dtype, d):
+    """Shapes the library's gate admits but K3 has no kernel for (bf16 at
+    D = 48, any f16): the port's gate refuses them on every device, so
+    ``'auto'`` gives the dense path's output without calling K3 (on the
+    card too, where K3 would raise), and ``'flash'`` raises naming what K3
+    is built for."""
+    def no_flash(*a, **kw):
+        raise AssertionError("K3 must not run on a shape it is not built for")
+
+    tdt = getattr(torch, dtype)
+    q, k, v = (_to_torch(a, tdt) for a in _arrays((2, 128, 2, d), 3, seed=9))
+    monkeypatch.setattr(jra.jax, "default_backend", lambda: "tpu")
+    jq = jnp.asarray(_np(q)).astype(getattr(jnp, dtype))
+    assert jra._flash_eligible(jq, jq, True, 0, 0)
+    assert not pra._flash_eligible(q, k, True, 0, 0)
+    monkeypatch.setattr(pra, "flash_attention", no_flash)
+    got = pra.local_attention(q, k, v, causal=True, backend="auto")
+    want = pra.local_attention(q, k, v, causal=True, backend="dense")
+    # the same computation twice: f32 CPU matmuls need not repeat bit for
+    # bit, and a rounding to bf16 or f16 may then land one step apart
+    assert got.dtype == tdt and _rel_err(_np(got), _np(want)) <= BF16_O_TOL
+    with pytest.raises(ValueError, match="built for"):
+        pra.local_attention(q, k, v, causal=True, backend="flash")
+
+
+def test_auto_takes_k3_where_it_is_built(monkeypatch):
+    """bf16 at D = 64, which K3 is built for, still takes K3 (its twins on
+    the CPU) under ``'auto'``."""
+    calls = []
+
+    def spy(*a, **kw):
+        calls.append(a[0].shape)
+        return fk.flash_attention(*a, **kw)
+
+    monkeypatch.setattr(pra, "flash_attention", spy)
+    q, k, v = (_to_torch(a, torch.bfloat16)
+               for a in _arrays((2, 128, 2, 64), 3, seed=10))
+    got = pra.local_attention(q, k, v, causal=True, backend="auto")
+    want = fk.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=True,
+                              sm_scale=0.125).transpose(1, 2)
+    assert calls == [(2, 2, 128, 64)]
+    assert got.dtype == torch.bfloat16
+    assert _rel_err(_np(got), _np(want)) <= BF16_O_TOL
+
+
 def test_forced_flash_on_ineligible_raises():
     q = k = v = torch.zeros(1, 256, 2, 64)
     with pytest.raises(ValueError, match="flash"):

@@ -55,10 +55,10 @@ def _jax_run(opt, params, grads):
     return {k: np.asarray(v) for k, v in out.items()}
 
 
-def _port_run(make_opt, params, grads):
+def _port_run(make_opt, params, grads, **sgd):
     ps = {k: torch.tensor(v, requires_grad=True) for k, v in params.items()}
     opt = make_opt(torch.optim.SGD(list(ps.values()), lr=LR,
-                                   momentum=MOMENTUM))
+                                   momentum=MOMENTUM, **sgd))
     for s in range(STEPS):
         for k, p in ps.items():
             p.grad = torch.from_numpy(np.ascontiguousarray(grads[k][:, s]))
@@ -86,6 +86,27 @@ def test_neighbor_allreduce_optimizer_matches_reference(atc, every):
     got = _port_run(lambda base: popt.DistributedNeighborAllreduceOptimizer(
         base, topology=pt.ExponentialTwoGraph(N), atc=atc,
         num_steps_per_communication=every), params, grads)
+    _assert_close(got, want)
+
+
+@pytest.mark.parametrize("atc", [False, True], ids=["awc", "atc"])
+def test_weight_decay_reads_the_pre_step_parameters(atc):
+    """An update that reads the parameters: the JAX package's
+    ``optax.chain(add_decayed_weights(wd), sgd(nesterov=True))``, as
+    ``examples/imagenet_resnet.py`` chains it under AWC, against
+    ``torch.optim.SGD(weight_decay=wd, nesterov=True)``.  AWC computes the
+    update from the pre-mix parameters and adds it to the mixed ones (a
+    step on the mixed parameters is 2.7e-3 off at wd = 1e-2)."""
+    wd = 1e-2
+    params, grads = _data(5)
+    want = _jax_run(jopt.DistributedNeighborAllreduceOptimizer(
+        optax.chain(optax.add_decayed_weights(wd),
+                    optax.sgd(LR, momentum=MOMENTUM, nesterov=True)),
+        topology=jt.ExponentialTwoGraph(N), axis_name="bf", atc=atc),
+        params, grads)
+    got = _port_run(lambda base: popt.DistributedNeighborAllreduceOptimizer(
+        base, topology=pt.ExponentialTwoGraph(N), atc=atc), params, grads,
+        weight_decay=wd, nesterov=True)
     _assert_close(got, want)
 
 

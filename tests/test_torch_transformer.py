@@ -40,10 +40,13 @@ F32_TOL, BF16_TOL, BF16_GRAD_TOL = 1e-5, 2.0 ** -5, 2.0 ** -4
 
 @pytest.fixture(autouse=True, scope="module")
 def _pinned_torch_threads():
-    """Two torch threads, as in ``test_torch_slice.py``: the same sums on
-    every machine."""
+    """One torch thread: the same sums on every machine, and no worker
+    thread.  With two, the worker's share of the first ``torch.exp`` in a
+    process sometimes came out off in the fifth digit on a loaded host,
+    which took the f32 logits to 1.98e-5 from flax's, against 7e-7
+    otherwise; flax's own logits repeated bit for bit."""
     prev = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(prev)
 
