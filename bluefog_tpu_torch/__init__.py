@@ -8,19 +8,24 @@ names, so a reader finds each counterpart:
 ==============================================  ===============================
 topology.graphs / topology.schedule             topology.graphs / .schedule
 parallel.context (init/size/set_topology/...)   parallel.context
-parallel.api (rank_stack, neighbor_allreduce)   parallel.api
+parallel.api (rank_stack, collectives, sync)   parallel.api
 parallel.api (win_create ... win_update_...)    parallel.api
 ops.pallas_gossip.neighbor_allreduce_pallas     ops.gossip_kernel (K1, CUDA)
 ops.pallas_gossip.deliver_pallas                ops.deliver_kernel (K2, CUDA)
 ops.ring_attention.local_attention              ops.ring_attention
 library flash_attention (Pallas TPU)            ops.flash_kernel (K3, CUDA)
-ops.collectives (fuse_apply, neighbor_...)      ops.collectives
+ops.collectives (fuse_apply, allreduce, ...,    ops.collectives
+  neighbor_..., hierarchical_...)
 ops.windows (WindowState, win_put, ...)         ops.windows
 optim.optimizers (incl. WinPut, sync mode)      optim.optimizers
 models.resnet                                   models.resnet
 models.transformer (GPTConfig, TransformerLM)   models.transformer
+models.lenet                                    models.lenet
+data.loader, data.tfrecord (csrc/tfrecord.cc)   data.loader, data.tfrecord
 examples/synthetic_benchmark.py                 examples.synthetic_benchmark
 examples/decentralized_optimization.py          examples.decentralized_...
+examples/mnist_decentralized.py                 examples.mnist_decentralized
+examples/imagenet_resnet.py                     examples.imagenet_resnet
 ==============================================  ===============================
 
 Ranks are virtual: ``n`` gossip ranks live on one device as the leading axis
@@ -33,17 +38,34 @@ numpy, never JAX.
 from bluefog_tpu_torch import topology
 from bluefog_tpu_torch.parallel.context import (
     get_context,
+    in_neighbor_machine_ranks,
     in_neighbor_ranks,
     init,
     initialized,
+    load_machine_topology,
     load_topology,
+    local_rank,
+    local_size,
+    machine_rank,
+    machine_size,
+    out_neighbor_machine_ranks,
     out_neighbor_ranks,
     rank,
+    set_machine_topology,
     set_topology,
     shutdown,
     size,
 )
 from bluefog_tpu_torch.parallel.api import (
+    allgather,
+    allreduce,
+    allreduce_parameters,
+    barrier,
+    broadcast,
+    broadcast_optimizer_state,
+    broadcast_parameters,
+    hierarchical_neighbor_allreduce,
+    neighbor_allgather,
     neighbor_allreduce,
     rank_stack,
     win_accumulate,
@@ -56,6 +78,8 @@ from bluefog_tpu_torch.parallel.api import (
 )
 from bluefog_tpu_torch.optim import (
     CommunicationType,
+    DistributedGradientAllreduceOptimizer,
+    DistributedHierarchicalNeighborAllreduceOptimizer,
     DistributedNeighborAllreduceOptimizer,
     DistributedWinPutOptimizer,
     decentralized_optimizer,

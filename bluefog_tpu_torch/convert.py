@@ -15,8 +15,12 @@ flax leaf           port name                   layout
 ``mean`` / ``var``  ``running_mean`` / ``_var``  as is (``batch_stats``)
 ==================  ==========================  ===========================
 
-The transformer (:func:`gpt_from_flax`, :func:`flax_from_gpt`) adds flax's
-``embedding`` leaf, which carries over as ``weight`` unchanged.
+The same table carries :class:`~bluefog_tpu_torch.models.lenet.LeNet5`'s
+flax weights (conv and dense kernels with their biases, no
+``batch_stats``): :func:`load_flax` fills the port's LeNet from
+``variables["params"]``.  The transformer (:func:`gpt_from_flax`,
+:func:`flax_from_gpt`) adds flax's ``embedding`` leaf, which carries over as
+``weight`` unchanged.
 
 Everything here works on numpy arrays (anything ``np.asarray`` takes), so
 neither side needs the other's framework.  :func:`window_from_numpy` carries

@@ -2,18 +2,25 @@
 virtual ranks on one device.
 
 Counterpart of ``examples/synthetic_benchmark.py`` of the JAX package for its
-ResNet models and GPT-small, and its ``neighbor``, ``winput`` and ``none``
-communication flavors.  Each rank holds its own copy of the model as a row of
-rank-stacked parameters; a step runs every rank's forward and backward in
-turn on that rank's batch, through the model's own per-rank loss, then one
-optimizer step: with ``neighbor``,
+LeNet, ResNet models and GPT-small, and its ``neighbor``, ``hierarchical``,
+``allreduce``, ``winput`` and ``none`` communication flavors.  Each rank
+holds its own copy of the model as a row of rank-stacked parameters; a step
+runs every rank's forward and backward in turn on that rank's batch, through
+the model's own per-rank loss, then one optimizer step: with ``neighbor``,
 :func:`~bluefog_tpu_torch.optim.DistributedNeighborAllreduceOptimizer`, whose
-gossip is one call of the kernel K1 per fused buffer; with ``winput``,
+gossip is one call of the kernel K1 per fused buffer; with ``hierarchical``,
+:func:`~bluefog_tpu_torch.optim.DistributedHierarchicalNeighborAllreduceOptimizer`
+over machines of ``--local-size`` ranks on a ring of machines, whose machine
+gossip is one call of K1 per fused buffer; with ``allreduce``,
+:func:`~bluefog_tpu_torch.optim.DistributedGradientAllreduceOptimizer`, the
+centralized baseline, which averages the gradients; with ``winput``,
 :func:`~bluefog_tpu_torch.optim.DistributedWinPutOptimizer`, whose put is one
-call of the kernel K2 per dtype of the parameters.
+call of the kernel K2 per dtype of the parameters.  The ranks are virtual, on
+one device, so no flavor moves bytes between cards: their step times compare
+the update paths, not their communication.
 
 The ResNets classify random NHWC images (softmax cross-entropy against random
-labels).  BatchNorm runs in train mode with per-rank batch statistics that
+labels), LeNet random 28x28x1 images into 10 classes.  BatchNorm runs in train mode with per-rank batch statistics that
 are not gossiped, as in the JAX package's decentralized training step
 (``__graft_entry__.py::dryrun_multichip``, ``examples/imagenet_resnet.py``);
 the JAX benchmark instead freezes BatchNorm.  ``gpt-small`` is
@@ -30,8 +37,9 @@ Run on the GPU (the default device; it raises without one)::
   python -m bluefog_tpu_torch.examples.synthetic_benchmark \\
       --model gpt-small --comm neighbor --batch-size 8 --seq-len 1024
 
-(``--comm winput`` for the one-sided window optimizer) and on the CPU at a
-toy size::
+(``--comm winput`` for the one-sided window optimizer, ``--comm allreduce``
+for the centralized baseline, ``--comm hierarchical --local-size 2`` for
+machines of two ranks) and on the CPU at a toy size::
 
   python -m bluefog_tpu_torch.examples.synthetic_benchmark --device cpu \\
       --model resnet18 --image-size 32 --batch-size 2 --size 4 --iters 2
@@ -50,20 +58,24 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 from bluefog_tpu_torch.models import (
-    GPTConfig, ResNet18, ResNet50, TransformerLM)
+    GPTConfig, LeNet5, ResNet18, ResNet50, TransformerLM)
 from bluefog_tpu_torch.optim import (
     CommunicationType,
     DecentralizedOptimizer,
+    DistributedGradientAllreduceOptimizer,
+    DistributedHierarchicalNeighborAllreduceOptimizer,
     DistributedNeighborAllreduceOptimizer,
     DistributedWinPutOptimizer,
     decentralized_optimizer,
 )
 from bluefog_tpu_torch.parallel.api import rank_stack
 from bluefog_tpu_torch.parallel.context import resolve_device
-from bluefog_tpu_torch.topology import ExponentialTwoGraph, RingGraph
+from bluefog_tpu_torch.topology import (
+    ExponentialTwoGraph, MeshGrid2DGraph, RingGraph)
 
-__all__ = ["MODELS", "TOPOLOGIES", "Trainer", "image_loss", "lm_loss",
-           "build", "run", "profile_step", "main"]
+__all__ = ["MODELS", "TOPOLOGIES", "COMMS", "Trainer", "image_loss",
+           "lm_loss", "make_optimizer", "build", "run", "profile_step",
+           "main"]
 
 # (params, buffers) of one rank, its batch -> its scalar loss
 LossFn = Callable[[torch.nn.Module, Tuple[Dict, Dict],
@@ -92,11 +104,14 @@ class ModelSpec:
     """How to build one of the benchmark's models and what it trains on:
     ``make(dtype, generator, num_classes, num_filters)`` builds it,
     ``tokens`` says whether its batch is ``(ids,)`` (else ``(images,
-    labels)``), and ``loss`` is its per-rank loss."""
+    labels)``), ``loss`` is its per-rank loss, and ``images``, where set,
+    fixes the image side, channels and classes (else ``--image-size``, 3
+    channels and ``num_classes``)."""
 
     make: Callable[..., torch.nn.Module]
     loss: LossFn
     tokens: bool = False
+    images: Optional[Tuple[int, int, int]] = None
 
 
 def _resnet(cls):
@@ -111,12 +126,21 @@ def _gpt_small(dtype, gen, classes, filters):
     return TransformerLM(GPTConfig.small(), generator=gen)
 
 
+def _lenet(dtype, gen, classes, filters):
+    # as in the JAX benchmark: LeNet5() computes in f32 on 10 classes
+    del dtype, classes, filters
+    return LeNet5(generator=gen)
+
+
 MODELS = {
+    "lenet": ModelSpec(_lenet, image_loss, images=(28, 1, 10)),
     "resnet50": ModelSpec(_resnet(ResNet50), image_loss),
     "resnet18": ModelSpec(_resnet(ResNet18), image_loss),
     "gpt-small": ModelSpec(_gpt_small, lm_loss, tokens=True),
 }
-TOPOLOGIES = {"exp2": ExponentialTwoGraph, "ring": RingGraph}
+TOPOLOGIES = {"exp2": ExponentialTwoGraph, "ring": RingGraph,
+              "grid": MeshGrid2DGraph}
+COMMS = ("neighbor", "hierarchical", "allreduce", "winput", "none")
 
 
 @dataclasses.dataclass
@@ -125,27 +149,30 @@ class Trainer:
     tensors with a stacked ``.grad``) and buffers (BatchNorm statistics; a
     GPT has none), a decentralized optimizer over the parameters, one fixed
     synthetic batch per rank (a tuple of rank-stacked tensors: NHWC images
-    and integer labels, or token ids), and the model's per-rank loss."""
+    and integer labels, or token ids; None where every step is given its
+    batch), and the model's per-rank loss."""
 
     model: torch.nn.Module
     params: Dict[str, torch.Tensor]
     buffers: Dict[str, torch.Tensor]
     opt: DecentralizedOptimizer
-    batch: Tuple[torch.Tensor, ...]
+    batch: Optional[Tuple[torch.Tensor, ...]]
     loss_fn: LossFn
 
     @property
     def size(self) -> int:
-        return self.batch[0].shape[0]
+        return next(iter(self.params.values())).shape[0]
 
     @property
     def device(self) -> torch.device:
-        return self.batch[0].device
+        return next(iter(self.params.values())).device
 
-    def step(self) -> torch.Tensor:
-        """One decentralized SGD step of every rank; returns the ``(n,)``
-        f32 losses (before the update).  One rank's activations are live at
-        a time."""
+    def step(self, batch: Optional[Tuple[torch.Tensor, ...]] = None
+             ) -> torch.Tensor:
+        """One decentralized SGD step of every rank on ``batch`` (default:
+        the trainer's fixed batch); returns the ``(n,)`` f32 losses (before
+        the update).  One rank's activations are live at a time."""
+        batch = self.batch if batch is None else batch
         losses = torch.empty(self.size, device=self.device)
         names = list(self.params)
         for r in range(self.size):
@@ -153,7 +180,7 @@ class Trainer:
             # rank r's row of the buffers, updated in place by BatchNorm
             b_r = {k: v[r] for k, v in self.buffers.items()}
             loss = self.loss_fn(self.model, (p_r, b_r),
-                                tuple(t[r] for t in self.batch))
+                                tuple(t[r] for t in batch))
             grads = torch.autograd.grad(loss, list(p_r.values()))
             with torch.no_grad():
                 for k, g in zip(names, grads):
@@ -180,16 +207,44 @@ class Trainer:
         return out
 
 
+def make_optimizer(base: torch.optim.Optimizer, comm: str = "neighbor",
+                   topology: str = "exp2", size: int = 8,
+                   local_size: int = 1) -> DecentralizedOptimizer:
+    """The decentralized optimizer of one ``--comm`` flavor over ``base``
+    (the JAX benchmark's ``build_optimizer``): ``hierarchical`` groups
+    ``local_size`` ranks a machine on a ring of machines."""
+    if comm == "neighbor":
+        return DistributedNeighborAllreduceOptimizer(
+            base, topology=TOPOLOGIES[topology](size))
+    if comm == "hierarchical":
+        if local_size <= 1 or size % local_size:
+            raise ValueError("--comm hierarchical needs --local-size > 1 "
+                             "dividing the number of ranks")
+        return DistributedHierarchicalNeighborAllreduceOptimizer(
+            base, machine_topology=RingGraph(size // local_size),
+            local_size=local_size)
+    if comm == "allreduce":
+        return DistributedGradientAllreduceOptimizer(base)
+    if comm == "winput":
+        return DistributedWinPutOptimizer(
+            base, topology=TOPOLOGIES[topology](size))
+    if comm == "none":
+        return decentralized_optimizer(
+            base, None, communication_type=CommunicationType.empty)
+    raise ValueError(f"unknown comm {comm!r}")
+
+
 def build(model: str = "resnet50", comm: str = "neighbor",
           topology: str = "exp2", size: int = 8, batch_size: int = 32,
           image_size: int = 224, seq_len: int = 128, num_classes: int = 1000,
           num_filters: int = 64, dtype: torch.dtype = torch.bfloat16,
-          seed: int = 0, device="cuda") -> Trainer:
+          seed: int = 0, device="cuda", local_size: int = 1) -> Trainer:
     """A :class:`Trainer` with the model's weights made from ``seed`` and
     copied to every rank, synthetic data from ``seed + 1`` (images and
     labels, or ``(size, batch_size, min(seq_len, max_position))`` token
-    ids), and SGD with the JAX benchmark's lr 0.01 and momentum 0.9.
-    ``num_classes`` and ``num_filters`` shape the ResNets only."""
+    ids), and SGD with the JAX benchmark's lr 0.01 and momentum 0.9 under
+    the ``comm`` flavor (:func:`make_optimizer`).  ``num_classes`` and
+    ``num_filters`` shape the ResNets only."""
     dev = resolve_device(device)
     spec = MODELS[model]
     net = spec.make(dtype, torch.Generator().manual_seed(seed), num_classes,
@@ -200,17 +255,7 @@ def build(model: str = "resnet50", comm: str = "neighbor",
         p.grad = torch.zeros_like(p)
     buffers = rank_stack(dict(net.named_buffers()), size, dev)
     base = torch.optim.SGD(list(params.values()), lr=0.01, momentum=0.9)
-    if comm == "neighbor":
-        opt = DistributedNeighborAllreduceOptimizer(
-            base, topology=TOPOLOGIES[topology](size))
-    elif comm == "winput":
-        opt = DistributedWinPutOptimizer(
-            base, topology=TOPOLOGIES[topology](size))
-    elif comm == "none":
-        opt = decentralized_optimizer(
-            base, None, communication_type=CommunicationType.empty)
-    else:
-        raise ValueError(f"unknown comm {comm!r}")
+    opt = make_optimizer(base, comm, topology, size, local_size)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     if spec.tokens:
         cfg = net.cfg
@@ -219,9 +264,10 @@ def build(model: str = "resnet50", comm: str = "neighbor",
                                                       cfg.max_position)),
                                generator=gen, device=dev),)
     else:
-        batch = (torch.randn(size, batch_size, image_size, image_size, 3,
+        side, channels, classes = spec.images or (image_size, 3, num_classes)
+        batch = (torch.randn(size, batch_size, side, side, channels,
                              generator=gen, device=dev).to(dtype),
-                 torch.randint(0, num_classes, (size, batch_size),
+                 torch.randint(0, classes, (size, batch_size),
                                generator=gen, device=dev))
     return Trainer(net, params, buffers, opt, batch, spec.loss)
 
@@ -252,9 +298,12 @@ def run(trainer: Trainer, warmup: int, iters: int) -> Dict[str, object]:
     return {"losses": losses, "step_ms": step_ms, "samples_per_s": rate}
 
 
-def profile_step(trainer: Trainer, top: int = 10) -> Dict[str, object]:
-    """One step under ``torch.profiler`` (CUDA activity only, to keep the
-    host's tracing cost out of the step): the step's wall milliseconds,
+def profile_step(trainer: Trainer, top: int = 10,
+                 batch: Optional[Tuple[torch.Tensor, ...]] = None
+                 ) -> Dict[str, object]:
+    """One step (on ``batch``, default the trainer's) under
+    ``torch.profiler`` (CUDA activity only, to keep the host's tracing cost
+    out of the step): the step's losses and wall milliseconds,
     the device's busy milliseconds (the sum of the times of its kernels,
     copies and fills; one stream, so they do not overlap), its idle share,
     and the ``top`` of them by device time as ``(name, ms, count)``."""
@@ -266,7 +315,7 @@ def profile_step(trainer: Trainer, top: int = 10) -> Dict[str, object]:
     _sync(dev)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.step()
+        losses = trainer.step(batch)
         _sync(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events()
@@ -277,7 +326,7 @@ def profile_step(trainer: Trainer, top: int = 10) -> Dict[str, object]:
             e.time_range.elapsed_us() / 1e3)
     busy_ms = sum(sum(ts) for ts in by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:top]
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+    return {"losses": losses, "wall_ms": wall_ms, "busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / wall_ms,
             "kernels": len(kernels),
             "top": [(name, sum(ts), len(ts)) for name, ts in ranked]}
@@ -286,8 +335,9 @@ def profile_step(trainer: Trainer, top: int = 10) -> Dict[str, object]:
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", choices=sorted(MODELS), default="resnet50")
-    ap.add_argument("--comm", choices=["neighbor", "winput", "none"],
-                    default="neighbor")
+    ap.add_argument("--comm", choices=COMMS, default="neighbor")
+    ap.add_argument("--local-size", type=int, default=1,
+                    help="ranks per machine (--comm hierarchical)")
     ap.add_argument("--topology", choices=sorted(TOPOLOGIES), default="exp2")
     ap.add_argument("--size", type=int, default=8, help="virtual ranks")
     ap.add_argument("--batch-size", type=int, default=32, help="per rank")
@@ -308,7 +358,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     trainer = build(args.model, args.comm, args.topology, args.size,
                     args.batch_size, args.image_size, args.seq_len,
                     dtype=torch.float32 if args.fp32 else torch.bfloat16,
-                    seed=args.seed, device=args.device)
+                    seed=args.seed, device=args.device,
+                    local_size=args.local_size)
     res = run(trainer, args.warmup, args.iters)
     unit = "seq" if MODELS[args.model].tokens else "img"
     for i, ms in enumerate(res["step_ms"]):

@@ -2,9 +2,17 @@
 the kernels K1 (gossip), K2 (window deliver) and K3 (flash attention)."""
 
 from bluefog_tpu_torch.ops.collectives import (  # noqa: F401
+    allgather,
+    allreduce,
+    barrier,
+    broadcast,
     fuse_apply,
     fuse_plan,
+    hierarchical_neighbor_allreduce,
+    hierarchical_neighbor_allreduce_2d,
+    neighbor_allgather,
     neighbor_allreduce,
+    pair_gossip,
 )
 from bluefog_tpu_torch.ops.gossip_kernel import (  # noqa: F401
     gossip_mix,

@@ -1,12 +1,19 @@
-"""Gossip collectives over rank-stacked tensors.
+"""Collectives over rank-stacked tensors.
 
 Counterpart of ``bluefog_tpu/ops/collectives.py`` for :func:`fuse_apply`,
-:func:`_acc_dtype` and :func:`neighbor_allreduce`.  The JAX functions run
-inside ``shard_map`` on one rank's value; here the ``n`` ranks are virtual and
-every leaf carries them on its leading axis, ``x[r]`` being rank ``r``'s
-value, as in the JAX package's stacked-array API (``parallel/api.py``).
+:func:`_acc_dtype`, :func:`neighbor_allreduce`, the flat collectives
+(:func:`allreduce`, :func:`allgather`, :func:`broadcast`, :func:`barrier`,
+:func:`pair_gossip`, :func:`neighbor_allgather`) and the hierarchical gossip
+(:func:`hierarchical_neighbor_allreduce` and its two-level form).  The JAX
+functions run inside ``shard_map`` on one rank's value; here the ``n`` ranks
+are virtual and every leaf carries them on its leading axis, ``x[r]`` being
+rank ``r``'s value, as in the JAX package's stacked-array API
+(``parallel/api.py``).  The flat collectives are XLA collectives in the JAX
+package, not Pallas kernels, so they are plain PyTorch here: reductions or
+gathers over the leading axis.  Every result is a fresh tensor, never a view
+of its input or an ``expand``, so callers may write into it in place.
 
-Two backends, resolved per call by
+Two gossip backends, resolved per call by
 :func:`bluefog_tpu_torch.ops.gossip_kernel.resolve_backend`:
 
 - ``'kernel'``: K1, the fused weighted reduction of ``csrc/gossip_mix.cu``
@@ -14,6 +21,8 @@ Two backends, resolved per call by
 - ``'plain'``: one gathered copy per schedule slot, then a multiply-add (the
   counterpart of ``'xla'``); any schedule, and the only path that honours
   ``send_weights``.
+
+The hierarchical gossip runs its machine-level fold on K1 the same way.
 """
 
 from __future__ import annotations
@@ -27,7 +36,10 @@ from bluefog_tpu_torch.ops import gossip_kernel as _k1
 from bluefog_tpu_torch.topology.graphs import Topology
 from bluefog_tpu_torch.topology.schedule import GossipSchedule, build_schedule
 
-__all__ = ["fuse_apply", "fuse_plan", "neighbor_allreduce"]
+__all__ = ["fuse_apply", "fuse_plan", "neighbor_allreduce", "allreduce",
+           "allgather", "broadcast", "barrier", "pair_gossip",
+           "neighbor_allgather", "hierarchical_neighbor_allreduce",
+           "hierarchical_neighbor_allreduce_2d"]
 
 
 def fuse_plan(leaves: List[torch.Tensor], threshold_bytes=8 << 20
@@ -181,3 +193,253 @@ def neighbor_allreduce(x, schedule, *, self_weight=None, recv_weights=None,
         outs = [_plain_leaf(leaf, sched, self_weight, recv_weights, send_w)
                 for leaf in leaves]
     return pytree.tree_unflatten(outs, spec)
+
+
+# ---------------------------------------------------------------------------
+# Flat collectives: reductions and gathers over the leading (rank) axis
+# ---------------------------------------------------------------------------
+
+
+def _stacked_leaves(x):
+    leaves, spec = pytree.tree_flatten(x)
+    for leaf in leaves:
+        if not isinstance(leaf, torch.Tensor) or leaf.dim() == 0:
+            raise ValueError("leaves must be rank-stacked tensors with a "
+                             f"leading rank axis, got {leaf!r:.80}")
+    return leaves, spec
+
+
+def _to_ranks(row: torch.Tensor, n: int) -> torch.Tensor:
+    """``row`` as every one of ``n`` ranks' value: a new contiguous ``(n,
+    ...)`` tensor, never a view of ``row``."""
+    return row.expand(n, *row.shape).clone(
+        memory_format=torch.contiguous_format)
+
+
+def _rank_sum(leaf: torch.Tensor) -> torch.Tensor:
+    """``psum`` over the leading axis in the leaf's dtype: bf16/f16 summed
+    in f32 and rounded once (what the JAX package's CPU mesh computes),
+    integers in their own dtype, booleans counted."""
+    if leaf.dtype.is_floating_point:
+        return leaf.sum(0, dtype=_acc_dtype(leaf.dtype)).to(leaf.dtype)
+    if leaf.dtype == torch.bool:
+        return leaf.sum(0)
+    return leaf.sum(0, dtype=leaf.dtype)
+
+
+def allreduce(x, *, average: bool = True):
+    """Global sum, or mean (the reference default), over the ranks of every
+    leaf of a pytree of rank-stacked tensors; every rank gets the result.
+
+    As the reference computes it: the sum in the leaf's dtype, then ``/ n``
+    in the accumulation dtype (f32 for bf16/f16) and back.  Integer and
+    boolean leaves keep their dtype: the mean is the f32 quotient cast
+    back, as ``astype`` casts it there."""
+
+    def one(leaf):
+        n = leaf.shape[0]
+        s = _rank_sum(leaf)
+        if average:
+            if leaf.dtype.is_floating_point:
+                s = (s.to(_acc_dtype(leaf.dtype)) / n).to(leaf.dtype)
+            else:
+                s = (s.float() / n).to(leaf.dtype)
+        return _to_ranks(s.to(leaf.dtype), n)
+
+    leaves, spec = _stacked_leaves(x)
+    return pytree.tree_unflatten([one(leaf) for leaf in leaves], spec)
+
+
+def allgather(x, *, axis: int = 0, tiled: bool = False):
+    """Every rank gets every rank's value: per rank, the ``n`` values
+    stacked at ``axis`` (a new axis), or with ``tiled`` concatenated along
+    ``axis`` (the reference concatenates along dim 0)."""
+
+    def one(leaf):
+        n = leaf.shape[0]
+        if tiled:
+            if leaf.dim() < 2:
+                raise ValueError("tiled allgather needs per-rank values of "
+                                 "rank >= 1")
+            row = torch.cat(list(leaf.unbind(0)), dim=axis)
+        else:
+            row = torch.movedim(leaf, 0, axis)
+        return _to_ranks(row, n)
+
+    leaves, spec = _stacked_leaves(x)
+    return pytree.tree_unflatten([one(leaf) for leaf in leaves], spec)
+
+
+def broadcast(x, root_rank: int = 0):
+    """Every rank gets ``root_rank``'s value, in the leaf's dtype."""
+
+    def one(leaf):
+        n = leaf.shape[0]
+        if not 0 <= root_rank < n:
+            raise ValueError(f"root_rank {root_rank} outside [0, {n})")
+        return _to_ranks(leaf[root_rank], n)
+
+    leaves, spec = _stacked_leaves(x)
+    return pytree.tree_unflatten([one(leaf) for leaf in leaves], spec)
+
+
+def barrier(device=None) -> bool:
+    """Synchronization point (``bf.barrier``): the virtual ranks share one
+    device, so this waits for the work queued on it (a no-op on the CPU)."""
+    dev = torch.device(device) if device is not None else None
+    if (dev is None and torch.cuda.is_available()) or (
+            dev is not None and dev.type == "cuda"):
+        torch.cuda.synchronize(dev)
+    return True
+
+
+def pair_gossip(x, *, perm, self_weight=0.5):
+    """Average with one partner: ``out[d] = w x[d] + (1 - w) x[s]`` for every
+    ``(s, d)`` of the pairing ``perm``, in the accumulation dtype; ranks that
+    are no destination keep their value."""
+    pairs = [(int(s), int(d)) for s, d in perm]
+
+    def one(leaf):
+        acc = _acc_dtype(leaf.dtype)
+        w = torch.as_tensor(self_weight, dtype=acc, device=leaf.device)
+        out = leaf.clone(memory_format=torch.contiguous_format)
+        if pairs:
+            src = torch.tensor([s for s, _ in pairs], device=leaf.device)
+            dst = torch.tensor([d for _, d in pairs], device=leaf.device)
+            mixed = w * leaf[dst].to(acc) + (1 - w) * leaf[src].to(acc)
+            out[dst] = mixed.to(leaf.dtype)
+        return out
+
+    leaves, spec = _stacked_leaves(x)
+    return pytree.tree_unflatten([one(leaf) for leaf in leaves], spec)
+
+
+def neighbor_allgather(x: torch.Tensor, schedule):
+    """In-neighbour values: ``(slots, mask)``, ``slots`` of shape ``(n, K,
+    ...)`` with ``slots[i, k] = x[recv_src[i, k]]`` (zeros where rank ``i``
+    has no slot-``k`` edge) and ``mask`` the ``(n, K)`` bool table of real
+    entries.  As in the reference, irregular graphs pad to ``K =
+    num_slots`` in place of ``bf.neighbor_allgather``'s ragged result."""
+    sched = _as_schedule(schedule)
+    if x.dim() == 0 or x.shape[0] != sched.size:
+        raise ValueError(f"x must be rank-stacked with leading axis "
+                         f"{sched.size}, got shape {tuple(x.shape)}")
+    src = torch.as_tensor(sched.recv_src[:, :sched.num_slots],
+                          dtype=torch.long, device=x.device)
+    mask = src >= 0
+    slots = x[src.clamp(min=0)]
+    slots[~mask] = 0
+    return slots, mask
+
+
+# ---------------------------------------------------------------------------
+# Hierarchical gossip: exact mean within each machine, gossip between them
+# ---------------------------------------------------------------------------
+
+
+def _machine_fold(avg, shipped, sched, self_weight, recv_weights, backend):
+    """``out[m] = sw[m] avg[m] + sum_k rw[m, k] shipped[recv_src[m, k]]``
+    over the ``M`` machine rows, in ``avg``'s (accumulation) dtype.
+
+    f32 rows go through K1 (``'kernel'``) or K1's plain version
+    (``'plain'``) as they are.  For rows rounded to a narrower wire dtype
+    before shipping (bf16/f16 leaves) the self term stays unrounded, as in
+    the reference: K1 reads ``2M`` f32 rows, the unrounded ``avg`` for the
+    self terms and the rounded ``shipped`` for the slots, and its first
+    ``M`` rows are the result.  Other dtypes (f64) fold in plain PyTorch."""
+    m = sched.size
+    if avg.dtype != torch.float32:
+        acc = avg.dtype
+        sw, rw, src = _k1.schedule_tables(sched, avg.device, self_weight,
+                                          recv_weights, dtype=acc)
+        out = sw[:, None] * avg
+        for k in range(sched.num_slots):
+            s = src[:, k].long()
+            recvd = torch.where((s >= 0)[:, None], shipped[s.clamp(min=0)], 0)
+            out = out + rw[:, k, None] * recvd.to(acc)
+        return out
+    sw, rw, src = _k1.schedule_tables(sched, avg.device, self_weight,
+                                      recv_weights)
+    mix = _k1.gossip_mix if backend == "kernel" else _k1.gossip_mix_plain
+    if shipped is avg:
+        return mix(avg.contiguous(), sw, rw, src)
+    rows = torch.cat([avg, shipped.float()]).contiguous()
+    src2 = torch.cat([torch.where(src >= 0, src + m, src),
+                      torch.full_like(src, -1)]).contiguous()
+    sw2 = torch.cat([sw, torch.zeros_like(sw)])
+    rw2 = torch.cat([rw, torch.zeros_like(rw)]).contiguous()
+    return mix(rows, sw2, rw2, src2)[:m]
+
+
+def _hierarchical(x, machine_schedule, local_size, self_weight, recv_weights,
+                  backend, round_local_sum):
+    msched = _as_schedule(machine_schedule)
+    backend = _k1.resolve_backend(backend, msched)
+    if backend == "kernel" and _k1.circulant_shifts(msched) is None:
+        raise ValueError("kernel gossip requires a circulant machine schedule")
+    n_machines, n = msched.size, msched.size * local_size
+    leaves, spec = _stacked_leaves(x)
+
+    def one(leaf):
+        if leaf.shape[0] != n:
+            raise ValueError(
+                f"leaves must be rank-stacked with leading axis {n} "
+                f"({n_machines} machines x {local_size}), got shape "
+                f"{tuple(leaf.shape)}")
+        acc = _acc_dtype(leaf.dtype)
+        lanes = leaf.reshape(n_machines, local_size, -1)
+        if round_local_sum:
+            # psum within the machine in the leaf's dtype, then / L in f32
+            local_sum = lanes.sum(1, dtype=acc).to(leaf.dtype).to(acc)
+        else:
+            # pmean of the f32 values
+            local_sum = lanes.to(acc).sum(1)
+        avg = local_sum / local_size
+        # every lane of a machine holds this average, so the machine
+        # gossip folds M rows, and each lane's counterpart on a peer
+        # machine sends the same row
+        shipped = avg if acc == leaf.dtype else avg.to(leaf.dtype)
+        out = _machine_fold(avg, shipped, msched, self_weight, recv_weights,
+                            backend).to(leaf.dtype)
+        return out.unsqueeze(1).expand(n_machines, local_size,
+                                       out.shape[1]).reshape(leaf.shape)
+
+    return pytree.tree_unflatten([one(leaf) for leaf in leaves], spec)
+
+
+def hierarchical_neighbor_allreduce(x, machine_schedule, *, local_size: int,
+                                    self_weight=None, recv_weights=None,
+                                    backend: str = "auto"):
+    """Exact average within each machine, then gossip between machines, on
+    every leaf of a pytree of rank-stacked tensors (reference
+    ``hierarchical_neighbor_allreduce``).
+
+    Rank ``r`` sits on machine ``r // local_size``.  The local sum runs in
+    the leaf's dtype, then ``/ local_size`` in f32 (the reference's ``psum``
+    over ``axis_index_groups``); machines then mix along ``machine_schedule``
+    (a :class:`GossipSchedule` or :class:`Topology` over ``n /
+    local_size`` nodes), each local rank with its counterpart lane on the
+    peer machine, shipping the average rounded to the leaf's dtype and
+    keeping its own term in f32.  Every local rank of a machine ends with
+    the same value.
+
+    ``self_weight`` (a scalar or ``(M,)``) and ``recv_weights`` (``(K,)`` or
+    ``(M, K)``) override the machine schedule's weights.  ``backend``:
+    ``'kernel'`` runs the machine fold on K1 (circulant machine schedules
+    only), ``'plain'`` on K1's plain version, ``'auto'`` picks K1 where the
+    machine schedule allows it."""
+    return _hierarchical(x, machine_schedule, local_size, self_weight,
+                         recv_weights, backend, round_local_sum=True)
+
+
+def hierarchical_neighbor_allreduce_2d(x, machine_schedule, *,
+                                       local_size: int, self_weight=None,
+                                       recv_weights=None,
+                                       backend: str = "auto"):
+    """The two-level ``(machine, local)`` form of
+    :func:`hierarchical_neighbor_allreduce` (reference
+    ``hierarchical_neighbor_allreduce_2d``): the same computation, except
+    that the local average is the ``pmean`` of the f32 values, so bf16/f16
+    local sums are not rounded to the leaf's dtype first."""
+    return _hierarchical(x, machine_schedule, local_size, self_weight,
+                         recv_weights, backend, round_local_sum=False)

@@ -3,6 +3,8 @@
 from bluefog_tpu_torch.optim.optimizers import (  # noqa: F401
     CommunicationType,
     DecentralizedOptimizer,
+    DistributedGradientAllreduceOptimizer,
+    DistributedHierarchicalNeighborAllreduceOptimizer,
     DistributedNeighborAllreduceOptimizer,
     DistributedWinPutOptimizer,
     decentralized_optimizer,

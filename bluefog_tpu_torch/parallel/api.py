@@ -1,7 +1,12 @@
 """Array-level op API over rank-stacked tensors: the ``bf.*`` surface.
 
 Counterpart of ``bluefog_tpu/parallel/api.py`` for :func:`rank_stack`, the
-stacked-array :func:`neighbor_allreduce` and the name-keyed window registry
+stacked-array collectives (:func:`neighbor_allreduce`,
+:func:`neighbor_allgather`, :func:`allreduce`, :func:`allgather`,
+:func:`broadcast`, :func:`barrier`, :func:`hierarchical_neighbor_allreduce`),
+the parameter-sync helpers of the reference's ``utility.py``
+(:func:`broadcast_parameters`, :func:`allreduce_parameters`,
+:func:`broadcast_optimizer_state`) and the name-keyed window registry
 (``win_create`` ... ``win_update_then_collect``).  As there, all ranks'
 values live in one tensor with a leading ``size``-long rank axis: ``x[r]`` is
 rank ``r``'s value.  The ranks are virtual, on the context's one device.
@@ -22,8 +27,11 @@ from bluefog_tpu_torch.parallel.context import get_context
 from bluefog_tpu_torch.topology.graphs import Topology
 from bluefog_tpu_torch.topology.schedule import GossipSchedule, build_schedule
 
-__all__ = ["rank_stack", "neighbor_allreduce", "win_create", "win_free",
-           "win_put", "win_accumulate", "win_get", "win_update",
+__all__ = ["rank_stack", "neighbor_allreduce", "neighbor_allgather",
+           "allreduce", "allgather", "broadcast", "barrier",
+           "hierarchical_neighbor_allreduce", "broadcast_parameters",
+           "allreduce_parameters", "broadcast_optimizer_state", "win_create",
+           "win_free", "win_put", "win_accumulate", "win_get", "win_update",
            "win_update_then_collect"]
 
 
@@ -70,6 +78,92 @@ def neighbor_allreduce(x, *, topology=None, self_weight=None,
     return _C.neighbor_allreduce(x, _sched(topology), self_weight=self_weight,
                                  recv_weights=recv_weights,
                                  send_weights=send_weights, backend=backend)
+
+
+def neighbor_allgather(x: torch.Tensor, *, topology=None):
+    """Stacked ``bf.neighbor_allgather``: ``(slots, mask)``; see
+    :func:`bluefog_tpu_torch.ops.collectives.neighbor_allgather` for the
+    padding to ``K`` slots."""
+    return _C.neighbor_allgather(x, _sched(topology))
+
+
+def allreduce(x, *, average: bool = True):
+    """Stacked ``bf.allreduce``: every rank gets the mean (or sum) of all
+    ranks' values."""
+    return _C.allreduce(x, average=average)
+
+
+def allgather(x):
+    """Stacked ``bf.allgather``: every rank's row becomes the full stack,
+    ``(size, size, ...)`` for leaves of shape ``(size, ...)``."""
+    return _C.allgather(x)
+
+
+def broadcast(x, root_rank: int = 0):
+    """Stacked ``bf.broadcast``: every rank gets ``root_rank``'s value."""
+    return _C.broadcast(x, root_rank)
+
+
+def barrier() -> bool:
+    """Wait for the work queued on the context's device."""
+    return _C.barrier(get_context().device)
+
+
+def hierarchical_neighbor_allreduce(x, *, machine_topology=None,
+                                    self_weight=None, recv_weights=None,
+                                    two_level_mesh: bool = False,
+                                    backend: str = "auto"):
+    """Stacked ``bf.hierarchical_neighbor_allreduce``: the exact average
+    within each machine of ``init(local_size=...)``, then gossip between
+    machines along ``machine_topology`` (default: the context's).
+    ``two_level_mesh`` selects the reference's ``(machine, local)`` mesh
+    form, whose local average does not round bf16/f16 sums to the leaf's
+    dtype; see :mod:`bluefog_tpu_torch.ops.collectives`."""
+    ctx = get_context()
+    msched = machine_topology
+    if msched is None:
+        if ctx.machine_schedule is None:
+            raise RuntimeError(
+                "no machine topology: init(local_size=...) first")
+        msched = ctx.machine_schedule
+    fn = (_C.hierarchical_neighbor_allreduce_2d if two_level_mesh
+          else _C.hierarchical_neighbor_allreduce)
+    return fn(x, _sched(msched), local_size=ctx.local_size,
+              self_weight=self_weight, recv_weights=recv_weights,
+              backend=backend)
+
+
+# ---------------------------------------------------------------------------
+# Parameter-sync helpers (reference bluefog/torch/utility.py)
+# ---------------------------------------------------------------------------
+
+
+def broadcast_parameters(params, root_rank: int = 0):
+    """Every rank's parameters become ``root_rank``'s (reference
+    ``bf.broadcast_parameters``)."""
+    return broadcast(params, root_rank)
+
+
+def allreduce_parameters(params):
+    """Every rank's parameters become the ranks' average (reference
+    ``bf.allreduce_parameters``); integer leaves keep their dtype."""
+    return allreduce(params, average=True)
+
+
+def broadcast_optimizer_state(state, root_rank: int = 0):
+    """Broadcast every rank-stacked tensor of an optimizer state, such as a
+    ``torch.optim`` state dict (reference ``bf.broadcast_optimizer_state``).
+    Tensors without the context's leading rank axis (a step count) and
+    non-tensor entries (hyper-parameters) pass through unchanged."""
+    n = get_context().size
+
+    def one(leaf):
+        if (isinstance(leaf, torch.Tensor) and leaf.dim() > 0
+                and leaf.shape[0] == n):
+            return _C.broadcast(leaf, root_rank)
+        return leaf
+
+    return pytree.tree_map(one, state)
 
 
 # ---------------------------------------------------------------------------

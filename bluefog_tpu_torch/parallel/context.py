@@ -5,6 +5,11 @@ rank on each device of a mesh; here the ``n`` ranks are virtual, rows of
 rank-stacked tensors on one device, as the JAX package's stacked-array API
 represents them.  ``rank()`` therefore names no calling process: host code
 passes an explicit rank to neighbor queries, as in the JAX package.
+
+For the hierarchical ops the ranks are grouped into machines of
+``local_size`` consecutive ranks (rank ``r`` on machine ``r //
+local_size``), and the context keeps a machine-level topology and its gossip
+schedule beside the rank-level ones.
 """
 
 from __future__ import annotations
@@ -30,19 +35,35 @@ __all__ = [
     "load_topology",
     "in_neighbor_ranks",
     "out_neighbor_ranks",
+    "local_size",
+    "local_rank",
+    "machine_size",
+    "machine_rank",
+    "set_machine_topology",
+    "load_machine_topology",
+    "in_neighbor_machine_ranks",
+    "out_neighbor_machine_ranks",
 ]
 
 
 @dataclasses.dataclass
 class BluefogContext:
     """Everything the framework holds between calls; ``windows`` maps each
-    registered window's name to its ``ops.windows.WindowState``."""
+    registered window's name to its ``ops.windows.WindowState``.  The
+    machine topology is None when there is one machine."""
 
     size: int
     device: torch.device
     topology: Topology
     schedule: GossipSchedule
+    local_size: int = 1
+    machine_topology: Optional[Topology] = None
+    machine_schedule: Optional[GossipSchedule] = None
     windows: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    @property
+    def n_machines(self) -> int:
+        return self.size // self.local_size
 
 
 _CTX: Optional[BluefogContext] = None
@@ -59,11 +80,17 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def init(*, topology: Optional[Topology] = None, size: Optional[int] = None,
+def init(*, topology: Optional[Topology] = None,
+         machine_topology: Optional[Topology] = None,
+         size: Optional[int] = None, local_size: Optional[int] = None,
          device="cuda") -> BluefogContext:
     """Initialize ``size`` virtual ranks on ``device`` (the reference's
     ``bf.init()``).  ``size`` defaults to the topology's; the topology
-    defaults to ``ExponentialTwoGraph(size)``, as in the JAX package."""
+    defaults to ``ExponentialTwoGraph(size)``, as in the JAX package.
+
+    ``local_size`` (default 1) ranks make a machine; with more than one
+    machine the machine topology defaults to ``ExponentialTwoGraph`` over
+    the ``size / local_size`` machines, as in the JAX package."""
     global _CTX
     dev = resolve_device(device)
     if size is None:
@@ -75,8 +102,19 @@ def init(*, topology: Optional[Topology] = None, size: Optional[int] = None,
     topo = topology if topology is not None else ExponentialTwoGraph(size)
     if topo.size != size:
         raise ValueError(f"topology size {topo.size} != size {size}")
-    _CTX = BluefogContext(size=size, device=dev, topology=topo,
-                          schedule=build_schedule(topo))
+    local = 1 if local_size is None else int(local_size)
+    if local < 1 or size % local:
+        raise ValueError(f"size {size} not divisible by local_size {local}")
+    mtopo = machine_topology
+    if mtopo is None and size // local > 1:
+        mtopo = ExponentialTwoGraph(size // local)
+    if mtopo is not None and mtopo.size != size // local:
+        raise ValueError(f"machine topology size {mtopo.size} != "
+                         f"{size // local} machines")
+    _CTX = BluefogContext(
+        size=size, device=dev, topology=topo, schedule=build_schedule(topo),
+        local_size=local, machine_topology=mtopo,
+        machine_schedule=build_schedule(mtopo) if mtopo is not None else None)
     return _CTX
 
 
@@ -139,3 +177,60 @@ def in_neighbor_ranks(rank_: Optional[int] = None) -> List[int]:
 def out_neighbor_ranks(rank_: Optional[int] = None) -> List[int]:
     r = rank() if rank_ is None else rank_
     return get_context().topology.out_neighbors(r)
+
+
+def local_size() -> int:
+    """Ranks per machine."""
+    return get_context().local_size
+
+
+def local_rank(rank_: Optional[int] = None) -> int:
+    r = rank() if rank_ is None else rank_
+    return r % get_context().local_size
+
+
+def machine_size() -> int:
+    """The number of machines."""
+    return get_context().n_machines
+
+
+def machine_rank(rank_: Optional[int] = None) -> int:
+    r = rank() if rank_ is None else rank_
+    return r // get_context().local_size
+
+
+def set_machine_topology(topology: Topology, is_weighted: bool = True) -> bool:
+    """Install the machine-level topology of the hierarchical ops (reference
+    ``bf.set_machine_topology``)."""
+    ctx = get_context()
+    if topology.size != ctx.n_machines:
+        raise ValueError(f"machine topology size {topology.size} != "
+                         f"n_machines {ctx.n_machines}")
+    if not is_weighted:
+        topology = Topology.from_edges(topology.size, topology.edges,
+                                       name=topology.name)
+    ctx.machine_topology = topology
+    ctx.machine_schedule = build_schedule(topology)
+    return True
+
+
+def load_machine_topology() -> Optional[Topology]:
+    return get_context().machine_topology
+
+
+def in_neighbor_machine_ranks(machine_rank_: Optional[int] = None
+                              ) -> List[int]:
+    ctx = get_context()
+    if ctx.machine_topology is None:
+        return []
+    m = machine_rank() if machine_rank_ is None else machine_rank_
+    return ctx.machine_topology.in_neighbors(m)
+
+
+def out_neighbor_machine_ranks(machine_rank_: Optional[int] = None
+                               ) -> List[int]:
+    ctx = get_context()
+    if ctx.machine_topology is None:
+        return []
+    m = machine_rank() if machine_rank_ is None else machine_rank_
+    return ctx.machine_topology.out_neighbors(m)

@@ -91,9 +91,38 @@ its last line:
    same step through K3's twins from the same state (every gradient, the
    losses and the state after the step); a profiled step and the host
    breakdown, as for the ResNet paths.
-9. Report: a ``kernels:`` line, the kernels' JSON line (K1, K2 and K3's
-   three kernels), the card's name and power limit from nvidia-smi, and the
-   result line.
+9. The centralized baseline: the ResNet-50 path of phase 3 with
+   ``DistributedGradientAllreduceOptimizer`` (``--comm allreduce``), 2
+   warm-up and 3 timed steps, profiled as phase 3; every rank's parameters
+   and momentum must be bit-equal after the steps (the ranks start equal and
+   see different batches).  Then the allreduce alone at the fuse plan's
+   lengths, against the f64 mean, its bytes bound and
+   ``torch.mean(dim=0)``; and, since a step after ``torch.profiler`` has
+   run in the process is slower than one before it, the gossip and the
+   allreduce paths timed in turns, 16 steps each.  About 21 s on an H100
+   80GB HBM3 at 700 W.
+10. Hierarchical gossip: the same ResNet-50 with
+   ``DistributedHierarchicalNeighborAllreduceOptimizer`` (``--comm
+   hierarchical``) at local size 2 (Ring(4) of machines) and 4 (Ring(2)),
+   each 2 + 3 steps: K1's launches against the fuse plan, one step through
+   K1 against the plain step, each machine's local ranks bit-equal after
+   the mix, and the mix's time through K1 and the plain path.  About 6 s
+   for each local size on that card.
+11. ``examples.imagenet_resnet`` (BASELINE.json ``configs[1]``) on uint8
+   TFRecord shards written here (1,024 train and 256 val 224x224x3 images,
+   1000 classes) through the port's writer and its native CRC library: 8
+   ranks x 32, 2 epochs of 4 steps with 1 warm-up epoch, once with
+   ``--optimizer neighbor`` (K1's launches against the fuse plan) and once
+   with ``allreduce``; per epoch img/s, the host's wait on the loader, val
+   top-1 and the idle share of a profiled step (the profiler's reading
+   of its trace left out of the epoch's time); finite losses.  About 21 s
+   on that card, 1-2 s of it writing the shards.
+12. ``examples.mnist_decentralized`` (``configs[0]``) at its defaults, 8
+   ranks on a ring, 48 steps: it must reach its own OK (mean local accuracy
+   over 0.9), with one K1 launch a step.  About 1-2 s on that card.
+13. Report: a ``kernels:`` line and a line for the allreduce (not a TPU
+   kernel), the kernels' JSON line (K1, K2 and K3's three kernels), the
+   card's name and power limit from nvidia-smi, and the result line.
 
 It needs one CUDA device and exits with status 2 when there is none.
 """
@@ -121,6 +150,7 @@ BF16_TOL = 2.0 ** -7          # one bf16 ulp, relative
 F16_TOL = 2.0 ** -10          # one f16 ulp, relative
 F64_TOL = 1e-15
 STEP_TOL = 2.0 ** -7          # kernel-path step vs plain-path step
+ALLREDUCE_TOL = 4e-6          # f32 mean of 8 ranks vs the f64 mean
 PUSH_ROUNDS = 6
 
 
@@ -1104,6 +1134,237 @@ def phase_gpt(device):
     return launches
 
 
+def _ranks_equal(t):
+    return torch.equal(t, t[:1].expand_as(t))
+
+
+def phase_allreduce(device, main_lengths):
+    """The centralized baseline: the ResNet-50 path with the gradients'
+    allreduce; ranks bit-equal after the steps; the allreduce alone at the
+    fuse plan's lengths against its bytes bound and ``torch.mean``."""
+    from bluefog_tpu_torch.examples.synthetic_benchmark import build, run
+    from bluefog_tpu_torch.ops import collectives as C
+
+    t0 = time.perf_counter()
+    trainer = build("resnet50", "allreduce", "exp2", size=N_RANKS,
+                    batch_size=BATCH, image_size=224, device=device)
+    _, res = phase_main_path(
+        trainer, {}, "allreduce",
+        f"ResNet-50 x {N_RANKS} virtual ranks, gradient allreduce, batch "
+        f"{BATCH}/rank, bf16")
+    state = {k: v for k, v in trainer.state().items()
+             if k.startswith(("param.", "momentum."))}
+    unequal = [k for k, v in state.items() if not _ranks_equal(v)]
+    print(f"[allreduce] parameters and momentum bit-equal on every rank "
+          f"after {WARMUP + TIMED} steps from equal parameters: "
+          f"{len(state) - len(unequal)} of {len(state)} tensors")
+    check(len(state) > 300 and not unequal,
+          f"the allreduce left ranks apart in {unequal[:5]}")
+    grad_ms = time_ms(trainer.opt._average_grads, reps=10)
+    print(f"[allreduce] the optimizer's gradient mean (fuse, mean, write "
+          f"back into .grad): {grad_ms:.4f} ms per step")
+    # decentralized vs allreduce under the same conditions: a step after
+    # torch.profiler has run in a process is slower than one before, so
+    # the paths' own phases do not compare; here each warmed-up path runs
+    # 4 steps at a time, in turns (neighbor, allreduce, allreduce,
+    # neighbor, twice)
+    gossip = build("resnet50", "neighbor", "exp2", size=N_RANKS,
+                   batch_size=BATCH, image_size=224, device=device)
+    run(gossip, WARMUP, 0)
+    turns = {"neighbor": [], "allreduce": []}
+    for name in ("neighbor", "allreduce", "allreduce", "neighbor") * 2:
+        gc.collect()
+        tr = gossip if name == "neighbor" else trainer
+        turns[name] += run(tr, 0, 4)["step_ms"]
+    means = {k: sum(v) / len(v) for k, v in turns.items()}
+    print(f"[allreduce] in turns, 16 steps each: neighbor "
+          f"{[round(t, 2) for t in turns['neighbor']]} mean "
+          f"{means['neighbor']:.2f} ms, allreduce "
+          f"{[round(t, 2) for t in turns['allreduce']]} mean "
+          f"{means['allreduce']:.2f} ms ({N_RANKS * BATCH / means['neighbor'] * 1e3:.1f} "
+          f"and {N_RANKS * BATCH / means['allreduce'] * 1e3:.1f} img/s); the "
+          f"virtual ranks share one card, so neither moves bytes between "
+          f"cards")
+    del trainer, gossip, state
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=device).manual_seed(99)
+    ms = lib_ms = 0.0
+    n_bytes = n_flops = 0
+    for length in main_lengths:
+        x = torch.randn(N_RANKS, length, generator=gen, device=device)
+        out = C.allreduce(x)
+        ref = x.double().mean(0)
+        abs_err, rel_err = max_err(out, ref.expand_as(out))
+        # eight f32 additions and a division by 8: a few f32 ulps
+        check(rel_err <= ALLREDUCE_TOL and _ranks_equal(out),
+              f"allreduce off its f64 mean at L={length}: {rel_err}")
+        t_a = time_ms(lambda: C.allreduce(x), reps=20)
+        t_m = time_ms(lambda: torch.mean(x, dim=0), reps=20)
+        print(f"[allreduce] ({N_RANKS}, {length}) f32: allreduce {t_a:.4f} "
+              f"ms, torch.mean(x, dim=0) {t_m:.4f} ms; max rel err against "
+              f"the f64 mean {rel_err:.3e} (tol {ALLREDUCE_TOL:.0e})")
+        ms, lib_ms = ms + t_a, lib_ms + t_m
+        # every rank's value read once, every rank's result written once
+        n_bytes += 2 * x.numel() * 4
+        n_flops += x.numel()
+    bound_ms, by = _bound(n_bytes, n_flops)
+    print(f"[allreduce] one step's allreduce at the fuse plan's lengths "
+          f"({len(main_lengths)} buffers): {ms:.4f} ms against a "
+          f"{bound_ms:.4f} ms bound ({by}), {bound_ms / ms:.1%} of it; "
+          f"torch.mean(dim=0) {lib_ms:.4f} ms (writes one row, not {N_RANKS})"
+          f"; phase {time.perf_counter() - t0:.1f} s")
+    return {"ms": ms, "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": lib_ms, "grad_ms": grad_ms,
+            "step_ms": sum(res["step_ms"]) / TIMED, "turns": means}
+
+
+def phase_hierarchical(device, main_lengths):
+    """The hierarchical path at local sizes 2 and 4: ResNet-50 with the
+    machine gossip on K1 (launches against the fuse plan), one step through
+    K1 against the plain step, each machine's local ranks equal after the
+    mix, and the mix's time through K1 and the plain path."""
+    from bluefog_tpu_torch.examples.synthetic_benchmark import build
+    from bluefog_tpu_torch.ops.gossip_kernel import (
+        circulant_shifts, gossip_mix)
+
+    out = {}
+    for local in (2, 4):
+        t0 = time.perf_counter()
+        tag = f"hier L{local}"
+        trainer = build("resnet50", "hierarchical", "exp2", size=N_RANKS,
+                        batch_size=BATCH, image_size=224, device=device,
+                        local_size=local)
+        opt = trainer.opt
+        machines = opt.machine_schedule.size
+        shifts = circulant_shifts(opt.machine_schedule)
+        print(f"[{tag}] {machines} machines of {local} ranks on "
+              f"{opt.machine_schedule.name}, circulant shifts {shifts}: the "
+              f"machine gossip runs on K1, {len(main_lengths)} launches a "
+              f"step over ({machines}, L) rows")
+        check(bool(shifts), f"{tag}: the machine ring is not circulant")
+        launches, res = phase_main_path(
+            trainer, {gossip_mix: len(main_lengths)}, tag,
+            f"ResNet-50 x {N_RANKS} virtual ranks, hierarchical (local size "
+            f"{local}), batch {BATCH}/rank, bf16")
+        phase_step_parity(trainer, tag)
+        mixed = opt._mix()
+        equal = all(_ranks_equal(m.reshape(machines, local, -1)
+                                 .transpose(0, 1)) for m in mixed)
+        print(f"[{tag}] each machine's {local} local ranks bit-equal after "
+              f"the mix: {equal}")
+        check(equal, f"{tag}: local ranks differ after the mix")
+        times = {}
+        for backend in ("kernel", "plain"):
+            opt.backend = backend
+            times[backend] = time_ms(opt._mix, reps=5)
+        opt.backend = "auto"
+        print(f"[{tag}] the hierarchical mix of the parameters (fuse, local "
+              f"means, machine fold, lanes): through K1 {times['kernel']:.4f}"
+              f" ms, plain {times['plain']:.4f} ms; phase "
+              f"{time.perf_counter() - t0:.1f} s")
+        out[local] = {"launches": launches["gossip_mix"],
+                      "step_ms": sum(res["step_ms"]) / TIMED,
+                      "mix_ms": times["kernel"],
+                      "mix_plain_ms": times["plain"]}
+        del trainer, opt, mixed
+        torch.cuda.empty_cache()
+    return out
+
+
+IMAGENET_TRAIN, IMAGENET_VAL, IMAGENET_EPOCHS = 1024, 256, 2
+
+
+def phase_imagenet(main_lengths):
+    """``examples.imagenet_resnet`` on uint8 TFRecord shards written here:
+    8 ranks x 32, 2 epochs of 4 steps, once per optimizer; per epoch img/s,
+    the loader wait, val top-1 and a profiled step's idle share."""
+    import tempfile
+
+    import numpy as np
+
+    from bluefog_tpu_torch.data import tfrecord
+    from bluefog_tpu_torch.examples import imagenet_resnet
+    from bluefog_tpu_torch.ops.gossip_kernel import gossip_mix
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="bf-imagenet-")
+    try:
+        rng = np.random.default_rng(0)
+        n_bytes = 0
+        for split, n in (("train", IMAGENET_TRAIN), ("val", IMAGENET_VAL)):
+            images = rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8)
+            labels = rng.integers(0, 1000, n)
+            paths = tfrecord.write_image_classification_shards(
+                tmp, images, labels, shard_size=256, prefix=split)
+            n_bytes += sum(os.path.getsize(p) for p in paths)
+        write_s = time.perf_counter() - t0
+        print(f"[imagenet] wrote {IMAGENET_TRAIN} train and {IMAGENET_VAL} "
+              f"val 224x224x3 uint8 images in 1000 classes as TFRecord "
+              f"shards, {n_bytes / 1e6:.1f} MB, in {write_s:.2f} s; native "
+              f"CRC library loaded: {tfrecord.native_loaded()}")
+        check(tfrecord.native_loaded(), "the native TFRecord library was "
+              "not loaded")
+        steps = IMAGENET_EPOCHS * IMAGENET_TRAIN // (N_RANKS * BATCH)
+        out = {}
+        for optimizer in ("neighbor", "allreduce"):
+            gc.collect()
+            gossip_mix.launches = 0
+            res = imagenet_resnet.main([
+                "--data-dir", tmp, "--size", str(N_RANKS), "--batch-size",
+                str(BATCH), "--epochs", str(IMAGENET_EPOCHS),
+                "--warmup-epochs", "1", "--optimizer", optimizer,
+                "--profile"])
+            launches = gossip_mix.launches
+            for e, row in enumerate(res["epochs"]):
+                print(f"[imagenet] {optimizer} epoch {e}: {row['img_per_s']:.1f}"
+                      f" img/s over all ranks, {row['step_ms']:.2f} ms a step,"
+                      f" the host waited {row['loader_wait_ms']:.2f} ms a step"
+                      f" on the loader, val top-1 {row['val_top1']:.4f}, "
+                      f"profiled step {row['profiled_step_ms']:.2f} ms with "
+                      f"device idle {row['idle_share']:.1%}")
+            check(len(res["losses"]) == steps,
+                  f"imagenet ran {len(res['losses'])} steps, not {steps}")
+            check(all(np.isfinite(loss).all() for loss in res["losses"]),
+                  f"non-finite loss in the imagenet example ({optimizer})")
+            want = len(main_lengths) * steps if optimizer == "neighbor" else 0
+            print(f"[imagenet] {optimizer}: K1 launches {launches} = "
+                  f"{want} expected; mean loss "
+                  f"{res['losses'][0].mean():.4f} -> "
+                  f"{res['losses'][-1].mean():.4f}")
+            check(launches == want, f"imagenet {optimizer}: K1 launched "
+                  f"{launches} times, expected {want}")
+            out[optimizer] = res["epochs"]
+            del res
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[imagenet] phase {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_mnist():
+    """``examples.mnist_decentralized`` at its defaults (8 ranks on a ring,
+    3 epochs of 16 steps): it must reach its own OK; K1 gossips every
+    step."""
+    from bluefog_tpu_torch.examples import mnist_decentralized
+    from bluefog_tpu_torch.ops.gossip_kernel import gossip_mix
+
+    t0 = time.perf_counter()
+    gossip_mix.launches = 0
+    res = mnist_decentralized.main([])
+    secs = time.perf_counter() - t0
+    launches = gossip_mix.launches
+    print(f"[mnist] {res['total_steps']} steps, final mean local acc "
+          f"{res['final_acc']:.3f}, K1 launches {launches}, {secs:.1f} s")
+    check(res["total_steps"] >= 30 and res["final_acc"] > 0.9,
+          f"mnist did not converge: {res['final_acc']}")
+    check(launches == res["total_steps"],
+          f"mnist's gossip launched K1 {launches} times, expected one a "
+          f"step ({res['total_steps']})")
+    return secs
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1176,6 +1437,11 @@ def main():
     torch.cuda.empty_cache()
     k3_launches = phase_gpt(device)
 
+    allreduce = phase_allreduce(device, main_lengths)
+    hier = phase_hierarchical(device, main_lengths)
+    phase_imagenet(main_lengths)
+    phase_mnist()
+
     fa = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     via = "(via bluefog_tpu/ops/ring_attention.py:122)"
     kernels = [{
@@ -1222,6 +1488,12 @@ def main():
                       for n, p in (("flash_forward", "fwd"),
                                    ("flash_backward_dkv", "dkv"),
                                    ("flash_backward_dq", "dq"))))
+    print(f"not a TPU kernel: the allreduce (plain PyTorch; lax.psum in the "
+          f"JAX package) {allreduce['ms']:.4f} ms per step against a "
+          f"{allreduce['bound_ms']:.4f} ms bound, torch.mean(dim=0) "
+          f"{allreduce['library_ms']:.4f} ms; K1 on the hierarchical path: "
+          + ", ".join(f"local size {k} {v['launches']} launches in "
+                      f"{WARMUP + TIMED} steps" for k, v in hier.items()))
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -4,6 +4,7 @@ points run on the GPU unless the caller asks for the CPU."""
 
 import ast
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -12,6 +13,9 @@ import pytest
 import torch
 
 import bluefog_tpu_torch as pbf
+from bluefog_tpu_torch.data import loader as pload
+from bluefog_tpu_torch.examples import imagenet_resnet as inet
+from bluefog_tpu_torch.examples import mnist_decentralized as mnist
 from bluefog_tpu_torch.examples import synthetic_benchmark as sb
 from bluefog_tpu_torch.ops import _build
 
@@ -89,6 +93,40 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         pbf.shutdown()
     with pytest.raises(RuntimeError, match="init"):
         pbf.size()
+
+
+def test_host_sources_name_nothing_of_the_jax_package():
+    """The port's host C++ sources, its own copy of ``tfrecord.cc`` among
+    them, refer to the port's files only (the CUDA kernels name the TPU
+    kernel each one replaces)."""
+    sources = sorted((REPO / "bluefog_tpu_torch" / "csrc").glob("*.cc"))
+    assert [p.name for p in sources] == ["tfrecord.cc"]
+    bad = [f"{p.name}:{i}" for p in sources
+           for i, line in enumerate(p.read_text().splitlines(), 1)
+           if re.search(r"bluefog_tpu(?!_torch)\b", line)]
+    assert not bad, bad
+
+
+def test_new_entry_points_default_to_cuda_and_raise_without_it():
+    """The examples that read a data source, and the loader's device side,
+    run on the GPU unless the caller asks for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; the examples run there for real")
+    for main in (mnist.main, inet.main):
+        with pytest.raises(RuntimeError, match="cuda"):
+            main([])
+        assert not pbf.initialized()
+    with pytest.raises(RuntimeError, match="cuda"):
+        mnist.build(size=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        pbf.init(size=8, local_size=2)
+    ctx = pbf.init(size=8, local_size=2, device="cpu")
+    try:
+        loader = pload.DistributedLoader(
+            pload.ArraySource(torch.zeros(16, 2).numpy()), 2)
+        assert loader.device == ctx.device
+    finally:
+        pbf.shutdown()
 
 
 def test_kernel_build_needs_nvcc():

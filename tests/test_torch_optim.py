@@ -195,9 +195,13 @@ def test_win_put_optimizer_checks():
 
 def test_unported_modes_and_bad_shapes_raise():
     base = torch.optim.SGD([torch.zeros(N, 2, requires_grad=True)], lr=0.1)
+    # win_put is built by DistributedWinPutOptimizer, not here (allreduce
+    # and the hierarchical type are ported: test_torch_allreduce.py,
+    # test_torch_hierarchical.py)
     with pytest.raises(NotImplementedError):
         popt.decentralized_optimizer(
-            base, None, communication_type=popt.CommunicationType.allreduce)
+            base, pt.RingGraph(N),
+            communication_type=popt.CommunicationType.win_put)
     with pytest.raises(ValueError):
         popt.decentralized_optimizer(base, None)
     with pytest.raises(NotImplementedError):
