@@ -7,6 +7,7 @@ names, so a reader finds each counterpart:
 ``bluefog_tpu``                                 here
 ==============================================  ===============================
 topology.graphs / topology.schedule             topology.graphs / .schedule
+topology.dynamic                                topology.dynamic
 parallel.context (init/size/set_topology/...)   parallel.context
 parallel.api (rank_stack, collectives, sync)   parallel.api
 parallel.api (win_create ... win_update_...)    parallel.api
@@ -16,8 +17,11 @@ ops.ring_attention.local_attention              ops.ring_attention
 library flash_attention (Pallas TPU)            ops.flash_kernel (K3, CUDA)
 ops.collectives (fuse_apply, allreduce, ...,    ops.collectives
   neighbor_..., hierarchical_...)
+ops.collectives (..._dynamic, ..._aperiodic)    ops.collectives
+ops.compression (compressors, CHOCO-Gossip)     ops.compression
 ops.windows (WindowState, win_put, ...)         ops.windows
-optim.optimizers (incl. WinPut, sync mode)      optim.optimizers
+optim.optimizers (incl. WinPut sync, CHOCO,     optim.optimizers
+  gradient tracking, exact diffusion)
 models.resnet                                   models.resnet
 models.transformer (GPTConfig, TransformerLM)   models.transformer
 models.lenet                                    models.lenet
@@ -26,6 +30,9 @@ examples/synthetic_benchmark.py                 examples.synthetic_benchmark
 examples/decentralized_optimization.py          examples.decentralized_...
 examples/mnist_decentralized.py                 examples.mnist_decentralized
 examples/imagenet_resnet.py                     examples.imagenet_resnet
+examples/average_consensus.py                   examples.average_consensus
+examples/choco_sgd.py                           examples.choco_sgd
+examples/convergence_comparison.py              examples.convergence_...
 ==============================================  ===============================
 
 Ranks are virtual: ``n`` gossip ranks live on one device as the leading axis
@@ -67,6 +74,7 @@ from bluefog_tpu_torch.parallel.api import (
     hierarchical_neighbor_allreduce,
     neighbor_allgather,
     neighbor_allreduce,
+    neighbor_allreduce_aperiodic,
     rank_stack,
     win_accumulate,
     win_create,
@@ -78,7 +86,10 @@ from bluefog_tpu_torch.parallel.api import (
 )
 from bluefog_tpu_torch.optim import (
     CommunicationType,
+    DistributedChocoSGDOptimizer,
+    DistributedExactDiffusionOptimizer,
     DistributedGradientAllreduceOptimizer,
+    DistributedGradientTrackingOptimizer,
     DistributedHierarchicalNeighborAllreduceOptimizer,
     DistributedNeighborAllreduceOptimizer,
     DistributedWinPutOptimizer,

@@ -191,19 +191,16 @@ class Trainer:
 
     def state(self) -> Dict[str, torch.Tensor]:
         """Every tensor a step reads and writes: parameters, buffers, the
-        optimizer's momentum and, with ``winput``, the window's self and
-        landing buffers."""
+        optimizer's momentum and the optimizer's own tensors (with
+        ``winput`` the window's self and landing buffers, under the names
+        ``window.*``)."""
         out = {f"param.{k}": v for k, v in self.params.items()}
         out.update({f"buffer.{k}": v for k, v in self.buffers.items()})
         for k, v in self.params.items():
             buf = self.opt.state.get(v, {}).get("momentum_buffer")
             if buf is not None:
                 out[f"momentum.{k}"] = buf
-        win = self.opt.window
-        if win is not None:
-            for dt, buf in win.bufs.items():
-                out[f"window.self.{dt}"] = buf
-                out[f"window.peers.{dt}"] = win.peers[dt]
+        out.update(self.opt.tensors())
         return out
 
 

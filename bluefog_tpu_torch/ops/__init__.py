@@ -12,6 +12,8 @@ from bluefog_tpu_torch.ops.collectives import (  # noqa: F401
     hierarchical_neighbor_allreduce_2d,
     neighbor_allgather,
     neighbor_allreduce,
+    neighbor_allreduce_aperiodic,
+    neighbor_allreduce_dynamic,
     pair_gossip,
 )
 from bluefog_tpu_torch.ops.gossip_kernel import (  # noqa: F401

@@ -17,7 +17,9 @@ Two gossip backends, resolved per call by
 :func:`bluefog_tpu_torch.ops.gossip_kernel.resolve_backend`:
 
 - ``'kernel'``: K1, the fused weighted reduction of ``csrc/gossip_mix.cu``
-  (the counterpart of ``'pallas'``), circulant schedules only;
+  (the counterpart of ``'pallas'``), any schedule: the ranks are rows of
+  one buffer, so K1 reads each slot's source row through its table where
+  the TPU kernel needs a circulant schedule for its remote DMA;
 - ``'plain'``: one gathered copy per schedule slot, then a multiply-add (the
   counterpart of ``'xla'``); any schedule, and the only path that honours
   ``send_weights``.
@@ -27,8 +29,10 @@ The hierarchical gossip runs its machine-level fold on K1 the same way.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import functools
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
@@ -36,7 +40,9 @@ from bluefog_tpu_torch.ops import gossip_kernel as _k1
 from bluefog_tpu_torch.topology.graphs import Topology
 from bluefog_tpu_torch.topology.schedule import GossipSchedule, build_schedule
 
-__all__ = ["fuse_apply", "fuse_plan", "neighbor_allreduce", "allreduce",
+__all__ = ["fuse_apply", "fuse_plan", "neighbor_allreduce",
+           "neighbor_allreduce_dynamic", "neighbor_allreduce_aperiodic",
+           "allreduce",
            "allgather", "broadcast", "barrier", "pair_gossip",
            "neighbor_allgather", "hierarchical_neighbor_allreduce",
            "hierarchical_neighbor_allreduce_2d"]
@@ -90,11 +96,18 @@ def fuse_apply(fn, x, *, threshold_bytes=8 << 20):
     return pytree.tree_unflatten(out, spec)
 
 
+@functools.lru_cache(maxsize=256)
+def _lowered(topology: Topology) -> GossipSchedule:
+    # topologies hash by identity: repeated calls with one Topology object
+    # reuse one schedule, and with it the schedule's cached device tables
+    return build_schedule(topology)
+
+
 def _as_schedule(s) -> GossipSchedule:
     if isinstance(s, GossipSchedule):
         return s
     if isinstance(s, Topology):
-        return build_schedule(s)
+        return _lowered(s)
     raise TypeError(f"expected Topology or GossipSchedule, got {type(s)}")
 
 
@@ -111,11 +124,11 @@ def _per_rank(v: torch.Tensor, ndim: int) -> torch.Tensor:
     return v.reshape(v.shape[0], *([1] * (ndim - 1)))
 
 
-def _kernel_leaf(leaf, sched, self_weight, recv_weights):
-    n = sched.size
-    flat = leaf.reshape(n, -1).to(_k1._wire_dtype(leaf.dtype)).contiguous()
-    sw, rw, src = _k1.schedule_tables(sched, leaf.device, self_weight,
-                                      recv_weights)
+def _kernel_leaf(leaf, sw, rw, src):
+    """K1 on one rank-stacked leaf, flattened to ``(n, L)`` in its wire
+    dtype, with the tables ``(sw, rw, recv_src)``."""
+    flat = leaf.reshape(leaf.shape[0], -1).to(
+        _k1._wire_dtype(leaf.dtype)).contiguous()
     return _k1.gossip_mix(flat, sw, rw, src).reshape(leaf.shape).to(leaf.dtype)
 
 
@@ -152,9 +165,11 @@ def neighbor_allreduce(x, schedule, *, self_weight=None, recv_weights=None,
       send_weights: sender-side scaling, ``(K,)`` or ``(n, K)``: slot ``k``'s
         payload leaves rank ``j`` as ``send_weights[j, k] * x[j]``.  Only the
         plain path honours it: ``'auto'`` keeps plain, ``'kernel'`` raises.
-      backend: ``'kernel'`` (K1; circulant schedules only), ``'plain'``, or
-        ``'auto'`` (K1 for a circulant schedule with at least one slot).  On
-        a CPU tensor K1's wrapper runs its plain version.
+      backend: ``'kernel'`` (K1), ``'plain'``, or ``'auto'`` (K1 for any
+        schedule with at least one slot; see
+        :func:`~bluefog_tpu_torch.ops.gossip_kernel.auto_gossip_backend` for
+        why this differs from the JAX package's rule).  On a CPU tensor K1's
+        wrapper runs its plain version.
 
     Every weighted sum runs in f32 for bf16/f16 leaves.  On the kernel path
     the payload travels in the wire dtype (bf16 for bf16 leaves, else f32).
@@ -167,17 +182,16 @@ def neighbor_allreduce(x, schedule, *, self_weight=None, recv_weights=None,
                 "weights on the receiving side only; use backend='plain'")
         backend = "plain" if backend == "auto" else backend
     backend = _k1.resolve_backend(backend, sched)
-    if backend == "kernel" and _k1.circulant_shifts(sched) is None:
-        raise ValueError("kernel gossip requires a circulant schedule")
     leaves, spec = pytree.tree_flatten(x)
     for leaf in leaves:
         if leaf.dim() == 0 or leaf.shape[0] != sched.size:
             raise ValueError(
                 f"leaves must be rank-stacked with leading axis {sched.size}, "
                 f"got shape {tuple(leaf.shape)}")
-    if backend == "kernel":
-        outs = [_kernel_leaf(leaf, sched, self_weight, recv_weights)
-                for leaf in leaves]
+    if backend == "kernel" and leaves:
+        tables = _k1.schedule_tables(sched, leaves[0].device, self_weight,
+                                     recv_weights)
+        outs = [_kernel_leaf(leaf, *tables) for leaf in leaves]
     else:
         send_w = None
         if send_weights is not None:
@@ -192,6 +206,96 @@ def neighbor_allreduce(x, schedule, *, self_weight=None, recv_weights=None,
                     f"{tuple(send_w.shape)}")
         outs = [_plain_leaf(leaf, sched, self_weight, recv_weights, send_w)
                 for leaf in leaves]
+    return pytree.tree_unflatten(outs, spec)
+
+
+def neighbor_allreduce_dynamic(x, schedules, step: int, *,
+                               backend: str = "auto"):
+    """Time-varying gossip: :func:`neighbor_allreduce` along
+    ``schedules[step % len(schedules)]``; a period of one is a plain
+    ``neighbor_allreduce``.
+
+    The JAX package compiles the period into one ``lax.switch`` over a
+    traced step.  Here the step is a Python integer and the phase is picked
+    on the host.  Each phase's schedule keys the cache of its K1 tables (a
+    :class:`Topology` is lowered once per object), so a period of ``p``
+    phases builds and uploads ``p`` table sets once; a one-peer phase is
+    one slot, one K1 launch per fused buffer."""
+    if len(schedules) == 0:
+        raise ValueError("schedules must hold at least one Topology or "
+                         "GossipSchedule")
+    return neighbor_allreduce(x, schedules[int(step) % len(schedules)],
+                              backend=backend)
+
+
+def _host_matrix(mixing_matrix) -> np.ndarray:
+    if isinstance(mixing_matrix, torch.Tensor):
+        if mixing_matrix.device.type != "cpu":
+            raise ValueError(
+                "mixing_matrix must be on the host (numpy or a CPU tensor): "
+                "its active rotations are read there to build K1's tables, "
+                f"got a tensor on {mixing_matrix.device}")
+        mixing_matrix = mixing_matrix.detach().numpy()
+    w = np.ascontiguousarray(mixing_matrix, dtype=np.float32)
+    if w.ndim != 2 or w.shape[0] != w.shape[1]:
+        raise ValueError(f"mixing_matrix must be (n, n), got {w.shape}")
+    return w
+
+
+@functools.lru_cache(maxsize=64)
+def _aperiodic_tables(w_bytes: bytes, n: int, device: str):
+    """K1's ``(sw, rw, recv_src)`` for the f32 matrix with these bytes: one
+    slot per active rotation ``s`` (some ``W[i, (i - s) % n] != 0``), in
+    increasing ``s``, with ``recv_src[i, k] = (i - s_k) % n`` and ``rw[i, k]
+    = W[i, recv_src[i, k]]`` (0 where rank ``i`` has no such edge)."""
+    w = np.frombuffer(w_bytes, dtype=np.float32).reshape(n, n)
+    rows = np.arange(n)
+    shifts = [s for s in range(1, n) if (w[rows, (rows - s) % n] != 0).any()]
+    src = (np.stack([(rows - s) % n for s in shifts], axis=1)
+           if shifts else np.zeros((n, 0), np.int64)).astype(np.int32)
+    return (torch.as_tensor(np.diag(w).copy(), device=device),
+            torch.as_tensor(w[rows[:, None], src].copy(), device=device),
+            torch.as_tensor(src, device=device))
+
+
+def neighbor_allreduce_aperiodic(x, mixing_matrix, *,
+                                 max_rotations: Optional[int] = None):
+    """Gossip with an arbitrary per-call topology, ``out_i = W[i, i] x_i +
+    sum_s W[i, (i - s) % n] x_{(i - s) % n}`` over the *active* rotations
+    ``s`` (those with a nonzero edge on some rank) in increasing order, on
+    every leaf of a pytree of rank-stacked tensors, in f32 for bf16/f16
+    leaves.
+
+    The JAX package decomposes ``W`` into its ``n - 1`` circulant rotations,
+    each a ``ppermute`` that runs only when active, so the edge set is data
+    to one compiled program.  Here the active rotations become K1's slots:
+    ``W`` is read on the host, so it must be a numpy array or a CPU tensor
+    (:func:`~bluefog_tpu_torch.topology.one_peer_exp2_mixing_matrix` gives
+    one), and its tables are built and copied to the device once per
+    distinct matrix (an LRU keyed by the f32 bytes of ``W``).  A repeated
+    matrix costs a call the hash of its ``4 n^2`` bytes; a one-peer phase is
+    one slot, one K1 launch per leaf.
+
+    ``max_rotations=D`` is the JAX package's program-size cap.  Within the
+    cap the result equals the full form; with more than ``D`` active
+    rotations every output is NaN (the reference's fail-loud rule: a dropped
+    edge would bias the consensus silently)."""
+    w = _host_matrix(mixing_matrix)
+    n = w.shape[0]
+    if max_rotations is not None and int(max_rotations) < 1:
+        raise ValueError(f"max_rotations must be >= 1, got {max_rotations}")
+    leaves, spec = _stacked_leaves(x)
+    for leaf in leaves:
+        if leaf.shape[0] != n:
+            raise ValueError(f"leaves must be rank-stacked with leading axis "
+                             f"{n}, got shape {tuple(leaf.shape)}")
+    if not leaves:
+        return x
+    tables = _aperiodic_tables(w.tobytes(), n, str(leaves[0].device))
+    if max_rotations is not None and tables[1].shape[1] > int(max_rotations):
+        outs = [torch.full_like(leaf, float("nan")) for leaf in leaves]
+    else:
+        outs = [_kernel_leaf(leaf, *tables) for leaf in leaves]
     return pytree.tree_unflatten(outs, spec)
 
 
@@ -375,8 +479,6 @@ def _hierarchical(x, machine_schedule, local_size, self_weight, recv_weights,
                   backend, round_local_sum):
     msched = _as_schedule(machine_schedule)
     backend = _k1.resolve_backend(backend, msched)
-    if backend == "kernel" and _k1.circulant_shifts(msched) is None:
-        raise ValueError("kernel gossip requires a circulant machine schedule")
     n_machines, n = msched.size, msched.size * local_size
     leaves, spec = _stacked_leaves(x)
 
@@ -425,9 +527,8 @@ def hierarchical_neighbor_allreduce(x, machine_schedule, *, local_size: int,
 
     ``self_weight`` (a scalar or ``(M,)``) and ``recv_weights`` (``(K,)`` or
     ``(M, K)``) override the machine schedule's weights.  ``backend``:
-    ``'kernel'`` runs the machine fold on K1 (circulant machine schedules
-    only), ``'plain'`` on K1's plain version, ``'auto'`` picks K1 where the
-    machine schedule allows it."""
+    ``'kernel'`` runs the machine fold on K1, ``'plain'`` on K1's plain
+    version, ``'auto'`` picks K1 for any machine schedule with a slot."""
     return _hierarchical(x, machine_schedule, local_size, self_weight,
                          recv_weights, backend, round_local_sum=True)
 

@@ -23,8 +23,8 @@ version and the JAX package's portable path all keep it exact.
 
 Two mechanisms of the TPU routing are not carried over, and neither changes a
 result: the 4 MiB payload cap (``DEFAULT_AUTO_MAX_BYTES``), which sizes a
-window to TPU VMEM (on the card every circulant window takes K2 whatever its
-size), and the collective-id bases with their CRC32 claim table, which keep
+window to TPU VMEM (on the card every window with a slot takes K2 whatever
+its size), and the collective-id bases with their CRC32 claim table, which keep
 barrier semaphores apart on the TPU.
 """
 
@@ -33,7 +33,7 @@ from __future__ import annotations
 import torch
 
 from bluefog_tpu_torch.ops.gossip_kernel import (
-    BACKENDS, _vector_width, circulant_shifts, slot_tables)
+    BACKENDS, _vector_width, auto_gossip_backend, slot_tables)
 from bluefog_tpu_torch.topology.schedule import GossipSchedule
 
 __all__ = [
@@ -51,25 +51,23 @@ KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
 
 
 def auto_window_backend(sched: GossipSchedule) -> str:
-    """Resolve ``backend='auto'`` for a window: ``'kernel'`` for a circulant
+    """Resolve ``backend='auto'`` for a window: ``'kernel'`` for any
     schedule with at least one slot over more than one rank, else
-    ``'plain'`` (conditions 2 and 3 of ``pallas_gossip.auto_gossip_backend``;
-    see the module docstring for the size cap)."""
-    if sched.size <= 1 or not circulant_shifts(sched):
-        return "plain"
-    return "kernel"
+    ``'plain'``.  ``deliver_pallas`` also needs a circulant schedule, since
+    its remote DMA needs one uniform shift; K2 reads each slot's sender row
+    through ``recv_src`` and masks the slots with no in-edge, so it takes
+    any schedule (the rule of K1's
+    :func:`~bluefog_tpu_torch.ops.gossip_kernel.auto_gossip_backend`)."""
+    return auto_gossip_backend(sched)
 
 
 def resolve_window_backend(backend: str, sched: GossipSchedule) -> str:
-    """Validate ``backend`` and resolve ``'auto'``.  A forced ``'kernel'`` on
-    a schedule that is not circulant raises, as ``deliver_pallas`` does."""
+    """Validate ``backend`` and resolve ``'auto'``."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of "
                          f"{BACKENDS}")
     if backend == "auto":
         return auto_window_backend(sched)
-    if backend == "kernel" and circulant_shifts(sched) is None:
-        raise ValueError("kernel deliver requires a circulant schedule")
     return backend
 
 

@@ -15,14 +15,13 @@ which computes the same function with the same rounding in plain PyTorch.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
 from bluefog_tpu_torch.topology.schedule import GossipSchedule
 
 __all__ = [
-    "circulant_shifts",
     "auto_gossip_backend",
     "resolve_backend",
     "gossip_mix",
@@ -37,19 +36,19 @@ __all__ = [
 BACKENDS = ("auto", "plain", "kernel")
 
 
-def circulant_shifts(sched: GossipSchedule) -> Optional[Tuple[int, ...]]:
-    """Per-slot uniform shifts, or None if the schedule is not circulant."""
-    if not sched.is_circulant:
-        return None
-    return tuple((perm[0][1] - perm[0][0]) % sched.size for perm in sched.perms)
-
-
 def auto_gossip_backend(sched: GossipSchedule) -> str:
-    """Resolve ``backend='auto'``: ``'kernel'`` for a circulant schedule with
-    at least one slot over more than one rank, else ``'plain'`` (the rule of
-    ``pallas_gossip.auto_gossip_backend``).  The device does not enter: on a
-    CPU tensor the kernel's wrapper runs its plain version."""
-    if sched.size <= 1 or not circulant_shifts(sched):
+    """Resolve ``backend='auto'``: ``'kernel'`` for any schedule with at
+    least one slot over more than one rank, else ``'plain'``.
+
+    This differs from ``pallas_gossip.auto_gossip_backend``, which also asks
+    for a circulant schedule: on the TPU each slot is a remote DMA, and a
+    DMA pattern needs one uniform shift for every rank.  Here the ranks are
+    virtual rows of one buffer, and K1 reads any source row through its
+    ``recv_src`` table, skipping the slots with no in-edge, so a grid, a
+    star or one phase of a time-varying graph takes the kernel too.  The
+    device does not enter: on a CPU tensor the kernel's wrapper runs its
+    plain version."""
+    if sched.size <= 1 or sched.num_slots == 0:
         return "plain"
     return "kernel"
 

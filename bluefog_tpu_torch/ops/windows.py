@@ -26,7 +26,7 @@ window's self buffer, so it changes when that buffer is next written
 
 Delivery routes per call through
 :func:`~bluefog_tpu_torch.ops.deliver_kernel.resolve_window_backend`:
-``'kernel'`` (K2, circulant schedules; the counterpart of ``'pallas'``) or
+``'kernel'`` (K2, any schedule; the counterpart of ``'pallas'``) or
 ``'plain'`` (the counterpart of ``'xla'``).  The associated push-sum scalar
 ``p`` always takes the plain path, as in the JAX package.  ``win_update`` and
 ``win_update_then_collect`` are plain PyTorch, as the JAX package computes

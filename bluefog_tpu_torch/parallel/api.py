@@ -2,8 +2,9 @@
 
 Counterpart of ``bluefog_tpu/parallel/api.py`` for :func:`rank_stack`, the
 stacked-array collectives (:func:`neighbor_allreduce`,
-:func:`neighbor_allgather`, :func:`allreduce`, :func:`allgather`,
-:func:`broadcast`, :func:`barrier`, :func:`hierarchical_neighbor_allreduce`),
+:func:`neighbor_allreduce_aperiodic`, :func:`neighbor_allgather`,
+:func:`allreduce`, :func:`allgather`, :func:`broadcast`, :func:`barrier`,
+:func:`hierarchical_neighbor_allreduce`),
 the parameter-sync helpers of the reference's ``utility.py``
 (:func:`broadcast_parameters`, :func:`allreduce_parameters`,
 :func:`broadcast_optimizer_state`) and the name-keyed window registry
@@ -15,7 +16,6 @@ rank ``r``'s value.  The ranks are virtual, on the context's one device.
 
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import torch
@@ -24,10 +24,10 @@ from torch.utils import _pytree as pytree
 from bluefog_tpu_torch.ops import collectives as _C
 from bluefog_tpu_torch.ops import windows as _W
 from bluefog_tpu_torch.parallel.context import get_context
-from bluefog_tpu_torch.topology.graphs import Topology
-from bluefog_tpu_torch.topology.schedule import GossipSchedule, build_schedule
+from bluefog_tpu_torch.topology.schedule import GossipSchedule
 
-__all__ = ["rank_stack", "neighbor_allreduce", "neighbor_allgather",
+__all__ = ["rank_stack", "neighbor_allreduce", "neighbor_allreduce_aperiodic",
+           "neighbor_allgather",
            "allreduce", "allgather", "broadcast", "barrier",
            "hierarchical_neighbor_allreduce", "broadcast_parameters",
            "allreduce_parameters", "broadcast_optimizer_state", "win_create",
@@ -35,19 +35,11 @@ __all__ = ["rank_stack", "neighbor_allreduce", "neighbor_allgather",
            "win_update_then_collect"]
 
 
-@functools.lru_cache(maxsize=256)
-def _schedule_for(topology: Topology) -> GossipSchedule:
-    # topologies hash by identity: repeated calls with one Topology object
-    # reuse one schedule, and with it the schedule's cached device tables
-    return build_schedule(topology)
-
-
 def _sched(topology) -> GossipSchedule:
     if topology is None:
         return get_context().schedule
-    if isinstance(topology, Topology):
-        return _schedule_for(topology)
-    return topology
+    # a Topology is lowered once per object, keeping its device tables
+    return _C._as_schedule(topology)
 
 
 def rank_stack(x, size: Optional[int] = None, device=None):
@@ -78,6 +70,18 @@ def neighbor_allreduce(x, *, topology=None, self_weight=None,
     return _C.neighbor_allreduce(x, _sched(topology), self_weight=self_weight,
                                  recv_weights=recv_weights,
                                  send_weights=send_weights, backend=backend)
+
+
+def neighbor_allreduce_aperiodic(x, mixing_matrix, *,
+                                 max_rotations: Optional[int] = None):
+    """Stacked-array gossip with an arbitrary per-call topology: ``out = W @
+    x`` over the rank axis for any row-stochastic ``(size, size)`` ``W``
+    held on the host; edge set and weights may change every call.
+    ``max_rotations`` caps the active rotations (more poison the output with
+    NaN); see :func:`bluefog_tpu_torch.ops.collectives.
+    neighbor_allreduce_aperiodic`."""
+    return _C.neighbor_allreduce_aperiodic(x, mixing_matrix,
+                                           max_rotations=max_rotations)
 
 
 def neighbor_allgather(x: torch.Tensor, *, topology=None):

@@ -8,7 +8,7 @@ digraph is decomposed into a sequence of *partial permutations* (slots); slot
 1. **Circulant fast path**: every standard topology (ring, exp2,
    symmetric-exp, fully-connected, one-peer phases) is a union of complete
    shift classes ``{i -> i+s (mod n)}``; each shift is one slot.  These are the
-   schedules the gossip kernel takes.
+   schedules the TPU kernels take; the port's K1 and K2 take any schedule.
 2. **Greedy edge coloring** for other digraphs (star, grid, user graphs): no
    two edges in a slot share a source or a destination.
 """

@@ -120,15 +120,53 @@ its last line:
 12. ``examples.mnist_decentralized`` (``configs[0]``) at its defaults, 8
    ranks on a ring, 48 steps: it must reach its own OK (mean local accuracy
    over 0.9), with one K1 launch a step.  About 1-2 s on that card.
-13. Report: a ``kernels:`` line and a line for the allreduce (not a TPU
-   kernel), the kernels' JSON line (K1, K2 and K3's three kernels), the
-   card's name and power limit from nvidia-smi, and the result line.
+13. Routing: MeshGrid2D(8) (3 slots) and Star(8) (7 slots) are not
+   circulant, and ``'auto'`` sends them to K1 and K2 all the same (the
+   TPU's remote DMA needs a uniform shift; a read of a neighbour's row
+   does not).  K1 against its plain version bit for bit in f32 and bf16
+   at an unaligned length and the main path's first, through the op layer
+   too (one launch, equal to the plain path), K2 put then acc likewise,
+   one K2 launch for a put on such a window, and K1's time on each at the
+   main path's lengths against its bound.
+14. Dynamic: the ResNet-50 path of phase 3 with one-peer dynamic Exp-2
+   (``one_peer_exponential_two_schedules(8)``), 2 + 3 steps and a profiled
+   one: 5 one-slot K1 launches a step, the phases cycling 1, 2, 4, 1, 2, 4
+   by communication round, a step through K1 against the plain step, and
+   3 steps of the callable form (``one_peer_exp2_mixing_matrix``, full and
+   ``max_rotations=1``) bit-equal to the sequence form from one state (the
+   JAX dryrun's check); then K1 at one slot against its bound.
+15. Tracking: the same path under gradient tracking on Exp-2 and on
+   MeshGrid2D (BASELINE.json ``configs[3]``), then exact diffusion on
+   Ring(8): K1 10, 10 and 5 times a step, a step through K1 against the
+   plain step, and GT's invariant (per coordinate, sum_i y_i = sum_i u_i
+   within 1e-5 of max |sum_i u_i|) after three of the steps.
+16. CHOCO: ``choco_gossip`` alone over an (8, 25,557,032) f32 buffer of
+   random values (ResNet-50's parameter count), ``random_block_k(0.25)``
+   at gamma 0.3 on Ring(8): the dryrun's two measures after its 60 rounds
+   (the max deviation from the mean against its start, printed; the
+   mean's drift, under 1e-4) and the round where the max deviation first
+   falls under 5% of its start (it must, within 200); at this width the
+   contiguous blocks cover the least-covered stretch a few times in 60
+   rounds, so the 5% the dryrun asserts at 6 values a rank comes a few
+   rounds later.  Then the ResNet-50 path under
+   ``DistributedChocoSGDOptimizer`` (``random_block_k(0.1)``), which
+   launches no kernel.
+17. Examples: ``average_consensus`` on its five topologies (50 K1 launches
+   each), ``choco_sgd`` and ``convergence_comparison`` at their defaults,
+   each to its OK, with its seconds.
+18. Report: a ``kernels:`` line, a line for K1 on this slice's paths and a
+   line for the allreduce (not a TPU kernel), the kernels' JSON line (K1,
+   K2 and K3's three kernels; K1's entry also carries its one-slot times,
+   its launches on the new paths and its times on the grid and the star),
+   the card's name and power limit from nvidia-smi, and the result line.
 
 It needs one CUDA device and exits with status 2 when there is none.
 """
 
 import contextlib
+import functools
 import gc
+import io
 import json
 import math
 import os
@@ -470,12 +508,23 @@ def deterministic_cudnn():
          torch.backends.cudnn.benchmark) = flags
 
 
+def _counters(opt):
+    """The optimizer's step counters, to put back after a trial step."""
+    return {k: getattr(opt, k) for k in ("count", "comm_count", "first")
+            if hasattr(opt, k)}
+
+
+def _restore(opt, counters):
+    for k, v in counters.items():
+        setattr(opt, k, v)
+
+
 def phase_step_parity(trainer, tag):
     """One step through the kernel backend against the same step through the
     plain backend, from the same state, with deterministic cuDNN."""
     opt = trainer.opt
     state, snap = _snapshot(trainer)
-    count = opt.count
+    counters = _counters(opt)
     try:
         with deterministic_cudnn():
             opt.backend = "kernel"
@@ -483,7 +532,7 @@ def phase_step_parity(trainer, tag):
             after_k = {k: v.clone() for k, v in state.items()}
             for k, v in state.items():
                 v.copy_(snap[k])
-            opt.count = count
+            _restore(opt, counters)
             opt.backend = "plain"
             loss_p = trainer.step()
             torch.cuda.synchronize()
@@ -1226,7 +1275,7 @@ def phase_hierarchical(device, main_lengths):
     mix, and the mix's time through K1 and the plain path."""
     from bluefog_tpu_torch.examples.synthetic_benchmark import build
     from bluefog_tpu_torch.ops.gossip_kernel import (
-        circulant_shifts, gossip_mix)
+        auto_gossip_backend, gossip_mix)
 
     out = {}
     for local in (2, 4):
@@ -1237,12 +1286,12 @@ def phase_hierarchical(device, main_lengths):
                         local_size=local)
         opt = trainer.opt
         machines = opt.machine_schedule.size
-        shifts = circulant_shifts(opt.machine_schedule)
+        route = auto_gossip_backend(opt.machine_schedule)
         print(f"[{tag}] {machines} machines of {local} ranks on "
-              f"{opt.machine_schedule.name}, circulant shifts {shifts}: the "
-              f"machine gossip runs on K1, {len(main_lengths)} launches a "
-              f"step over ({machines}, L) rows")
-        check(bool(shifts), f"{tag}: the machine ring is not circulant")
+              f"{opt.machine_schedule.name}, 'auto' -> {route}: the machine "
+              f"gossip runs on K1, {len(main_lengths)} launches a step over "
+              f"({machines}, L) rows")
+        check(route == "kernel", f"{tag}: the machine gossip is not on K1")
         launches, res = phase_main_path(
             trainer, {gossip_mix: len(main_lengths)}, tag,
             f"ResNet-50 x {N_RANKS} virtual ranks, hierarchical (local size "
@@ -1365,6 +1414,406 @@ def phase_mnist():
     return secs
 
 
+def phase_routing(device, main_lengths):
+    """K1 and K2 on the schedules that are not circulant (MeshGrid2D(8),
+    Star(8)): ``'auto'`` routes them to the kernels, and each kernel is
+    bit-equal to its plain version in f32 and bf16; K1 through the op layer
+    is one launch, bit-equal to the plain path; one put on such a window is
+    one K2 launch.  Then K1's time on the grid at the main path's lengths
+    against its bound."""
+    from bluefog_tpu_torch.ops import collectives as C
+    from bluefog_tpu_torch.ops import windows as W
+    from bluefog_tpu_torch.ops.deliver_kernel import (
+        auto_window_backend, deliver_tables, window_deliver,
+        window_deliver_plain)
+    from bluefog_tpu_torch.ops.gossip_kernel import (
+        auto_gossip_backend, gossip_mix, gossip_mix_plain, schedule_tables)
+    from bluefog_tpu_torch.topology import (
+        MeshGrid2DGraph, StarGraph, build_schedule)
+
+    gen = torch.Generator(device=device).manual_seed(4321)
+    times = {}
+    for topo in (MeshGrid2DGraph(N_RANKS), StarGraph(N_RANKS)):
+        sched = build_schedule(topo)
+        routes = (auto_gossip_backend(sched), auto_window_backend(sched))
+        print(f"[routing] {topo.name}: {sched.num_slots} slots, circulant "
+              f"{sched.is_circulant}; 'auto' -> K1 {routes[0]}, K2 "
+              f"{routes[1]}")
+        check(not sched.is_circulant and routes == ("kernel", "kernel"),
+              f"{topo.name} is not routed to the kernels")
+        sw, rw, src = schedule_tables(sched, device)
+        for dtype, length in ((torch.float32, 1_000_003),
+                              (torch.float32, main_lengths[0]),
+                              (torch.bfloat16, 1_000_003),
+                              (torch.bfloat16, main_lengths[0])):
+            x = torch.randn(N_RANKS, length, generator=gen,
+                            device=device).to(dtype)
+            same = torch.equal(gossip_mix(x, sw, rw, src),
+                               gossip_mix_plain(x, sw, rw, src))
+            print(f"[routing] K1 {topo.name} {str(dtype)[6:]} L={length}: "
+                  f"bit-equal to its plain version: {same}")
+            check(same, f"K1 differs from its plain version on {topo.name} "
+                  f"{dtype} L={length}")
+            gossip_mix.launches = 0
+            via_op = C.neighbor_allreduce(x, sched)
+            plain = C.neighbor_allreduce(x, sched, backend="plain")
+            check(gossip_mix.launches == 1 and torch.equal(via_op, plain),
+                  f"{topo.name}: 'auto' launched K1 {gossip_mix.launches} "
+                  "times, or differs from the plain path")
+        src2, mask = deliver_tables(sched, device)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(N_RANKS, 1_000_003, generator=gen,
+                            device=device).to(dtype)
+            bufs = [torch.zeros(N_RANKS, sched.num_slots, x.shape[1],
+                                dtype=dtype, device=device)
+                    for _ in range(2)]
+            for fn, b in zip((window_deliver, window_deliver_plain), bufs):
+                fn(x, b, src2, mask, 0.5, accumulate=False)
+                fn(x, b, src2, mask, 1.0, accumulate=True)
+            same = torch.equal(bufs[0], bufs[1])
+            print(f"[routing] K2 {topo.name} {str(dtype)[6:]} L=1000003, put "
+                  f"at 0.5 then acc: bit-equal to its plain version: {same}")
+            check(same, f"K2 differs from its plain version on {topo.name}")
+        st = W.win_create(torch.randn(N_RANKS, 4096, generator=gen,
+                                      device=device), sched)
+        window_deliver.launches = 0
+        W.win_put(st, None)
+        check(window_deliver.launches == 1,
+              f"{topo.name}: a put launched K2 {window_deliver.launches} "
+              "times")
+        k = sched.num_slots
+        ms = n_bytes = 0
+        for length in main_lengths:
+            x = torch.randn(N_RANKS, length, generator=gen, device=device)
+            ms += time_ms(lambda: gossip_mix(x, sw, rw, src), reps=20)
+            n_bytes += 2 * x.numel() * 4 + N_RANKS * (1 + 2 * k) * 4
+        bound_ms, by = _bound(n_bytes, sum(N_RANKS * n * (2 * k + 1)
+                                           for n in main_lengths))
+        times[topo.name] = {"ms": ms, "bound_ms": bound_ms, "slots": k}
+        print(f"[routing] K1 on {topo.name} ({k} slots) at the main path's "
+              f"lengths: {ms:.4f} ms a step against a {bound_ms:.4f} ms "
+              f"bound ({by}), {bound_ms / ms:.1%} of it")
+    return times
+
+
+def phase_dynamic(device, main_lengths):
+    """One-peer dynamic Exp-2 on the ResNet-50 path: the phases cycle by
+    communication round, one one-slot K1 launch per fused buffer a step;
+    a step through K1 against the plain step; the callable form (full and
+    ``max_rotations=1``) bit-equal to the sequence form over 3 steps; K1's
+    one-slot time against its bound."""
+    from bluefog_tpu_torch.examples.synthetic_benchmark import build
+    from bluefog_tpu_torch.ops import collectives as C
+    from bluefog_tpu_torch.ops.gossip_kernel import (
+        gossip_mix, gossip_mix_plain, schedule_tables)
+    from bluefog_tpu_torch.optim import DistributedNeighborAllreduceOptimizer
+    from bluefog_tpu_torch.topology import (
+        build_schedule, one_peer_exp2_mixing_matrix,
+        one_peer_exponential_two_schedules)
+
+    t0 = time.perf_counter()
+    trainer = build("resnet50", "neighbor", "exp2", size=N_RANKS,
+                    batch_size=BATCH, image_size=224, device=device)
+    base = trainer.opt.base
+    phases = one_peer_exponential_two_schedules(N_RANKS)
+    trainer.opt = opt = DistributedNeighborAllreduceOptimizer(
+        base, topology=phases)
+    used = []
+    mix = opt._mix
+
+    def logged(change=False):
+        used.append(opt.schedule.name)
+        return mix(change)
+
+    opt._mix = logged
+    launches, res = phase_main_path(
+        trainer, {gossip_mix: len(main_lengths)}, "dynamic",
+        f"ResNet-50 x {N_RANKS} virtual ranks, one-peer dynamic exp2, batch "
+        f"{BATCH}/rank, bf16")
+    del opt._mix
+    want = [p.name for p in phases] * 2
+    print(f"[dynamic] phases of the {len(used)} steps: {used}")
+    check(used == want, f"the dynamic phases did not cycle: {used}")
+    phase_step_parity(trainer, "dynamic")
+
+    # the callable form against the sequence form, 3 steps from one state
+    state, snap = _snapshot(trainer)
+    params = {}
+    forms = (
+        ("sequence", dict(topology=phases)),
+        ("callable", dict(topology=functools.partial(
+            one_peer_exp2_mixing_matrix, N_RANKS))),
+        ("callable, max_rotations=1", dict(
+            topology=functools.partial(one_peer_exp2_mixing_matrix,
+                                       N_RANKS), max_rotations=1)))
+    try:
+        with deterministic_cudnn():
+            for form, kw in forms:
+                for k, v in state.items():
+                    v.copy_(snap[k])
+                trainer.opt = DistributedNeighborAllreduceOptimizer(base,
+                                                                    **kw)
+                gossip_mix.launches = 0
+                for _ in range(3):
+                    trainer.step()
+                torch.cuda.synchronize()
+                check(gossip_mix.launches == 3 * len(main_lengths),
+                      f"{form}: K1 launched {gossip_mix.launches} times")
+                params[form] = {k: v.clone() for k, v in state.items()
+                                if k.startswith("param.")}
+    finally:
+        trainer.opt = opt
+    for form, _ in forms[1:]:
+        same = all(torch.equal(params[form][k], v)
+                   for k, v in params["sequence"].items())
+        print(f"[dynamic] 3 steps, {form} vs the sequence form: parameters "
+              f"bit-equal: {same}")
+        check(same, f"the {form} form differs from the sequence form")
+    del trainer, opt, base, state, snap, params
+    torch.cuda.empty_cache()
+
+    # what the aperiodic gossip pays on the host for its K1 tables: a first
+    # matrix builds them and copies them to the card, a repeat hashes its
+    # bytes (the LRU's key)
+    w1 = one_peer_exp2_mixing_matrix(N_RANKS, 1)
+
+    def lookup():
+        return C._aperiodic_tables(C._host_matrix(w1).tobytes(), N_RANKS,
+                                   str(device))
+
+    C._aperiodic_tables.cache_clear()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    lookup()
+    torch.cuda.synchronize()
+    miss_us = (time.perf_counter() - t1) * 1e6
+    t1 = time.perf_counter()
+    for _ in range(1000):
+        lookup()
+    hit_us = (time.perf_counter() - t1) * 1e3
+    print(f"[dynamic] the aperiodic gossip's K1 tables on the host: a new "
+          f"matrix {miss_us:.1f} us (built and copied to the card), a "
+          f"repeated one {hit_us:.2f} us a call (its {4 * N_RANKS ** 2} "
+          f"bytes hashed for the LRU)")
+
+    # K1 at one slot, at the main path's lengths
+    sched = build_schedule(phases[0])
+    sw, rw, src = schedule_tables(sched, device)
+    w = torch.as_tensor(sched.mixing_matrix(), dtype=torch.float32,
+                        device=device)
+    gen = torch.Generator(device=device).manual_seed(77)
+    ms = plain_ms = lib_ms = err = 0.0
+    n_bytes = 0
+    for length in main_lengths:
+        x = torch.randn(N_RANKS, length, generator=gen, device=device)
+        err = max(err, max_err(gossip_mix(x, sw, rw, src),
+                               gossip_mix_plain(x, sw, rw, src))[0])
+        ms += time_ms(lambda: gossip_mix(x, sw, rw, src), reps=20)
+        plain_ms += time_ms(lambda: gossip_mix_plain(x, sw, rw, src), reps=5)
+        lib_ms += time_ms(lambda: torch.matmul(w, x), reps=20)
+        n_bytes += 2 * x.numel() * 4 + N_RANKS * 3 * 4
+    bound_ms, by = _bound(n_bytes, sum(N_RANKS * n * 3
+                                       for n in main_lengths))
+    print(f"[dynamic] K1 at one slot, one step's {len(main_lengths)} "
+          f"launches: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"torch.matmul(W, x) {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({by}), {bound_ms / ms:.1%} of the bound; max abs err {err:.3e}; "
+          f"phase {time.perf_counter() - t0:.1f} s")
+    check(err == 0.0, f"K1 at one slot differs from its plain version: {err}")
+    return {"launches": launches["gossip_mix"],
+            "step_ms": sum(res["step_ms"]) / TIMED,
+            "one_slot": {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": by, "library_ms": lib_ms},
+            "tables_us": {"new": miss_us, "repeat": hit_us}}
+
+
+GT_TOL = 1e-5    # |sum_i y_i - sum_i u_i| against max |sum_i u_i|
+
+
+def _tracking_gap(opt):
+    """max over parameters of ``max |sum_i y_i - sum_i u_i| / max |sum_i
+    u_i|`` in f64: gradient tracking's invariant."""
+    worst = 0.0
+    for y, u in zip(opt.y, opt.u_prev):
+        sy, su = y.double().sum(0), u.double().sum(0)
+        scale = float(su.abs().max())
+        if scale > 0:
+            worst = max(worst, float((sy - su).abs().max()) / scale)
+    return worst
+
+
+def phase_tracking(device, main_lengths):
+    """Gradient tracking on Exp-2 and on MeshGrid2D (BASELINE.json
+    ``configs[3]``), then exact diffusion on Ring(8), on the ResNet-50
+    path: K1's launches a step (two fused mixes for GT, one for ED), a step
+    through K1 against the plain step, and GT's invariant after each of
+    the steps checked."""
+    from bluefog_tpu_torch.examples.synthetic_benchmark import build
+    from bluefog_tpu_torch.ops.gossip_kernel import gossip_mix
+    from bluefog_tpu_torch.optim import (
+        DistributedExactDiffusionOptimizer,
+        DistributedGradientTrackingOptimizer)
+    from bluefog_tpu_torch.topology import (
+        ExponentialTwoGraph, MeshGrid2DGraph, RingGraph)
+
+    out = {}
+    paths = (
+        ("gt exp2", DistributedGradientTrackingOptimizer,
+         ExponentialTwoGraph, 2),
+        ("gt grid", DistributedGradientTrackingOptimizer, MeshGrid2DGraph, 2),
+        ("ed ring", DistributedExactDiffusionOptimizer, RingGraph, 1))
+    for tag, make, graph, mixes in paths:
+        t0 = time.perf_counter()
+        trainer = build("resnet50", "neighbor", "exp2", size=N_RANKS,
+                        batch_size=BATCH, image_size=224, device=device)
+        trainer.opt = make(trainer.opt.base, graph(N_RANKS))
+        launches, res = phase_main_path(
+            trainer, {gossip_mix: mixes * len(main_lengths)}, tag,
+            f"ResNet-50 x {N_RANKS} virtual ranks, {make.__name__} on "
+            f"{graph.__name__}, batch {BATCH}/rank, bf16")
+        gaps = []
+        if mixes == 2:
+            gaps.append(_tracking_gap(trainer.opt))
+        phase_step_parity(trainer, tag)
+        if mixes == 2:
+            for _ in range(2):
+                trainer.step()
+                gaps.append(_tracking_gap(trainer.opt))
+            print(f"[{tag}] invariant sum_i y_i = sum_i u_i: max gap over "
+                  f"parameters / max |sum_i u_i| after 3 of the steps "
+                  f"{[f'{g:.3e}' for g in gaps]} (tol {GT_TOL:.0e})")
+            check(max(gaps) <= GT_TOL, f"{tag}: the tracking invariant "
+                  f"broke: {gaps}")
+        print(f"[{tag}] phase {time.perf_counter() - t0:.1f} s")
+        out[tag] = {"launches": launches["gossip_mix"],
+                    "step_ms": sum(res["step_ms"]) / TIMED}
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+CHOCO_ROUNDS, CHOCO_MAX_ROUNDS = 60, 200
+
+
+def phase_choco(device, win_len):
+    """CHOCO-Gossip alone over the ResNet-50 parameter buffer (random start
+    values), ``random_block_k(0.25)`` at gamma 0.3 on Ring(8): the dryrun's
+    two measures (the max deviation from the mean against its start, the
+    mean's drift) after its 60 rounds, and the round where the max
+    deviation first falls below 5% of its start; then the ResNet-50 path
+    under ``DistributedChocoSGDOptimizer`` (``random_block_k(0.1)``), which
+    launches no kernel."""
+    from bluefog_tpu_torch.examples.synthetic_benchmark import build
+    from bluefog_tpu_torch.ops import compression as CP
+    from bluefog_tpu_torch.ops.gossip_kernel import gossip_mix
+    from bluefog_tpu_torch.optim import DistributedChocoSGDOptimizer
+    from bluefog_tpu_torch.topology import RingGraph, build_schedule
+
+    t0 = time.perf_counter()
+    sched = build_schedule(RingGraph(N_RANKS))
+    comp = CP.random_block_k(0.25)
+    gen = torch.Generator(device=device).manual_seed(9)
+    x = torch.randn(N_RANKS, win_len, generator=gen, device=device)
+    target = x.double().mean(0)
+
+    def measures(x):
+        return (float((x.double() - target).abs().max()),
+                float((x.double().mean(0) - target).abs().max()))
+
+    err0, _ = measures(x)
+    st = CP.choco_init(x, sched)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(CHOCO_ROUNDS):
+        x, st = CP.choco_gossip(x, st, sched, compressor=comp, gamma=0.3)
+    torch.cuda.synchronize()
+    round_ms = (time.perf_counter() - t1) * 1e3 / CHOCO_ROUNDS
+    err, drift = measures(x)
+    ratio_60 = err / err0
+    crossed = CHOCO_ROUNDS if ratio_60 < 0.05 else None
+    print(f"[choco] ring x {N_RANKS} ranks x {win_len} f32, random_block_k"
+          f"(0.25), gamma 0.3: after {CHOCO_ROUNDS} rounds max |x - mean| "
+          f"{err:.4e} = {err / err0:.2%} of its start {err0:.4f}, mean drift "
+          f"{drift:.3e}; {round_ms:.3f} ms a round")
+    check(drift < 1e-4, f"CHOCO drifted the mean: {drift}")
+    rounds = CHOCO_ROUNDS
+    while crossed is None and rounds < CHOCO_MAX_ROUNDS:
+        x, st = CP.choco_gossip(x, st, sched, compressor=comp, gamma=0.3)
+        rounds += 1
+        err, drift = measures(x)
+        if err < 0.05 * err0:
+            crossed = rounds
+    print(f"[choco] the max deviation fell below 5% of its start at round "
+          f"{crossed} ({err / err0:.2%} there, mean drift {drift:.3e})")
+    check(crossed is not None and drift < 1e-4,
+          f"CHOCO did not contract below 5% in {CHOCO_MAX_ROUNDS} rounds")
+    del x, st, target
+    torch.cuda.empty_cache()
+
+    trainer = build("resnet50", "neighbor", "exp2", size=N_RANKS,
+                    batch_size=BATCH, image_size=224, device=device)
+    trainer.opt = DistributedChocoSGDOptimizer(
+        trainer.opt.base, RingGraph(N_RANKS),
+        compressor=CP.random_block_k(0.1))
+    _, res = phase_main_path(
+        trainer, {gossip_mix: 0}, "choco",
+        f"ResNet-50 x {N_RANKS} virtual ranks, CHOCO-SGD on Ring(8), "
+        f"random_block_k(0.1), batch {BATCH}/rank, bf16")
+    print(f"[choco] phase {time.perf_counter() - t0:.1f} s")
+    del trainer
+    torch.cuda.empty_cache()
+    return {"round_ms": round_ms, "ratio_60": ratio_60, "crossed": crossed,
+            "step_ms": sum(res["step_ms"]) / TIMED}
+
+
+def phase_examples():
+    """``examples.average_consensus`` on each of its five topologies (one
+    K1 launch a step on each), ``examples.choco_sgd`` and
+    ``examples.convergence_comparison`` (two gossip flavors, one K1 launch a
+    step each), each to its own OK, with its seconds."""
+    from bluefog_tpu_torch.examples import (
+        average_consensus, choco_sgd, convergence_comparison)
+    from bluefog_tpu_torch.ops.gossip_kernel import gossip_mix
+
+    out = {}
+    steps = 50
+    for topo in sorted(average_consensus.TOPOLOGIES):
+        gossip_mix.launches = 0
+        t0 = time.perf_counter()
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            average_consensus.main(["--topology", topo, "--steps",
+                                    str(steps)])
+        secs = time.perf_counter() - t0
+        lines = text.getvalue().splitlines()
+        print(f"[examples] average_consensus --topology {topo}: "
+              f"{lines[1]}; {lines[-2]}; {lines[-1]}; K1 launches "
+              f"{gossip_mix.launches}; {secs:.2f} s")
+        check(lines[-1] == "OK" and gossip_mix.launches == steps,
+              f"average_consensus on {topo}: {lines[-1]}, K1 launched "
+              f"{gossip_mix.launches} times")
+        out[f"average_consensus {topo}"] = secs
+    gossip_mix.launches = 0
+    t0 = time.perf_counter()
+    res = choco_sgd.main([])
+    out["choco_sgd"] = time.perf_counter() - t0
+    print(f"[examples] choco_sgd: max |w_i - w*| {res['err']:.2e}, spread "
+          f"{res['spread']:.2e}, K1 launches {gossip_mix.launches}; "
+          f"{out['choco_sgd']:.2f} s")
+    gossip_mix.launches = 0
+    t0 = time.perf_counter()
+    res = convergence_comparison.main([])
+    out["convergence_comparison"] = time.perf_counter() - t0
+    steps = 2 * res["steps"]
+    print(f"[examples] convergence_comparison: accuracies {res['acc']}, K1 "
+          f"launches {gossip_mix.launches} ({steps} expected: exp2 and ring "
+          f"gossip, one fused LeNet buffer a step); "
+          f"{out['convergence_comparison']:.2f} s")
+    check(gossip_mix.launches == steps,
+          f"convergence_comparison launched K1 {gossip_mix.launches} times")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1442,6 +1891,12 @@ def main():
     phase_imagenet(main_lengths)
     phase_mnist()
 
+    routing = phase_routing(device, main_lengths)
+    dynamic = phase_dynamic(device, main_lengths)
+    tracking = phase_tracking(device, main_lengths)
+    choco = phase_choco(device, win_len)
+    examples = phase_examples()
+
     fa = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     via = "(via bluefog_tpu/ops/ring_attention.py:122)"
     kernels = [{
@@ -1451,6 +1906,11 @@ def main():
         "replaces": "bluefog_tpu/ops/pallas_gossip.py:388",
         "launches": k1_launches,
         **k1,
+        "one_slot": dynamic["one_slot"],
+        "launches_on_other_paths": {
+            "dynamic": dynamic["launches"],
+            **{tag: v["launches"] for tag, v in tracking.items()}},
+        "non_circulant": routing,
     }, {
         "name": "window_deliver",
         "route": "cuda",
@@ -1488,6 +1948,19 @@ def main():
                       for n, p in (("flash_forward", "fwd"),
                                    ("flash_backward_dkv", "dkv"),
                                    ("flash_backward_dq", "dq"))))
+    print(f"K1 on this slice's paths: one-slot (dynamic exp2) "
+          f"{dynamic['one_slot']['ms']:.4f} ms a step against a "
+          f"{dynamic['one_slot']['bound_ms']:.4f} ms bound; launches in "
+          f"{WARMUP + TIMED} steps + 1 profiled: dynamic "
+          f"{dynamic['launches']}, "
+          + ", ".join(f"{tag} {v['launches']}" for tag, v in tracking.items())
+          + "; on the grid and the star: "
+          + ", ".join(f"{name} ({v['slots']} slots) {v['ms']:.4f} ms against "
+                      f"{v['bound_ms']:.4f} ms" for name, v in routing.items())
+          + f"; CHOCO (plain PyTorch, no kernel) {choco['round_ms']:.3f} ms a "
+          f"round over ResNet-50's buffer, ResNet-50 step "
+          f"{choco['step_ms']:.2f} ms; examples "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in examples.items()))
     print(f"not a TPU kernel: the allreduce (plain PyTorch; lax.psum in the "
           f"JAX package) {allreduce['ms']:.4f} ms per step against a "
           f"{allreduce['bound_ms']:.4f} ms bound, torch.mean(dim=0) "

@@ -48,6 +48,7 @@ from bluefog_tpu_torch.examples import imagenet_resnet as inet
 from bluefog_tpu_torch.examples import mnist_decentralized as mnist
 from bluefog_tpu_torch.examples import synthetic_benchmark as sb
 from bluefog_tpu_torch.models import LeNet5
+from bluefog_tpu_torch.ops import gossip_kernel as k1
 
 N = 8
 TORCH_THREADS = 2
@@ -371,7 +372,8 @@ def test_imagenet_checkpoint_flags_raise_until_ported(flag):
 
 def test_synthetic_benchmark_lenet_on_the_grid():
     """``--model lenet --topology grid``: 28x28x1 images in 10 classes, and
-    a grid that is not circulant, so the gossip takes the plain path."""
+    a grid that is not circulant, which the port's K1 gossips all the same
+    (the TPU kernel would not)."""
     res = sb.main(["--device", "cpu", "--model", "lenet", "--topology",
                    "grid", "--batch-size", "4", "--iters", "2",
                    "--warmup", "0", "--fp32"])
@@ -381,3 +383,4 @@ def test_synthetic_benchmark_lenet_on_the_grid():
     assert tuple(trainer.batch[0].shape) == (N, 2, 28, 28, 1)
     assert int(trainer.batch[1].max()) < 10
     assert not trainer.opt.schedule.is_circulant
+    assert k1.resolve_backend("auto", trainer.opt.schedule) == "kernel"

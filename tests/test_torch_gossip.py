@@ -98,7 +98,7 @@ def test_k1_unaligned_bf16_matches_pallas_interpret(kind):
 def test_zero_slot_schedule_is_the_self_term():
     jtopo = jt.Topology(weights=np.eye(N) * 1.0, name="identity")
     psched = pt.build_schedule(_port_topology(jtopo))
-    assert psched.num_slots == 0 and k1.circulant_shifts(psched) == ()
+    assert psched.num_slots == 0 and psched.is_circulant
     x = np.random.default_rng(2).standard_normal((N, 6)).astype(np.float32)
     want = np.asarray(_run(lambda xs: pallas_gossip.neighbor_allreduce_pallas(
         xs[0], jt.build_schedule(jtopo), "bf", self_weight=0.5,
@@ -115,16 +115,33 @@ def test_zero_slot_schedule_is_the_self_term():
         rtol=1e-6)
 
 
-def test_non_circulant_schedule_is_rejected_by_the_kernel_backend():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_non_circulant_schedule_is_rejected_by_the_kernel_backend(dtype):
+    """The TPU kernel refuses the star (its remote DMA needs a uniform
+    shift); the port's K1 reads any source row, so ``'auto'`` routes the
+    star and the grid to K1, and K1's plain twin on their tables is
+    bit-equal to the plain path's ``_plain_leaf``."""
     jsched = jt.build_schedule(jt.StarGraph(N))
-    psched = pt.build_schedule(pt.StarGraph(N))
-    assert not psched.is_circulant and k1.circulant_shifts(psched) is None
     with pytest.raises(ValueError, match="circulant"):
         pallas_gossip.neighbor_allreduce_pallas(jnp.zeros(4), jsched, "bf",
                                                 interpret=True)
-    with pytest.raises(ValueError, match="circulant"):
-        pcoll.neighbor_allreduce(torch.zeros(N, 4), psched, backend="kernel")
-    assert k1.resolve_backend("auto", psched) == "plain"
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (N, 3, 7)).astype(np.float32)).to(dtype)
+    for topo in (pt.StarGraph(N), pt.MeshGrid2DGraph(N)):
+        psched = pt.build_schedule(topo)
+        assert not psched.is_circulant
+        assert k1.resolve_backend("auto", psched) == "kernel"
+        sw, rw, src = k1.schedule_tables(psched, "cpu")
+        twin = k1.gossip_mix_plain(x.reshape(N, -1), sw, rw, src)
+        plain = pcoll._plain_leaf(x, psched, None, None, None)
+        assert torch.equal(twin.reshape(x.shape), plain), topo.name
+        via_op = pcoll.neighbor_allreduce(x, psched)
+        assert torch.equal(via_op, plain), topo.name
+        np.testing.assert_allclose(
+            via_op.float().numpy(),
+            np.einsum("ij,j...->i...", topo.weights, x.double().numpy()),
+            rtol=1e-5 if dtype == torch.float32 else BF16_RTOL, atol=1e-6)
     with pytest.raises(ValueError, match="unknown backend"):
         pcoll.neighbor_allreduce(torch.zeros(N, 4), psched, backend="pallas")
 

@@ -166,21 +166,22 @@ def test_bf16_self_term_stays_unrounded():
 
 
 def test_non_circulant_machine_schedule_takes_the_plain_path():
-    """A grid of machines is not circulant: ``'auto'`` folds it on K1's
-    plain version, and ``'kernel'`` raises."""
+    """A grid of machines is not circulant, which the TPU kernel would
+    refuse; the port's K1 reads any machine row, so ``'auto'`` folds the
+    grid on K1 too, and ``'kernel'`` and ``'plain'`` agree bit for bit."""
     x = np.random.default_rng(9).standard_normal((N, 5)).astype(np.float32)
     jtopo = jt.MeshGrid2DGraph(4)
     bf.init(local_size=2, machine_topology=jtopo)
     want = bf.hierarchical_neighbor_allreduce(jnp.asarray(x))
     msched = pt.build_schedule(pt.Topology(weights=np.asarray(jtopo.weights),
                                            name=jtopo.name))
-    assert k1.resolve_backend("auto", msched) == "plain"
+    assert k1.resolve_backend("auto", msched) == "kernel"
     got = pcoll.hierarchical_neighbor_allreduce(torch.from_numpy(x), msched,
                                                 local_size=2)
     _close(got, want, RTOL["f32"])
-    with pytest.raises(ValueError, match="circulant"):
-        pcoll.hierarchical_neighbor_allreduce(torch.from_numpy(x), msched,
-                                              local_size=2, backend="kernel")
+    plain = pcoll.hierarchical_neighbor_allreduce(
+        torch.from_numpy(x), msched, local_size=2, backend="plain")
+    assert torch.equal(got, plain)
 
 
 def test_machine_fold_runs_on_k1():

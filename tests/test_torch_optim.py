@@ -194,6 +194,9 @@ def test_win_put_optimizer_checks():
 
 
 def test_unported_modes_and_bad_shapes_raise():
+    """win_put is built by its own factory, a topology is required and
+    shapes are checked; a sequence topology is accepted, and with a period
+    of one it is the static form, bit for bit."""
     base = torch.optim.SGD([torch.zeros(N, 2, requires_grad=True)], lr=0.1)
     # win_put is built by DistributedWinPutOptimizer, not here (allreduce
     # and the hierarchical type are ported: test_torch_allreduce.py,
@@ -204,8 +207,13 @@ def test_unported_modes_and_bad_shapes_raise():
             communication_type=popt.CommunicationType.win_put)
     with pytest.raises(ValueError):
         popt.decentralized_optimizer(base, None)
-    with pytest.raises(NotImplementedError):
-        popt.decentralized_optimizer(base, [pt.RingGraph(N)])
+    params, grads = _data(6)
+    static = _port_run(lambda b: popt.decentralized_optimizer(
+        b, pt.RingGraph(N)), params, grads)
+    period_one = _port_run(lambda b: popt.decentralized_optimizer(
+        b, [pt.RingGraph(N)]), params, grads)
+    for k in static:
+        np.testing.assert_array_equal(period_one[k], static[k], err_msg=k)
     with pytest.raises(ValueError):
         popt.DistributedNeighborAllreduceOptimizer(
             base, topology=pt.RingGraph(N - 1))

@@ -162,18 +162,30 @@ def test_zero_slot_schedule_leaves_the_slots_unchanged():
 
 
 def test_non_circulant_schedule_is_refused_by_the_kernel_backend():
+    """``deliver_pallas`` refuses the star (its remote DMA needs a uniform
+    shift); K2 reads each slot's sender row, so ``'auto'`` routes the star
+    and the grid to K2, and the kernel route lands the same slots as the
+    plain route, put then acc, bit for bit."""
     jsched = jt.build_schedule(jt.StarGraph(N))
-    psched = pt.build_schedule(pt.StarGraph(N))
-    assert not psched.is_circulant
     with pytest.raises(ValueError, match="circulant"):
         pallas_gossip.deliver_pallas(jnp.zeros(4), jnp.zeros((1, 4)), jsched,
                                      "bf", accumulate=False, interpret=True)
-    st = PW.win_create(torch.ones(N, 4), psched)
-    with pytest.raises(ValueError, match="circulant"):
-        PW.win_put(st, None, backend="kernel")
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (N, 5)).astype(np.float32))
+    for topo in (pt.StarGraph(N), pt.MeshGrid2DGraph(N)):
+        psched = pt.build_schedule(topo)
+        assert not psched.is_circulant
+        assert k2.resolve_window_backend("auto", psched) == "kernel"
+        landed = []
+        for backend in ("kernel", "plain"):
+            st = PW.win_create(x.clone(), psched)
+            PW.win_put(st, None, backend=backend, dst_weight=0.5)
+            PW.win_accumulate(st, None, backend=backend)
+            landed.append(torch.cat([b.reshape(N, -1)
+                                     for b in st.peers.values()], 1))
+        assert torch.equal(landed[0], landed[1]), topo.name
     with pytest.raises(ValueError, match="unknown backend"):
         PW.win_put(st, None, backend="pallas")
-    assert k2.resolve_window_backend("auto", psched) == "plain"
     assert k2.resolve_window_backend(
         "auto", pt.build_schedule(pt.ExponentialTwoGraph(N))) == "kernel"
 
