@@ -33,10 +33,16 @@ examples/imagenet_resnet.py                     examples.imagenet_resnet
 examples/average_consensus.py                   examples.average_consensus
 examples/choco_sgd.py                           examples.choco_sgd
 examples/convergence_comparison.py              examples.convergence_...
+runtime.launch (initialize_cluster, bfrun-tpu)  runtime.launch (bfrun)
+the exchange of pallas_gossip (remote DMA)      ops.transport
 ==============================================  ===============================
 
 Ranks are virtual: ``n`` gossip ranks live on one device as the leading axis
-of rank-stacked tensors, as in the JAX package's stacked-array API.  Entry
+of rank-stacked tensors, as in the JAX package's stacked-array API.  Under
+``python -m bluefog_tpu_torch.runtime.launch -np P`` they are spread over
+``P`` processes, each holding a contiguous block of them, with the rows
+moving between processes through gloo on the CPU and through peer memory
+on the card.  Entry
 points default to ``device="cuda"`` and raise when no GPU is present; the CPU
 is used only when a caller asks for it.  The package imports ``torch`` and
 numpy, never JAX.
@@ -57,6 +63,9 @@ from bluefog_tpu_torch.parallel.context import (
     machine_size,
     out_neighbor_machine_ranks,
     out_neighbor_ranks,
+    owned_ranks,
+    process_count,
+    process_rank,
     rank,
     set_machine_topology,
     set_topology,

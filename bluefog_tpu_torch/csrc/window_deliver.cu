@@ -43,9 +43,19 @@
 // are 16-byte vectors when the row length and the pointers allow it (the
 // wrapper checks), with a masked tail; otherwise one element per thread.
 //
-// The TPU version's barrier handshake, DMA semaphores, collective ids and tile
-// padding (_pad_to_tiles) order the transfer and fit it to VMEM; they change
-// no result and have no counterpart on one card.
+// The TPU version's DMA semaphores, collective ids and tile padding
+// (_pad_to_tiles) order the transfer and fit it to VMEM; they change no
+// result.  Its barrier handshake has a counterpart in the peer-memory form
+// (window_deliver_peer_kernel), where the ranks are spread over processes
+// and a delivery stores into a landing slot in another process's window,
+// mapped into this one (CUDA IPC on one card, NVLink peer memory across
+// cards).  The transport (ops/transport.py) orders it with interprocess
+// events: a sender waits for the receivers' last win_update to finish
+// reading before it stores, and a receiver's win_update waits for the
+// senders' stores.  Both forms run one body (deliver_chunk), so the peer
+// form is bit-equal to the virtual one.  Its bound is the virtual form's:
+// the payload read once and every live slot written (and, for acc, read)
+// once, counted over all processes.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -134,6 +144,31 @@ __device__ __forceinline__ void store_vec(T* __restrict__ p, long long remain,
   }
 }
 
+// The body both forms share: one thread's VEC elements of one delivery,
+// src_row into dst_row, put or acc.  Keeping one body keeps the two forms'
+// arithmetic identical.
+template <typename T, int VEC, bool ACC, typename A>
+__device__ __forceinline__ void deliver_chunk(const T* __restrict__ src_row,
+                                              T* __restrict__ dst_row, A w,
+                                              long long start,
+                                              long long remain) {
+  A v[VEC];
+  load_vec<T, VEC, true>(src_row + start, remain, v);
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    // the payload is rounded to the buffers' dtype before it lands
+    v[j] = to_arith(from_arith<T>(mul_rn(w, v[j])));
+  }
+  T* out = dst_row + start;
+  if constexpr (ACC) {
+    A old[VEC];
+    load_vec<T, VEC, false>(out, remain, old);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) v[j] = add_rn(old[j], v[j]);
+  }
+  store_vec<T, VEC>(out, remain, v);
+}
+
 template <typename T, int VEC, bool ACC>
 __global__ void __launch_bounds__(kThreads)
 window_deliver_kernel(const T* __restrict__ x, T* __restrict__ bufs,
@@ -141,7 +176,6 @@ window_deliver_kernel(const T* __restrict__ x, T* __restrict__ bufs,
                       const int* __restrict__ mask,
                       typename Arith<T>::type w, int n, int num_slots,
                       long long len) {
-  using A = typename Arith<T>::type;
   // rank fastest, then slot: blocks c*n*K .. c*n*K + n*K-1 cover column
   // chunk c of every (rank, slot) pair
   const int pairs = n * num_slots;
@@ -155,24 +189,32 @@ window_deliver_kernel(const T* __restrict__ x, T* __restrict__ bufs,
   if (__ldg(mask + idx) == 0) return;  // no in-edge: the slot keeps its value
   const int src = __ldg(recv_src + idx);
   if (src < 0 || src >= n) return;
-  const long long remain = len - start;
+  deliver_chunk<T, VEC, ACC>(
+      x + src * len,
+      bufs + (static_cast<long long>(rank) * num_slots + slot) * len, w,
+      start, len - start);
+}
 
-  A v[VEC];
-  load_vec<T, VEC, true>(x + src * len + start, remain, v);
-#pragma unroll
-  for (int j = 0; j < VEC; ++j) {
-    // the payload is rounded to the buffers' dtype before it lands
-    v[j] = to_arith(from_arith<T>(mul_rn(w, v[j])));
-  }
-  T* out = bufs + (static_cast<long long>(rank) * num_slots + slot) * len +
-           start;
-  if constexpr (ACC) {
-    A old[VEC];
-    load_vec<T, VEC, false>(out, remain, old);
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) v[j] = add_rn(old[j], v[j]);
-  }
-  store_vec<T, VEC>(out, remain, v);
+// The peer-memory form: this process's payload rows, delivered into
+// landing slots that live in other processes' windows, mapped into this
+// one, or in its own.  Delivery d reads owned payload row src_rows[d] and
+// lands it at device address dsts[d]; the table lists only live slots.
+template <typename T, int VEC, bool ACC>
+__global__ void __launch_bounds__(kThreads)
+window_deliver_peer_kernel(const T* __restrict__ x,
+                           const unsigned long long* __restrict__ dsts,
+                           const int* __restrict__ src_rows,
+                           int deliveries, typename Arith<T>::type w,
+                           long long len) {
+  // delivery fastest: the deliveries of one payload row's chunk are
+  // adjacent in launch order and read it from L2
+  const int d = static_cast<int>(blockIdx.x % deliveries);
+  const long long chunk = blockIdx.x / deliveries;
+  const long long start = (chunk * kThreads + threadIdx.x) * VEC;
+  if (start >= len) return;
+  deliver_chunk<T, VEC, ACC>(
+      x + static_cast<long long>(__ldg(src_rows + d)) * len,
+      reinterpret_cast<T*>(__ldg(dsts + d)), w, start, len - start);
 }
 
 template <typename T, int VEC>
@@ -217,6 +259,44 @@ cudaError_t launch_any(int vec, const void* x, void* bufs,
   return cudaErrorInvalidValue;
 }
 
+template <typename T, int VEC>
+cudaError_t launch_peer(const void* x, const void* dsts, const int* src_rows,
+                        int deliveries, double dst_weight, long long len,
+                        bool accumulate, cudaStream_t stream) {
+  const auto w = static_cast<typename Arith<T>::type>(dst_weight);
+  const long long per_block = static_cast<long long>(kThreads) * VEC;
+  const long long chunks = (len + per_block - 1) / per_block;
+  const long long blocks = chunks * deliveries;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const unsigned grid = static_cast<unsigned>(blocks);
+  const auto* table = static_cast<const unsigned long long*>(dsts);
+  if (accumulate) {
+    window_deliver_peer_kernel<T, VEC, true><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(x), table, src_rows, deliveries, w, len);
+  } else {
+    window_deliver_peer_kernel<T, VEC, false><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(x), table, src_rows, deliveries, w, len);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_peer_any(int vec, const void* x, const void* dsts,
+                            const int* src_rows, int deliveries,
+                            double dst_weight, long long len, bool accumulate,
+                            cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (vec == kVec) {
+    return launch_peer<T, kVec>(x, dsts, src_rows, deliveries, dst_weight,
+                                len, accumulate, stream);
+  }
+  if (vec == 1) {
+    return launch_peer<T, 1>(x, dsts, src_rows, deliveries, dst_weight, len,
+                             accumulate, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // x: (n, len) payload; bufs: (n, num_slots, len) landing buffers, updated in
@@ -252,6 +332,44 @@ extern "C" int bf_window_deliver(const void* x, void* bufs,
     case 3:
       err = launch_any<double>(vec, x, bufs, recv_src, mask, dst_weight, n,
                                num_slots, len, acc, s);
+      break;
+  }
+  return static_cast<int>(err);
+}
+
+// K2's peer-memory form.  x: the owned (m, len) payload; dsts: a device
+// table of `deliveries` landing-slot addresses (this process's or mapped
+// peers'); src_rows: the payload row each reads (int32).  dtype, vec and
+// accumulate as for bf_window_deliver; vec > 1 needs len % vec == 0 and
+// every address 16-byte aligned.  Returns the cudaError_t of the launch.
+extern "C" int bf_window_deliver_peer(const void* x, const void* dsts,
+                                      const int* src_rows, int deliveries,
+                                      double dst_weight, long long len,
+                                      int dtype, int vec, int accumulate,
+                                      void* stream) {
+  if (deliveries <= 0 || len <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool acc = accumulate != 0;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0:
+      err = launch_peer_any<float>(vec, x, dsts, src_rows, deliveries,
+                                   dst_weight, len, acc, s);
+      break;
+    case 1:
+      err = launch_peer_any<__nv_bfloat16>(vec, x, dsts, src_rows,
+                                           deliveries, dst_weight, len, acc,
+                                           s);
+      break;
+    case 2:
+      err = launch_peer_any<__half>(vec, x, dsts, src_rows, deliveries,
+                                    dst_weight, len, acc, s);
+      break;
+    case 3:
+      err = launch_peer_any<double>(vec, x, dsts, src_rows, deliveries,
+                                    dst_weight, len, acc, s);
       break;
   }
   return static_cast<int>(err);

@@ -30,6 +30,16 @@ softmax cross-entropy of the logits against the tokens rolled by one
 (``jnp.roll(ids, -1)``: the last position's target is the first token); its
 attention runs on the kernel K3 wherever ``local_attention`` allows it.
 
+Under ``bfrun`` the ranks are spread over the processes: each trains its
+owned block of ``--size / P`` ranks (``bluefog_tpu_torch.init`` over the
+process group), the gossip crossing processes through the transport (peer
+memory on the card, gloo on the CPU); the process that owns rank 0 prints
+images per second for itself and for all processes::
+
+  python -m bluefog_tpu_torch.runtime.launch -np 4 \
+      -m bluefog_tpu_torch.examples.synthetic_benchmark \
+      --model resnet50 --comm neighbor
+
 Run on the GPU (the default device; it raises without one)::
 
   python -m bluefog_tpu_torch.examples.synthetic_benchmark \\
@@ -68,6 +78,8 @@ from bluefog_tpu_torch.optim import (
     DistributedWinPutOptimizer,
     decentralized_optimizer,
 )
+from bluefog_tpu_torch.ops import transport as T
+from bluefog_tpu_torch.parallel import context as _ctx
 from bluefog_tpu_torch.parallel.api import rank_stack
 from bluefog_tpu_torch.parallel.context import resolve_device
 from bluefog_tpu_torch.topology import (
@@ -241,16 +253,23 @@ def build(model: str = "resnet50", comm: str = "neighbor",
     labels, or ``(size, batch_size, min(seq_len, max_position))`` token
     ids), and SGD with the JAX benchmark's lr 0.01 and momentum 0.9 under
     the ``comm`` flavor (:func:`make_optimizer`).  ``num_classes`` and
-    ``num_filters`` shape the ResNets only."""
+    ``num_filters`` shape the ResNets only.
+
+    In a context over several processes the trainer holds this process's
+    owned ranks, on the context's device, with the same weights and, for
+    each of its ranks, the batch that rank has in one process."""
     dev = resolve_device(device)
+    rows, start = T.owned_rows(size), T.owned_start(size)
+    if T.active() is not None and dev.type == _ctx.get_context().device.type:
+        dev = _ctx.get_context().device
     spec = MODELS[model]
     net = spec.make(dtype, torch.Generator().manual_seed(seed), num_classes,
                     num_filters).to(dev)
-    params = rank_stack(dict(net.named_parameters()), size, dev)
+    params = rank_stack(dict(net.named_parameters()), rows, dev)
     for p in params.values():
         p.requires_grad_(True)
         p.grad = torch.zeros_like(p)
-    buffers = rank_stack(dict(net.named_buffers()), size, dev)
+    buffers = rank_stack(dict(net.named_buffers()), rows, dev)
     base = torch.optim.SGD(list(params.values()), lr=0.01, momentum=0.9)
     opt = make_optimizer(base, comm, topology, size, local_size)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
@@ -266,6 +285,10 @@ def build(model: str = "resnet50", comm: str = "neighbor",
                              generator=gen, device=dev).to(dtype),
                  torch.randint(0, classes, (size, batch_size),
                                generator=gen, device=dev))
+    if rows != size:
+        # every process draws all ranks' data, so each rank's batch is the
+        # one it has in one process, and keeps its own
+        batch = tuple(t[start:start + rows].clone() for t in batch)
     return Trainer(net, params, buffers, opt, batch, spec.loss)
 
 
@@ -352,6 +375,23 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
                          "kernels")
     args = ap.parse_args(argv)
 
+    from bluefog_tpu_torch.runtime.launch import initialize_cluster
+
+    # under bfrun the environment names the cluster; alone, this is a no-op
+    initialize_cluster()
+    import torch.distributed as dist
+
+    procs = dist.get_world_size() if dist.is_initialized() else 1
+    if procs > 1:
+        _ctx.init(size=args.size, device=args.device)
+    try:
+        return _main(args, procs)
+    finally:
+        if procs > 1:
+            _ctx.shutdown()
+
+
+def _main(args, procs: int) -> Dict[str, object]:
     trainer = build(args.model, args.comm, args.topology, args.size,
                     args.batch_size, args.image_size, args.seq_len,
                     dtype=torch.float32 if args.fp32 else torch.bfloat16,
@@ -359,11 +399,26 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
                     local_size=args.local_size)
     res = run(trainer, args.warmup, args.iters)
     unit = "seq" if MODELS[args.model].tokens else "img"
+    rows = trainer.size
+    if procs > 1:
+        # each process's rate over its own ranks; the total is their sum
+        import torch.distributed as dist
+
+        rates = [None] * procs
+        dist.all_gather_object(rates, res["samples_per_s"])
+        res["process_samples_per_s"] = rates
+        res["samples_per_s"] = float(sum(rates))
+        if _ctx.rank() != 0:
+            return res
     for i, ms in enumerate(res["step_ms"]):
         print(f"iter {i:3d}: {ms:.1f} ms/step, "
-              f"{args.size * args.batch_size / ms * 1e3:,.1f} {unit}/s")
+              f"{rows * args.batch_size / ms * 1e3:,.1f} {unit}/s")
     print(f"\nmodel={args.model} comm={args.comm} topology={args.topology} "
-          f"ranks={args.size} batch={args.batch_size} device={args.device}")
+          f"ranks={args.size} processes={procs} batch={args.batch_size} "
+          f"device={args.device}")
+    if procs > 1:
+        print(f"{unit}/sec per process: "
+              + ", ".join(f"{r:,.1f}" for r in res["process_samples_per_s"]))
     print(f"{unit}/sec: {res['samples_per_s']:,.1f} over all ranks, "
           f"{res['samples_per_s'] / args.size:,.1f} per rank; final mean loss "
           f"{float(np.mean(res['losses'][-1])):.4f}")

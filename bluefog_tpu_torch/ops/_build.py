@@ -25,7 +25,7 @@ import threading
 from pathlib import Path
 from typing import List, Optional
 
-__all__ = ["load", "build_log", "find_nvcc", "NVCC_FLAGS"]
+__all__ = ["load", "build", "build_log", "find_nvcc", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -95,14 +95,14 @@ def _compile(nvcc: str, out: Path) -> str:
     return log
 
 
-def load() -> ctypes.CDLL:
-    """The kernel library, compiled on first call if its hash-named file is
-    missing.  Raises ``RuntimeError`` when ``nvcc`` cannot be found or the
-    build fails."""
-    global _lib, _log
+def build() -> Path:
+    """Compile the kernel library if its hash-named file is missing, without
+    loading it (no CUDA call is made), and return its path.  A launcher
+    calls this once before it starts its processes, so that they do not all
+    compile it at once.  Raises ``RuntimeError`` when ``nvcc`` cannot be
+    found or the build fails."""
+    global _log
     with _lock:
-        if _lib is not None:
-            return _lib
         path = _library_path()
         if not path.exists():
             nvcc = find_nvcc()
@@ -111,20 +111,49 @@ def load() -> ctypes.CDLL:
                     "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin):"
                     " the CUDA toolkit is needed to build the kernels")
             _log = _compile(nvcc, path)
+        return path
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, compiled on first call if its hash-named file is
+    missing.  Raises ``RuntimeError`` when ``nvcc`` cannot be found or the
+    build fails."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    path = build()
+    with _lock:
+        if _lib is not None:
+            return _lib
         lib = ctypes.CDLL(str(path))
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn = lib.bf_gossip_mix
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i64, i32, i32, ptr]
+        fn.restype = i32
+        # K1's peer form: self, out, sw, rw, the row-address table, m, K,
+        # len, dtype, vec, stream
+        fn = lib.bf_gossip_mix_peer
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i64, i32, i32, ptr]
+        fn.restype = i32
         fn = lib.bf_window_deliver
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_double, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [ptr, ptr, ptr, ptr, ctypes.c_double, i32, i32, i64,
+                       i32, i32, i32, ptr]
+        fn.restype = i32
+        # K2's peer form: x, the landing-address table, source rows,
+        # deliveries, dst_weight, len, dtype, vec, accumulate, stream
+        fn = lib.bf_window_deliver_peer
+        fn.argtypes = [ptr, ptr, ptr, i32, ctypes.c_double, i64, i32, i32,
+                       i32, ptr]
+        fn.restype = i32
+        # symmetric buffers: alloc(bytes, device, &ptr, handle[64]),
+        # open(handle, device, &ptr), close(ptr), free(ptr)
+        lib.bf_peer_alloc.argtypes = [i64, i32, ctypes.POINTER(ptr), ptr]
+        lib.bf_peer_open.argtypes = [ptr, i32, ctypes.POINTER(ptr)]
+        lib.bf_peer_close.argtypes = [ptr]
+        lib.bf_peer_free.argtypes = [ptr]
+        for name in ("bf_peer_alloc", "bf_peer_open", "bf_peer_close",
+                     "bf_peer_free"):
+            getattr(lib, name).restype = i32
         # K3: tensor pointers, the host int64 strides, B, H, T, D, causal,
         # scale, dtype and the stream
         tail = [ctypes.POINTER(ctypes.c_longlong), i32, i32, i32, i32, i32,
@@ -133,7 +162,7 @@ def load() -> ctypes.CDLL:
                             ("bf_flash_bwd_dq", 9)):
             fn = getattr(lib, name)
             fn.argtypes = [ptr] * n_ptr + tail
-            fn.restype = ctypes.c_int
+            fn.restype = i32
         _lib = lib
         return lib
 

@@ -25,6 +25,20 @@ Two gossip backends, resolved per call by
   ``send_weights``.
 
 The hierarchical gossip runs its machine-level fold on K1 the same way.
+
+In a context that spans processes (:mod:`bluefog_tpu_torch.ops.transport`)
+every rank-stacked leaf is the process's owned ``(m, ...)`` block of the
+schedule's rows.  ``neighbor_allreduce`` then exchanges the rows the owned
+ranks read and runs K1's peer form (``'kernel'``) or its plain twin
+(``'plain'``).  On the card ``fuse_apply`` fuses every leaf and packs each
+buffer straight into the transport's symmetric buffer: the pack is each
+payload's one copy, and the exchange adds none.  The flat collectives
+gather every process's block and compute what one process would, so their
+results are bit-equal to the one-process run's.  The hierarchical gossip
+treats a machine as a block of ranks inside one process: the local mean
+stays in the process and the machine fold goes through K1's peer form.  ``pair_gossip``, ``neighbor_allgather``,
+``neighbor_allreduce_aperiodic`` and ``send_weights`` are not ported across
+processes and raise there.
 """
 
 from __future__ import annotations
@@ -37,6 +51,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from bluefog_tpu_torch.ops import gossip_kernel as _k1
+from bluefog_tpu_torch.ops import transport as _T
 from bluefog_tpu_torch.topology.graphs import Topology
 from bluefog_tpu_torch.topology.schedule import GossipSchedule, build_schedule
 
@@ -75,15 +90,30 @@ def fuse_apply(fn, x, *, threshold_bytes=8 << 20):
     reaches ``threshold_bytes`` ship unfused: a large tensor is already one
     bandwidth-bound call, and concatenating it would cost a transient copy.
     Returns ``x``'s structure; each leaf of the result is a view into the
-    buffer ``fn`` returned."""
+    buffer ``fn`` returned.
+
+    In a context that spans processes the transport packs each buffer
+    (:meth:`~bluefog_tpu_torch.ops.transport.Transport.pack`): on the card an
+    f32 or bf16 buffer is laid straight into the staged peer memory the
+    gossip reads, and since every payload is copied into peer memory once
+    anyway, the large leaves fuse too (one launch a dtype, no copy of their
+    own)."""
     leaves, spec = pytree.tree_flatten(x)
     if len(leaves) <= 1:
         return fn(x)
+    tr = _T.active()
+    if tr is not None and tr.device.type == "cuda":
+        threshold_bytes = None
     groups, big = fuse_plan(leaves, threshold_bytes)
     n = leaves[0].shape[0]
-    bufs = {str(dt): torch.cat([leaves[i].reshape(n, -1) for i in idxs], dim=1)
-            for dt, idxs in groups.items()}
-    out_all = fn({"fused": bufs, "big": {str(i): leaves[i] for i in big}})
+    pack = (functools.partial(torch.cat, dim=1) if tr is None else tr.pack)
+    try:
+        bufs = {str(dt): pack([leaves[i].reshape(n, -1) for i in idxs])
+                for dt, idxs in groups.items()}
+        out_all = fn({"fused": bufs, "big": {str(i): leaves[i] for i in big}})
+    finally:
+        if tr is not None:
+            tr.settle()
     out: List = [None] * len(leaves)
     for i in big:
         out[i] = out_all["big"][str(i)]
@@ -175,6 +205,10 @@ def neighbor_allreduce(x, schedule, *, self_weight=None, recv_weights=None,
     the payload travels in the wire dtype (bf16 for bf16 leaves, else f32).
     """
     sched = _as_schedule(schedule)
+    tr = _T.active()
+    if tr is not None:
+        return _neighbor_allreduce_procs(tr, x, sched, self_weight,
+                                         recv_weights, send_weights, backend)
     if send_weights is not None:
         if backend == "kernel":
             raise NotImplementedError(
@@ -207,6 +241,56 @@ def neighbor_allreduce(x, schedule, *, self_weight=None, recv_weights=None,
         outs = [_plain_leaf(leaf, sched, self_weight, recv_weights, send_w)
                 for leaf in leaves]
     return pytree.tree_unflatten(outs, spec)
+
+
+def _owned_tables(tr, sched, device, self_weight=None, recv_weights=None,
+                  dtype=torch.float32):
+    """The schedule's ``(sw, rw)`` for one call (overrides in the global
+    ``(n,)`` / ``(n, K)`` shapes, or scalars and ``(K,)``), cut to this
+    process's rows."""
+    sw, rw, _ = _k1.schedule_tables(sched, device, self_weight, recv_weights,
+                                    dtype=dtype)
+    s, m = tr.start(sched.size), tr.rows(sched.size)
+    return sw[s:s + m], rw[s:s + m]
+
+
+def _neighbor_allreduce_procs(tr, x, sched, self_weight, recv_weights,
+                              send_weights, backend):
+    """``neighbor_allreduce`` on this process's owned rows: the rows the
+    owned ranks read arrive through the transport, then K1's peer form
+    (``'kernel'``) or its plain twin folds them."""
+    if send_weights is not None:
+        raise NotImplementedError(
+            "send_weights is not ported across processes: the payload "
+            "would differ per slot")
+    backend = _k1.resolve_backend(backend, sched)
+    m = tr.rows(sched.size)
+    leaves, spec = pytree.tree_flatten(x)
+    for leaf in leaves:
+        if leaf.dim() == 0 or leaf.shape[0] != m:
+            raise ValueError(
+                f"leaves must be this process's rank-stacked block, leading "
+                f"axis {m} of the schedule's {sched.size}, got shape "
+                f"{tuple(leaf.shape)}")
+    if not leaves:
+        return x
+    sw, rw = _owned_tables(tr, sched, leaves[0].device, self_weight,
+                           recv_weights)
+    flats = [leaf.reshape(m, -1).to(_k1._wire_dtype(leaf.dtype)).contiguous()
+             for leaf in leaves]
+    mix = (_k1.gossip_mix_peer if backend == "kernel"
+           else _k1.gossip_mix_peer_plain)
+    with tr.exchange(sched, flats) as rows:
+        outs = [mix(f, sw, rw, r) for f, r in zip(flats, rows)]
+    return pytree.tree_unflatten(
+        [o.reshape(leaf.shape).to(leaf.dtype) for o, leaf in zip(outs, leaves)],
+        spec)
+
+
+def _single_process(what: str) -> None:
+    if _T.active() is not None:
+        raise NotImplementedError(f"{what} is not ported across processes "
+                                  "yet")
 
 
 def neighbor_allreduce_dynamic(x, schedules, step: int, *,
@@ -280,6 +364,7 @@ def neighbor_allreduce_aperiodic(x, mixing_matrix, *,
     cap the result equals the full form; with more than ``D`` active
     rotations every output is NaN (the reference's fail-loud rule: a dropped
     edge would bias the consensus silently)."""
+    _single_process("neighbor_allreduce_aperiodic")
     w = _host_matrix(mixing_matrix)
     n = w.shape[0]
     if max_rotations is not None and int(max_rotations) < 1:
@@ -331,6 +416,24 @@ def _rank_sum(leaf: torch.Tensor) -> torch.Tensor:
     return leaf.sum(0, dtype=leaf.dtype)
 
 
+def _gathered(x):
+    """``(spec, wholes, rows)``: in one process each leaf is its own whole
+    and ``rows`` its rank count; over several, ``wholes`` are the ``(n,
+    ...)`` stacks of every process's blocks of each leaf, in rank order,
+    and ``rows`` the owned counts."""
+    leaves, spec = _stacked_leaves(x)
+    rows = [leaf.shape[0] for leaf in leaves]
+    tr = _T.active()
+    if tr is None or not leaves:
+        return spec, leaves, rows
+    flats = [leaf.reshape(leaf.shape[0], -1) for leaf in leaves]
+    flats = [f.view(torch.uint8) if f.dtype == torch.bool else f.contiguous()
+             for f in flats]
+    wholes = tr.gather_all(flats)
+    return spec, [w.view(leaf.dtype).reshape(-1, *leaf.shape[1:])
+                  for w, leaf in zip(wholes, leaves)], rows
+
+
 def allreduce(x, *, average: bool = True):
     """Global sum, or mean (the reference default), over the ranks of every
     leaf of a pytree of rank-stacked tensors; every rank gets the result.
@@ -338,9 +441,11 @@ def allreduce(x, *, average: bool = True):
     As the reference computes it: the sum in the leaf's dtype, then ``/ n``
     in the accumulation dtype (f32 for bf16/f16) and back.  Integer and
     boolean leaves keep their dtype: the mean is the f32 quotient cast
-    back, as ``astype`` casts it there."""
+    back, as ``astype`` casts it there.  Over several processes every
+    process gathers all blocks and sums them in rank order, as one process
+    does."""
 
-    def one(leaf):
+    def one(leaf, rows):
         n = leaf.shape[0]
         s = _rank_sum(leaf)
         if average:
@@ -348,10 +453,11 @@ def allreduce(x, *, average: bool = True):
                 s = (s.to(_acc_dtype(leaf.dtype)) / n).to(leaf.dtype)
             else:
                 s = (s.float() / n).to(leaf.dtype)
-        return _to_ranks(s.to(leaf.dtype), n)
+        return _to_ranks(s.to(leaf.dtype), rows)
 
-    leaves, spec = _stacked_leaves(x)
-    return pytree.tree_unflatten([one(leaf) for leaf in leaves], spec)
+    spec, wholes, rows = _gathered(x)
+    return pytree.tree_unflatten([one(w, r) for w, r in zip(wholes, rows)],
+                                 spec)
 
 
 def allgather(x, *, axis: int = 0, tiled: bool = False):
@@ -359,8 +465,7 @@ def allgather(x, *, axis: int = 0, tiled: bool = False):
     stacked at ``axis`` (a new axis), or with ``tiled`` concatenated along
     ``axis`` (the reference concatenates along dim 0)."""
 
-    def one(leaf):
-        n = leaf.shape[0]
+    def one(leaf, rows):
         if tiled:
             if leaf.dim() < 2:
                 raise ValueError("tiled allgather needs per-rank values of "
@@ -368,32 +473,38 @@ def allgather(x, *, axis: int = 0, tiled: bool = False):
             row = torch.cat(list(leaf.unbind(0)), dim=axis)
         else:
             row = torch.movedim(leaf, 0, axis)
-        return _to_ranks(row, n)
+        return _to_ranks(row, rows)
 
-    leaves, spec = _stacked_leaves(x)
-    return pytree.tree_unflatten([one(leaf) for leaf in leaves], spec)
+    spec, wholes, rows = _gathered(x)
+    return pytree.tree_unflatten([one(w, r) for w, r in zip(wholes, rows)],
+                                 spec)
 
 
 def broadcast(x, root_rank: int = 0):
     """Every rank gets ``root_rank``'s value, in the leaf's dtype."""
 
-    def one(leaf):
+    def one(leaf, rows):
         n = leaf.shape[0]
         if not 0 <= root_rank < n:
             raise ValueError(f"root_rank {root_rank} outside [0, {n})")
-        return _to_ranks(leaf[root_rank], n)
+        return _to_ranks(leaf[root_rank], rows)
 
-    leaves, spec = _stacked_leaves(x)
-    return pytree.tree_unflatten([one(leaf) for leaf in leaves], spec)
+    spec, wholes, rows = _gathered(x)
+    return pytree.tree_unflatten([one(w, r) for w, r in zip(wholes, rows)],
+                                 spec)
 
 
 def barrier(device=None) -> bool:
-    """Synchronization point (``bf.barrier``): the virtual ranks share one
-    device, so this waits for the work queued on it (a no-op on the CPU)."""
+    """Synchronization point (``bf.barrier``): waits for the work queued on
+    the device (a no-op on the CPU), and over several processes for every
+    process to arrive."""
     dev = torch.device(device) if device is not None else None
     if (dev is None and torch.cuda.is_available()) or (
             dev is not None and dev.type == "cuda"):
         torch.cuda.synchronize(dev)
+    tr = _T.active()
+    if tr is not None:
+        tr.barrier()
     return True
 
 
@@ -401,6 +512,7 @@ def pair_gossip(x, *, perm, self_weight=0.5):
     """Average with one partner: ``out[d] = w x[d] + (1 - w) x[s]`` for every
     ``(s, d)`` of the pairing ``perm``, in the accumulation dtype; ranks that
     are no destination keep their value."""
+    _single_process("pair_gossip")
     pairs = [(int(s), int(d)) for s, d in perm]
 
     def one(leaf):
@@ -424,6 +536,7 @@ def neighbor_allgather(x: torch.Tensor, schedule):
     has no slot-``k`` edge) and ``mask`` the ``(n, K)`` bool table of real
     entries.  As in the reference, irregular graphs pad to ``K =
     num_slots`` in place of ``bf.neighbor_allgather``'s ragged result."""
+    _single_process("neighbor_allgather")
     sched = _as_schedule(schedule)
     if x.dim() == 0 or x.shape[0] != sched.size:
         raise ValueError(f"x must be rank-stacked with leading axis "
@@ -451,6 +564,10 @@ def _machine_fold(avg, shipped, sched, self_weight, recv_weights, backend):
     the reference: K1 reads ``2M`` f32 rows, the unrounded ``avg`` for the
     self terms and the rounded ``shipped`` for the slots, and its first
     ``M`` rows are the result.  Other dtypes (f64) fold in plain PyTorch."""
+    tr = _T.active()
+    if tr is not None:
+        return _machine_fold_procs(tr, avg, shipped, sched, self_weight,
+                                   recv_weights, backend)
     m = sched.size
     if avg.dtype != torch.float32:
         acc = avg.dtype
@@ -475,11 +592,37 @@ def _machine_fold(avg, shipped, sched, self_weight, recv_weights, backend):
     return mix(rows, sw2, rw2, src2)[:m]
 
 
+def _machine_fold_procs(tr, avg, shipped, sched, self_weight, recv_weights,
+                        backend):
+    """:func:`_machine_fold` on this process's machine rows: the shipped
+    rows of the machines each owned machine reads arrive through the
+    transport; the self terms are the unrounded ``avg``, as in one
+    process."""
+    dev = avg.device
+    if avg.dtype != torch.float32:
+        acc = avg.dtype
+        sw, rw = _owned_tables(tr, sched, dev, self_weight, recv_weights,
+                               dtype=acc)
+        with tr.exchange(sched, [shipped.contiguous()]) as (rows,):
+            recvd = rows.gather(dev)
+        out = sw[:, None] * avg
+        for k in range(sched.num_slots):
+            out = out + rw[:, k, None] * recvd[:, k].to(acc)
+        return out
+    sw, rw = _owned_tables(tr, sched, dev, self_weight, recv_weights)
+    mix = (_k1.gossip_mix_peer if backend == "kernel"
+           else _k1.gossip_mix_peer_plain)
+    with tr.exchange(sched, [shipped.float().contiguous()]) as (rows,):
+        return mix(avg.contiguous(), sw, rw, rows)
+
+
 def _hierarchical(x, machine_schedule, local_size, self_weight, recv_weights,
                   backend, round_local_sum):
     msched = _as_schedule(machine_schedule)
     backend = _k1.resolve_backend(backend, msched)
-    n_machines, n = msched.size, msched.size * local_size
+    # this process's machines: all of them in one process
+    n_machines = _T.owned_rows(msched.size)
+    n = n_machines * local_size
     leaves, spec = _stacked_leaves(x)
 
     def one(leaf):
@@ -503,8 +646,9 @@ def _hierarchical(x, machine_schedule, local_size, self_weight, recv_weights,
         shipped = avg if acc == leaf.dtype else avg.to(leaf.dtype)
         out = _machine_fold(avg, shipped, msched, self_weight, recv_weights,
                             backend).to(leaf.dtype)
-        return out.unsqueeze(1).expand(n_machines, local_size,
-                                       out.shape[1]).reshape(leaf.shape)
+        # contiguous: with one machine the reshape would be an expand's view
+        return out.unsqueeze(1).expand(n_machines, local_size, out.shape[1]
+                                       ).reshape(leaf.shape).contiguous()
 
     return pytree.tree_unflatten([one(leaf) for leaf in leaves], spec)
 

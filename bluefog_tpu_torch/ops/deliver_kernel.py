@@ -21,6 +21,15 @@ as ``deliver_pallas`` carries them.  f64 is carried in f64: the TPU kernel
 rounds it through an f32 wire because the TPU has no f64, while K2, the plain
 version and the JAX package's portable path all keep it exact.
 
+:func:`window_deliver_peer` is K2's peer-memory form, for a context that
+spans processes: this process's payload rows land in the landing slots of
+the receiving ranks, wherever they live (a peer's window mapped into this
+process, or this process's own), named by a
+:class:`~bluefog_tpu_torch.ops.transport.PeerTargets` table.  Its plain twin
+:func:`window_deliver_peer_plain` does the same with tensor copies into the
+mapped views.  Over gloo on the CPU the receiver applies the arrivals
+instead (:func:`window_deliver_rows_plain`).
+
 Two mechanisms of the TPU routing are not carried over, and neither changes a
 result: the 4 MiB payload cap (``DEFAULT_AUTO_MAX_BYTES``), which sizes a
 window to TPU VMEM (on the card every window with a slot takes K2 whatever
@@ -42,6 +51,9 @@ __all__ = [
     "deliver_tables",
     "window_deliver",
     "window_deliver_plain",
+    "window_deliver_peer",
+    "window_deliver_peer_plain",
+    "window_deliver_rows_plain",
     "KERNEL_DTYPES",
 ]
 
@@ -173,3 +185,117 @@ def window_deliver(x: torch.Tensor, bufs: torch.Tensor,
 
 
 window_deliver.launches = 0
+
+
+def _arith(dtype: torch.dtype) -> torch.dtype:
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _land(dst: torch.Tensor, src_row: torch.Tensor, w: torch.Tensor,
+          accumulate: bool) -> None:
+    """One delivery with K2's rounding: the weighted payload rounded to the
+    buffers' dtype, then kept (put) or added in the arithmetic type and
+    rounded (acc)."""
+    acc = w.dtype
+    pay = (w * src_row.to(acc)).to(dst.dtype)
+    dst.copy_((dst.to(acc) + pay.to(acc)).to(dst.dtype) if accumulate
+              else pay)
+
+
+def _check_peer(x: torch.Tensor, targets) -> None:
+    if x.dim() != 2:
+        raise ValueError(f"x must be (m, L), got shape {tuple(x.shape)}")
+    if x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"x must be float32, bfloat16, float16 or float64, "
+                        f"got {x.dtype}")
+    if targets.length != x.shape[1] or targets.dtype != x.dtype:
+        raise ValueError(f"targets of {targets.length} {targets.dtype} for a "
+                         f"payload of {x.dtype} {tuple(x.shape)}")
+    if any(not 0 <= r < x.shape[0] for r in targets.src_rows):
+        raise ValueError("a delivery names a payload row outside x")
+
+
+def window_deliver_peer_plain(x: torch.Tensor, targets,
+                              dst_weight: float = 1.0, *,
+                              accumulate: bool) -> None:
+    """Plain version of K2's peer form: for each delivery ``d`` in order,
+    ``pay = (f32(dst_weight) * x[src_rows[d]])`` rounded to ``x``'s dtype,
+    then the landing slot ``views[d]`` becomes ``pay`` (put) or ``slot +
+    pay`` added in f32 and rounded (acc); f64 computes in f64.  The slots
+    may lie in other processes' windows, mapped into this one."""
+    _check_peer(x, targets)
+    w = torch.tensor(float(dst_weight), dtype=_arith(x.dtype),
+                     device=x.device)
+    for dst, r in zip(targets.views, targets.src_rows):
+        _land(dst, x[r], w, accumulate)
+
+
+def window_deliver_peer(x: torch.Tensor, targets, dst_weight: float = 1.0,
+                        *, accumulate: bool) -> None:
+    """K2's peer form: this process's ``(m, L)`` payload ``x`` into the
+    landing slots of ``targets``, a
+    :class:`~bluefog_tpu_torch.ops.transport.PeerTargets` (see
+    :func:`window_deliver_peer_plain` for the function).
+
+    A CUDA tensor launches the kernel on the current stream through the
+    table of landing addresses and adds one to
+    ``window_deliver_peer.launches``; a table without addresses, or a launch
+    error, raises.  A CPU tensor runs the plain version.  Any other device
+    raises.  With no delivery or an empty row nothing is launched."""
+    _check_peer(x, targets)
+    if x.device.type == "cpu":
+        window_deliver_peer_plain(x, targets, dst_weight,
+                                  accumulate=accumulate)
+        return
+    if x.device.type != "cuda":
+        raise ValueError(f"window_deliver_peer runs on cuda or cpu, not "
+                         f"{x.device}")
+    if not targets.views or x.shape[1] == 0:
+        return
+    if targets.dsts is None or targets.dsts.device != x.device:
+        raise ValueError("window_deliver_peer on the card needs the "
+                         "targets' device address table on the same device")
+    if not x.is_contiguous():
+        raise ValueError("window_deliver_peer needs a contiguous x")
+    from bluefog_tpu_torch.ops import _build
+
+    lib = _build.load()
+    vec = 16 // x.element_size()
+    if not (targets.aligned and x.shape[1] % vec == 0
+            and x.data_ptr() % 16 == 0):
+        vec = 1
+    with torch.cuda.device(x.device):
+        err = lib.bf_window_deliver_peer(
+            x.data_ptr(), targets.dsts.data_ptr(),
+            targets.src_index.data_ptr(), len(targets.views),
+            float(dst_weight), x.shape[1], KERNEL_DTYPES[x.dtype], vec,
+            1 if accumulate else 0,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"window_deliver_peer launch failed: cudaError "
+                           f"{err}")
+    window_deliver_peer.launches += 1
+
+
+window_deliver_peer.launches = 0
+
+
+def window_deliver_rows_plain(bufs: torch.Tensor, rows, mask: torch.Tensor,
+                              dst_weight: float = 1.0, *,
+                              accumulate: bool) -> torch.Tensor:
+    """The receiving side of a delivery over gloo: the owned ``(m, K, L)``
+    landing buffers ``bufs`` take, in each live slot ``(i, k)`` (``mask[i,
+    k] != 0`` and an edge), the arrived row ``rows.views[i][k]`` (a
+    :class:`~bluefog_tpu_torch.ops.transport.PeerRows`), with K2's
+    rounding.  Returns ``bufs``."""
+    m, k, length = bufs.shape
+    if len(rows.views) != m or rows.num_slots != k or rows.length != length:
+        raise ValueError(f"rows of {len(rows.views)} x {rows.num_slots} x "
+                         f"{rows.length} for bufs {tuple(bufs.shape)}")
+    w = torch.tensor(float(dst_weight), dtype=_arith(bufs.dtype),
+                     device=bufs.device)
+    for i, row in enumerate(rows.views):
+        for slot, v in enumerate(row):
+            if v is not None and int(mask[i, slot]) != 0:
+                _land(bufs[i, slot], v, w, accumulate)
+    return bufs

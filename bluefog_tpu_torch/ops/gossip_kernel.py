@@ -10,6 +10,14 @@ the bound and the design.
 :func:`gossip_mix` is the wrapper.  On a CUDA tensor it launches the kernel
 (or raises); on a CPU tensor, and only there, it runs :func:`gossip_mix_plain`,
 which computes the same function with the same rounding in plain PyTorch.
+
+:func:`gossip_mix_peer` is K1's peer-memory form, for a context that spans
+processes: each owned rank's source rows are wherever
+:mod:`~bluefog_tpu_torch.ops.transport` put them (a peer's buffer mapped
+into this process, or this process's own), named by a
+:class:`~bluefog_tpu_torch.ops.transport.PeerRows` table.  Its plain twin
+:func:`gossip_mix_peer_plain` gathers the rows into an ``(m, K, L)`` tensor
+and folds them in slot order, with the rounding of both other forms.
 """
 
 from __future__ import annotations
@@ -26,6 +34,8 @@ __all__ = [
     "resolve_backend",
     "gossip_mix",
     "gossip_mix_plain",
+    "gossip_mix_peer",
+    "gossip_mix_peer_plain",
     "schedule_tables",
     "slot_tables",
     "BACKENDS",
@@ -199,3 +209,92 @@ def gossip_mix(x: torch.Tensor, sw: torch.Tensor, rw: torch.Tensor,
 
 
 gossip_mix.launches = 0
+
+
+def _check_peer(x_self: torch.Tensor, sw: torch.Tensor, rw: torch.Tensor,
+                rows) -> None:
+    if x_self.dim() != 2:
+        raise ValueError(f"x_self must be (m, L), got {tuple(x_self.shape)}")
+    if x_self.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x_self must be float32 or bfloat16, got "
+                        f"{x_self.dtype}")
+    m, length = x_self.shape
+    k = rows.num_slots
+    if len(rows.views) != m or rows.length != length or \
+            rows.dtype != x_self.dtype:
+        raise ValueError(f"rows of {len(rows.views)} ranks x {rows.length} "
+                         f"{rows.dtype} for x_self {x_self.dtype} "
+                         f"{tuple(x_self.shape)}")
+    if sw.shape != (m,) or sw.dtype != torch.float32:
+        raise ValueError(f"sw must be float32 ({m},), got {sw.dtype} "
+                         f"{tuple(sw.shape)}")
+    if rw.shape != (m, k) or rw.dtype != torch.float32:
+        raise ValueError(f"rw must be float32 ({m}, {k}), got {rw.dtype} "
+                         f"{tuple(rw.shape)}")
+    for name, t in (("sw", sw), ("rw", rw)):
+        if t.device != x_self.device:
+            raise ValueError(f"{name} is on {t.device}, x_self on "
+                             f"{x_self.device}")
+
+
+def gossip_mix_peer_plain(x_self: torch.Tensor, sw: torch.Tensor,
+                          rw: torch.Tensor, rows) -> torch.Tensor:
+    """Plain version of K1's peer form: ``out[i] = sw[i] x_self[i] + sum_k
+    rw[i, k] row(i, k)`` over the slots with an edge, where ``row(i, k)`` is
+    ``rows.views[i][k]``: the rows gathered into one ``(m, K, L)`` tensor,
+    then folded in f32 in slot order, each product and sum rounded on its
+    own (the rounding of :func:`gossip_mix_plain`).  Returns the dtype of
+    ``x_self``."""
+    _check_peer(x_self, sw, rw, rows)
+    gathered = rows.gather(x_self.device)
+    valid = rows.valid(x_self.device)
+    acc = sw[:, None] * x_self.float()
+    for k in range(rows.num_slots):
+        acc = torch.where(valid[:, k, None],
+                          acc + rw[:, k, None] * gathered[:, k].float(), acc)
+    return acc.to(x_self.dtype)
+
+
+def gossip_mix_peer(x_self: torch.Tensor, sw: torch.Tensor, rw: torch.Tensor,
+                    rows) -> torch.Tensor:
+    """K1's peer form on the owned ``(m, L)`` block ``x_self`` (see
+    :func:`gossip_mix_peer_plain` for the function), reading each slot's row
+    through ``rows``, a :class:`~bluefog_tpu_torch.ops.transport.PeerRows`.
+
+    A CUDA tensor launches the kernel on the current stream, through the
+    table of row addresses, and adds one to ``gossip_mix_peer.launches``; a
+    table without addresses, or a launch error, raises.  A CPU tensor runs
+    the plain version.  Any other device raises."""
+    _check_peer(x_self, sw, rw, rows)
+    if x_self.device.type == "cpu":
+        return gossip_mix_peer_plain(x_self, sw, rw, rows)
+    if x_self.device.type != "cuda":
+        raise ValueError(f"gossip_mix_peer runs on cuda or cpu, not "
+                         f"{x_self.device}")
+    if rows.ptrs is None or rows.ptrs.device != x_self.device:
+        raise ValueError("gossip_mix_peer on the card needs the rows' "
+                         "device address table on the same device")
+    if not (x_self.is_contiguous() and sw.is_contiguous()
+            and rw.is_contiguous()):
+        raise ValueError("gossip_mix_peer needs contiguous x_self, sw, rw")
+    from bluefog_tpu_torch.ops import _build
+
+    lib = _build.load()
+    out = torch.empty_like(x_self)
+    m, length = x_self.shape
+    if length == 0:
+        return out
+    vec = _vector_width(x_self, out) if rows.aligned else 1
+    with torch.cuda.device(x_self.device):
+        err = lib.bf_gossip_mix_peer(
+            x_self.data_ptr(), out.data_ptr(), sw.data_ptr(), rw.data_ptr(),
+            rows.ptrs.data_ptr(), m, rows.num_slots, length,
+            0 if x_self.dtype == torch.float32 else 1, vec,
+            torch.cuda.current_stream(x_self.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"gossip_mix_peer launch failed: cudaError {err}")
+    gossip_mix_peer.launches += 1
+    return out
+
+
+gossip_mix_peer.launches = 0

@@ -32,6 +32,16 @@ Delivery routes per call through
 ``win_update_then_collect`` are plain PyTorch, as the JAX package computes
 them outside any kernel.
 
+In a context that spans processes (:mod:`bluefog_tpu_torch.ops.transport`)
+a window holds this process's owned ``m`` rows.  On the card its landing
+buffers are allocated in peer memory (:class:`~bluefog_tpu_torch.ops.
+transport.WindowLinks`): ``win_put`` and ``win_accumulate`` store this
+process's payload into the receivers' slots, in whichever process they live,
+through K2's peer form (``'kernel'``) or its plain twin (``'plain'``), and
+``win_update`` first waits on the deliverers.  The self buffer stays this
+process's own: every op pushes, so no peer reads it.  On the CPU the rows a
+process's slots take arrive over gloo and the receiver lands them.
+
 Not ported: window partitioning (``rule_table=`` / ``partition=``, with the
 sharding slice), and the timeline, blackbox and metrics hooks (with the
 observability slice).
@@ -39,6 +49,7 @@ observability slice).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Dict, List, Optional, Tuple
@@ -48,6 +59,7 @@ from torch.utils import _pytree as pytree
 
 from bluefog_tpu_torch.ops import deliver_kernel as _k2
 from bluefog_tpu_torch.ops import gossip_kernel as _k1
+from bluefog_tpu_torch.ops import transport as _T
 from bluefog_tpu_torch.ops.collectives import _acc_dtype, _as_schedule
 from bluefog_tpu_torch.topology.schedule import GossipSchedule
 
@@ -154,6 +166,9 @@ class WindowState:
       bufs: ``{dtype: (n, L)}`` self buffers, what each rank publishes.
       peers: ``{dtype: (n, K, L)}`` landing buffers, slot ``k`` of rank ``i``
         receiving from ``recv_src[i, k]``.
+      links: over several processes on the card, the landing buffers in
+        peer memory and the signals ordering deliveries against updates
+        (``peers`` and ``assoc_peers`` are this process's own of them).
       assoc_self / assoc_peers: the associated push-sum scalar ``p``,
         ``(n,)`` f32, and its landing slots ``(n, K)``, when the window was
         created with ``associated_p=True``; else None.  Every put,
@@ -168,6 +183,7 @@ class WindowState:
     peers: Dict[torch.dtype, torch.Tensor]
     assoc_self: Optional[torch.Tensor] = None
     assoc_peers: Optional[torch.Tensor] = None
+    links: Optional[_T.WindowLinks] = None
 
     @property
     def self_buf(self):
@@ -205,23 +221,39 @@ def win_create(x, schedule, *, name: str = "win", associated_p: bool = False,
             "yet; it comes with the sharding slice")
     sched = _as_schedule(schedule)
     layout = _Layout.of(x)
-    if layout.n != sched.size:
+    rows = _T.owned_rows(sched.size)
+    if layout.n != rows:
         raise ValueError(f"leaves must be rank-stacked with leading axis "
-                         f"{sched.size}, got {layout.n}")
+                         f"{rows}, got {layout.n}")
     device = pytree.tree_leaves(x)[0].device
     bufs = layout.pack(x, device)
     k = sched.num_slots
-    if associated_p:
-        peers = {dt: b.new_zeros(b.shape[0], k, b.shape[1])
-                 for dt, b in bufs.items()}
-    else:
-        peers = {dt: b[:, None].expand(-1, k, -1).clone()
-                 for dt, b in bufs.items()}
     f32 = dict(dtype=torch.float32, device=device)
-    p = torch.ones(sched.size, **f32) if associated_p else None
-    p_peers = torch.zeros(sched.size, k, **f32) if associated_p else None
+    tr = _T.active()
+    links = None
+    if tr is not None and device.type == "cuda":
+        # landing buffers in peer memory, zeroed; the senders store there
+        links = tr.window_links(rows, k, {dt: b.shape[1]
+                                          for dt, b in bufs.items()},
+                                associated_p)
+        peers = links.landing
+        p_peers = links.p_landing[..., 0] if associated_p else None
+        if not associated_p:
+            for dt, b in bufs.items():
+                peers[dt].copy_(b[:, None].expand(-1, k, -1))
+        # a sender's first store waits for these writes
+        links.consumed.record()
+    else:
+        if associated_p:
+            peers = {dt: b.new_zeros(b.shape[0], k, b.shape[1])
+                     for dt, b in bufs.items()}
+        else:
+            peers = {dt: b[:, None].expand(-1, k, -1).clone()
+                     for dt, b in bufs.items()}
+        p_peers = torch.zeros(rows, k, **f32) if associated_p else None
+    p = torch.ones(rows, **f32) if associated_p else None
     return WindowState(WindowSpec(sched, name), layout, bufs, peers, p,
-                       p_peers)
+                       p_peers, links)
 
 
 def win_associated_p(state: WindowState) -> torch.Tensor:
@@ -247,8 +279,11 @@ def _deliver(state: WindowState, payload: Dict[torch.dtype, torch.Tensor], *,
     route = _k2.resolve_window_backend(backend, sched)
     if sched.num_slots == 0:
         return state  # no in-edges anywhere: nothing lands
-    src, mask = _k2.deliver_tables(sched, state.device)
     w = float(dst_weight)
+    tr = _T.active()
+    if tr is not None:
+        return _deliver_procs(tr, state, payload, accumulate, w, route)
+    src, mask = _k2.deliver_tables(sched, state.device)
     if state.assoc_self is not None:
         # the scalar rides the plain path on every backend, as in the JAX
         # package: an (n,) payload is noise next to the tensor's
@@ -262,6 +297,61 @@ def _deliver(state: WindowState, payload: Dict[torch.dtype, torch.Tensor], *,
     for dt, peers in state.peers.items():
         fn(payload[dt], peers, src, mask, w, accumulate=accumulate)
     return state
+
+
+def _deliver_procs(tr, state: WindowState, payload, accumulate: bool,
+                   w: float, route: str) -> WindowState:
+    """:func:`_deliver` over several processes: on the card this process
+    stores its payload into the receivers' slots through peer memory; on
+    the CPU the rows its own slots take arrive over gloo."""
+    sched = state.spec.schedule
+    if state.links is not None:
+        fn = (_k2.window_deliver_peer if route == "kernel"
+              else _k2.window_deliver_peer_plain)
+        with tr.delivering(state.links):
+            if state.assoc_self is not None:
+                _k2.window_deliver_peer_plain(
+                    state.assoc_self[:, None],
+                    tr.window_targets(state.links, sched, "p"), w,
+                    accumulate=accumulate)
+            for dt in state.peers:
+                fn(payload[dt], tr.window_targets(state.links, sched, dt), w,
+                   accumulate=accumulate)
+        return state
+    mask = _owned(_k2.deliver_tables(sched, state.device)[1], sched)
+    dts = list(state.peers)
+    flats = [payload[dt] for dt in dts]
+    if state.assoc_self is not None:
+        flats.append(state.assoc_self[:, None])
+    with tr.exchange(sched, flats) as rows:
+        for dt, r in zip(dts, rows):
+            _k2.window_deliver_rows_plain(state.peers[dt], r, mask, w,
+                                          accumulate=accumulate)
+        if state.assoc_self is not None:
+            _k2.window_deliver_rows_plain(state.assoc_peers[:, :, None],
+                                          rows[-1], mask, w,
+                                          accumulate=accumulate)
+    return state
+
+
+def _owned(t: torch.Tensor, sched: GossipSchedule) -> torch.Tensor:
+    """A table over the schedule's ranks cut to this process's rows (all of
+    them in one process)."""
+    s = _T.owned_start(sched.size)
+    return t[s:s + _T.owned_rows(sched.size)]
+
+
+@contextlib.contextmanager
+def _reading(state: WindowState):
+    """Around an op that reads or rewrites the landing buffers: over
+    several processes on the card, the senders' stores have landed before
+    it and the next stores wait for it."""
+    tr = _T.active()
+    if tr is None or state.links is None:
+        yield
+        return
+    with tr.updating(state.links):
+        yield
 
 
 def _prepare_payload(state: WindowState, x):
@@ -329,18 +419,20 @@ def win_update(state: WindowState, *, self_weight=None, recv_weights=None):
     buffer."""
     sched = state.spec.schedule
     dev = state.device
-    live = _k2.deliver_tables(sched, dev)[1] != 0
+    live = _owned(_k2.deliver_tables(sched, dev)[1], sched) != 0
 
     def merge(own, peers):
         sw, rw, _ = _k1.schedule_tables(sched, dev, self_weight,
                                         recv_weights,
                                         dtype=_acc_dtype(own.dtype))
+        sw, rw = _owned(sw, sched), _owned(rw, sched)
         own.copy_(_merge(own, peers, sw, torch.where(live, rw, 0)))
 
-    for dt, buf in state.bufs.items():
-        merge(buf, state.peers[dt])
-    if state.assoc_self is not None:
-        merge(state.assoc_self[:, None], state.assoc_peers[:, :, None])
+    with _reading(state):
+        for dt, buf in state.bufs.items():
+            merge(buf, state.peers[dt])
+        if state.assoc_self is not None:
+            merge(state.assoc_self[:, None], state.assoc_peers[:, :, None])
     return state.self_buf, state
 
 
@@ -351,7 +443,7 @@ def win_update_then_collect(state: WindowState):
     (and ``p``'s) are **zeroed**, so accumulated mass is consumed exactly
     once.  Returns ``(out, state)`` as :func:`win_update` does."""
     sched = state.spec.schedule
-    live = _k2.deliver_tables(sched, state.device)[1] != 0
+    live = _owned(_k2.deliver_tables(sched, state.device)[1], sched) != 0
 
     def collect(own, peers):
         acc = _acc_dtype(own.dtype)
@@ -360,10 +452,11 @@ def win_update_then_collect(state: WindowState):
                          live.to(acc)))
         peers.zero_()
 
-    for dt, buf in state.bufs.items():
-        collect(buf, state.peers[dt])
-    if state.assoc_self is not None:
-        collect(state.assoc_self[:, None], state.assoc_peers[:, :, None])
+    with _reading(state):
+        for dt, buf in state.bufs.items():
+            collect(buf, state.peers[dt])
+        if state.assoc_self is not None:
+            collect(state.assoc_self[:, None], state.assoc_peers[:, :, None])
     return state.self_buf, state
 
 

@@ -12,6 +12,11 @@ the parameter-sync helpers of the reference's ``utility.py``
 values live in one tensor with a leading ``size``-long rank axis: ``x[r]`` is
 rank ``r``'s value.  The ranks are virtual, on the context's one device.
 ``win_mutex`` is not ported yet (it comes with the host runtime).
+
+In a context that spans processes every stacked tensor is this process's
+owned block of ``m`` ranks (``rank_stack`` makes one), and the collectives,
+the parameter-sync helpers and the windows act on it across the processes
+(see :mod:`bluefog_tpu_torch.ops.transport`).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from bluefog_tpu_torch.ops import collectives as _C
+from bluefog_tpu_torch.ops import transport as _T
 from bluefog_tpu_torch.ops import windows as _W
 from bluefog_tpu_torch.parallel.context import get_context
 from bluefog_tpu_torch.topology.schedule import GossipSchedule
@@ -44,12 +50,13 @@ def _sched(topology) -> GossipSchedule:
 
 def rank_stack(x, size: Optional[int] = None, device=None):
     """Replicate a value into the stacked per-rank representation: ``out[r]
-    = x`` for every rank (pytree-polymorphic).  Each result is a fresh
-    contiguous tensor, detached from ``x``, on ``device`` (default: the
-    context's), so ranks can be updated in place independently."""
+    = x`` for every rank (pytree-polymorphic) this process holds: all of
+    them in one process, its owned block over several.  Each result is a
+    fresh contiguous tensor, detached from ``x``, on ``device`` (default:
+    the context's), so ranks can be updated in place independently."""
     if size is None or device is None:
         ctx = get_context()
-        size = ctx.size if size is None else size
+        size = _T.owned_rows(ctx.size) if size is None else size
         device = ctx.device if device is None else device
 
     def one(leaf):
@@ -109,7 +116,8 @@ def broadcast(x, root_rank: int = 0):
 
 
 def barrier() -> bool:
-    """Wait for the work queued on the context's device."""
+    """Wait for the work queued on the context's device, and over several
+    processes for every process."""
     return _C.barrier(get_context().device)
 
 
@@ -159,7 +167,7 @@ def broadcast_optimizer_state(state, root_rank: int = 0):
     ``torch.optim`` state dict (reference ``bf.broadcast_optimizer_state``).
     Tensors without the context's leading rank axis (a step count) and
     non-tensor entries (hyper-parameters) pass through unchanged."""
-    n = get_context().size
+    n = _T.owned_rows(get_context().size)
 
     def one(leaf):
         if (isinstance(leaf, torch.Tensor) and leaf.dim() > 0

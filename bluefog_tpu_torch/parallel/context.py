@@ -1,10 +1,24 @@
-"""The framework context: n virtual gossip ranks on one device.
+"""The framework context: n gossip ranks, in one process or spread over
+several.
 
 Counterpart of ``bluefog_tpu/parallel/context.py``.  The JAX package puts one
 rank on each device of a mesh; here the ``n`` ranks are virtual, rows of
 rank-stacked tensors on one device, as the JAX package's stacked-array API
-represents them.  ``rank()`` therefore names no calling process: host code
-passes an explicit rank to neighbor queries, as in the JAX package.
+represents them.  In one process ``rank()`` therefore names no calling
+process: host code passes an explicit rank to neighbor queries, as in the
+JAX package.
+
+When ``init`` runs inside a process group of ``P`` processes
+(:func:`bluefog_tpu_torch.runtime.launch.initialize_cluster`, e.g. under
+``python -m bluefog_tpu_torch.runtime.launch -np P``), the ranks are spread
+over the processes as the JAX package spreads its mesh over controllers:
+process ``p`` owns the contiguous block ``[p m, (p+1) m)`` of ``m = n / P``
+ranks, every rank-stacked tensor it passes to a collective is that ``(m,
+...)`` block, ``rank()`` is its first rank ``p m`` (the mesh rank of the
+controller's first device in the reference), and a machine defaults to a
+process (``local_size = m``).  The context then carries the
+:class:`~bluefog_tpu_torch.ops.transport.Transport` that moves rows between
+the processes.
 
 For the hierarchical ops the ranks are grouped into machines of
 ``local_size`` consecutive ranks (rank ``r`` on machine ``r //
@@ -15,10 +29,12 @@ schedule beside the rank-level ones.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Dict, List, Optional
 
 import torch
 
+from bluefog_tpu_torch.ops import transport as _transport
 from bluefog_tpu_torch.topology.graphs import ExponentialTwoGraph, Topology
 from bluefog_tpu_torch.topology.schedule import GossipSchedule, build_schedule
 
@@ -31,6 +47,9 @@ __all__ = [
     "get_context",
     "size",
     "rank",
+    "process_rank",
+    "process_count",
+    "owned_ranks",
     "set_topology",
     "load_topology",
     "in_neighbor_ranks",
@@ -50,7 +69,9 @@ __all__ = [
 class BluefogContext:
     """Everything the framework holds between calls; ``windows`` maps each
     registered window's name to its ``ops.windows.WindowState``.  The
-    machine topology is None when there is one machine."""
+    machine topology is None when there is one machine.  Over several
+    processes, ``process_rank`` and ``process_count`` place this process and
+    ``transport`` moves rows between them (None in one process)."""
 
     size: int
     device: torch.device
@@ -60,10 +81,19 @@ class BluefogContext:
     machine_topology: Optional[Topology] = None
     machine_schedule: Optional[GossipSchedule] = None
     windows: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    process_rank: int = 0
+    process_count: int = 1
+    transport: Optional[_transport.Transport] = None
 
     @property
     def n_machines(self) -> int:
         return self.size // self.local_size
+
+    @property
+    def owned_ranks(self) -> range:
+        """The ranks whose rows this process holds."""
+        m = self.size // self.process_count
+        return range(self.process_rank * m, (self.process_rank + 1) * m)
 
 
 _CTX: Optional[BluefogContext] = None
@@ -80,29 +110,60 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def _process_group() -> tuple:
+    """``(rank, world size)`` of torch.distributed's default group, or
+    ``(0, 1)`` when there is none."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _process_device(device, processes: int) -> torch.device:
+    """A bare ``"cuda"`` over several processes is this process's card:
+    ``LOCAL_RANK`` (as the launcher sets it) modulo the cards present, so
+    that processes sharing one card all take it."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None and processes > 1:
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        dev = torch.device("cuda", local % torch.cuda.device_count())
+    return dev
+
+
 def init(*, topology: Optional[Topology] = None,
          machine_topology: Optional[Topology] = None,
          size: Optional[int] = None, local_size: Optional[int] = None,
          device="cuda") -> BluefogContext:
-    """Initialize ``size`` virtual ranks on ``device`` (the reference's
+    """Initialize ``size`` ranks on ``device`` (the reference's
     ``bf.init()``).  ``size`` defaults to the topology's; the topology
     defaults to ``ExponentialTwoGraph(size)``, as in the JAX package.
 
-    ``local_size`` (default 1) ranks make a machine; with more than one
+    ``local_size`` ranks make a machine (default 1 in one process, a
+    process's ``size / P`` ranks over ``P`` processes); with more than one
     machine the machine topology defaults to ``ExponentialTwoGraph`` over
-    the ``size / local_size`` machines, as in the JAX package."""
+    the ``size / local_size`` machines, as in the JAX package.
+
+    Inside a process group of ``P > 1`` processes this process owns ranks
+    ``[p m, (p+1) m)``, ``m = size / P`` (``P`` must divide ``size``), and
+    the context gets a transport; ``init`` is then collective."""
     global _CTX
-    dev = resolve_device(device)
+    proc, procs = _process_group()
+    dev = _process_device(device, procs)
     if size is None:
         if topology is None:
             raise ValueError("init needs size= or topology=")
         size = topology.size
     if size < 1:
         raise ValueError(f"size must be >= 1, got {size}")
+    if size % procs:
+        raise ValueError(f"size {size} cannot be split over {procs} "
+                         "processes: the process count must divide it")
     topo = topology if topology is not None else ExponentialTwoGraph(size)
     if topo.size != size:
         raise ValueError(f"topology size {topo.size} != size {size}")
-    local = 1 if local_size is None else int(local_size)
+    default_local = size // procs if procs > 1 else 1
+    local = default_local if local_size is None else int(local_size)
     if local < 1 or size % local:
         raise ValueError(f"size {size} not divisible by local_size {local}")
     mtopo = machine_topology
@@ -111,10 +172,19 @@ def init(*, topology: Optional[Topology] = None,
     if mtopo is not None and mtopo.size != size // local:
         raise ValueError(f"machine topology size {mtopo.size} != "
                          f"{size // local} machines")
+    if _CTX is not None:
+        shutdown()
+    tr = None
+    if procs > 1:
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        tr = _transport.Transport(dev)
     _CTX = BluefogContext(
         size=size, device=dev, topology=topo, schedule=build_schedule(topo),
         local_size=local, machine_topology=mtopo,
-        machine_schedule=build_schedule(mtopo) if mtopo is not None else None)
+        machine_schedule=build_schedule(mtopo) if mtopo is not None else None,
+        process_rank=proc, process_count=procs, transport=tr)
+    _transport.activate(tr)
     return _CTX
 
 
@@ -124,6 +194,9 @@ def shutdown() -> None:
     global _CTX
     if _CTX is not None:
         _CTX.windows.clear()
+        if _CTX.transport is not None:
+            _transport.activate(None)
+            _CTX.transport.close()
     _CTX = None
 
 
@@ -142,10 +215,29 @@ def size() -> int:
 
 
 def rank(default: int = 0) -> int:
-    """The rank host code speaks for when it names none: every virtual rank
-    lives in this one process (see the module docstring)."""
-    get_context()
+    """The rank host code speaks for when it names none: ``default`` in one
+    process, where every rank lives; over several processes this process's
+    first rank (see the module docstring)."""
+    ctx = get_context()
+    if ctx.process_count > 1:
+        return ctx.owned_ranks.start
     return default
+
+
+def process_rank() -> int:
+    """This process's index in the process group (0 in one process)."""
+    return get_context().process_rank
+
+
+def process_count() -> int:
+    """The number of processes the ranks are spread over."""
+    return get_context().process_count
+
+
+def owned_ranks() -> range:
+    """The ranks whose rows this process holds: all of them in one
+    process."""
+    return get_context().owned_ranks
 
 
 def set_topology(topology: Optional[Topology] = None,

@@ -13,6 +13,30 @@ its last line:
    print the seconds it took and ptxas's report: each kernel's registers
    and spills (the bf16 forward's four instantiations among them) and any
    warning.
+1b. Ranks over processes (run right after the build, while this process
+   holds no tensors): the ResNet-50 main path of phase 3 in this process,
+   2 + 3 steps under deterministic cuDNN, as the reference; then the same
+   8 ranks spread over P = 2 and P = 4 processes that share the card,
+   each group started by the port's launcher (``python -m
+   bluefog_tpu_torch.runtime.launch -np P chip_smoke.py --mp-worker ...``),
+   each process owning 8 / P ranks.  Each process checks K1's peer form
+   (its source rows read from the other processes' buffers through CUDA
+   IPC) bit for bit against the virtual K1 on the same stacked inputs, in
+   f32 at the main path's length and bf16, through the op layer's kernel
+   and plain routes, and times it at that length on a packed staged buffer
+   as the main path runs it (all processes' launches of a step between two
+   barriers, against the bound of the rows each process's launch must read
+   and write); runs the main path for 2 + 3 steps under deterministic cuDNN
+   (img/s per process and over all, each process's own device idle share in
+   one profiled step, K1's peer launches, one a step since every leaf fuses
+   into one staged buffer, the handshake's host microseconds, the pack's
+   device time) and saves its parameters, which this process holds against the reference
+   within 2^-7; checks K2's peer put then acc bit for bit against the virtual
+   K2 and times them; and runs 6 push-sum rounds on the directed Ring(8)
+   through K2's peer form (sum(p) exactly 11.5 over the processes, x and p
+   bit-equal to the same rounds in one process) and times K2's peer acc.
+   Then P = 8, one rank a process, K1's check and times only.  A process
+   that fails, or a group that outlives its time limit, fails the phase.
 2. K1 against its plain version on the card: ``gossip_mix`` against
    ``gossip_mix_plain`` in f32 and bf16, over Exponential-2(8) and Ring(8), at
    an unaligned length and at the lengths the main path gives it, plus the
@@ -159,6 +183,9 @@ its last line:
    K2 and K3's three kernels; K1's entry also carries its one-slot times,
    its launches on the new paths and its times on the grid and the star),
    the card's name and power limit from nvidia-smi, and the result line.
+   The JSON line also holds K1's and K2's peer forms
+   (``gossip_mix_peer``, ``window_deliver_peer``) at P = 4, with the other
+   process counts under ``by_processes``, and a line sums phase 1b up.
 
 It needs one CUDA device and exits with status 2 when there is none.
 """
@@ -172,6 +199,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -1814,7 +1842,540 @@ def phase_examples():
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the ranks spread over processes that share the card
+# ---------------------------------------------------------------------------
+
+MP_PROCESSES = (2, 4, 8)       # P = 8: one rank a process, K1's check only
+MP_TIMEOUT_S = 300
+
+
+@contextlib.contextmanager
+def _one_process():
+    """Inside: the ops run as in one process (no transport), so a process
+    of the group can compute the one-process reference on the whole
+    stack."""
+    from bluefog_tpu_torch.ops import transport as T
+
+    tr = T.active()
+    T.activate(None)
+    try:
+        yield
+    finally:
+        T.activate(tr)
+
+
+def _wall_ms(tr, fn, reps):
+    """Milliseconds a call of ``fn`` takes over every process: from a
+    barrier of the group, ``reps`` calls in each process, each process's
+    device drained, to a second barrier (the processes' kernels time-slice
+    the card, so this is the time all of them take together)."""
+    torch.cuda.synchronize()
+    tr.barrier()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    tr.barrier()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _k1_peer_rows(sched, procs):
+    """Rows K1's peer form must move for one gossip of the ``sched.size``
+    ranks over ``procs`` processes: each process's launch reads its own
+    rows and the distinct source rows of its ranks once, and writes its
+    rows.  Inside one launch a row several ranks read comes from L2 once,
+    as the virtual K1's bound of 2 rows a rank assumes; across processes it
+    cannot, since their kernels time-slice the card."""
+    m = sched.size // procs
+    rows = 0
+    for q in range(procs):
+        src = sched.recv_src[q * m:(q + 1) * m, :sched.num_slots]
+        read = set(range(q * m, (q + 1) * m)) | {int(j) for j in src.ravel()
+                                                 if j >= 0}
+        rows += len(read) + m
+    return rows
+
+
+def mp_k1(ctx, lengths):
+    """K1's peer form against the virtual K1 on the same stacked inputs (f32
+    at the main path's lengths and an unaligned one, bf16 at the first and
+    the unaligned one), bit for bit, through the op layer's kernel and
+    plain routes; then its time at the main path's lengths, each payload
+    packed into its staged buffer as ``fuse_apply`` packs it, so that the
+    buffer holds the launch's own rows as well as its peers'."""
+    from bluefog_tpu_torch.ops import collectives as C
+    from bluefog_tpu_torch.ops.gossip_kernel import (
+        gossip_mix, gossip_mix_peer, gossip_mix_peer_plain, schedule_tables)
+    from bluefog_tpu_torch.topology import ExponentialTwoGraph, build_schedule
+
+    tr, dev = ctx.transport, ctx.device
+    own = slice(ctx.owned_ranks.start, ctx.owned_ranks.stop)
+    sched = build_schedule(ExponentialTwoGraph(N_RANKS))
+    sw, rw, src = schedule_tables(sched, dev)
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    cases = ([(torch.float32, n) for n in sorted(set(lengths)) + [1_000_003]]
+             + [(torch.bfloat16, n) for n in (lengths[0], 1_000_003)])
+    worst, checked = 0.0, []
+    for dtype, length in cases:
+        x = torch.randn(N_RANKS, length, generator=gen, device=dev,
+                        dtype=torch.float32).to(dtype)
+        want = gossip_mix(x, sw, rw, src)[own].clone()
+        got = C.neighbor_allreduce(x[own].clone(), sched, backend="kernel")
+        plain = C.neighbor_allreduce(x[own].clone(), sched, backend="plain")
+        torch.cuda.synchronize()
+        err = max(max_err(got, want)[0], max_err(plain, want)[0])
+        worst = max(worst, err)
+        checked.append([str(dtype)[6:], length, torch.equal(got, want),
+                        torch.equal(plain, want)])
+        del x, want, got, plain
+    m = len(ctx.owned_ranks)
+    bufs = [tr.pack([torch.randn(m, n, generator=gen, device=dev)])
+            for n in lengths]
+    with tr.exchange(sched, bufs) as rows:
+        sw_o, rw_o = sw[own].contiguous(), rw[own].contiguous()
+        step = lambda fn: [fn(b, sw_o, rw_o, r)  # noqa: E731
+                           for b, r in zip(bufs, rows)]
+        step(gossip_mix_peer)
+        ms = _wall_ms(tr, lambda: step(gossip_mix_peer), reps=20)
+        plain_ms = _wall_ms(tr, lambda: step(gossip_mix_peer_plain), reps=2)
+    # the handshake alone, the processes in step: records, one barrier and
+    # the waits of a call, over 20 calls of one small payload each
+    small = [torch.zeros(m, 1024, device=dev)]
+    torch.cuda.synchronize()
+    tr.barrier()
+    tr.handshake_us, tr.handshakes = 0.0, 0
+    for _ in range(20):
+        with tr.exchange(sched, small):
+            pass
+    handshake_us = tr.handshake_us / tr.handshakes
+    n_rows = _k1_peer_rows(sched, ctx.process_count)
+    n_bytes = sum(n_rows * n * 4 for n in lengths)
+    n_flops = sum(N_RANKS * n * (2 * sched.num_slots + 1) for n in lengths)
+    bound_ms, bound_by = _bound(n_bytes, n_flops)
+    return {"checked": checked, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": n_bytes, "rows_a_rank": n_rows / N_RANKS,
+            "handshake_us": handshake_us}
+
+
+def mp_main_path(ctx, outdir):
+    """The ResNet-50 main path over this process's ranks, 2 + 3 steps under
+    deterministic cuDNN (each timed step's wait in its handshake read
+    apart), its parameters saved for the parent's comparison, then one
+    profiled step; then the time of a step's pack alone (every parameter
+    laid into the staged buffer, all processes together) beside the pack
+    of the one-process fuse plan (the fused buffer packed, the leaves of 8
+    MiB and more copied apart)."""
+    from bluefog_tpu_torch.examples.synthetic_benchmark import (
+        build, profile_step, run)
+    from bluefog_tpu_torch.ops.collectives import fuse_plan
+    from bluefog_tpu_torch.ops.gossip_kernel import (
+        gossip_mix, gossip_mix_peer)
+
+    tr = ctx.transport
+    with deterministic_cudnn():
+        trainer = build("resnet50", "neighbor", "exp2", size=N_RANKS,
+                        batch_size=BATCH, image_size=224, device=ctx.device)
+        gossip_mix_peer.launches = gossip_mix.launches = 0
+        tr.handshakes = 0
+        res = run(trainer, WARMUP, 0)
+        waits_us = []
+        for _ in range(TIMED):
+            before = tr.handshake_us
+            one = run(trainer, 0, 1)
+            waits_us.append(tr.handshake_us - before)
+            res["losses"] += one["losses"]
+            res.setdefault("step_ms", []).extend(one["step_ms"])
+        launches = gossip_mix_peer.launches
+        virtual = gossip_mix.launches
+        handshakes = tr.handshakes
+    torch.save({k: v.detach().cpu() for k, v in trainer.params.items()},
+               os.path.join(outdir, f"params_{ctx.process_rank}.pt"))
+    finite = all(math.isfinite(float(v)) for loss in res["losses"]
+                 for v in loss)
+    prof = profile_step(trainer)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    leaves = [v.detach() for v in trainer.params.values()]
+    m = len(ctx.owned_ranks)
+    flat = [v.reshape(m, -1) for v in leaves]
+
+    def pack():
+        for idxs in fuse_plan(leaves, None)[0].values():
+            tr.pack([flat[i] for i in idxs])
+        tr.settle()
+
+    small, big = fuse_plan(leaves)
+    small = [i for idxs in small.values() for i in idxs]
+    to = [torch.empty(m, sum(flat[i].shape[1] for i in small),
+                      device=ctx.device)] + [torch.empty_like(flat[i])
+                                             for i in big]
+
+    def split_pack():
+        torch.cat([flat[i] for i in small], dim=1, out=to[0])
+        for t, i in zip(to[1:], big):
+            t.copy_(flat[i])
+
+    pack_ms = _wall_ms(tr, pack, reps=10)
+    split_ms = _wall_ms(tr, split_pack, reps=10)
+    del to
+    n_bytes = 2 * N_RANKS * sum(v[0].numel() * v.element_size()
+                                for v in leaves)
+    mean_ms = sum(res["step_ms"]) / TIMED
+    samples = trainer.batch[0].shape[0] * trainer.batch[0].shape[1]
+    out = {"step_ms": res["step_ms"], "img_s": samples / (mean_ms / 1e3),
+           "pack_ms": pack_ms, "split_pack_ms": split_ms,
+           "pack_bound_ms": _bound(n_bytes, 0)[0],
+           "launches": launches, "virtual_launches": virtual,
+           "waits_us": waits_us, "handshakes": handshakes,
+           "finite": finite, "busy_ms": prof["busy_ms"],
+           "idle": 1 - prof["busy_ms"] / mean_ms,
+           "peak_gb": peak_gb}
+    del trainer, leaves, flat
+    torch.cuda.empty_cache()
+    return out
+
+
+def mp_k2(ctx, win_len):
+    """K2's peer form against the virtual K2 on the same stacked inputs:
+    put at dst_weight 0.5 then acc at 1/3 on Exponential-2, f32 at the
+    WinPut window's length and bf16 at an unaligned one, through the kernel
+    and the plain routes, bit for bit; then put's and acc's times."""
+    from bluefog_tpu_torch.ops import windows as W
+    from bluefog_tpu_torch.ops.deliver_kernel import (
+        deliver_tables, window_deliver, window_deliver_peer)
+    from bluefog_tpu_torch.topology import ExponentialTwoGraph, build_schedule
+
+    tr, dev = ctx.transport, ctx.device
+    own = slice(ctx.owned_ranks.start, ctx.owned_ranks.stop)
+    sched = build_schedule(ExponentialTwoGraph(N_RANKS))
+    src, mask = deliver_tables(sched, dev)
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    worst, checked, times = 0.0, [], {}
+    for dtype, length, routes in ((torch.float32, win_len, ("kernel",)),
+                                  (torch.bfloat16, 1_000_003,
+                                   ("kernel", "plain")),
+                                  (torch.float32, 1_000_003, ("plain",))):
+        x = torch.randn(N_RANKS, length, generator=gen, device=dev).to(dtype)
+        y = torch.randn(N_RANKS, length, generator=gen, device=dev).to(dtype)
+        full = y[:, None].expand(-1, sched.num_slots, -1).clone()
+        window_deliver(x, full, src, mask, 0.5, accumulate=False)
+        window_deliver(y, full, src, mask, 1 / 3, accumulate=True)
+        want = full[own].clone()
+        del full
+        for route in routes:
+            st = W.win_create(y[own].clone(), sched)
+            W.win_put(st, x[own].clone(), dst_weight=0.5, backend=route)
+            W.win_accumulate(st, y[own].clone(), dst_weight=1 / 3,
+                             backend=route)
+            with tr.updating(st.links):
+                got = st.peers[dtype].clone()
+            torch.cuda.synchronize()
+            worst = max(worst, max_err(got, want)[0])
+            checked.append([str(dtype)[6:], length, route,
+                            torch.equal(got, want)])
+            if length == win_len and route == "kernel":
+                targets = tr.window_targets(st.links, sched, dtype)
+                xo = x[own].contiguous()
+                for name, acc in (("put", False), ("acc", True)):
+                    times[name] = _wall_ms(tr, lambda: window_deliver_peer(
+                        xo, targets, 0.5, accumulate=acc), reps=10)
+            del st, got
+        del x, y, want
+    torch.cuda.empty_cache()
+    return {"checked": checked, "max_abs_err": worst, **times}
+
+
+def mp_pushsum(ctx, win_len):
+    """Push-sum on the directed Ring(8) through K2's peer form, 6 rounds of
+    ``win_accumulate`` with ``p`` from unequal weights, against the same
+    rounds in one process on the whole stack; then K2's peer acc alone."""
+    from bluefog_tpu_torch.ops import collectives as C
+    from bluefog_tpu_torch.ops import windows as W
+    from bluefog_tpu_torch.ops.deliver_kernel import (
+        window_deliver_peer, window_deliver_peer_plain)
+    from bluefog_tpu_torch.topology import RingGraph, build_schedule
+
+    tr, dev = ctx.transport, ctx.device
+    m = len(ctx.owned_ranks)
+    own = slice(ctx.owned_ranks.start, ctx.owned_ranks.stop)
+    sched = build_schedule(RingGraph(N_RANKS, connect_style=1))
+    gen = torch.Generator(device=dev).manual_seed(99)
+    p0 = 1 + torch.arange(N_RANKS, dtype=torch.float64) / N_RANKS
+    x0 = (torch.randn(N_RANKS, win_len, generator=gen, device=dev)
+          * p0.to(device=dev, dtype=torch.float32)[:, None])
+
+    def window(rows, sl):
+        st = W.win_create(torch.zeros(rows, win_len, device=dev), sched,
+                          associated_p=True)
+        st.assoc_self.copy_(p0[sl])
+        return W.win_sync(st, x0[sl])
+
+    def one_round(st):
+        W.win_accumulate(st, None, dst_weight=0.5)
+        st.self_buf.mul_(0.5)
+        st.assoc_self.mul_(0.5)
+        W.win_update_then_collect(st)
+
+    st = window(m, own)
+    window_deliver_peer.launches = 0
+    round_ms = []
+    for _ in range(PUSH_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_round(st)
+        torch.cuda.synchronize()
+        round_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = window_deliver_peer.launches
+    p_sum = float(C.allreduce(st.assoc_self.double()[:, None].clone(),
+                              average=False)[0, 0])
+    with _one_process():
+        ref = window(N_RANKS, slice(None))
+        for _ in range(PUSH_ROUNDS):
+            one_round(ref)
+        want_x = ref.self_buf[own].clone()
+        want_p = ref.assoc_self[own].clone()
+        del ref
+    torch.cuda.synchronize()
+    equal = (torch.equal(st.self_buf, want_x)
+             and torch.equal(st.assoc_self, want_p))
+    err = max_err(st.self_buf, want_x)[0]
+    targets = tr.window_targets(st.links, sched, torch.float32)
+    xo = st.self_buf.contiguous()
+    ms = _wall_ms(tr, lambda: window_deliver_peer(
+        xo, targets, 0.5, accumulate=True), reps=10)
+    plain_ms = _wall_ms(tr, lambda: window_deliver_peer_plain(
+        xo, targets, 0.5, accumulate=True), reps=2)
+    n_bytes = 3 * N_RANKS * win_len * 4
+    bound_ms, bound_by = _bound(n_bytes, 2 * N_RANKS * win_len)
+    del st, x0, want_x
+    torch.cuda.empty_cache()
+    return {"launches": launches, "p_sum": p_sum, "equal": equal,
+            "max_abs_err": err, "round_ms": round_ms, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def mp_worker(argv):
+    """One process of phase 19, started by the launcher: ``--mp-worker
+    OUTDIR WHAT LENGTHS WIN_LEN`` (WHAT is ``all`` or ``k1``; LENGTHS the
+    main path's comma-separated per-rank lengths).  Writes its results to
+    ``OUTDIR/p<process>.json``."""
+    outdir, what, lengths, win_len = (argv[0], argv[1],
+                                      [int(v) for v in argv[2].split(",")],
+                                      int(argv[3]))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from bluefog_tpu_torch.runtime.launch import initialize_cluster
+
+    initialize_cluster()
+    import bluefog_tpu_torch as bf
+
+    t0 = time.perf_counter()
+    ctx = bf.init(size=N_RANKS)
+    out = {"process": ctx.process_rank, "processes": ctx.process_count,
+           "ranks": list(ctx.owned_ranks), "device": str(ctx.device)}
+    parts = {"init": time.perf_counter() - t0}
+    steps = [("k1", lambda: mp_k1(ctx, lengths))]
+    if what == "all":
+        steps += [("main", lambda: mp_main_path(ctx, outdir)),
+                  ("k2", lambda: mp_k2(ctx, win_len)),
+                  ("pushsum", lambda: mp_pushsum(ctx, win_len))]
+    for name, fn in steps:
+        t1 = time.perf_counter()
+        out[name] = fn()
+        parts[name] = time.perf_counter() - t1
+    out["seconds"] = parts
+    bf.shutdown()
+    with open(os.path.join(outdir, f"p{out['process']}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _run_processes(procs, what, lengths, win_len, outdir):
+    """Start ``procs`` processes of this script through the launcher, wait
+    for them (stopping the whole group at the time limit), and return their
+    results in process order; a failed or late process fails the phase."""
+    # the library is built (phase 1): the launcher need not look
+    cmd = [sys.executable, "-m", "bluefog_tpu_torch.runtime.launch",
+           "--no-build", "-np", str(procs), os.path.abspath(__file__),
+           "--mp-worker", outdir, what,
+           ",".join(map(str, lengths)), str(win_len)]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))]
+        + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env=env,
+                            start_new_session=True)
+    try:
+        log, _ = proc.communicate(timeout=MP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        log, _ = proc.communicate()
+        print(log[-6000:])
+        check(False, f"{procs} processes did not finish in {MP_TIMEOUT_S} s")
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(log[-6000:])
+    check(proc.returncode == 0,
+          f"{procs} processes: the launcher exited {proc.returncode}")
+    res = []
+    for q in range(procs):
+        with open(os.path.join(outdir, f"p{q}.json")) as f:
+            res.append(json.load(f))
+    return res, secs
+
+
+def phase_processes(device, lengths, win_len):
+    """Phase 19 (see the module docstring): the one-process reference run,
+    then P = 2 and 4 processes (all checks) and P = 8 (K1's), each group
+    started by the launcher."""
+    import tempfile
+
+    from bluefog_tpu_torch.examples.synthetic_benchmark import build, run
+
+    t_phase = time.perf_counter()
+    with deterministic_cudnn():
+        trainer = build("resnet50", "neighbor", "exp2", size=N_RANKS,
+                        batch_size=BATCH, image_size=224, device=device)
+        run(trainer, WARMUP, TIMED)
+    ref = {k: v.detach().cpu() for k, v in trainer.params.items()}
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for procs in MP_PROCESSES:
+            outdir = os.path.join(tmp, f"P{procs}")
+            os.makedirs(outdir)
+            what = "k1" if procs == N_RANKS else "all"
+            res, secs = _run_processes(procs, what, lengths, win_len, outdir)
+            tag = f"[processes P={procs}]"
+            k1 = [r["k1"] for r in res]
+            ok = all(c[2] and c[3] for r in k1 for c in r["checked"])
+            parts = {k: round(max(r["seconds"][k] for r in res), 1)
+                     for k in res[0]["seconds"]}
+            print(f"{tag} {secs:.1f} s for the group ({what}; the slowest "
+                  f"process's seconds after start-up: {parts}); ranks "
+                  f"{[r['ranks'] for r in res]} on {res[0]['device']}")
+            print(f"{tag} K1 peer form vs the virtual K1 (kernel, plain): "
+                  f"{k1[0]['checked']}; bit-equal in every process: {ok}")
+            check(ok, f"{tag} K1's peer form differs from the virtual K1")
+            k1_ms = max(r["ms"] for r in k1)
+            k1_plain = max(r["plain_ms"] for r in k1)
+            print(f"{tag} K1 peer form at the main path's lengths, all "
+                  f"processes together: {k1_ms:.4f} ms a step "
+                  f"({len(lengths)} launch(es) a process), plain twin "
+                  f"{k1_plain:.4f} ms, bound {k1[0]['bound_ms']:.4f} ms "
+                  f"({k1[0]['bound_by']}: {k1[0]['bytes'] / 1e9:.3f} GB, "
+                  f"{k1[0]['rows_a_rank']:g} rows a rank), "
+                  f"{k1[0]['bound_ms'] / k1_ms:.1%} of it; the "
+                  f"handshake alone (processes in step) "
+                  f"{max(r['handshake_us'] for r in k1):.1f} us a call")
+            entry = {"k1": {"ms": k1_ms, "plain_ms": k1_plain,
+                            "bound_ms": k1[0]["bound_ms"],
+                            "bound_by": k1[0]["bound_by"],
+                            "rows_a_rank": k1[0]["rows_a_rank"],
+                            "max_abs_err": max(r["max_abs_err"] for r in k1),
+                            "handshake_us": max(r["handshake_us"]
+                                                for r in k1)},
+                     "seconds": secs}
+            if what == "all":
+                entry.update(_report_processes(tag, procs, res, ref, outdir,
+                                               len(lengths)))
+            out[procs] = entry
+    print(f"[processes] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _report_processes(tag, procs, res, ref, outdir, per_step):
+    main = [r["main"] for r in res]
+    for q, r in enumerate(main):
+        print(f"{tag} process {q}: step ms "
+              f"{[round(t, 2) for t in r['step_ms']]}, {r['img_s']:.1f} "
+              f"img/s, device busy {r['busy_ms']:.2f} ms a step, idle "
+              f"{r['idle']:.1%}; K1 peer launches {r['launches']}, virtual "
+              f"{r['virtual_launches']}; handshakes {r['handshakes']}, one a "
+              f"step, the timed steps' waits in them (for the other "
+              f"processes) {[round(w) for w in r['waits_us']]} us; peak "
+              f"{r['peak_gb']:.2f} GB")
+        check(r["finite"], f"{tag} process {q}: non-finite loss")
+        check(r["launches"] == per_step * (WARMUP + TIMED) and
+              r["virtual_launches"] == 0,
+              f"{tag} process {q}: K1 peer launches {r['launches']}, virtual "
+              f"{r['virtual_launches']}")
+        check(r["handshakes"] == WARMUP + TIMED,
+              f"{tag} process {q}: {r['handshakes']} handshakes in "
+              f"{WARMUP + TIMED} steps")
+    total = sum(r["img_s"] for r in main)
+    rates = ", ".join(f"{r['img_s']:.1f}" for r in main)
+    print(f"{tag} ResNet-50 x {N_RANKS} ranks over {procs} processes, exp2, "
+          f"batch {BATCH}/rank, deterministic cuDNN: {total:.1f} img/s over "
+          f"all processes ({rates}); a step's pack into the staged buffers, "
+          f"all processes: {max(r['pack_ms'] for r in main):.4f} ms against "
+          f"a {main[0]['pack_bound_ms']:.4f} ms bound (bytes); the one-process"
+          f" plan's pack (the fused buffer, then the 8 MiB leaves copied) "
+          f"{max(r['split_pack_ms'] for r in main):.4f} ms")
+    worst = 0.0
+    for q in range(procs):
+        got = torch.load(os.path.join(outdir, f"params_{q}.pt"))
+        rows = res[q]["ranks"]
+        for k, v in got.items():
+            want = ref[k][rows[0]:rows[-1] + 1]
+            d = float((v.double() - want.double()).abs().max())
+            worst = max(worst, d / max(float(want.double().abs().max()),
+                                       1e-12))
+    print(f"{tag} parameters after {WARMUP + TIMED} steps against the "
+          f"one-process run: max |diff| / max |value| {worst:.3e} (tol "
+          f"{STEP_TOL:.3e})")
+    check(worst <= STEP_TOL, f"{tag} parameters differ from one process")
+    k2 = [r["k2"] for r in res]
+    ok = all(c[3] for r in k2 for c in r["checked"])
+    print(f"{tag} K2 peer form put then acc vs the virtual K2: "
+          f"{k2[0]['checked']}; bit-equal in every process: {ok}; put "
+          f"{max(r['put'] for r in k2):.4f} ms, acc "
+          f"{max(r['acc'] for r in k2):.4f} ms (exp2, all processes)")
+    check(ok, f"{tag} K2's peer form differs from the virtual K2")
+    push = [r["pushsum"] for r in res]
+    print(f"{tag} push-sum over processes: sum(p) = {push[0]['p_sum']!r} "
+          f"(want 11.5), equal to one process: "
+          f"{all(r['equal'] for r in push)}, K2 peer launches "
+          f"{[r['launches'] for r in push]}; round ms "
+          f"{[round(t, 3) for t in push[0]['round_ms']]}; K2 peer acc "
+          f"{max(r['ms'] for r in push):.4f} ms a round (plain "
+          f"{max(r['plain_ms'] for r in push):.4f}), bound "
+          f"{push[0]['bound_ms']:.4f} ms")
+    check(all(r["p_sum"] == 11.5 for r in push), f"{tag} push-sum lost p")
+    check(all(r["equal"] for r in push),
+          f"{tag} push-sum differs from one process")
+    check(all(r["launches"] == PUSH_ROUNDS for r in push),
+          f"{tag} push-sum K2 peer launches {[r['launches'] for r in push]}")
+    return {
+        "main": {"img_s": total, "process_img_s": [r["img_s"] for r in main],
+                 "step_ms": [r["step_ms"] for r in main],
+                 "idle": [r["idle"] for r in main],
+                 "launches": sum(r["launches"] for r in main),
+                 "handshake_waits_us": [r["waits_us"] for r in main],
+                 "pack_ms": max(r["pack_ms"] for r in main),
+                 "split_pack_ms": max(r["split_pack_ms"] for r in main),
+                 "pack_bound_ms": main[0]["pack_bound_ms"],
+                 "params_rel_err": worst},
+        "k2": {"put_ms": max(r["put"] for r in k2),
+               "acc_ms": max(r["acc"] for r in k2),
+               "max_abs_err": max(r["max_abs_err"] for r in k2)},
+        "pushsum": {"ms": max(r["ms"] for r in push),
+                    "plain_ms": max(r["plain_ms"] for r in push),
+                    "bound_ms": push[0]["bound_ms"],
+                    "bound_by": push[0]["bound_by"],
+                    "launches": sum(r["launches"] for r in push),
+                    "max_abs_err": max(r["max_abs_err"] for r in push)},
+    }
+
+
 def main():
+    if len(sys.argv) > 1 and sys.argv[1] == "--mp-worker":
+        return mp_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs an NVIDIA GPU", file=sys.stderr)
@@ -1840,10 +2401,20 @@ def main():
     main_lengths = ([sum(leaves[i][0].numel() for i in idx)
                      for idx in groups.values()]
                     + [leaves[i][0].numel() for i in big])
+    # across processes on the card every leaf fuses (fuse_apply)
+    mp_lengths = [sum(leaves[i][0].numel() for i in idx)
+                  for idx in fuse_plan(leaves, None)[0].values()]
     win_len = sum(p[0].numel() for p in leaves)
     print(f"[plan] ResNet-50: {win_len:,} f32 params in {len(leaves)} "
           f"leaves; fuse plan = {len(groups)} fused buffer(s) + {len(big)} "
-          f"leaves >= 8 MiB -> per-rank lengths {main_lengths}")
+          f"leaves >= 8 MiB -> per-rank lengths {main_lengths}; across "
+          f"processes {mp_lengths}")
+    del trainer, leaves
+    torch.cuda.empty_cache()
+    procs = phase_processes(device, mp_lengths, win_len)
+    trainer = build("resnet50", "neighbor", "exp2", size=N_RANKS,
+                    batch_size=BATCH, image_size=224, device=device)
+    leaves = list(trainer.params.values())
     k1 = phase_k1(device, main_lengths)
     k1_launches = phase_main_path(
         trainer, {gossip_mix: len(main_lengths)}, "main",
@@ -1918,6 +2489,33 @@ def main():
         "replaces": "bluefog_tpu/ops/pallas_gossip.py:460",
         "launches": k2_launches,
         **k2,
+    }, {
+        "name": "gossip_mix_peer",
+        "route": "cuda",
+        "source": "bluefog_tpu_torch/csrc/gossip_mix.cu",
+        "replaces": "bluefog_tpu/ops/pallas_gossip.py:388",
+        "launches": procs[4]["main"]["launches"],
+        "max_abs_err": max(v["k1"]["max_abs_err"] for v in procs.values()),
+        **{k: procs[4]["k1"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "rows_a_rank")},
+        "library_ms": k1["library_ms"],
+        "processes": 4,
+        "by_processes": {str(p): v["k1"] for p, v in procs.items()},
+    }, {
+        "name": "window_deliver_peer",
+        "route": "cuda",
+        "source": "bluefog_tpu_torch/csrc/window_deliver.cu",
+        "replaces": "bluefog_tpu/ops/pallas_gossip.py:460",
+        "launches": procs[4]["pushsum"]["launches"],
+        "max_abs_err": max(max(v["pushsum"]["max_abs_err"],
+                               v["k2"]["max_abs_err"])
+                           for v in procs.values() if "pushsum" in v),
+        **{k: procs[4]["pushsum"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by")},
+        "library_ms": k2_push["library_ms"],
+        "processes": 4,
+        "by_processes": {str(p): {**v["pushsum"], **v["k2"]}
+                         for p, v in procs.items() if "pushsum" in v},
     }] + [{
         "name": name,
         "route": "cuda",
@@ -1967,6 +2565,15 @@ def main():
           f"{allreduce['library_ms']:.4f} ms; K1 on the hierarchical path: "
           + ", ".join(f"local size {k} {v['launches']} launches in "
                       f"{WARMUP + TIMED} steps" for k, v in hier.items()))
+    print("ranks over processes sharing the card: "
+          + "; ".join(
+              f"P={p}: K1 peer {v['k1']['ms']:.4f} ms a step against "
+              f"{v['k1']['bound_ms']:.4f} ms"
+              + f", handshake {v['k1']['handshake_us']:.1f} us"
+              + (f", ResNet-50 {v['main']['img_s']:.1f} img/s, push-sum K2 "
+                 f"peer acc "
+                 f"{v['pushsum']['ms']:.4f} ms" if "main" in v else "")
+              for p, v in procs.items()))
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -52,6 +52,10 @@ _durations = []
 def pytest_configure(config):
     config.addinivalue_line(
         "markers",
+        "cuda: needs an NVIDIA GPU (the port's CUDA kernels and peer memory);"
+        " skips without one")
+    config.addinivalue_line(
+        "markers",
         "duration_budget(seconds): override the tier-1 per-test duration "
         "guard for a reviewed pre-existing heavyweight (default "
         f"{_TEST_DURATION_BUDGET_S:.0f}s; new long tests should be "

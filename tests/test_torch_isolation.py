@@ -147,3 +147,46 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(where, tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_scan_covers_the_launcher_and_the_transport():
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    assert {"bluefog_tpu_torch/runtime/launch.py",
+            "bluefog_tpu_torch/ops/transport.py"} <= names
+
+
+def test_launched_processes_default_to_the_card(tmp_path):
+    """Under bfrun, ``init`` over the process group and the benchmark run on
+    the GPU unless asked for the CPU: without one they raise, and the
+    launcher exits non-zero."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; the processes run there for real")
+    script = tmp_path / "init.py"
+    script.write_text(
+        "import sys\n"
+        "from bluefog_tpu_torch.runtime.launch import initialize_cluster\n"
+        "initialize_cluster()\n"
+        "import bluefog_tpu_torch as bf\n"
+        "try:\n"
+        "    bf.init(size=4)\n"
+        "except RuntimeError as e:\n"
+        "    assert 'cuda' in str(e), e\n"
+        "    assert not bf.initialized()\n"
+        "    ctx = bf.init(size=4, device='cpu')\n"
+        "    assert (ctx.process_count, len(ctx.owned_ranks)) == (2, 2)\n"
+        "    bf.shutdown()\n"
+        "    sys.stdout.write('RAISED ON CUDA\\n')\n")
+    env = dict(PYTHONPATH=str(REPO), PATH="/usr/bin:/bin",
+               OMP_NUM_THREADS="1", HOME=str(tmp_path))
+    bfrun = [sys.executable, "-m", "bluefog_tpu_torch.runtime.launch",
+             "--no-build", "-np", "2"]
+    res = subprocess.run(bfrun + [str(script)], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.count("RAISED ON CUDA") == 2
+    res = subprocess.run(
+        bfrun + ["-m", "bluefog_tpu_torch.examples.synthetic_benchmark",
+                 "--model", "resnet18", "--size", "2"], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert "cuda" in res.stderr
