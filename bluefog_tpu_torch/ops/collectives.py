@@ -36,14 +36,20 @@ payload's one copy, and the exchange adds none.  The flat collectives
 gather every process's block and compute what one process would, so their
 results are bit-equal to the one-process run's.  The hierarchical gossip
 treats a machine as a block of ranks inside one process: the local mean
-stays in the process and the machine fold goes through K1's peer form.  ``pair_gossip``, ``neighbor_allgather``,
-``neighbor_allreduce_aperiodic`` and ``send_weights`` are not ported across
-processes and raise there.
+stays in the process and the machine fold goes through K1's peer form.
+``neighbor_allreduce_aperiodic`` lowers each distinct matrix to a schedule of
+its active rotations and runs it the same way (every process checks, once
+per new matrix, that the others pass the same one); ``pair_gossip`` is a
+one-slot schedule of the pairing on K1's peer form; ``neighbor_allgather``
+hands each owned rank its in-neighbours' rows as they arrived; and
+``send_weights`` (the plain route) has each receiver scale the rows it got
+by their senders' weights, as the sender would have before shipping.
 """
 
 from __future__ import annotations
 
 import functools
+import hashlib
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -162,20 +168,25 @@ def _kernel_leaf(leaf, sw, rw, src):
     return _k1.gossip_mix(flat, sw, rw, src).reshape(leaf.shape).to(leaf.dtype)
 
 
-def _plain_leaf(leaf, sched, self_weight, recv_weights, send_w):
-    acc = _acc_dtype(leaf.dtype)
-    sw, rw, src = _k1.schedule_tables(sched, leaf.device, self_weight,
-                                      recv_weights, dtype=acc)
+def _plain_leaf(leaf, sw, rw, src, received=None, send_w=None):
+    """``out[i] = sw[i] leaf[i] + sum_k rw[i, k] r_k[i]`` in ``sw``'s
+    (accumulation) dtype, in slot order, where ``r_k[i]`` is the row rank
+    ``i`` receives in slot ``k`` from rank ``src[i, k]``: ``received[:, k]``
+    (the ``(m, K, ...)`` rows an exchange brought), or in one process
+    ``leaf[src[:, k]]``.  With the senders' ``(n, K)`` table ``send_w`` the
+    row is first scaled as the reference's sender ships it, ``send_w[j, k]
+    x_j`` in the accumulation dtype rounded to the leaf's."""
+    acc = sw.dtype
     out = _per_rank(sw, leaf.dim()) * leaf.to(acc)
-    for k in range(sched.num_slots):
-        shipped = leaf
-        if send_w is not None:
-            shipped = (_per_rank(send_w[:, k], leaf.dim()).to(acc)
-                       * leaf.to(acc)).to(leaf.dtype)
+    for k in range(src.shape[1]):
         s = src[:, k].long()
+        shipped = (leaf[s.clamp(min=0)] if received is None
+                   else received[:, k])
+        if send_w is not None:
+            shipped = (_per_rank(send_w[s.clamp(min=0), k], leaf.dim()).to(acc)
+                       * shipped.to(acc)).to(leaf.dtype)
         # a rank no slot-k edge reaches receives zeros, as from ppermute
-        recvd = torch.where(_per_rank(s >= 0, leaf.dim()),
-                            shipped[s.clamp(min=0)], 0).to(acc)
+        recvd = torch.where(_per_rank(s >= 0, leaf.dim()), shipped, 0).to(acc)
         out = out + _per_rank(rw[:, k], leaf.dim()) * recvd
     return out.to(leaf.dtype)
 
@@ -229,17 +240,13 @@ def neighbor_allreduce(x, schedule, *, self_weight=None, recv_weights=None,
     else:
         send_w = None
         if send_weights is not None:
-            send_w = torch.as_tensor(send_weights, dtype=torch.float32,
-                                     device=leaves[0].device)
-            if send_w.dim() == 1:
-                send_w = send_w.expand(sched.size, -1)
-            if send_w.shape != (sched.size, sched.num_slots):
-                raise ValueError(
-                    f"send_weights must be ({sched.num_slots},) or "
-                    f"({sched.size}, {sched.num_slots}), got "
-                    f"{tuple(send_w.shape)}")
-        outs = [_plain_leaf(leaf, sched, self_weight, recv_weights, send_w)
-                for leaf in leaves]
+            send_w = _send_table(send_weights, sched, leaves[0].device)
+        outs = []
+        for leaf in leaves:
+            sw, rw, src = _k1.schedule_tables(
+                sched, leaf.device, self_weight, recv_weights,
+                dtype=_acc_dtype(leaf.dtype))
+            outs.append(_plain_leaf(leaf, sw, rw, src, send_w=send_w))
     return pytree.tree_unflatten(outs, spec)
 
 
@@ -258,11 +265,14 @@ def _neighbor_allreduce_procs(tr, x, sched, self_weight, recv_weights,
                               send_weights, backend):
     """``neighbor_allreduce`` on this process's owned rows: the rows the
     owned ranks read arrive through the transport, then K1's peer form
-    (``'kernel'``) or its plain twin folds them."""
+    (``'kernel'``) or its plain twin folds them; with ``send_weights``
+    :func:`_plain_leaf` folds them, as in one process."""
     if send_weights is not None:
-        raise NotImplementedError(
-            "send_weights is not ported across processes: the payload "
-            "would differ per slot")
+        if backend == "kernel":
+            raise NotImplementedError(
+                "backend='kernel' cannot honour send_weights: the kernel folds "
+                "weights on the receiving side only; use backend='plain'")
+        backend = "plain"
     backend = _k1.resolve_backend(backend, sched)
     m = tr.rows(sched.size)
     leaves, spec = pytree.tree_flatten(x)
@@ -274,23 +284,61 @@ def _neighbor_allreduce_procs(tr, x, sched, self_weight, recv_weights,
                 f"{tuple(leaf.shape)}")
     if not leaves:
         return x
-    sw, rw = _owned_tables(tr, sched, leaves[0].device, self_weight,
-                           recv_weights)
+    dev = leaves[0].device
+    if send_weights is not None:
+        send_w = _send_table(send_weights, sched, dev)
+        return pytree.tree_unflatten(
+            _plain_procs(tr, leaves, sched, lambda acc: _owned_tables(
+                tr, sched, dev, self_weight, recv_weights, dtype=acc),
+                send_w), spec)
+    sw, rw = _owned_tables(tr, sched, dev, self_weight, recv_weights)
+    return pytree.tree_unflatten(
+        _mix_procs(tr, leaves, sched, sw, rw, backend), spec)
+
+
+def _mix_procs(tr, leaves, sched, sw, rw, backend):
+    """Every leaf's owned rows folded with the owned tables ``(sw, rw)``,
+    their sources' rows brought by one exchange: K1's peer form
+    (``'kernel'``) or its plain twin, in the leaf's wire dtype."""
+    m = leaves[0].shape[0]
     flats = [leaf.reshape(m, -1).to(_k1._wire_dtype(leaf.dtype)).contiguous()
              for leaf in leaves]
     mix = (_k1.gossip_mix_peer if backend == "kernel"
            else _k1.gossip_mix_peer_plain)
     with tr.exchange(sched, flats) as rows:
         outs = [mix(f, sw, rw, r) for f, r in zip(flats, rows)]
-    return pytree.tree_unflatten(
-        [o.reshape(leaf.shape).to(leaf.dtype) for o, leaf in zip(outs, leaves)],
-        spec)
+    return [o.reshape(leaf.shape).to(leaf.dtype)
+            for o, leaf in zip(outs, leaves)]
 
 
-def _single_process(what: str) -> None:
-    if _T.active() is not None:
-        raise NotImplementedError(f"{what} is not ported across processes "
-                                  "yet")
+def _plain_procs(tr, leaves, sched, tables, send_w=None):
+    """Every leaf's owned rows folded by :func:`_plain_leaf` in its own
+    dtype, their sources' rows brought unscaled by one exchange;
+    ``tables(acc)`` gives the owned ``(sw, rw)`` in the accumulation dtype
+    ``acc``."""
+    m, start = leaves[0].shape[0], tr.start(sched.size)
+    dev = leaves[0].device
+    src = torch.as_tensor(sched.recv_src[start:start + m, :sched.num_slots],
+                          dtype=torch.long, device=dev)
+    flats = [leaf.reshape(m, -1).contiguous() for leaf in leaves]
+    with tr.exchange(sched, flats) as rows:
+        got = [r.gather(dev) for r in rows]
+    return [_plain_leaf(f, *tables(_acc_dtype(f.dtype)), src, g,
+                        send_w).reshape(leaf.shape)
+            for leaf, f, g in zip(leaves, flats, got)]
+
+
+def _send_table(send_weights, sched, device) -> torch.Tensor:
+    """``send_weights`` as the ``(n, K)`` f32 table of every sender's slot
+    weights."""
+    send_w = torch.as_tensor(send_weights, dtype=torch.float32, device=device)
+    if send_w.dim() == 1:
+        send_w = send_w.expand(sched.size, -1)
+    if send_w.shape != (sched.size, sched.num_slots):
+        raise ValueError(
+            f"send_weights must be ({sched.num_slots},) or "
+            f"({sched.size}, {sched.num_slots}), got {tuple(send_w.shape)}")
+    return send_w
 
 
 def neighbor_allreduce_dynamic(x, schedules, step: int, *,
@@ -326,20 +374,38 @@ def _host_matrix(mixing_matrix) -> np.ndarray:
     return w
 
 
+def _digest(data: bytes) -> int:
+    return int.from_bytes(hashlib.blake2b(data, digest_size=8).digest(),
+                          "little", signed=True)
+
+
 @functools.lru_cache(maxsize=64)
 def _aperiodic_tables(w_bytes: bytes, n: int, device: str):
-    """K1's ``(sw, rw, recv_src)`` for the f32 matrix with these bytes: one
-    slot per active rotation ``s`` (some ``W[i, (i - s) % n] != 0``), in
-    increasing ``s``, with ``recv_src[i, k] = (i - s_k) % n`` and ``rw[i, k]
-    = W[i, recv_src[i, k]]`` (0 where rank ``i`` has no such edge)."""
+    """K1's ``(sw, rw, recv_src)`` for the f32 matrix with these bytes, and
+    the :class:`GossipSchedule` of its slots: one slot per active rotation
+    ``s`` (some ``W[i, (i - s) % n] != 0``), in increasing ``s``, with
+    ``recv_src[i, k] = (i - s_k) % n`` and ``rw[i, k] = W[i, recv_src[i,
+    k]]`` (0 where rank ``i`` has no such edge).  In a context over several
+    processes a new matrix is first checked to be every process's."""
+    tr = _T.active()
+    if tr is not None:
+        tr.agree(_digest(w_bytes), f"an aperiodic mixing matrix ({n}x{n} "
+                 "f32, lowered for the first time in this process)")
     w = np.frombuffer(w_bytes, dtype=np.float32).reshape(n, n)
     rows = np.arange(n)
     shifts = [s for s in range(1, n) if (w[rows, (rows - s) % n] != 0).any()]
     src = (np.stack([(rows - s) % n for s in shifts], axis=1)
            if shifts else np.zeros((n, 0), np.int64)).astype(np.int32)
+    rw = w[rows[:, None], src].copy()
+    sched = GossipSchedule(
+        size=n,
+        perms=tuple(tuple((int((d - s) % n), int(d)) for d in range(n))
+                    for s in shifts),
+        self_weights=np.diag(w).copy(), recv_weights=rw, recv_src=src,
+        is_circulant=True, name=f"aperiodic-{_digest(w_bytes) & 0xffff:04x}")
     return (torch.as_tensor(np.diag(w).copy(), device=device),
-            torch.as_tensor(w[rows[:, None], src].copy(), device=device),
-            torch.as_tensor(src, device=device))
+            torch.as_tensor(rw, device=device),
+            torch.as_tensor(src, device=device), sched)
 
 
 def neighbor_allreduce_aperiodic(x, mixing_matrix, *,
@@ -360,27 +426,40 @@ def neighbor_allreduce_aperiodic(x, mixing_matrix, *,
     matrix costs a call the hash of its ``4 n^2`` bytes; a one-peer phase is
     one slot, one K1 launch per leaf.
 
+    Over several processes every process passes the whole ``(n, n)`` matrix
+    and its owned block of each leaf; the rotations' rows cross as in
+    :func:`neighbor_allreduce` and K1's peer form folds them.  A matrix new
+    to the LRU is hashed and the hashes compared across the processes (one
+    small gather; a mismatch raises).
+
     ``max_rotations=D`` is the JAX package's program-size cap.  Within the
     cap the result equals the full form; with more than ``D`` active
     rotations every output is NaN (the reference's fail-loud rule: a dropped
-    edge would bias the consensus silently)."""
-    _single_process("neighbor_allreduce_aperiodic")
+    edge would bias the consensus silently), and nothing crosses."""
     w = _host_matrix(mixing_matrix)
     n = w.shape[0]
     if max_rotations is not None and int(max_rotations) < 1:
         raise ValueError(f"max_rotations must be >= 1, got {max_rotations}")
+    tr = _T.active()
+    rows = n if tr is None else tr.rows(n)
     leaves, spec = _stacked_leaves(x)
     for leaf in leaves:
-        if leaf.shape[0] != n:
+        if leaf.shape[0] != rows:
             raise ValueError(f"leaves must be rank-stacked with leading axis "
-                             f"{n}, got shape {tuple(leaf.shape)}")
+                             f"{rows} of the matrix's {n} ranks, got shape "
+                             f"{tuple(leaf.shape)}")
     if not leaves:
         return x
-    tables = _aperiodic_tables(w.tobytes(), n, str(leaves[0].device))
-    if max_rotations is not None and tables[1].shape[1] > int(max_rotations):
+    sw, rw, src, sched = _aperiodic_tables(w.tobytes(), n,
+                                           str(leaves[0].device))
+    if max_rotations is not None and rw.shape[1] > int(max_rotations):
         outs = [torch.full_like(leaf, float("nan")) for leaf in leaves]
+    elif tr is None:
+        outs = [_kernel_leaf(leaf, sw, rw, src) for leaf in leaves]
     else:
-        outs = [_kernel_leaf(leaf, *tables) for leaf in leaves]
+        start = tr.start(n)
+        outs = _mix_procs(tr, leaves, sched, sw[start:start + rows],
+                          rw[start:start + rows].contiguous(), "kernel")
     return pytree.tree_unflatten(outs, spec)
 
 
@@ -511,9 +590,21 @@ def barrier(device=None) -> bool:
 def pair_gossip(x, *, perm, self_weight=0.5):
     """Average with one partner: ``out[d] = w x[d] + (1 - w) x[s]`` for every
     ``(s, d)`` of the pairing ``perm``, in the accumulation dtype; ranks that
-    are no destination keep their value."""
-    _single_process("pair_gossip")
+    are no destination keep their value.
+
+    Over several processes the pairing is a one-slot schedule with
+    ``recv_src[d] = s``, its rows cross as in :func:`neighbor_allreduce`,
+    and f32, bf16 and f16 leaves fold on K1's peer form with ``sw = w`` and
+    ``rw = 1 - w`` (``1 - w`` rounded to f32 as here) on the destinations,
+    ``sw = 1`` and no slot elsewhere, which returns a rank's value exactly;
+    other dtypes fold plainly with those weights in their own dtype."""
     pairs = [(int(s), int(d)) for s, d in perm]
+    leaves, spec = _stacked_leaves(x)
+    tr = _T.active()
+    if tr is not None and leaves:
+        return pytree.tree_unflatten(
+            _pair_gossip_procs(tr, leaves, tuple(pairs), float(self_weight)),
+            spec)
 
     def one(leaf):
         acc = _acc_dtype(leaf.dtype)
@@ -526,8 +617,58 @@ def pair_gossip(x, *, perm, self_weight=0.5):
             out[dst] = mixed.to(leaf.dtype)
         return out
 
-    leaves, spec = _stacked_leaves(x)
     return pytree.tree_unflatten([one(leaf) for leaf in leaves], spec)
+
+
+@functools.lru_cache(maxsize=64)
+def _pair_schedule(pairs: Tuple[Tuple[int, int], ...], n: int,
+                   self_weight: float) -> GossipSchedule:
+    """The pairing as a one-slot partial schedule: destination ``d`` reads
+    ``s`` with ``rw = 1 - w`` and keeps ``sw = w`` (in f32, as the
+    one-process form rounds them); every other rank has no edge and ``sw =
+    1``."""
+    src = np.full((n, 1), -1, np.int32)
+    for s, d in pairs:
+        if not (0 <= s < n and 0 <= d < n):
+            raise ValueError(f"pair ({s}, {d}) outside [0, {n})")
+        src[d, 0] = s
+    w = np.float32(self_weight)
+    is_dst = src[:, 0] >= 0
+    return GossipSchedule(
+        size=n, perms=(pairs,),
+        self_weights=np.where(is_dst, w, np.float32(1)).astype(np.float32),
+        recv_weights=np.where(is_dst, np.float32(1) - w,
+                              np.float32(0)).astype(np.float32)[:, None],
+        recv_src=src, is_circulant=False, name="pair")
+
+
+def _pair_gossip_procs(tr, leaves, pairs, self_weight):
+    m = leaves[0].shape[0]
+    dev = leaves[0].device
+    sched = _pair_schedule(pairs, m * tr.processes, self_weight)
+    kernel = [i for i, leaf in enumerate(leaves)
+              if _acc_dtype(leaf.dtype) == torch.float32]
+    rest = [i for i in range(len(leaves)) if i not in kernel]
+    outs: List[Optional[torch.Tensor]] = [None] * len(leaves)
+    if kernel:
+        mixed = _mix_procs(tr, [leaves[i] for i in kernel], sched,
+                           *_owned_tables(tr, sched, dev), "kernel")
+        for i, out in zip(kernel, mixed):
+            outs[i] = out
+    if rest:
+        start = tr.start(sched.size)
+        is_dst = torch.as_tensor(sched.recv_src[start:start + m, 0] >= 0,
+                                 device=dev)
+
+        def tables(acc):
+            w = torch.as_tensor(self_weight, dtype=acc, device=dev)
+            return (torch.where(is_dst, w, torch.ones_like(w)),
+                    torch.where(is_dst, 1 - w, torch.zeros_like(w))[:, None])
+
+        mixed = _plain_procs(tr, [leaves[i] for i in rest], sched, tables)
+        for i, out in zip(rest, mixed):
+            outs[i] = out
+    return outs
 
 
 def neighbor_allgather(x: torch.Tensor, schedule):
@@ -535,18 +676,32 @@ def neighbor_allgather(x: torch.Tensor, schedule):
     ...)`` with ``slots[i, k] = x[recv_src[i, k]]`` (zeros where rank ``i``
     has no slot-``k`` edge) and ``mask`` the ``(n, K)`` bool table of real
     entries.  As in the reference, irregular graphs pad to ``K =
-    num_slots`` in place of ``bf.neighbor_allgather``'s ragged result."""
-    _single_process("neighbor_allgather")
+    num_slots`` in place of ``bf.neighbor_allgather``'s ragged result.
+    Over several processes ``x`` is the owned ``(m, ...)`` block, the rows
+    arrive through the transport, and both results are the owned rows."""
     sched = _as_schedule(schedule)
-    if x.dim() == 0 or x.shape[0] != sched.size:
+    tr = _T.active()
+    rows = sched.size if tr is None else tr.rows(sched.size)
+    if x.dim() == 0 or x.shape[0] != rows:
         raise ValueError(f"x must be rank-stacked with leading axis "
-                         f"{sched.size}, got shape {tuple(x.shape)}")
-    src = torch.as_tensor(sched.recv_src[:, :sched.num_slots],
-                          dtype=torch.long, device=x.device)
+                         f"{rows} of the schedule's {sched.size}, got shape "
+                         f"{tuple(x.shape)}")
+    start = 0 if tr is None else tr.start(sched.size)
+    src = torch.as_tensor(
+        sched.recv_src[start:start + rows, :sched.num_slots],
+        dtype=torch.long, device=x.device)
     mask = src >= 0
-    slots = x[src.clamp(min=0)]
-    slots[~mask] = 0
-    return slots, mask
+    if tr is None:
+        slots = x[src.clamp(min=0)]
+        slots[~mask] = 0
+        return slots, mask
+    flat = x.reshape(rows, -1)
+    flat = (flat.view(torch.uint8) if x.dtype == torch.bool
+            else flat).contiguous()
+    with tr.exchange(sched, [flat]) as (got,):
+        slots = got.gather(x.device)
+    return (slots.view(x.dtype).reshape(rows, sched.num_slots,
+                                        *x.shape[1:]), mask)
 
 
 # ---------------------------------------------------------------------------

@@ -31,6 +31,15 @@ source.  Two differences from the JAX package:
   from a ``torch.Generator`` seeded by those three numbers, where the JAX
   package folds them into a threefry key.  The offsets differ; the law (a
   uniform offset per round and leaf, shared by every rank) is the same.
+
+In a context that spans processes (:mod:`bluefog_tpu_torch.ops.transport`)
+every leaf is the process's owned ``(m, ...)`` block and a mirror leaf ``(m,
+K, ...)``.  A round's payloads, every leaf's and every part of a
+compressor's (``top_k``'s values and int32 indices), are laid side by side
+in one buffer per dtype and cross in one exchange; each owned rank's
+received payloads then go through the same decompress-and-mix code as in
+one process, so the results are bit-equal to it.  The hierarchical form
+needs each process to hold whole machines.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from bluefog_tpu_torch.ops import gossip_kernel as _k1
+from bluefog_tpu_torch.ops import transport as _T
 from bluefog_tpu_torch.ops.collectives import _acc_dtype, _as_schedule
 from bluefog_tpu_torch.topology.schedule import GossipSchedule
 
@@ -190,6 +200,61 @@ def choco_init(x, schedule) -> ChocoState:
         0)
 
 
+def _received(sched: GossipSchedule, payloads):
+    """What this process's ranks receive: per payload and slot ``k``, the
+    payload pytree of each rank's slot-``k`` source (zeros
+    where the rank has no slot-``k`` edge, as from ``ppermute``).  In one
+    process a gather of the source rows; over several, one exchange of
+    every payload's leaves, packed into one buffer per dtype."""
+    tr = _T.active()
+    if tr is None:
+        out = []
+        for payload in payloads:
+            device = pytree.tree_leaves(payload)[0].device
+            src = _k1.slot_tables(sched, device)[0]
+            slots = []
+            for k in range(sched.num_slots):
+                s = src[:, k].long()
+                live = s >= 0
+                slots.append(pytree.tree_map(
+                    lambda t: torch.where(
+                        live.reshape((-1,) + (1,) * (t.dim() - 1)),
+                        t[s.clamp(min=0)], torch.zeros((), dtype=t.dtype,
+                                                       device=t.device)),
+                    payload))
+            out.append(slots)
+        return out
+    flat_payloads = [pytree.tree_flatten(p) for p in payloads]
+    parts = [t for leaves, _ in flat_payloads for t in leaves]
+    m = parts[0].shape[0]
+    groups: dict = {}
+    for i, t in enumerate(parts):
+        groups.setdefault(t.dtype, []).append(i)
+    try:
+        bufs = [tr.pack([parts[i].reshape(m, -1) for i in idxs])
+                for idxs in groups.values()]
+        with tr.exchange(sched, bufs) as rows:
+            got = [r.gather(parts[0].device) for r in rows]
+    finally:
+        tr.settle()
+    # (m, K, ...) per part, in the order of ``parts``
+    recv: list = [None] * len(parts)
+    for idxs, g in zip(groups.values(), got):
+        off = 0
+        for i in idxs:
+            size = parts[i][0].numel()
+            recv[i] = g[:, :, off:off + size].reshape(
+                m, sched.num_slots, *parts[i].shape[1:])
+            off += size
+    out, at = [], 0
+    for leaves, spec in flat_payloads:
+        mine = recv[at:at + len(leaves)]
+        at += len(leaves)
+        out.append([pytree.tree_unflatten([t[:, k] for t in mine], spec)
+                    for k in range(sched.num_slots)])
+    return out
+
+
 def choco_gossip(x, state: ChocoState, schedule, *, compressor: Compressor,
                  gamma: float = 1.0, key=None):
     """One CHOCO-Gossip round on the rank-stacked pytree ``x``.  Returns
@@ -202,41 +267,39 @@ def choco_gossip(x, state: ChocoState, schedule, *, compressor: Compressor,
     required double stochasticity their sum is one less the self weight."""
     sched = _as_schedule(schedule)
     seed = 0 if key is None else int(key)
+    rows, start = _T.owned_rows(sched.size), _T.owned_start(sched.size)
     leaves, spec = pytree.tree_flatten(x)
     hat_self = pytree.tree_flatten(state.xhat_self)[0]
     hat_nbrs = pytree.tree_flatten(state.xhat_nbrs)[0]
-    new_x, new_self, new_nbrs = [], [], []
-    for li, (leaf, hs, hn) in enumerate(zip(leaves, hat_self, hat_nbrs)):
-        if leaf.dim() == 0 or leaf.shape[0] != sched.size:
+    payloads, new_self = [], []
+    for li, (leaf, hs) in enumerate(zip(leaves, hat_self)):
+        if leaf.dim() == 0 or leaf.shape[0] != rows:
             raise ValueError(
-                f"leaves must be rank-stacked with leading axis {sched.size},"
-                f" got shape {tuple(leaf.shape)}")
+                f"leaves must be rank-stacked with leading axis {rows} of "
+                f"the schedule's {sched.size}, got shape {tuple(leaf.shape)}")
+        lkey = (seed, int(state.round), li)
+        payload = compressor.compress((leaf - hs).to(leaf.dtype), lkey)
+        payloads.append(payload)
+        new_self.append(hs + compressor.decompress(payload, lkey, leaf))
+    received = _received(sched, payloads) if leaves else []
+    new_x, new_nbrs = [], []
+    for li, (leaf, hs2, hn) in enumerate(zip(leaves, new_self, hat_nbrs)):
         lkey = (seed, int(state.round), li)
         acc = _acc_dtype(leaf.dtype)
-        payload = compressor.compress((leaf - hs).to(leaf.dtype), lkey)
-        hs2 = hs + compressor.decompress(payload, lkey, leaf)
-        _, rw, src = _k1.schedule_tables(sched, leaf.device, dtype=acc)
+        _, rw, _ = _k1.schedule_tables(sched, leaf.device, dtype=acc)
+        rw = rw[start:start + rows]
         bcast = (leaf.shape[0],) + (1,) * (leaf.dim() - 1)
         mix = torch.zeros(leaf.shape, dtype=acc, device=leaf.device)
         wsum = torch.zeros(leaf.shape[0], dtype=acc, device=leaf.device)
         hn2 = []
         for k in range(sched.num_slots):
-            s = src[:, k].long()
-            live = s >= 0
-            recv = pytree.tree_map(
-                lambda t: torch.where(
-                    live.reshape((-1,) + (1,) * (t.dim() - 1)),
-                    t[s.clamp(min=0)], torch.zeros((), dtype=t.dtype,
-                                                   device=t.device)),
-                payload)
-            hk = hn[:, k] + compressor.decompress(recv, lkey, leaf)
+            hk = hn[:, k] + compressor.decompress(received[li][k], lkey, leaf)
             hn2.append(hk)
             mix = mix + rw[:, k].reshape(bcast) * hk.to(acc)
             wsum = wsum + rw[:, k]
         x2 = (leaf.to(acc) + gamma * (mix - wsum.reshape(bcast)
                                       * hs2.to(acc))).to(leaf.dtype)
         new_x.append(x2)
-        new_self.append(hs2)
         new_nbrs.append(torch.stack(hn2, dim=1) if hn2 else hn)
     unf = functools.partial(pytree.tree_unflatten, treespec=spec)
     return unf(new_x), ChocoState(unf(new_self), unf(new_nbrs),
@@ -274,17 +337,20 @@ def hierarchical_choco_gossip(x, state: ChocoState, machine_schedule, *,
     every local rank of a machine then holds the same value and advances the
     same mirrors, so the machine acts as one CHOCO node.  ``state`` comes
     from ``choco_init(x, machine_schedule)``.  Returns ``(x_new,
-    state_new)``, ``x_new`` equal across each machine's local ranks."""
+    state_new)``, ``x_new`` equal across each machine's local ranks.  Over
+    several processes each holds whole machines: its owned block of the
+    machine schedule's rows, times ``local_size`` ranks."""
     msched = _as_schedule(machine_schedule)
-    n = msched.size * local_size
+    machines = _T.owned_rows(msched.size)
+    n = machines * local_size
 
     def local_mean(leaf):
         if leaf.dim() == 0 or leaf.shape[0] != n:
             raise ValueError(
                 f"leaves must be rank-stacked with leading axis {n} "
-                f"({msched.size} machines x {local_size}), got shape "
+                f"({machines} machines x {local_size}), got shape "
                 f"{tuple(leaf.shape)}")
-        lanes = leaf.reshape((msched.size, local_size) + leaf.shape[1:])
+        lanes = leaf.reshape((machines, local_size) + leaf.shape[1:])
         avg = (lanes.to(_acc_dtype(leaf.dtype)).sum(1) / local_size).to(
             leaf.dtype)
         return avg.repeat_interleave(local_size, dim=0)

@@ -50,11 +50,18 @@ barrier over loopback TCP took a millisecond or more.
   records "delivered"; ``win_update`` passes a barrier, waits on the peers'
   "delivered", merges, and records "consumed".
 
-The symmetric buffers live until :func:`bluefog_tpu_torch.shutdown`, which
-closes the mappings and frees them (a collective).  Since they are not
-PyTorch allocations, ``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True``,
+The staged buffers live until :func:`bluefog_tpu_torch.shutdown`, a
+window's landing buffers until ``win_free`` (:meth:`Transport.release`);
+both close the mappings and free the memory (a collective).  Since they are
+not PyTorch allocations, ``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True``,
 which stops PyTorch from sharing its own blocks by IPC, does not affect
 them.
+
+What the transport derives from a schedule (the CPU form's send and receive
+lists, the card's address tables) is cached by the schedule object, weakly:
+a schedule made per call (an aperiodic matrix, a pairing) takes its entries
+with it when its own cache drops it.  Payloads of any dtype travel, integer
+ones included (``top_k``'s indices).
 """
 
 from __future__ import annotations
@@ -62,11 +69,13 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import datetime
 import os
 import socket
 import tempfile
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+import weakref
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -324,7 +333,7 @@ class _HostSeq:
     count has reached it; counts only grow, so a process that runs ahead
     into the next wait never releases a slower one early."""
 
-    def __init__(self, tr: "Transport", timeout_s: float = 600.0):
+    def __init__(self, tr: "Transport"):
         path = None
         if tr.process == 0:
             fd, path = tempfile.mkstemp(prefix="bf-seq-")
@@ -338,7 +347,7 @@ class _HostSeq:
             os.unlink(path)
         self._me = tr.process
         self._count = 0
-        self._timeout_s = timeout_s
+        self._timeout_s = tr.timeout_s
 
     def wait(self) -> None:
         self._count += 1
@@ -371,7 +380,9 @@ class _Staged:
         self.ready = [_Signal(tr) for _ in range(2)]
         self.done = [_Signal(tr) for _ in range(2)]
         self.calls = 0
-        self._rows: Dict[Tuple[GossipSchedule, int], PeerRows] = {}
+        # per schedule, its address tables for parities 0 and 1
+        self._rows: "weakref.WeakKeyDictionary[GossipSchedule, list]" = (
+            weakref.WeakKeyDictionary())
 
     @property
     def parity(self) -> int:
@@ -381,10 +392,11 @@ class _Staged:
         return self.blocks[self.parity][process]
 
     def rows_for(self, sched: GossipSchedule, start: int) -> PeerRows:
-        key = (sched, self.parity)
-        if key not in self._rows:
-            self._rows[key] = peer_rows(sched, start, self.blocks[self.parity])
-        return self._rows[key]
+        tables = self._rows.setdefault(sched, [None, None])
+        if tables[self.parity] is None:
+            tables[self.parity] = peer_rows(sched, start,
+                                            self.blocks[self.parity])
+        return tables[self.parity]
 
 
 @dataclasses.dataclass(eq=False)
@@ -400,6 +412,7 @@ class WindowLinks:
     p_blocks: Optional[List[torch.Tensor]]
     delivered: _Signal
     consumed: _Signal
+    arenas: List[_Arena] = dataclasses.field(default_factory=list)
     targets: Dict[object, PeerTargets] = dataclasses.field(
         default_factory=dict)
 
@@ -414,7 +427,10 @@ class Transport:
     the context (see the module docstring).  ``handshake_us`` accumulates
     the host microseconds spent in the CUDA form's handshakes (records,
     the host barrier, waits) and ``handshakes`` counts them.  The CUDA form
-    needs every process on one host."""
+    needs every process on one host.  ``timeout_s`` bounds every wait for
+    the peers (the host barrier, :meth:`agree`)."""
+
+    timeout_s = 600.0
 
     def __init__(self, device: torch.device):
         if not dist.is_initialized():
@@ -429,7 +445,8 @@ class Transport:
         self._staged: Dict[tuple, List[_Staged]] = {}
         self._taken: Dict[tuple, int] = {}
         self._packed: Dict[int, _Staged] = {}
-        self._plans: Dict[GossipSchedule, tuple] = {}
+        self._plans: "weakref.WeakKeyDictionary[GossipSchedule, tuple]" = (
+            weakref.WeakKeyDictionary())
         self._seq: Optional[_HostSeq] = None
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -458,6 +475,27 @@ class Transport:
 
     def barrier(self) -> None:
         dist.barrier()
+
+    def agree(self, digest: int, what: str) -> None:
+        """Raise unless every process passes the same 64-bit ``digest`` (of
+        ``what``).  A process that never arrives (it took another path)
+        makes the others raise after :attr:`timeout_s`."""
+        mine = torch.tensor([digest], dtype=torch.int64)
+        parts = [torch.empty_like(mine) for _ in range(self.processes)]
+        work = dist.all_gather(parts, mine, async_op=True)
+        try:
+            work.wait(timeout=datetime.timedelta(seconds=self.timeout_s))
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"process {self.process} waited for the other processes to "
+                f"agree on {what} (digest {digest & (2**64 - 1):016x}): "
+                f"{e}; every process must make the same calls") from e
+        seen = [int(t) & (2**64 - 1) for t in parts]
+        if len(set(seen)) > 1:
+            raise ValueError(
+                f"the processes disagree on {what}: digests by process "
+                + ", ".join(f"{q}: {v:016x}" for q, v in enumerate(seen))
+                + "; every process must pass the same value")
 
     def _handshake(self) -> None:
         """The host barrier between a call's records and its waits (the
@@ -647,6 +685,7 @@ class Transport:
                      with_p: bool) -> WindowLinks:
         """Allocate a window's landing buffers in peer memory (the card
         only; collective), zeroed."""
+        first = len(self._arenas)
         blocks = {}
         for dt, length in lengths.items():
             esize = torch.empty((), dtype=dt).element_size()
@@ -661,7 +700,7 @@ class Transport:
         links = WindowLinks(
             {dt: b[self.process] for dt, b in blocks.items()}, blocks,
             None if p_blocks is None else p_blocks[self.process], p_blocks,
-            _Signal(self), _Signal(self))
+            _Signal(self), _Signal(self), arenas=self._arenas[first:])
         return links
 
     def window_targets(self, links: WindowLinks, sched: GossipSchedule,
@@ -702,19 +741,32 @@ class Transport:
 
     # -- teardown --------------------------------------------------------------
 
-    def close(self) -> None:
-        """Free the peer memory: every process unmaps its peers' buffers,
-        then frees its own (collective)."""
-        if self._arenas:
-            from bluefog_tpu_torch.ops import _build
+    def release(self, arenas: Sequence[_Arena]) -> None:
+        """Free ``arenas``: every process unmaps its peers' buffers, then
+        frees its own (collective; every process passes its arenas of the
+        same allocations)."""
+        if not arenas:
+            return
+        from bluefog_tpu_torch.ops import _build
 
-            lib = _build.load()
-            torch.cuda.synchronize(self.device)
-            self.barrier()
-            self._staged.clear()
-            for a in self._arenas:
-                a.release(lib)
-            self.barrier()
-            for a in self._arenas:
-                a.free(lib)
-            self._arenas = []
+        lib = _build.load()
+        torch.cuda.synchronize(self.device)
+        self.barrier()
+        for a in arenas:
+            a.release(lib)
+        self.barrier()
+        for a in arenas:
+            a.free(lib)
+        gone = {id(a) for a in arenas}
+        self._arenas = [a for a in self._arenas if id(a) not in gone]
+
+    def release_window(self, links: WindowLinks) -> None:
+        """A window's landing buffers freed (``win_free``; collective)."""
+        self.release(links.arenas)
+        links.arenas = []
+        links.targets.clear()
+
+    def close(self) -> None:
+        """Free all the peer memory (collective)."""
+        self._staged.clear()
+        self.release(list(self._arenas))

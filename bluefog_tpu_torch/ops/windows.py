@@ -265,8 +265,17 @@ def win_associated_p(state: WindowState) -> torch.Tensor:
 
 
 def win_free(state: WindowState) -> None:
-    """Parity no-op: a window's memory is freed when it is dropped."""
-    return None
+    """Free the window's memory.  In one process, and on the CPU, its
+    buffers are freed when it is dropped; over several processes on the
+    card its landing buffers in peer memory are unmapped and freed now, in
+    every process (collective: every process frees its block of the
+    window), and the window must not be used again."""
+    tr = _T.active()
+    if state.links is not None and tr is not None:
+        tr.release_window(state.links)
+        state.links = None
+        state.peers = {}
+        state.assoc_peers = None
 
 
 def _deliver(state: WindowState, payload: Dict[torch.dtype, torch.Tensor], *,

@@ -46,11 +46,14 @@ plain local steps in between (the allreduce type averages every step, as in
 the JAX package).
 
 In a context that spans processes the parameters carry this process's
-owned block of ranks, and the ``neighbor_allreduce`` (static or periodic),
-``hierarchical_neighbor_allreduce``, ``allreduce`` and ``empty`` types and
-the synchronous WinPut optimizer run over it, their gossip, mean and window
-round crossing the processes; the aperiodic topologies, gradient tracking,
-exact diffusion and CHOCO-SGD raise there (not ported across processes yet).
+owned block of ranks, and every optimizer here runs over it, its gossip,
+mean, window round or compressed payloads crossing the processes: a
+callable topology is called with the communication count in every process
+(each must return the same matrix); gradient tracking's two mixes a step
+are two exchanges; exact diffusion's symmetry check reads the global
+schedule; ``u``'s snapshot, step, difference and restore stay in each
+process.  CHOCO-SGD's hierarchical form needs each process to hold whole
+machines.
 
 The JAX optimizers are optax transformations that return the base
 transform's update direction ``u``; a ``torch.optim`` base instead steps the
@@ -127,16 +130,11 @@ def _assign(dst: List[torch.Tensor], src: List[torch.Tensor]) -> None:
         t.copy_(v)
 
 
-def _check_stacked(params, size: int, *, across_processes=False) -> None:
+def _check_stacked(params, size: int) -> None:
     """Every parameter carries the ranks this process holds of a ``size``
     rank graph on its leading axis: all of them in one process, the owned
-    block over several (only where the optimizer runs there:
-    ``across_processes``; elsewhere a context over processes raises)."""
-    if T.active() is not None:
-        if not across_processes:
-            raise NotImplementedError(
-                "this optimizer is not ported across processes yet")
-        size = T.owned_rows(size)
+    block over several."""
+    size = T.owned_rows(size)
     for p in params:
         if p.dim() == 0 or p.shape[0] != size:
             raise ValueError(
@@ -230,8 +228,7 @@ class DecentralizedOptimizer(_Wrapped):
             if any(s.size != size for s in self.schedules or ()):
                 raise ValueError("every phase of a dynamic topology must "
                                  "have the same size")
-            _check_stacked(self._params(), size,
-                           across_processes=matrix_fn is None)
+            _check_stacked(self._params(), size)
         if communication_type == CommunicationType.win_put:
             self.window = W.win_create(self._params(), self.schedule,
                                        name="winput_opt")

@@ -14,9 +14,10 @@ rank ``r``'s value.  The ranks are virtual, on the context's one device.
 ``win_mutex`` is not ported yet (it comes with the host runtime).
 
 In a context that spans processes every stacked tensor is this process's
-owned block of ``m`` ranks (``rank_stack`` makes one), and the collectives,
-the parameter-sync helpers and the windows act on it across the processes
-(see :mod:`bluefog_tpu_torch.ops.transport`).
+owned block of ``m`` ranks (``rank_stack`` makes one), and the collectives
+(the aperiodic gossip and ``neighbor_allgather`` too), the parameter-sync
+helpers and the windows act on it across the processes (see
+:mod:`bluefog_tpu_torch.ops.transport`).
 """
 
 from __future__ import annotations
@@ -86,7 +87,8 @@ def neighbor_allreduce_aperiodic(x, mixing_matrix, *,
     held on the host; edge set and weights may change every call.
     ``max_rotations`` caps the active rotations (more poison the output with
     NaN); see :func:`bluefog_tpu_torch.ops.collectives.
-    neighbor_allreduce_aperiodic`."""
+    neighbor_allreduce_aperiodic`.  Over several processes ``x`` is the
+    owned block and every process passes the same whole matrix."""
     return _C.neighbor_allreduce_aperiodic(x, mixing_matrix,
                                            max_rotations=max_rotations)
 
@@ -202,12 +204,15 @@ def win_create(x, name: str, *, topology=None, zero_init: bool = False
 
 def win_free(name: Optional[str] = None) -> bool:
     """Drop one window, or all of them when ``name`` is None (reference
-    ``bf.win_free()``)."""
+    ``bf.win_free()``), and free its memory: over several processes on the
+    card its peer memory now, in every process (collective, see
+    :func:`bluefog_tpu_torch.ops.windows.win_free`)."""
     ctx = get_context()
-    if name is None:
-        ctx.windows.clear()
-    else:
-        ctx.windows.pop(name, None)
+    names = list(ctx.windows) if name is None else [name]
+    for key in names:
+        state = ctx.windows.pop(key, None)
+        if state is not None:
+            _W.win_free(state)
     return True
 
 

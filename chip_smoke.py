@@ -35,6 +35,25 @@ its last line:
    K2 and times them; and runs 6 push-sum rounds on the directed Ring(8)
    through K2's peer form (sum(p) exactly 11.5 over the processes, x and p
    bit-equal to the same rounds in one process) and times K2's peer acc.
+   At P = 2 the group then runs every other algorithm over the processes,
+   against one-process runs this process makes first: gradient tracking on
+   MeshGrid2D(8) (BASELINE.json ``configs[3]``) and exact diffusion on
+   Ring(8) over ResNet-50, 2 + 3 steps each under deterministic cuDNN
+   (parameters and trackers, or master and last psi, within 2^-7 of one
+   process's, bit-equality reported; 2 and 1 K1 peer launches a step a
+   process); the callable one-peer Exp-2 topology's matrices, 6 rounds of
+   the aperiodic gossip over ResNet-50's buffer, each bit-equal to the
+   virtual K1 on the same ``W``, the capped form within its cap and over it
+   (NaN), and the host time of a call on a new matrix and on a cached one;
+   60 CHOCO rounds (``random_block_k(0.25)``) and 2 of ``top_k(0.01)``
+   over that buffer, bit-equal to one process; ``pair_gossip``,
+   ``neighbor_allgather``, sender-weighted gossip and int64 rows at that
+   length, bit-equal to one process; GPT-small at seq 1024 and batch 8 a
+   rank, 2 + 3 steps (96 launches of each K3 kernel a step over the
+   processes, 1 K1 peer launch a step a process, parameters within 2^-7 of
+   one process's), and K1's peer form on GPT's one staged payload, bit-equal
+   to its plain twin on the same rows (folded in column slices) and timed
+   against its bytes bound.
    Then P = 8, one rank a process, K1's check and times only.  A process
    that fails, or a group that outlives its time limit, fails the phase.
 2. K1 against its plain version on the card: ``gossip_mix`` against
@@ -191,6 +210,7 @@ It needs one CUDA device and exits with status 2 when there is none.
 """
 
 import contextlib
+import dataclasses
 import functools
 import gc
 import io
@@ -1847,7 +1867,7 @@ def phase_examples():
 # ---------------------------------------------------------------------------
 
 MP_PROCESSES = (2, 4, 8)       # P = 8: one rank a process, K1's check only
-MP_TIMEOUT_S = 300
+MP_TIMEOUT_S = 600
 
 
 @contextlib.contextmanager
@@ -2155,10 +2175,319 @@ def mp_pushsum(ctx, win_len):
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+# -- the slice's algorithms over processes (P = 2) ---------------------------
+
+SLICE_PROCESSES = 2
+APERIODIC_ROUNDS = 6
+
+
+def _resnet_algo(device, algo):
+    """The ResNet-50 main path's trainer with gradient tracking on
+    MeshGrid2D(8) (``"gt"``, BASELINE.json ``configs[3]``) or exact
+    diffusion on Ring(8) (``"ed"``) in place of its optimizer."""
+    from bluefog_tpu_torch.examples.synthetic_benchmark import build
+    from bluefog_tpu_torch.optim import (
+        DistributedExactDiffusionOptimizer,
+        DistributedGradientTrackingOptimizer)
+    from bluefog_tpu_torch.topology import MeshGrid2DGraph, RingGraph
+
+    trainer = build("resnet50", "neighbor", "exp2", size=N_RANKS,
+                    batch_size=BATCH, image_size=224, device=device)
+    trainer.opt = (
+        DistributedGradientTrackingOptimizer(trainer.opt.base,
+                                             MeshGrid2DGraph(N_RANKS))
+        if algo == "gt" else
+        DistributedExactDiffusionOptimizer(trainer.opt.base,
+                                           RingGraph(N_RANKS)))
+    return trainer
+
+
+def _gpt_trainer(device):
+    from bluefog_tpu_torch.examples.synthetic_benchmark import build
+
+    return build("gpt-small", "neighbor", "exp2", size=N_RANKS,
+                 batch_size=GPT_BATCH, seq_len=GPT_SEQ, device=device)
+
+
+def _slice_state(trainer, algo):
+    """What the comparison holds: the parameters, and gradient tracking's
+    trackers or exact diffusion's master and last psi."""
+    keep = {"gt": ("param.", "tracker."), "ed": ("param.", "master.",
+                                                 "prev_psi."),
+            "gpt": ("param.",)}[algo]
+    return {k: v.detach().cpu() for k, v in trainer.state().items()
+            if k.startswith(keep)}
+
+
+def slice_references(device):
+    """The one-process runs the P = 2 group is held against: 2 + 3 steps
+    of gradient tracking (grid) and exact diffusion (ring) over ResNet-50
+    under deterministic cuDNN, and of GPT-small at seq 1024; their states
+    on the host."""
+    from bluefog_tpu_torch.examples.synthetic_benchmark import run
+
+    refs = {}
+    for algo in ("gt", "ed", "gpt"):
+        t0 = time.perf_counter()
+        with deterministic_cudnn():
+            trainer = (_gpt_trainer(device) if algo == "gpt"
+                       else _resnet_algo(device, algo))
+            res = run(trainer, WARMUP, TIMED)
+        refs[algo] = _slice_state(trainer, algo)
+        refs[f"{algo}/step_ms"] = sum(res["step_ms"]) / TIMED
+        refs[f"{algo}/samples"] = (trainer.batch[0].shape[0]
+                                   * trainer.batch[0].shape[1])
+        print(f"[processes] one-process reference {algo}: "
+              f"{refs[f'{algo}/step_ms']:.2f} ms a step, "
+              f"{time.perf_counter() - t0:.1f} s")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    return refs
+
+
+def mp_algo(ctx, outdir, algo):
+    """Gradient tracking (grid), exact diffusion (ring) or GPT-small over
+    this process's ranks, 2 + 3 steps (deterministic cuDNN for ResNet-50):
+    the launches of K1's peer form and of K3, the step times, and the state
+    saved for the parent's comparison with one process."""
+    from bluefog_tpu_torch.examples.synthetic_benchmark import run
+    from bluefog_tpu_torch.ops import flash_kernel as fk
+    from bluefog_tpu_torch.ops.gossip_kernel import (
+        gossip_mix, gossip_mix_peer)
+
+    k3 = (fk.flash_forward, fk.flash_backward_dkv, fk.flash_backward_dq)
+    with deterministic_cudnn():
+        trainer = (_gpt_trainer(ctx.device) if algo == "gpt"
+                   else _resnet_algo(ctx.device, algo))
+        gossip_mix_peer.launches = gossip_mix.launches = 0
+        for fn in k3:
+            fn.launches = 0
+        res = run(trainer, WARMUP, TIMED)
+    out = {"launches": gossip_mix_peer.launches,
+           "virtual_launches": gossip_mix.launches,
+           "k3": [fn.launches for fn in k3],
+           "step_ms": res["step_ms"],
+           "samples": trainer.batch[0].shape[0] * trainer.batch[0].shape[1],
+           "finite": all(math.isfinite(float(v)) for loss in res["losses"]
+                         for v in loss),
+           "losses": [float(loss.mean()) for loss in res["losses"]],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    torch.save(_slice_state(trainer, algo),
+               os.path.join(outdir, f"{algo}_{ctx.process_rank}.pt"))
+    if algo == "gpt":
+        out["payload"] = sum(v[0].numel() for v in trainer.params.values())
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _plain_slices(x, sw, rw, rows, chunks=8):
+    """K1's plain peer twin on ``chunks`` column slices of the rows (it
+    gathers every slot's rows at once, so a slice bounds its memory):
+    yields ``(c0, c1, out[:, c0:c1])``."""
+    from bluefog_tpu_torch.ops.gossip_kernel import gossip_mix_peer_plain
+
+    width = -(-x.shape[1] // chunks)
+    for c0 in range(0, x.shape[1], width):
+        c1 = min(c0 + width, x.shape[1])
+        part = dataclasses.replace(
+            rows, length=c1 - c0, ptrs=None,
+            views=[[None if v is None else v[c0:c1] for v in row]
+                   for row in rows.views])
+        yield c0, c1, gossip_mix_peer_plain(x[:, c0:c1], sw, rw, part)
+
+
+def mp_gpt_k1(ctx, length):
+    """K1's peer form on GPT-small's one staged payload (every leaf fused,
+    ``length`` f32 a rank) as the GPT path runs it: its output against its
+    plain twin on the same rows, bit for bit, and all processes' launches
+    of a step from barrier to barrier (the twin's, by column slices, too),
+    against its bytes bound."""
+    from bluefog_tpu_torch.ops.gossip_kernel import (
+        gossip_mix_peer, schedule_tables)
+    from bluefog_tpu_torch.topology import ExponentialTwoGraph, build_schedule
+
+    tr, dev = ctx.transport, ctx.device
+    own = slice(ctx.owned_ranks.start, ctx.owned_ranks.stop)
+    sched = build_schedule(ExponentialTwoGraph(N_RANKS))
+    sw, rw, _ = schedule_tables(sched, dev)
+    m = len(ctx.owned_ranks)
+    gen = torch.Generator(device=dev).manual_seed(1717)
+    buf = tr.pack([torch.randn(m, length, generator=gen, device=dev)])
+    with tr.exchange(sched, [buf]) as (rows,):
+        sw_o, rw_o = sw[own].contiguous(), rw[own].contiguous()
+        got = gossip_mix_peer(buf, sw_o, rw_o, rows)
+        equal, err = True, 0.0
+        for c0, c1, want in _plain_slices(buf, sw_o, rw_o, rows):
+            equal = equal and torch.equal(got[:, c0:c1], want)
+            err = max(err, max_err(got[:, c0:c1], want)[0])
+        del got, want
+        ms = _wall_ms(tr, lambda: gossip_mix_peer(buf, sw_o, rw_o, rows),
+                      reps=10)
+        plain_ms = _wall_ms(tr, lambda: [None for _ in _plain_slices(
+            buf, sw_o, rw_o, rows)], reps=1)
+    n_rows = _k1_peer_rows(sched, ctx.process_count)
+    bound_ms, bound_by = _bound(n_rows * length * 4,
+                                N_RANKS * length * (2 * sched.num_slots + 1))
+    del buf
+    torch.cuda.empty_cache()
+    return {"equal": equal, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "rows_a_rank": n_rows / N_RANKS, "length": length}
+
+
+def mp_aperiodic(ctx, win_len):
+    """The callable one-peer Exp-2 topology's matrices, 6 rounds of the
+    aperiodic gossip on K1's peer form over ResNet-50's buffer, each round
+    bit-equal to the virtual K1 on the same ``W``; the capped form within
+    its cap and over it (NaN, as the virtual form); the host time of a
+    call on a new matrix and on a cached one (both parities' address
+    tables built), from call to return."""
+    from bluefog_tpu_torch.ops import collectives as C
+    from bluefog_tpu_torch.ops.gossip_kernel import gossip_mix_peer
+    from bluefog_tpu_torch.topology import one_peer_exp2_mixing_matrix
+
+    dev = ctx.device
+    own = slice(ctx.owned_ranks.start, ctx.owned_ranks.stop)
+    gen = torch.Generator(device=dev).manual_seed(606)
+    x = torch.randn(N_RANKS, win_len, generator=gen, device=dev)
+    mine = x[own].clone()
+    C._aperiodic_tables.cache_clear()
+    equal, host_ms = [], []
+    gossip_mix_peer.launches = 0
+    for t in range(2 * APERIODIC_ROUNDS):
+        # the first rounds against the virtual K1; then as many more, whose
+        # matrices and address tables (both parities) are cached
+        w = one_peer_exp2_mixing_matrix(N_RANKS, t)
+        torch.cuda.synchronize()
+        ctx.transport.barrier()
+        t0 = time.perf_counter()
+        mine = C.neighbor_allreduce_aperiodic(mine, w)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        if t < APERIODIC_ROUNDS:
+            with _one_process():
+                x = C.neighbor_allreduce_aperiodic(x, w)
+            torch.cuda.synchronize()
+            equal.append(torch.equal(mine, x[own]))
+        if t == APERIODIC_ROUNDS - 1:
+            launches = gossip_mix_peer.launches
+    mine = x[own].clone()
+    phases = 3  # ceil(log2 8) distinct matrices
+    w1 = one_peer_exp2_mixing_matrix(N_RANKS, 1)
+    capped = C.neighbor_allreduce_aperiodic(mine, w1, max_rotations=1)
+    with _one_process():
+        want = C.neighbor_allreduce_aperiodic(x, w1, max_rotations=1)[own]
+    torch.cuda.synchronize()
+    equal.append(torch.equal(capped, want))
+    dense = torch.full((N_RANKS, N_RANKS), 1.0 / N_RANKS)
+    nan = C.neighbor_allreduce_aperiodic(mine, dense, max_rotations=1)
+    with _one_process():
+        nan_virtual = C.neighbor_allreduce_aperiodic(x, dense,
+                                                     max_rotations=1)
+    nan_ok = bool(nan.isnan().all()) and bool(nan_virtual.isnan().all())
+    del x, mine, capped, want, nan, nan_virtual
+    torch.cuda.empty_cache()
+    return {"equal": equal, "launches": launches, "nan": nan_ok,
+            "new_ms": host_ms[:phases],
+            "cached_ms": host_ms[APERIODIC_ROUNDS:]}
+
+
+def mp_choco(ctx, win_len):
+    """60 CHOCO rounds (``random_block_k(0.25)``, gamma 0.3, Ring(8)) over
+    ResNet-50's buffer, each round's payloads in one exchange, against the
+    same rounds in one process on the whole stack (this process computes
+    them too), bit for bit; then 2 rounds of ``top_k(0.01)``, whose int32
+    indices cross beside the values."""
+    from bluefog_tpu_torch.ops import compression as CP
+    from bluefog_tpu_torch.topology import RingGraph, build_schedule
+
+    dev = ctx.device
+    own = slice(ctx.owned_ranks.start, ctx.owned_ranks.stop)
+    sched = build_schedule(RingGraph(N_RANKS))
+    out = {}
+    for name, comp, rounds in (("random_block_k", CP.random_block_k(0.25),
+                                CHOCO_ROUNDS),
+                               ("top_k", CP.top_k(0.01), 2)):
+        gen = torch.Generator(device=dev).manual_seed(9)
+        x = torch.randn(N_RANKS, win_len, generator=gen, device=dev)
+        mine = x[own].clone()
+        st = CP.choco_init(mine, sched)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            mine, st = CP.choco_gossip(mine, st, sched, compressor=comp,
+                                       gamma=0.3)
+        torch.cuda.synchronize()
+        round_ms = (time.perf_counter() - t0) * 1e3 / rounds
+        mirrors = st.xhat_nbrs
+        del st
+        with _one_process():
+            ref = CP.choco_init(x, sched)
+            for _ in range(rounds):
+                x, ref = CP.choco_gossip(x, ref, sched, compressor=comp,
+                                         gamma=0.3)
+        torch.cuda.synchronize()
+        out[name] = {"equal": torch.equal(mine, x[own])
+                     and torch.equal(mirrors, ref.xhat_nbrs[own]),
+                     "max_abs_err": max_err(mine, x[own])[0],
+                     "round_ms": round_ms, "rounds": rounds}
+        del x, mine, mirrors, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def mp_ops(ctx, win_len):
+    """``pair_gossip`` (K1's peer form, one partial slot), ``neighbor_
+    allgather``, sender-weighted gossip (plain) and int64 rows, at the main
+    path's length, each bit-equal to the same call in one process on the
+    whole stack."""
+    from bluefog_tpu_torch.ops import collectives as C
+    from bluefog_tpu_torch.ops.gossip_kernel import gossip_mix_peer
+    from bluefog_tpu_torch.topology import (
+        ExponentialTwoGraph, RingGraph, build_schedule)
+
+    dev = ctx.device
+    own = slice(ctx.owned_ranks.start, ctx.owned_ranks.stop)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    x = torch.randn(N_RANKS, win_len, generator=gen, device=dev)
+    perm = [(0, 1), (1, 0), (2, 5), (5, 2), (3, 7), (6, 4)]
+    exp2 = build_schedule(ExponentialTwoGraph(N_RANKS))
+    ring = build_schedule(RingGraph(N_RANKS))
+    send_w = torch.rand(N_RANKS, ring.num_slots, generator=gen,
+                        device=dev) + 0.5
+    ints = torch.randint(-2 ** 62, 2 ** 62, (N_RANKS, 1001), generator=gen,
+                         device=dev)
+    gossip_mix_peer.launches = 0
+    got = {"pair": C.pair_gossip(x[own].clone(), perm=perm,
+                                 self_weight=0.3)}
+    pair_launches = gossip_mix_peer.launches
+    got["allgather"] = C.neighbor_allgather(x[own].clone(), exp2)[0]
+    got["send_weights"] = C.neighbor_allreduce(
+        x[own].clone(), ring, send_weights=send_w)
+    got["int64"] = C.neighbor_allgather(ints[own].clone(), exp2)[0]
+    checked = {}
+    with _one_process():
+        want = {"pair": lambda: C.pair_gossip(x, perm=perm, self_weight=0.3),
+                "allgather": lambda: C.neighbor_allgather(x, exp2)[0],
+                "send_weights": lambda: C.neighbor_allreduce(
+                    x, ring, send_weights=send_w),
+                "int64": lambda: C.neighbor_allgather(ints, exp2)[0]}
+        for k, fn in want.items():
+            ref = fn()[own]
+            checked[k] = torch.equal(got[k], ref)
+            del ref
+    del x, got
+    torch.cuda.empty_cache()
+    return {"checked": checked, "pair_launches": pair_launches}
+
+
 def mp_worker(argv):
     """One process of phase 19, started by the launcher: ``--mp-worker
-    OUTDIR WHAT LENGTHS WIN_LEN`` (WHAT is ``all`` or ``k1``; LENGTHS the
-    main path's comma-separated per-rank lengths).  Writes its results to
+    OUTDIR WHAT LENGTHS WIN_LEN`` (WHAT is ``all``, ``slice`` (all, then
+    the slice's algorithms) or ``k1``; LENGTHS the main path's
+    comma-separated per-rank lengths).  Writes its results to
     ``OUTDIR/p<process>.json``."""
     outdir, what, lengths, win_len = (argv[0], argv[1],
                                       [int(v) for v in argv[2].split(",")],
@@ -2176,10 +2505,18 @@ def mp_worker(argv):
            "ranks": list(ctx.owned_ranks), "device": str(ctx.device)}
     parts = {"init": time.perf_counter() - t0}
     steps = [("k1", lambda: mp_k1(ctx, lengths))]
-    if what == "all":
+    if what in ("all", "slice"):
         steps += [("main", lambda: mp_main_path(ctx, outdir)),
                   ("k2", lambda: mp_k2(ctx, win_len)),
                   ("pushsum", lambda: mp_pushsum(ctx, win_len))]
+    if what == "slice":
+        steps += [("gt", lambda: mp_algo(ctx, outdir, "gt")),
+                  ("ed", lambda: mp_algo(ctx, outdir, "ed")),
+                  ("aperiodic", lambda: mp_aperiodic(ctx, win_len)),
+                  ("choco", lambda: mp_choco(ctx, win_len)),
+                  ("ops", lambda: mp_ops(ctx, win_len)),
+                  ("gpt", lambda: mp_algo(ctx, outdir, "gpt")),
+                  ("gpt_k1", lambda: mp_gpt_k1(ctx, out["gpt"]["payload"]))]
     for name, fn in steps:
         t1 = time.perf_counter()
         out[name] = fn()
@@ -2244,12 +2581,14 @@ def phase_processes(device, lengths, win_len):
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
+    refs = slice_references(device)
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         for procs in MP_PROCESSES:
             outdir = os.path.join(tmp, f"P{procs}")
             os.makedirs(outdir)
-            what = "k1" if procs == N_RANKS else "all"
+            what = ("k1" if procs == N_RANKS else
+                    "slice" if procs == SLICE_PROCESSES else "all")
             res, secs = _run_processes(procs, what, lengths, win_len, outdir)
             tag = f"[processes P={procs}]"
             k1 = [r["k1"] for r in res]
@@ -2281,9 +2620,11 @@ def phase_processes(device, lengths, win_len):
                             "handshake_us": max(r["handshake_us"]
                                                 for r in k1)},
                      "seconds": secs}
-            if what == "all":
+            if what != "k1":
                 entry.update(_report_processes(tag, procs, res, ref, outdir,
                                                len(lengths)))
+            if what == "slice":
+                entry["slice"] = _report_slice(tag, procs, res, refs, outdir)
             out[procs] = entry
     print(f"[processes] phase {time.perf_counter() - t_phase:.1f} s")
     return out
@@ -2371,6 +2712,119 @@ def _report_processes(tag, procs, res, ref, outdir, per_step):
                     "launches": sum(r["launches"] for r in push),
                     "max_abs_err": max(r["max_abs_err"] for r in push)},
     }
+
+
+def _held(got_file, ref, rows):
+    """max |diff| / max |value| of the saved state against the reference's
+    rows, over every tensor, and whether every tensor is bit-equal."""
+    got = torch.load(got_file)
+    worst, equal = 0.0, True
+    for k, v in got.items():
+        want = ref[k][rows[0]:rows[-1] + 1]
+        equal = equal and torch.equal(v, want)
+        d = float((v.double() - want.double()).abs().max())
+        worst = max(worst, d / max(float(want.double().abs().max()), 1e-12))
+    return worst, equal
+
+
+def _report_slice(tag, procs, res, refs, outdir):
+    """The slice's checks at P = 2 (see the module docstring), printed and
+    returned."""
+    out = {}
+    k3_per_step = 12 * N_RANKS
+    for algo, per_step in (("gt", 2), ("ed", 1), ("gpt", 1)):
+        runs = [r[algo] for r in res]
+        worst, equal = 0.0, True
+        for q, r in enumerate(res):
+            w, e = _held(os.path.join(outdir, f"{algo}_{q}.pt"), refs[algo],
+                         r["ranks"])
+            worst, equal = max(worst, w), equal and e
+        launches = [r["launches"] for r in runs]
+        step_ms = [sum(r["step_ms"]) / TIMED for r in runs]
+        rate = sum(r["samples"] / (ms / 1e3) for r, ms in zip(runs, step_ms))
+        one = refs[f"{algo}/samples"] / (refs[f"{algo}/step_ms"] / 1e3)
+        unit = "seq" if algo == "gpt" else "img"
+        extra = ""
+        if algo == "gpt":
+            k3 = [sum(r["k3"][i] for r in runs) for i in range(3)]
+            extra = (f"; K3 launches over the processes (forward, dK/dV, dQ)"
+                     f" {k3}, {[v // (WARMUP + TIMED) for v in k3]} a step; "
+                     f"{rate * GPT_SEQ:.1f} tokens/s over all processes "
+                     f"against one process's {one * GPT_SEQ:.1f}")
+            check(all(v == k3_per_step * (WARMUP + TIMED) for v in k3),
+                  f"{tag} gpt: K3 launches {k3}")
+        print(f"{tag} {algo}: step ms by process "
+              f"{[round(v, 2) for v in step_ms]} (one process "
+              f"{refs[f'{algo}/step_ms']:.2f}), {rate:.1f} {unit}/s over all "
+              f"processes (one process {one:.1f}); K1 peer launches "
+              f"{launches} ({per_step} a step a process), virtual "
+              f"{[r['virtual_launches'] for r in runs]}; losses "
+              f"{[round(v, 4) for v in runs[0]['losses']]}; peak "
+              f"{max(r['peak_gb'] for r in runs):.2f} GB{extra}; state after "
+              f"{WARMUP + TIMED} steps against one process: max |diff| / max "
+              f"|value| {worst:.3e} (tol {STEP_TOL:.3e}), bit-equal: {equal}")
+        check(all(r["finite"] for r in runs), f"{tag} {algo}: non-finite loss")
+        check(all(v == per_step * (WARMUP + TIMED) for v in launches)
+              and all(r["virtual_launches"] == 0 for r in runs),
+              f"{tag} {algo}: K1 peer launches {launches}")
+        check(worst <= STEP_TOL, f"{tag} {algo}: state differs from one "
+              f"process: {worst}")
+        out[algo] = {"step_ms": step_ms, "rate": rate, "one_process": one,
+                     "launches": sum(launches), "rel_err": worst,
+                     "bit_equal": equal}
+        if algo == "gpt":
+            out[algo]["k3"] = k3
+    ap = [r["aperiodic"] for r in res]
+    ok = all(all(r["equal"]) for r in ap)
+    new_ms = [round(v, 3) for r in ap for v in r["new_ms"]]
+    cached_ms = [round(v, 3) for r in ap for v in r["cached_ms"]]
+    print(f"{tag} aperiodic (callable one-peer Exp-2, {APERIODIC_ROUNDS} "
+          f"rounds + the capped form) on K1's peer form vs the virtual K1: "
+          f"bit-equal in every process: {ok}; capped over its cap NaN as the "
+          f"virtual form: {all(r['nan'] for r in ap)}; K1 peer launches "
+          f"{[r['launches'] for r in ap]}; host ms of a call, new matrix "
+          f"{new_ms}, cached {cached_ms}")
+    check(ok and all(r["nan"] for r in ap),
+          f"{tag} the aperiodic gossip differs from the virtual K1")
+    check(all(r["launches"] == APERIODIC_ROUNDS for r in ap),
+          f"{tag} aperiodic K1 peer launches {[r['launches'] for r in ap]}")
+    out["aperiodic"] = {"new_ms": new_ms, "cached_ms": cached_ms,
+                        "launches": sum(r["launches"] for r in ap)}
+    ch = [r["choco"] for r in res]
+    for name in ch[0]:
+        ok = all(r[name]["equal"] for r in ch)
+        print(f"{tag} CHOCO {name}, {ch[0][name]['rounds']} rounds over "
+              f"ResNet-50's buffer: equal to one process: {ok}; "
+              f"{max(r[name]['round_ms'] for r in ch):.3f} ms a round")
+        check(ok, f"{tag} CHOCO {name} differs from one process")
+    out["choco"] = {k: max(r[k]["round_ms"] for r in ch) for k in ch[0]}
+    ops = [r["ops"] for r in res]
+    ok = all(all(r["checked"].values()) for r in ops)
+    print(f"{tag} pair_gossip, neighbor_allgather, send_weights, int64 rows "
+          f"at {N_RANKS} x ResNet-50's length vs one process: "
+          f"{ops[0]['checked']}, in every process: {ok}; pair_gossip's K1 "
+          f"peer launches {[r['pair_launches'] for r in ops]}")
+    check(ok, f"{tag} an op differs from one process: "
+          f"{[r['checked'] for r in ops]}")
+    check(all(r["pair_launches"] == 1 for r in ops),
+          f"{tag} pair_gossip did not run K1's peer form")
+    k1 = [r["gpt_k1"] for r in res]
+    ms = max(r["ms"] for r in k1)
+    plain_ms = max(r["plain_ms"] for r in k1)
+    equal = all(r["equal"] for r in k1)
+    err = max(r["max_abs_err"] for r in k1)
+    print(f"{tag} K1 peer form on GPT-small's payload ({k1[0]['length']:,} "
+          f"f32 a rank, one launch a process): bit-equal to its plain twin "
+          f"in every process: {equal} (max |diff| {err:.3e}); {ms:.4f} ms a "
+          f"step, all processes (plain twin by column slices "
+          f"{plain_ms:.4f} ms), bound {k1[0]['bound_ms']:.4f} ms "
+          f"({k1[0]['bound_by']}, {k1[0]['rows_a_rank']:g} rows a rank), "
+          f"{k1[0]['bound_ms'] / ms:.1%} of it")
+    check(equal, f"{tag} K1's peer form on GPT-small's payload differs from "
+          f"its plain twin: {err}")
+    out["gpt_k1"] = {**k1[0], "ms": ms, "plain_ms": plain_ms, "equal": equal,
+                     "max_abs_err": err}
+    return out
 
 
 def main():
@@ -2468,6 +2922,7 @@ def main():
     choco = phase_choco(device, win_len)
     examples = phase_examples()
 
+    sl = procs[SLICE_PROCESSES]["slice"]
     fa = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     via = "(via bluefog_tpu/ops/ring_attention.py:122)"
     kernels = [{
@@ -2495,12 +2950,16 @@ def main():
         "source": "bluefog_tpu_torch/csrc/gossip_mix.cu",
         "replaces": "bluefog_tpu/ops/pallas_gossip.py:388",
         "launches": procs[4]["main"]["launches"],
-        "max_abs_err": max(v["k1"]["max_abs_err"] for v in procs.values()),
+        "max_abs_err": max([v["k1"]["max_abs_err"] for v in procs.values()]
+                           + [sl["gpt_k1"]["max_abs_err"]]),
         **{k: procs[4]["k1"][k] for k in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "rows_a_rank")},
         "library_ms": k1["library_ms"],
         "processes": 4,
         "by_processes": {str(p): v["k1"] for p, v in procs.items()},
+        "launches_on_slice_paths": {
+            k: sl[k]["launches"] for k in ("gt", "ed", "gpt", "aperiodic")},
+        "gpt_payload": sl["gpt_k1"],
     }, {
         "name": "window_deliver_peer",
         "route": "cuda",
@@ -2523,10 +2982,11 @@ def main():
         "replaces": f"{fa}:{line} {via}",
         "launches": k3_launches[name],
         **k3[part],
-    } for name, part, src, line in (
+        "launches_over_processes": sl["gpt"]["k3"][i],
+    } for i, (name, part, src, line) in enumerate((
         ("flash_forward", "fwd", "flash_attention.cu", 589),
         ("flash_backward_dkv", "dkv", "flash_attention_bwd.cu", 941),
-        ("flash_backward_dq", "dq", "flash_attention_bwd.cu", 1287))]
+        ("flash_backward_dq", "dq", "flash_attention_bwd.cu", 1287)))]
     print("kernels: K1 gossip_mix (cuda, bluefog_tpu_torch/csrc/gossip_mix.cu"
           f", replaces neighbor_allreduce_pallas): {k1_launches} launches on "
           f"the main path, {k1['ms']:.4f} ms per step against a "
@@ -2574,6 +3034,14 @@ def main():
                  f"peer acc "
                  f"{v['pushsum']['ms']:.4f} ms" if "main" in v else "")
               for p, v in procs.items()))
+    print(f"the slice's algorithms over {SLICE_PROCESSES} processes: "
+          + ", ".join(f"{k} {sl[k]['rate']:.1f} {'seq' if k == 'gpt' else 'img'}"
+                      f"/s (one process {sl[k]['one_process']:.1f}), "
+                      f"bit-equal {sl[k]['bit_equal']}"
+                      for k in ("gt", "ed", "gpt"))
+          + f"; K1 peer on GPT's payload {sl['gpt_k1']['ms']:.4f} ms against "
+          f"{sl['gpt_k1']['bound_ms']:.4f} ms; aperiodic host ms new "
+          f"{sl['aperiodic']['new_ms']}, cached {sl['aperiodic']['cached_ms']}")
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -121,7 +121,7 @@ def test_non_circulant_schedule_is_rejected_by_the_kernel_backend(dtype):
     """The TPU kernel refuses the star (its remote DMA needs a uniform
     shift); the port's K1 reads any source row, so ``'auto'`` routes the
     star and the grid to K1, and K1's plain twin on their tables is
-    bit-equal to the plain path's ``_plain_leaf``."""
+    bit-equal to the plain path (``backend='plain'``)."""
     jsched = jt.build_schedule(jt.StarGraph(N))
     with pytest.raises(ValueError, match="circulant"):
         pallas_gossip.neighbor_allreduce_pallas(jnp.zeros(4), jsched, "bf",
@@ -134,7 +134,7 @@ def test_non_circulant_schedule_is_rejected_by_the_kernel_backend(dtype):
         assert k1.resolve_backend("auto", psched) == "kernel"
         sw, rw, src = k1.schedule_tables(psched, "cpu")
         twin = k1.gossip_mix_plain(x.reshape(N, -1), sw, rw, src)
-        plain = pcoll._plain_leaf(x, psched, None, None, None)
+        plain = pcoll.neighbor_allreduce(x, psched, backend="plain")
         assert torch.equal(twin.reshape(x.shape), plain), topo.name
         via_op = pcoll.neighbor_allreduce(x, psched)
         assert torch.equal(via_op, plain), topo.name
