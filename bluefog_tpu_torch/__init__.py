@@ -42,6 +42,12 @@ examples/mnist_epoch_gate.py                    examples.mnist_epoch_gate
 examples/cifar_resnet_gate.py                   examples.cifar_resnet_gate
 examples/elastic_resume.py                      examples.elastic_resume
 runtime.launch (initialize_cluster, bfrun-tpu)  runtime.launch (bfrun)
+ops.ring_attention (ring, Ulysses, zigzag)      ops.ring_attention
+ops.moe, models.moe (Switch / GShard MoE)       ops.moe, models.moe
+parallel.tensor, .pipeline, .rng                parallel.tensor, .pipeline,
+                                                  .rng (.axes: mesh axes)
+sharding.rules (the rule table)                 sharding.rules
+examples/longcontext_lm.py                      examples.longcontext_lm
 the exchange of pallas_gossip (remote DMA)      ops.transport
 ==============================================  ===============================
 

@@ -24,6 +24,16 @@ flax weights (conv and dense kernels with their biases, no
 and ViT (:func:`vit_from_flax`, :func:`flax_from_vit`, whose ``cls`` and
 ``pos_embed`` are parameters of the model itself) use the same rules.
 
+The parallel models keep flax's names and layouts and hold every rank's
+block on leading mesh dimensions (:mod:`bluefog_tpu_torch.parallel.axes`):
+:func:`shard_from_global` cuts a global array into those blocks by its
+partition spec, :func:`global_from_shards` joins them again, and
+:func:`tp_from_flax` / :func:`flax_from_tp` carry the tensor-parallel GPT's
+whole tree through its rule table; a stage-stacked tree (the pipeline's) is
+:func:`shard_from_global` with ``P('pp', ...)``.  :func:`gpt_from_tp` lays a
+gathered tensor-parallel GPT out as the dense ``TransformerLM``, and
+:func:`moe_from_flax` / :func:`flax_from_moe` carry the Switch-MoE GPT.
+
 Everything here works on numpy arrays (anything ``np.asarray`` takes), so
 neither side needs the other's framework.  :func:`window_from_numpy` carries
 a window's buffers the same way, so a run can hand a window to the port
@@ -32,6 +42,7 @@ mid-way.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -41,7 +52,9 @@ from torch.utils import _pytree as pytree
 __all__ = ["state_dict_from_flax", "flax_from_state_dict", "load_flax",
            "gpt_from_flax", "flax_from_gpt", "bert_from_flax",
            "flax_from_bert", "vit_from_flax", "flax_from_vit",
-           "window_from_numpy"]
+           "window_from_numpy", "shard_from_global", "global_from_shards",
+           "tp_from_flax", "flax_from_tp", "gpt_from_tp", "moe_from_flax",
+           "flax_from_moe"]
 
 _PARAM_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
@@ -270,3 +283,168 @@ def window_from_numpy(self_buf, peer_bufs, assoc_self=None, assoc_peers=None,
         state.assoc_peers.copy_(_tensor(assoc_peers).reshape(
             state.assoc_peers.shape))
     return state
+
+
+def _entry_axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def shard_from_global(arr, spec, mesh) -> np.ndarray:
+    """The stacked blocks ``(*mesh.shape, *local)`` of a global array that a
+    ``shard_map`` with in-spec ``spec`` (a partition spec: per dimension
+    ``None``, an axis name or a tuple of them) hands each device of
+    ``mesh``: a dimension sharded over axes is cut into their sizes (the
+    first named axis outermost), a mesh axis the spec does not name holds
+    copies."""
+    arr = np.asarray(arr)
+    sizes = mesh.sizes
+    spec = tuple(spec) + (None,) * (arr.ndim - len(tuple(spec)))
+    shape, where = [], {}
+    for d, entry in enumerate(spec):
+        names = _entry_axes(entry)
+        block = arr.shape[d] // math.prod(sizes[a] for a in names)
+        for a in names:
+            where[a] = len(shape)
+            shape.append(sizes[a])
+        shape.append(block)
+    cut = arr.reshape(shape)
+    local = [i for i in range(len(shape)) if i not in where.values()]
+    order, view = [], []
+    for a in mesh.axis_names:
+        if a in where:
+            order.append(where[a])
+            view.append(sizes[a])
+        else:
+            view.append(1)
+    out = cut.transpose(order + local)
+    out = out.reshape(view + [shape[i] for i in local])
+    return np.broadcast_to(out, tuple(mesh.shape)
+                           + out.shape[len(view):]).copy()
+
+
+def global_from_shards(blocks, spec, mesh) -> np.ndarray:
+    """The inverse of :func:`shard_from_global`: the global array from the
+    stacked blocks, the copies of a replicated axis read from its rank 0."""
+    blocks = np.asarray(blocks)
+    names = list(mesh.axis_names)
+    nl = len(names)
+    spec = tuple(spec) + (None,) * (blocks.ndim - nl - len(tuple(spec)))
+    used = [a for e in spec for a in _entry_axes(e)]
+    idx = tuple(slice(None) if a in used else 0 for a in names)
+    x = blocks[idx]                                  # used axes lead
+    kept = [a for a in names if a in used]
+    order = []
+    for d, entry in enumerate(spec):
+        order.extend(kept.index(a) for a in _entry_axes(entry))
+        order.append(len(kept) + d)
+    x = x.transpose(order)
+    shape = [blocks.shape[nl + d] * math.prod(
+        mesh.sizes[a] for a in _entry_axes(e)) for d, e in enumerate(spec)]
+    return np.ascontiguousarray(x.reshape(shape))
+
+
+def _flat_params(params: Mapping) -> Dict[str, np.ndarray]:
+    return {"/".join(path): np.asarray(arr) for path, arr in _walk(params)}
+
+
+def tp_from_flax(variables: Mapping, mesh, rules) -> Dict[str, np.ndarray]:
+    """The stacked parameters of a :class:`~bluefog_tpu_torch.parallel.
+    tensor.TPTransformerLM` over ``mesh`` (keyed like its
+    ``named_parameters``) from the JAX package's ``TPTransformerLM``
+    parameters as global arrays (e.g. ``gather_tp_params`` of its boxed
+    tree), each cut by the spec ``rules`` (a rule table) resolves for it.
+    Exact."""
+    out = {}
+    for name, arr in _flat_params(variables.get("params", variables)).items():
+        spec = rules.resolve(name, arr.shape)
+        out[name.replace("/", ".")] = shard_from_global(arr, spec, mesh)
+    return out
+
+
+def flax_from_tp(state: Mapping[str, object], mesh, rules) -> Dict:
+    """The inverse of :func:`tp_from_flax`: ``{"params": ...}`` of global
+    numpy arrays in the JAX package's ``TPTransformerLM`` layout."""
+    params: Dict = {}
+    nl = len(mesh.axis_names)
+    for name, val in state.items():
+        arr = (val.detach().cpu().numpy() if isinstance(val, torch.Tensor)
+               else np.asarray(val))
+        key = name.replace(".", "/")
+        spec = rules.resolve(key, arr.shape[nl:])
+        *mods, leaf = key.split("/")
+        tree = params
+        for m in mods:
+            tree = tree.setdefault(m, {})
+        tree[leaf] = global_from_shards(arr, spec, mesh)
+    return {"params": params}
+
+
+def gpt_from_tp(gathered: Mapping[str, object]) -> Dict[str, np.ndarray]:
+    """A dense :class:`~bluefog_tpu_torch.models.transformer.TransformerLM`
+    state dict from one rank's gathered tensor-parallel GPT parameters
+    (``{name: full array}``, flax layouts): the fused ``(in, 3, C)`` qkv
+    kernel is the dense ``(in, 3C)`` one (q, k, v contiguous), Dense
+    kernels transposed, tables and LayerNorm scales as they are.  Exact."""
+    out: Dict[str, np.ndarray] = {}
+    for name, val in gathered.items():
+        arr = (val.detach().cpu().numpy() if isinstance(val, torch.Tensor)
+               else np.asarray(val))
+        *mods, leaf = name.replace("/", ".").split(".")
+        if leaf == "qkv_kernel":
+            mods, leaf, arr = mods + ["qkv"], "kernel", arr.reshape(
+                arr.shape[0], -1)
+        elif leaf == "qkv_bias":
+            mods, leaf, arr = mods + ["qkv"], "bias", arr.reshape(-1)
+        key = {"embedding": "weight", "scale": "weight", "kernel": "weight",
+               "bias": "bias"}[leaf]
+        if leaf == "kernel":
+            arr = arr.T
+        out[".".join(mods + [key])] = np.ascontiguousarray(arr)
+    return out
+
+
+def moe_from_flax(variables: Mapping, mesh=None,
+                  ep_axis: str = "ep") -> Dict[str, np.ndarray]:
+    """The state dict of the port's Switch-MoE GPT for the JAX package's
+    ``MoETransformerLM`` variables: the trunk as :func:`gpt_from_flax`, each
+    block's ``moe`` as its ``mlp``; the ``router`` as it is, the experts'
+    global ``(E, ...)`` ``wi`` and ``wo`` cut over ``ep_axis`` of ``mesh``
+    into ``(ep, E / ep, ...)`` (kept whole without a mesh).  Exact."""
+    params = dict(variables.get("params", variables))
+    moe = {}
+    trunk = {}
+    for blk, sub in params.items():
+        if isinstance(sub, Mapping) and "moe" in sub:
+            moe[blk] = sub["moe"]
+            sub = {k: v for k, v in sub.items() if k != "moe"}
+        trunk[blk] = sub
+    out = _from_flax(trunk, "MoE GPT")
+    for blk, leaves in moe.items():
+        for leaf, arr in leaves.items():
+            arr = np.asarray(arr)
+            if leaf in ("wi", "wo") and mesh is not None:
+                arr = shard_from_global(arr, (ep_axis,), mesh)
+            out[f"{blk}.mlp.{leaf}"] = np.ascontiguousarray(arr)
+    return out
+
+
+def flax_from_moe(state: Mapping[str, object]) -> Dict:
+    """The inverse of :func:`moe_from_flax` for an unsharded model (or an
+    expert-parallel one's experts already joined to ``(E, ...)``)."""
+    trunk, moe = {}, {}
+    for name, val in state.items():
+        if ".mlp." in name:
+            arr = (val.detach().cpu().numpy()
+                   if isinstance(val, torch.Tensor) else np.asarray(val))
+            blk, _, leaf = name.split(".")
+            if leaf in ("wi", "wo"):
+                arr = arr.reshape(-1, *arr.shape[-2:])
+            moe.setdefault(blk, {})[leaf] = np.ascontiguousarray(arr)
+        else:
+            trunk[name] = val
+    params = _to_flax(trunk, ("tok", "pos"), "MoE GPT")["params"]
+    for blk, leaves in moe.items():
+        params.setdefault(blk, {})["moe"] = leaves
+    return {"params": params}

@@ -20,3 +20,8 @@ from bluefog_tpu_torch.models.bert import (  # noqa: F401
     BertEncoder,
 )
 from bluefog_tpu_torch.models.vit import ViT, ViTConfig  # noqa: F401
+from bluefog_tpu_torch.models.moe import (  # noqa: F401
+    MoEConfig,
+    MoEMLP,
+    MoETransformerLM,
+)

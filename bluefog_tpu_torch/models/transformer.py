@@ -21,7 +21,18 @@ what the flax model computes:
 - The attention is pluggable, ``attn_fn(q, k, v) -> (B, T, H, D)``, and
   defaults to :func:`~bluefog_tpu_torch.ops.ring_attention.local_attention`
   with ``causal=True, backend="auto"``: K3 on the card wherever it is
-  eligible.
+  eligible.  Tokens may carry leading dimensions before ``(B, T)`` (the
+  ranks of a sequence- or expert-parallel group); they fold into K3's batch.
+- The MLP is pluggable too: ``mlp`` is a factory ``() -> nn.Module`` mapping
+  ``(..., C) -> (..., C)``, registered as the block's ``mlp`` submodule in
+  place of ``up`` and ``down`` (the Switch-MoE model injects its FFN there).
+- ``GPTConfig.remat`` (flax's ``nn.remat`` of each block) checkpoints each
+  block with ``torch.utils.checkpoint`` (non-reentrant).  The checkpointed
+  function takes the block's parameter tensors as explicit inputs and calls
+  the block through ``functional_call``: a trainer that swaps a rank's
+  parameters in with ``functional_call`` restores the module's own before
+  the backward recomputes the block, so a closure over the module would
+  recompute with the wrong weights.
 """
 
 from __future__ import annotations
@@ -34,6 +45,8 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from bluefog_tpu_torch.ops.ring_attention import local_attention
 
@@ -56,7 +69,7 @@ class GPTConfig:
     mlp_ratio: int = 4
     max_position: int = 8192
     dtype: torch.dtype = torch.bfloat16
-    remat: bool = False              # not ported: TransformerLM raises
+    remat: bool = False              # checkpoint each block's activations
 
     @staticmethod
     def small() -> "GPTConfig":
@@ -130,10 +143,14 @@ class Embed(nn.Module):
         return F.embedding(ids, self.weight).to(self.dtype)
 
 
-class Block(nn.Module):
-    """Pre-LN attention + MLP residual block."""
+MlpFactory = Callable[[], nn.Module]
 
-    def __init__(self, cfg: GPTConfig):
+
+class Block(nn.Module):
+    """Pre-LN attention + MLP residual block; ``mlp`` (a factory) replaces
+    the dense GELU MLP."""
+
+    def __init__(self, cfg: GPTConfig, mlp: Optional[MlpFactory] = None):
         super().__init__()
         self.cfg = cfg
         c, dt = cfg.hidden_size, cfg.dtype
@@ -141,8 +158,11 @@ class Block(nn.Module):
         self.qkv = Dense(c, 3 * c, dt)
         self.proj = Dense(c, c, dt)
         self.ln2 = LayerNorm(c)
-        self.up = Dense(c, cfg.mlp_ratio * c, dt)
-        self.down = Dense(cfg.mlp_ratio * c, c, dt)
+        if mlp is not None:
+            self.mlp = mlp()
+        else:
+            self.up = Dense(c, cfg.mlp_ratio * c, dt)
+            self.down = Dense(cfg.mlp_ratio * c, c, dt)
 
     def forward(self, x: torch.Tensor, attn_fn: AttnFn) -> torch.Tensor:
         cfg = self.cfg
@@ -153,6 +173,8 @@ class Block(nn.Module):
         a = attn_fn(q, k, v)
         x = x + self.proj(a.flatten(-2))
         y = self.ln2(x).to(cfg.dtype)
+        if hasattr(self, "mlp"):
+            return x + self.mlp(y)
         y = F.gelu(self.up(y), approximate="tanh")
         return x + self.down(y)
 
@@ -160,24 +182,22 @@ class Block(nn.Module):
 class TransformerLM(nn.Module):
     """Tokens -> f32 logits.  ``attn_fn(q, k, v) -> out`` defaults to causal
     :func:`local_attention` with ``backend="auto"``; ``position_offset`` or
-    explicit ``positions`` give the tokens' global positions.  Weights are
+    explicit ``positions`` give the tokens' global positions.  ``mlp`` (a
+    factory, see :class:`Block`) swaps every block's MLP.  Weights are
     initialized as flax initializes them, from ``generator`` (default: seed
-    0)."""
+    0); a module the ``mlp`` factory makes keeps its own initialisation."""
 
     def __init__(self, cfg: GPTConfig,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 mlp: Optional[MlpFactory] = None):
         super().__init__()
-        if cfg.remat:
-            # torch.utils.checkpoint would recompute a block outside the
-            # trainer's functional_call, with the module's own parameters
-            raise NotImplementedError("GPTConfig.remat is not ported yet")
         self.cfg = cfg
         c = cfg.hidden_size
         self.tok = Embed(cfg.vocab_size, c, cfg.dtype)
         self.pos = Embed(cfg.max_position, c, cfg.dtype)
         self.blocks = []
         for i in range(cfg.num_layers):
-            block = Block(cfg)
+            block = Block(cfg, mlp)
             self.add_module(f"block_{i}", block)
             self.blocks.append(block)
         self.ln_f = LayerNorm(c)
@@ -193,6 +213,21 @@ class TransformerLM(nn.Module):
                 if isinstance(mod, (Dense, Embed)):
                     mod.reset_parameters(generator)
 
+    @staticmethod
+    def _remat_block(block: Block, x: torch.Tensor,
+                     attn_fn: AttnFn) -> torch.Tensor:
+        """``block(x, attn_fn)`` under a non-reentrant checkpoint of a
+        function of the block's parameter tensors (whatever
+        ``functional_call`` has swapped in now), so the recomputation in
+        the backward uses the same tensors."""
+        names, tensors = zip(*block.named_parameters())
+
+        def run(x, *tensors):
+            return functional_call(block, dict(zip(names, tensors)),
+                                   (x, attn_fn))
+
+        return checkpoint(run, x, *tensors, use_reentrant=False)
+
     def forward(self, tokens: torch.Tensor, *,
                 attn_fn: Optional[AttnFn] = None, position_offset=0,
                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -201,8 +236,11 @@ class TransformerLM(nn.Module):
                                         backend="auto")
         if positions is None:
             positions = position_offset + torch.arange(
-                tokens.shape[1], device=tokens.device)[None, :]
+                tokens.shape[-1], device=tokens.device)
         x = self.tok(tokens) + self.pos(positions)
         for block in self.blocks:
-            x = block(x, attn_fn)
+            if self.cfg.remat:
+                x = self._remat_block(block, x, attn_fn)
+            else:
+                x = block(x, attn_fn)
         return self.lm_head(self.ln_f(x))

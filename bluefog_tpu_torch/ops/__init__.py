@@ -1,5 +1,6 @@
-"""Collectives and windows over rank-stacked tensors, local attention, and
-the kernels K1 (gossip), K2 (window deliver) and K3 (flash attention)."""
+"""Collectives and windows over rank-stacked tensors, local and
+sequence-parallel attention, mixture-of-experts routing, and the kernels K1
+(gossip), K2 (window deliver) and K3 (flash attention)."""
 
 from bluefog_tpu_torch.ops.collectives import (  # noqa: F401
     allgather,
@@ -33,4 +34,17 @@ from bluefog_tpu_torch.ops.flash_kernel import (  # noqa: F401
     flash_forward,
     flash_forward_plain,
 )
-from bluefog_tpu_torch.ops.ring_attention import local_attention  # noqa: F401
+from bluefog_tpu_torch.ops.moe import (  # noqa: F401
+    expert_parallel_ffn,
+    moe_ffn_reference,
+    switch_router,
+    top2_router,
+)
+# ring_attention stays a module here (its function is
+# ops.ring_attention.ring_attention): an export of that name would hide it
+from bluefog_tpu_torch.ops.ring_attention import (  # noqa: F401
+    all_to_all_attention,
+    local_attention,
+    zigzag_shard,
+    zigzag_unshard,
+)

@@ -1,13 +1,30 @@
-"""Local softmax attention, on K3 where the library kernel would run.
+"""Local softmax attention on K3, and sequence parallelism over an axis.
 
-Counterpart of ``bluefog_tpu/ops/ring_attention.py`` for
-:func:`local_attention` and its gate :func:`_flash_eligible`.  The
-sequence-parallel ``ring_attention``, ``all_to_all_attention`` and the zigzag
-layout helpers come with the sequence-parallel slice.
+Counterpart of ``bluefog_tpu/ops/ring_attention.py``:
+
+- :func:`local_attention` and its gate :func:`_flash_eligible`: K3 where the
+  library kernel would run;
+- :func:`ring_attention`: blockwise attention with the KV blocks rotating
+  around a sequence-parallel axis and folded into a running online softmax
+  (:func:`_fold_block`), in the contiguous or the load-balanced zigzag
+  layout (:func:`zigzag_shard`, :func:`zigzag_unshard`);
+- :func:`all_to_all_attention` (Ulysses): sequence and heads reshard over
+  the axis, :func:`local_attention` with the caller's backend on the full
+  sequence, and the inverse reshard.
 
 Layout is the JAX package's, ``(B, T, H, D)`` in and out; K3 takes the
 library's ``(B, H, T, D)``, so the call transposes (views, no copies) on the
-way in and out, as ``ring_attention.py:126-131`` does.
+way in and out, as ``ring_attention.py:126-131`` does.  Dimensions before
+``B`` (the ranks of a mesh, see :mod:`bluefog_tpu_torch.parallel.axes`)
+fold into K3's batch, so one launch serves every rank of a group.
+
+The sequence-parallel functions take the ranks of their axis on a leading
+dimension (``q (*ranks, B, T_local, H, D)``, the axis's dimension among the
+leading ones).  The fold is XLA in the JAX package (a ``lax.scan`` of
+rematerialised tiles), not a Pallas kernel, so it is plain PyTorch here: each
+tile under ``torch.utils.checkpoint``.  The causal ring stays a skip: at each
+step only the ranks whose arriving block lies in their past are gathered
+into one batch and folded; the others do no work.
 """
 
 from __future__ import annotations
@@ -15,12 +32,16 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from bluefog_tpu_torch.ops.flash_kernel import (
     BUILT, DTYPES, HEAD_DIMS, flash_attention)
+from bluefog_tpu_torch.parallel import axes as ax
 
-__all__ = ["local_attention", "BACKENDS"]
+__all__ = ["local_attention", "ring_attention", "all_to_all_attention",
+           "zigzag_shard", "zigzag_unshard", "BACKENDS"]
 
 _NEG_INF = -1e30  # the JAX dense path's mask value: exp never sees -inf
 BACKENDS = ("dense", "flash", "auto")
@@ -56,7 +77,8 @@ def local_attention(q, k, v, *, causal: bool = False,
     """Plain softmax attention on local blocks.
 
     Shapes: ``q (B, Tq, H, D)``, ``k/v (B, Tk, H, D)`` -> ``(B, Tq, H, D)``
-    in ``q``'s dtype.  ``q_offset``/``k_offset`` are the global positions of
+    in ``q``'s dtype; leading dimensions before ``B`` (a group's ranks)
+    fold into the batch.  ``q_offset``/``k_offset`` are the global positions of
     the first query / key row, used by the causal mask of shifted blocks
     (ints, or tensors, which never take K3).  ``scale`` defaults to
     ``1 / sqrt(D)``.
@@ -73,6 +95,13 @@ def local_attention(q, k, v, *, causal: bool = False,
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of "
                          f"{BACKENDS}")
+    if q.dim() > 4:
+        lead = q.shape[:-3]
+        out = local_attention(
+            q.flatten(0, -4), k.flatten(0, -4), v.flatten(0, -4),
+            causal=causal, scale=scale, q_offset=q_offset,
+            k_offset=k_offset, backend=backend)
+        return out.unflatten(0, lead)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     eligible = _flash_eligible(q, k, causal, q_offset, k_offset)
     if backend == "flash" and not eligible:
@@ -98,3 +127,228 @@ def local_attention(q, k, v, *, causal: bool = False,
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
     return out.to(q.dtype)
+
+
+def _fold_tile(m, denom, o, q, kt, vt, kt0, qpos, *, scale: float,
+               masked: bool):
+    """One key tile into the online-softmax state ``(m, denom, o)``: f32
+    scores (products of the inputs summed in f32), the ``-1e30`` causal mask
+    of query positions ``qpos`` against keys ``kt0 + arange(tile)``, the
+    probabilities rounded to ``v``'s dtype before the product with ``v``."""
+    scores = torch.einsum("...qhd,...khd->...hqk", q.float(),
+                          kt.float()) * scale
+    if masked:
+        kpos = kt0 + torch.arange(kt.shape[-3], device=kt.device)
+        scores = torch.where(qpos[:, None] >= kpos[None, :], scores,
+                             _NEG_INF)
+    m_new = torch.maximum(m, scores.amax(dim=-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(scores - m_new[..., None])
+    denom = denom * alpha + p.sum(dim=-1)
+    o = o * alpha[..., None] + torch.einsum(
+        "...hqk,...khd->...hqd", p.to(vt.dtype).float(), vt.float())
+    return m_new, denom, o
+
+
+def _fold_block(state, q, k, v, *, scale: float, kpos0, qpos, masked: bool,
+                kv_tile: int):
+    """Fold one KV block into the running online-softmax state ``(m, denom,
+    o)`` (reference ``ring_attention.py::_fold_block``): the block in
+    ``kv_tile``-wide key tiles, each under ``torch.utils.checkpoint`` (the
+    reference's ``jax.checkpoint`` of its scan body), so the live scores are
+    ``(..., H, t_q, tile)`` and the backward recomputes them.  ``masked``
+    applies the causal mask of ``qpos`` against ``kpos0 + arange``.
+
+    ``q (..., t_q, H, D)``, ``k``/``v`` ``(..., t_k, H, D)``; ``m`` and
+    ``denom`` ``(..., H, t_q)`` and ``o`` ``(..., H, t_q, D)`` in f32."""
+    t_k = k.shape[-3]
+    # the largest divisor of t_k not over kv_tile, or the whole block where
+    # only degenerate divisors exist (as in the reference)
+    tile = min(kv_tile, t_k)
+    while t_k % tile:
+        tile -= 1
+    if tile < min(8, t_k, kv_tile):
+        tile = t_k
+    for j in range(t_k // tile):
+        sl = slice(j * tile, (j + 1) * tile)
+        state = checkpoint(_fold_tile, *state, q, k[..., sl, :, :],
+                           v[..., sl, :, :], kpos0 + j * tile, qpos,
+                           scale=scale, masked=masked, use_reentrant=False)
+    return state
+
+
+def _fold_rows(state, rows, q, k, v, **kw):
+    """:func:`_fold_block` on the ranks ``rows`` of rank-major ``q``, ``k``,
+    ``v`` and state (gathered into one batch); the other ranks' state passes
+    through untouched."""
+    if rows.numel() == q.shape[0]:
+        return _fold_block(state, q, k, v, **kw)
+    pick = lambda t: t.index_select(0, rows)  # noqa: E731
+    new = _fold_block(tuple(map(pick, state)), pick(q), pick(k), pick(v),
+                      **kw)
+    return tuple(t.index_copy(0, rows, u) for t, u in zip(state, new))
+
+
+def _rank_major(t: torch.Tensor, axis: ax.Axis) -> torch.Tensor:
+    """``(*ranks, B, T, H, D)`` -> ``(n, B', T, H, D)``: the axis first, the
+    other leading dimensions folded into the batch."""
+    return t.movedim(axis.dim, 0).flatten(1, -4)
+
+
+def _zigzag_permutation(n: int, t_total: int) -> np.ndarray:
+    """The global row order of the load-balanced causal layout: the
+    sequence in ``2n`` chunks, rank ``r`` holding chunks ``r`` and
+    ``2n-1-r``."""
+    c, rem = divmod(t_total, 2 * n)
+    if rem:
+        raise ValueError(
+            f"zigzag layout needs sequence length divisible by 2*axis_size; "
+            f"got T={t_total}, n={n}")
+    order = []
+    for r in range(n):
+        order.extend(range(r * c, (r + 1) * c))
+        order.extend(range((2 * n - 1 - r) * c, (2 * n - r) * c))
+    return np.asarray(order)
+
+
+def zigzag_shard(x: torch.Tensor, axis_size: int, axis: int = 1
+                 ) -> torch.Tensor:
+    """Reorder a global sequence dimension into the zigzag layout, so that
+    cutting it into ``axis_size`` contiguous blocks gives each rank a front
+    chunk and its mirrored back chunk."""
+    idx = _zigzag_permutation(axis_size, x.shape[axis])
+    return x.index_select(axis, torch.from_numpy(idx).to(x.device))
+
+
+def zigzag_unshard(x: torch.Tensor, axis_size: int, axis: int = 1
+                   ) -> torch.Tensor:
+    """Inverse of :func:`zigzag_shard` (global sequence order back)."""
+    idx = np.argsort(_zigzag_permutation(axis_size, x.shape[axis]))
+    return x.index_select(axis, torch.from_numpy(idx).to(x.device))
+
+
+def ring_attention(q, k, v, axis: ax.Axis, *, causal: bool = False,
+                   scale: Optional[float] = None, kv_tile: int = 512,
+                   layout: str = "contiguous") -> torch.Tensor:
+    """Blockwise ring attention over a sequence-parallel axis (reference
+    ``ring_attention.py::ring_attention``).
+
+    ``q``, ``k``, ``v``: ``(*ranks, B, T_local, H, D)``, rank ``r`` of
+    ``axis`` holding its block of the global sequence of ``n * T_local``
+    rows.  The KV blocks rotate around the ring (:func:`~bluefog_tpu_torch.
+    parallel.axes.shift`), each arrival folded into the running online
+    softmax (:func:`_fold_block`), so the result is full attention over the
+    global sequence, returned sequence-sharded in ``q``'s dtype.
+
+    Causal, ``layout='contiguous'`` (rank ``r`` holds rows ``[r T_local,
+    (r+1) T_local)``): step 0 folds the diagonal block with the triangle
+    mask; at step ``s > 0`` only the ranks whose arriving block is strictly
+    past (``r >= s``) fold it, gathered into one batch, unmasked, and the
+    rest skip it.  ``layout='zigzag'`` (see :func:`zigzag_shard`; the output
+    stays in zigzag order): every rank folds exactly two half-chunks a step
+    (:func:`_ring_zigzag_causal`).  Non-causal attention ignores the layout.
+    """
+    n = axis.size
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if layout not in ("contiguous", "zigzag"):
+        raise ValueError(f"unknown layout {layout!r}")
+    if causal and q.shape[-3] != k.shape[-3]:
+        raise ValueError(
+            f"causal ring attention requires equal q/k shard widths, got "
+            f"t_q={q.shape[-3]}, t_k={k.shape[-3]}")
+    lead = q.movedim(axis.dim, 0).shape[:-3]
+    q, k, v = (_rank_major(t, axis) for t in (q, k, v))
+    ring = ax.Axis(axis.name, n, 0)
+    _, b, t_q, h, d = q.shape
+    dev = q.device
+    state = (torch.full((n, b, h, t_q), _NEG_INF, device=dev),
+             torch.zeros((n, b, h, t_q), device=dev),
+             torch.zeros((n, b, h, t_q, d), device=dev))
+    kw = dict(scale=scale, kv_tile=kv_tile)
+    if causal and layout == "zigzag":
+        denom, o = _ring_zigzag_causal(state, q, k, v, ring, **kw)
+    else:
+        # a masked fold is always a diagonal block, whose query and key
+        # positions are aligned: the mask needs only their offsets in it
+        qpos = torch.arange(t_q, device=dev)
+        for s in range(n):
+            if not causal or s == 0:
+                state = _fold_block(state, q, k, v, kpos0=0, qpos=qpos,
+                                    masked=causal, **kw)
+            else:
+                state = _fold_rows(state, torch.arange(s, n, device=dev),
+                                   q, k, v, kpos0=0, qpos=qpos,
+                                   masked=False, **kw)
+            if s != n - 1:
+                k, v = ax.shift(k, ring), ax.shift(v, ring)
+        _, denom, o = state
+    out = o / torch.clamp(denom[..., None], min=1e-30)
+    out = out.transpose(-3, -2).to(q.dtype)             # (n, B', t, H, D)
+    return out.reshape(*lead, *out.shape[-3:]).movedim(0, axis.dim)
+
+
+def _ring_zigzag_causal(state, q, k, v, ring: ax.Axis, *, scale: float,
+                        kv_tile: int):
+    """The load-balanced causal ring (reference
+    ``ring_attention.py::_ring_zigzag_causal``) on rank-major tensors.
+
+    Rank ``r`` holds chunks ``r`` (front) and ``2n-1-r`` (back) of width
+    ``c``.  For the block arriving from rank ``src``: ``q_back x k_front`` is
+    always past (folded unmasked by every rank each step), ``q_front x
+    k_back`` always future (never folded), ``q_front x k_front`` past iff
+    ``src < r`` and ``q_back x k_back`` past iff ``src > r``; at step 0 both
+    are the masked diagonals.  So at step ``s > 0`` ranks ``r >= s`` fold
+    their front half and the others their back half: two half-chunks a rank,
+    each group gathered into one batch.  Returns ``(denom, o)``."""
+    n = ring.size
+    t_q = q.shape[2]
+    if t_q % 2:
+        raise ValueError(
+            f"zigzag layout needs an even local width, got t_q={t_q}")
+    c = t_q // 2
+    dev = q.device
+    qf, qb = q[:, :, :c], q[:, :, c:]
+    rel = torch.arange(c, device=dev)
+    m, denom, o = state
+    front = (m[..., :c], denom[..., :c], o[..., :c, :])
+    back = (m[..., c:], denom[..., c:], o[..., c:, :])
+    kw = dict(scale=scale, kpos0=0, qpos=rel, kv_tile=kv_tile)
+    for s in range(n):
+        kf, kb = k[:, :, :c], k[:, :, c:]
+        vf, vb = v[:, :, :c], v[:, :, c:]
+        if s == 0:
+            front = _fold_block(front, qf, kf, vf, masked=True, **kw)
+            back = _fold_block(back, qb, kb, vb, masked=True, **kw)
+            back = _fold_block(back, qb, kf, vf, masked=False, **kw)
+        else:
+            back = _fold_block(back, qb, kf, vf, masked=False, **kw)
+            front = _fold_rows(front, torch.arange(s, n, device=dev), qf,
+                               kf, vf, masked=False, **kw)
+            back = _fold_rows(back, torch.arange(0, s, device=dev), qb, kb,
+                              vb, masked=False, **kw)
+        if s != n - 1:
+            k, v = ax.shift(k, ring), ax.shift(v, ring)
+    return (torch.cat([front[1], back[1]], dim=-1),
+            torch.cat([front[2], back[2]], dim=-2))
+
+
+def all_to_all_attention(q, k, v, axis: ax.Axis, *, causal: bool = False,
+                         scale: Optional[float] = None,
+                         backend: str = "dense") -> torch.Tensor:
+    """Ulysses sequence parallelism (reference
+    ``ring_attention.py::all_to_all_attention``): ``(*ranks, B, T_local, H,
+    D)`` sequence-sharded in; an all-to-all over ``axis`` trades the
+    sequence shards for head shards ``(*ranks, B, T, H/n, D)``,
+    :func:`local_attention` with ``backend`` attends over the whole
+    sequence (every rank of the group in one batch: one K3 launch under
+    ``'auto'`` where it is eligible), and the inverse all-to-all brings the
+    sequence shards back.  Needs ``H % n == 0``."""
+    n, h = axis.size, q.shape[-2]
+    if h % n:
+        raise ValueError(f"num_heads={h} not divisible by axis size {n}; "
+                         "use ring_attention for head counts below the mesh "
+                         "size")
+    to_heads = lambda t: ax.all_to_all(t, axis, -2, -3, tiled=True)  # noqa
+    out = local_attention(to_heads(q), to_heads(k), to_heads(v),
+                          causal=causal, scale=scale, backend=backend)
+    return ax.all_to_all(out, axis, -3, -2, tiled=True)

@@ -221,7 +221,8 @@ its last line:
    copies on the host), and K1 on the machine rows against its plain
    version, its bound and ``torch.matmul(W, x)``.
 19. ``examples.bert_finetune_hierarchical --model large --local-size 2``
-   at its epochs and ``--n-per-rank``, under deterministic algorithms,
+   at 2 epochs (its default 3, cut for the script's time limit when phases
+   24-29 came) and its ``--n-per-rank``, under deterministic algorithms,
    then with ``--two-level-mesh``: loss, accuracy and seq/s per epoch, the
    parameter spread, K1's launches, and the two forms' parameters, which
    must be bit-equal.
@@ -239,6 +240,55 @@ its last line:
 22. ViT-base/16 at 224 over 8 virtual ranks through ``synthetic_benchmark
    --model vit-base --comm neighbor``: 2 + 3 steps, K1's launches, no K3
    launch (197 tokens take the dense path), img/s and idle share.
+24. (Run right after phase 7.) K3 against its twins at the new paths'
+   shapes, bf16 causal, q, k and v views of one projection: (16, 6, 1024,
+   64) (the TP path, tp 2 x batch 8 folded into K3's batch) and (4, 3,
+   4096, 64) (Ulysses, 4 ranks, 3 heads a rank): every output within K3's
+   tolerances, the three kernels' device times against their bounds and
+   twins, and SDPA's forward.
+25. Sequence parallelism, GPT-small at batch 1: ring attention (contiguous
+   and zigzag) over 8 virtual ranks of 1024 tokens (T = 8192), Ulysses over
+   4 (T = 4096, K3 at the global T).  In f32 and in bf16, remat off and on:
+   the logits and one step's gradients against the whole-sequence model
+   (``local_attention`` on the full T, K3), within 2^-7 in f32 and 2^-4 in
+   bf16; remat's gradients against no remat's (bit-equality recorded).
+   Then bf16 AdamW steps with and without remat: tokens/s, peak memory,
+   K3's launches a step (Ulysses: 12, 24 forwards with remat).
+26. Tensor parallelism, ``TPTransformerLM`` at GPT-small's widths: in f32 on
+   one tp 2 group at batch 2 x 1024, the gathered parameters replayed at tp
+   = 1 through the dense ``TransformerLM`` give its logits and the
+   corrected gradients (through the rule table) its gradients, within
+   2^-7; then bf 4 x tp 2 in bf16, batch 8 x 1024 a bf rank, AdamW 3e-4
+   (decay 0.01) gossiping over Exponential-2(4): 48 launches of each K3
+   kernel a step and K1's per the fuse plan, tokens/s; then the AdamW step
+   through K1 against the same step through the plain fold from the same
+   state, bit for bit.
+27. Hybrid dp 2 x pp 2 x tp 2: GPT-small's 12 TPBlocks, 6 a stage, bf16,
+   M = 4 microbatches of 2 x 1024 a dp rank under 1F1B and GPipe (tokens
+   embedded before injection, the head folded into the loss): in f32 both
+   schedules' corrected gradients within 2^-7 of each other and of the
+   unpipelined TP step's; in bf16 the two schedules within 2^-7 of each
+   other, each one's peak memory, tokens/s and K3's launches; an SGD step
+   of both dp ranks gossiped over dp on K1, bit-equal to the plain fold of
+   the same fused buffers.
+28. Expert parallelism: ``expert_parallel_ffn`` against
+   ``moe_ffn_reference`` in f32 at width 768, 8 experts (4 x 512 tokens,
+   ample capacity), both routers; then ``MoETransformerLM`` (GPT-small
+   trunk, 8 experts), top-1 and top-2, dp 2 x ep 4, batch 4 x 1024 a rank
+   in bf16, AdamW gossiping over dp on K1: the (T, E, C) dispatch memory
+   reckoned first, the dropped fraction, tokens/s, 24 launches of each K3
+   kernel a step and K1's per the fuse plan; the AdamW step through K1
+   bit-equal to the plain fold's; each layer's dropped fraction, expert
+   load and the mean cosine between a sequence's last 512 tokens at its
+   input (the embeddings' routing beside them), and ``expert_parallel_ffn``
+   against ``moe_ffn_reference`` on the inputs of the layer that drops the
+   most, at the path's own capacity (640 / 1280), in f32.
+29. ``examples.longcontext_lm`` at its defaults, once for each ``--attn``,
+   each ending OK.
+   After each of phases 25-29, K3 against its twins (correctness only) at
+   every (shape, dtype, causal) that the phase handed it which no earlier
+   check took: MoE's (16, 12, 1024, 64), the pipeline's stage shapes and
+   the f32 parity runs' among them.
 23. Report: a ``kernels:`` line, a line for K1 on this slice's paths and a
    line for the allreduce (not a TPU kernel), the kernels' JSON line (K1,
    K2 and K3's three kernels; K1's entry also carries its one-slot times,
@@ -249,7 +299,11 @@ its last line:
    process counts under ``by_processes``, and a line sums phase 1b up.
    K1's entry carries its launches on phases 18-22's paths and its times
    on BERT's machine rows, the peer form's its launches on BERT over
-   processes; a line sums phases 1c and 18-22 up.
+   processes; a line sums phases 1c and 18-22 up.  K1's entry also carries
+   its launches on phases 26-28's gossip and their parity with the plain
+   fold, K3's their launches on the TP, Ulysses, pipeline and MoE paths,
+   their times at phase 24's shapes and every shape held against the
+   twins; a line sums phases 24-29 up.
 
 It needs one CUDA device and exits with status 2 when there is none.
 """
@@ -2892,6 +2946,7 @@ def _report_slice(tag, procs, res, refs, outdir):
 
 BERT_BATCH, BERT_SEQ, BERT_LOCAL = 32, 128, 2   # the JAX benchmark's
 BERT_PROCESSES = 2
+BERT_FT_EPOCHS = 2    # the example's 3 cut for the script's time limit
 
 
 @contextlib.contextmanager
@@ -3106,7 +3161,8 @@ def bert_against_processes(ref, procs_dir, procs, one):
 
 def phase_bert_finetune():
     """``examples.bert_finetune_hierarchical --model large --local-size 2``
-    at the example's epochs and ``--n-per-rank``, under deterministic
+    at ``BERT_FT_EPOCHS`` epochs and the example's ``--n-per-rank``, under
+    deterministic
     settings, then again with ``--two-level-mesh``: per epoch loss,
     accuracy and seq/s, the parameter spread, K1's launches, and the two
     forms' parameters against each other."""
@@ -3122,7 +3178,8 @@ def phase_bert_finetune():
         with deterministic():
             gossip_mix.launches = 0
             res = bft.main(["--model", "large", "--local-size",
-                            str(BERT_LOCAL)] + extra)
+                            str(BERT_LOCAL), "--epochs",
+                            str(BERT_FT_EPOCHS)] + extra)
             launches = gossip_mix.launches
         trainer = res.pop("trainer")
         per_step, _ = _launches_a_step(trainer.params.values())
@@ -3481,6 +3538,916 @@ def phase_vit(device):
     return out
 
 
+# --- sequence, tensor, pipeline and expert parallelism (phases 24-29) -------
+
+SP_T_LOCAL = 1024                                # tokens a rank, batch 1
+SP_RANKS = {"ring": 8, "ring-zigzag": 8, "ulysses": 4}
+PAR_STEPS = 2                    # timed steps of each path, after one more
+TP_BF, TP_SIZE, TP_BATCH, TP_SEQ = 4, 2, 8, 1024
+HYB_DP, HYB_PP, HYB_TP, HYB_MICRO, HYB_MB = 2, 2, 2, 4, 2
+MOE_DP, MOE_EP, MOE_BATCH, MOE_SEQ, MOE_EXPERTS = 2, 4, 4, 1024, 8
+MOE_CHECK_TOKENS = 512           # a rank, for the FFN against its reference
+PARITY_BATCH = 2                 # the f32 parity runs' batch
+K3_NEW_SHAPES = ((16, 6, 1024, 64), (4, 3, 4096, 64))   # TP, Ulysses
+# f32 at full width: the sharded path against the whole one, the same math
+# summed in another order; bf16 (the sequence phase's second check): a
+# rounding of the attention's p (folded unnormalised on the ring, normalised
+# in K3) placed elsewhere, through 12 layers
+SLICE_TOL = 2.0 ** -7
+BF16_SLICE_TOL = 2.0 ** -4     # 12-layer GPT at width 768 on the CPU, 8 x
+# 128 tokens: the ring 1.1% off in logits, 1.6% in gradients
+
+
+def slice_config():
+    """GPT-small's published widths, the configuration of these phases."""
+    from bluefog_tpu_torch.models.transformer import GPTConfig
+
+    return GPTConfig.small()
+
+
+def _slice_kernels():
+    from bluefog_tpu_torch.ops import flash_kernel as fk
+    from bluefog_tpu_torch.ops.gossip_kernel import gossip_mix
+
+    return (fk.flash_forward, fk.flash_backward_dkv, fk.flash_backward_dq,
+            gossip_mix)
+
+
+def _zero_launches():
+    for fn in _slice_kernels():
+        fn.launches = 0
+
+
+def _launches(per=1):
+    """Each kernel's launches since :func:`_zero_launches`, over ``per``."""
+    return {fn.__name__: fn.launches / per for fn in _slice_kernels()}
+
+
+def _worst(got, want):
+    """The largest max |got - want| / max |want| over paired tensors, and
+    where."""
+    worst, where = 0.0, ""
+    for name in want:
+        rel = _rel(got[name], want[name])[1]
+        if not rel <= worst:
+            worst, where = rel, name
+    return worst, where
+
+
+def _timed(step, device, what):
+    """One untimed step, then PAR_STEPS timed ones from zeroed launch
+    counts and peak memory: (ms a step, launches a step, peak GB, the last
+    step's result)."""
+    step()
+    torch.cuda.synchronize(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    _zero_launches()
+    t0 = time.perf_counter()
+    for _ in range(PAR_STEPS):
+        out = step()
+    torch.cuda.synchronize(device)
+    ms = (time.perf_counter() - t0) / PAR_STEPS * 1e3
+    launches = _launches(PAR_STEPS)
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    print(f"[{what}] {ms:.2f} ms a step, peak {peak:.2f} GB, launches a "
+          f"step: " + ", ".join(f"{k} {v:g}" for k, v in launches.items()))
+    return ms, launches, peak, out
+
+
+# K3's calls checked against the twins, by (B, H, T, D, dtype, causal): the
+# largest max |kernel - twin| / max |twin| of each output
+K3_TWIN_CHECKED = {}
+
+
+def _k3_key(shape, dtype, causal):
+    return (f"{'x'.join(map(str, shape))} {str(dtype)[6:]} "
+            f"{'causal' if causal else 'full'}")
+
+
+def k3_twin_check(shape, dtype, causal, device, gen, tag):
+    """K3's three kernels against their twins on seeded q, k and v views of
+    one projection at ``shape``: every output within K3's tolerances
+    (correctness only).  Records the readings in :data:`K3_TWIN_CHECKED`;
+    returns each kernel's max |kernel - twin|."""
+    from bluefog_tpu_torch.ops import flash_kernel as fk
+
+    b, h, t, d = shape
+    kw = {"causal": causal, "scale": 1.0 / math.sqrt(d)}
+    q, k, v = _qkv_views(b, h, t, d, dtype, gen, device)
+    do = torch.randn(b, h, t, d, generator=gen, device=device).to(dtype)
+    o_p, l_p, m_p = fk.flash_forward_plain(q, k, v, **kw)
+    dq_p, di_p = fk.flash_backward_dq_plain(q, k, v, do, l_p, m_p, o_p, **kw)
+    dk_p, dv_p = fk.flash_backward_dkv_plain(q, k, v, do, l_p, m_p, di_p,
+                                             **kw)
+    o, l, m = fk.flash_forward(q, k, v, **kw)
+    dq, di = fk.flash_backward_dq(q, k, v, do, l_p, m_p, o_p, **kw)
+    dk, dv = fk.flash_backward_dkv(q, k, v, do, l_p, m_p, di_p, **kw)
+    tol = K3_TOL[dtype]
+    err, rels, readings = {}, {}, []
+    for name, got, ref, lim, kern in (
+            ("o", o, o_p, tol["o"], "fwd"),
+            ("l", l, l_p, K3_RESIDUAL_TOL, "fwd"),
+            ("m", m, m_p, K3_RESIDUAL_TOL, "fwd"),
+            ("di", di, di_p, K3_RESIDUAL_TOL, "dq"),
+            ("dq", dq, dq_p, tol["grad"], "dq"),
+            ("dk", dk, dk_p, tol["grad"], "dkv"),
+            ("dv", dv, dv_p, tol["grad"], "dkv")):
+        abs_err, rel = _rel(got, ref)
+        readings.append(f"{name} {rel:.2e}/{lim:.1e}")
+        check(math.isfinite(rel) and rel <= lim,
+              f"K3 {name} disagrees with its twin at {shape} "
+              f"{str(dtype)[6:]} causal={causal}: {rel} > {lim}")
+        err[kern] = max(err.get(kern, 0.0), abs_err)
+        rels[name] = rel
+    key = _k3_key(shape, dtype, causal)
+    K3_TWIN_CHECKED[key] = rels
+    print(f"[{tag}] K3 at {key}: max |kernel - twin| / max |twin| (tol): "
+          f"{', '.join(readings)}")
+    return err
+
+
+@contextlib.contextmanager
+def k3_calls(seen):
+    """Adds the (shape, dtype, causal) of every K3 call inside to ``seen``:
+    the forward's q, whose shape the backward's launches share."""
+    from bluefog_tpu_torch.ops import flash_kernel as fk
+
+    fwd = fk.FlashAttention.forward
+
+    def forward(ctx, q, k, v, causal, scale):
+        seen.add((tuple(q.shape), q.dtype, causal))
+        return fwd(ctx, q, k, v, causal, scale)
+
+    fk.FlashAttention.forward = staticmethod(forward)
+    try:
+        yield seen
+    finally:
+        fk.FlashAttention.forward = staticmethod(fwd)
+
+
+def check_k3_calls(seen, device, tag):
+    """K3 against its twins at each shape a path gave it that no earlier
+    check took (correctness only)."""
+    gen = torch.Generator(device=device).manual_seed(24)
+    shapes = sorted(seen, key=str)
+    for shape, dtype, causal in shapes:
+        if _k3_key(shape, dtype, causal) not in K3_TWIN_CHECKED:
+            k3_twin_check(shape, dtype, causal, device, gen, tag)
+    torch.cuda.empty_cache()
+    keys = [_k3_key(*c) for c in shapes]
+    print(f"[{tag}] the path's K3 calls, each held against the twins: "
+          f"{keys}")
+    return keys
+
+
+def phase_k3_shapes(device):
+    """K3's three kernels against their twins at the new paths' shapes, bf16
+    causal, q, k and v views of one projection: each output within K3's
+    tolerances; the times by device time against the bound, the twin and
+    ``F.scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+    from bluefog_tpu_torch.ops import flash_kernel as fk
+
+    gen = torch.Generator(device=device).manual_seed(2026)
+    out = {}
+    for b, h, t, d in K3_NEW_SHAPES:
+        kw = {"causal": True, "scale": 1.0 / math.sqrt(d)}
+        err = k3_twin_check((b, h, t, d), torch.bfloat16, True, device, gen,
+                            "k3 shapes")
+        q, k, v = _qkv_views(b, h, t, d, torch.bfloat16, gen, device)
+        do = torch.randn(b, h, t, d, generator=gen, device=device).to(
+            torch.bfloat16)
+        o, l, m = fk.flash_forward(q, k, v, **kw)
+        _, di = fk.flash_backward_dq(q, k, v, do, l, m, o, **kw)
+        sdpa = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), reps=10)[0]
+        work = _k3_work(b, h, t, d, True, 2)
+        res = {}
+        for name, kernel, plain in (
+                ("fwd", lambda: fk.flash_forward(q, k, v, **kw),
+                 lambda: fk.flash_forward_plain(q, k, v, **kw)),
+                ("dkv", lambda: fk.flash_backward_dkv(q, k, v, do, l, m, di,
+                                                      **kw),
+                 lambda: fk.flash_backward_dkv_plain(q, k, v, do, l, m, di,
+                                                     **kw)),
+                ("dq", lambda: fk.flash_backward_dq(q, k, v, do, l, m, o,
+                                                    **kw),
+                 lambda: fk.flash_backward_dq_plain(q, k, v, do, l, m, o,
+                                                    **kw))):
+            t_k = device_ms(kernel, reps=10)[0]
+            t_p = time_ms(plain, reps=2, warm=1)
+            n_flops, n_bytes = work[name]
+            bound_ms, bound_by = _bound(n_bytes, n_flops,
+                                        BF16_PEAK_FLOPS_PER_S)
+            lib = sdpa if name == "fwd" else None
+            print(f"[k3 shapes] time {name} ({b}, {h}, {t}, {d}): kernel "
+                  f"{t_k:.4f} ms by device time, twin {t_p:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / t_k:.1%} of "
+                  f"the bound" + (f"; scaled_dot_product_attention "
+                                  f"{lib:.4f} ms" if lib is not None else ""))
+            res[name] = {"max_abs_err": err[name], "ms": t_k, "plain_ms": t_p,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": lib}
+        out[f"{b}x{h}x{t}x{d}"] = res
+        del q, k, v, do, o, l, m, di
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_sequence(device):
+    """Ring (contiguous and zigzag) over 8 virtual ranks of 1024 tokens and
+    Ulysses over 4, GPT-small, batch 1: the logits and one step's
+    gradients against the whole-sequence model (``local_attention`` on the
+    full T, K3), with ``remat`` off and on, in f32 (the math) and in bf16
+    (the path); remat's gradients against no remat's; then AdamW steps in
+    bf16 with and without remat: tokens/s, peak memory, K3's launches."""
+    import torch.nn.functional as F
+    from bluefog_tpu_torch.examples.longcontext_lm import shard_sequence
+    from bluefog_tpu_torch.models.transformer import TransformerLM
+    from bluefog_tpu_torch.ops.ring_attention import (
+        all_to_all_attention, ring_attention, zigzag_unshard)
+    from bluefog_tpu_torch.parallel.axes import Axis
+
+    t0 = time.perf_counter()
+    base = slice_config()
+    gen = torch.Generator(device=device).manual_seed(12)
+    res = {}
+    for kind, n in SP_RANKS.items():
+        zig = kind == "ring-zigzag"
+        axis = Axis("sp", n)
+        attn = (functools.partial(all_to_all_attention, axis=axis,
+                                  causal=True, backend="auto")
+                if kind == "ulysses" else
+                functools.partial(ring_attention, axis=axis, causal=True,
+                                  layout="zigzag" if zig else "contiguous"))
+        ids = torch.randint(0, base.vocab_size, (1, n * SP_T_LOCAL),
+                            generator=gen, device=device)
+        toks, tgts, pos = shard_sequence(ids, n, zig)
+        targets = torch.roll(ids, -1, dims=1)
+        out = {"ranks": n, "tokens": n * SP_T_LOCAL}
+        for dtype in (torch.float32, torch.bfloat16):
+            cfg = dataclasses.replace(base, dtype=dtype)
+            model = TransformerLM(cfg, torch.Generator().manual_seed(0)).to(
+                device)
+            params = list(model.parameters())
+            ref = model(ids)
+            g_ref = torch.autograd.grad(F.cross_entropy(
+                ref.flatten(0, -2), targets.flatten()), params)
+            ref = ref.detach()
+            got = {}
+            for remat in (False, True):
+                model.cfg = dataclasses.replace(cfg, remat=remat)
+                logits = model(toks, attn_fn=attn, positions=pos)
+                g = torch.autograd.grad(F.cross_entropy(
+                    logits.flatten(0, -2), tgts.flatten()), params)
+                logits = logits.detach().transpose(0, 1).flatten(1, 2)
+                got[remat] = (zigzag_unshard(logits, n) if zig else logits,
+                              g)
+                del logits, g
+            tol = SLICE_TOL if dtype == torch.float32 else BF16_SLICE_TOL
+            name = str(dtype)[6:]
+            rd = {"logits": _rel(got[False][0], ref)[1],
+                  "grads": max(_rel(a, b)[1]
+                               for a, b in zip(got[False][1], g_ref)),
+                  "remat_grads": max(_rel(a, b)[1]
+                                     for a, b in zip(got[True][1], g_ref)),
+                  "remat_bit_equal": all(
+                      torch.equal(a, b)
+                      for a, b in zip(got[False][1], got[True][1]))}
+            print(f"[seq {kind}] {name}: against the whole {n * SP_T_LOCAL}"
+                  f"-token sequence, max |diff| / max |ref| logits "
+                  f"{rd['logits']:.3e}, gradients {rd['grads']:.3e}, with "
+                  f"remat {rd['remat_grads']:.3e} (tol {tol:.3e}); remat's "
+                  f"gradients bit-equal to no remat's: "
+                  f"{rd['remat_bit_equal']}")
+            check(max(rd["logits"], rd["grads"], rd["remat_grads"]) <= tol,
+                  f"{kind} ({name}) disagrees with the whole sequence: {rd}")
+            out[name] = rd
+            del ref, g_ref, got
+            if dtype == torch.float32:
+                del model, params
+                torch.cuda.empty_cache()
+        opt = torch.optim.AdamW(params, lr=3e-4, weight_decay=0.01)
+
+        def step():
+            logits = model(toks, attn_fn=attn, positions=pos)
+            loss = F.cross_entropy(logits.flatten(0, -2), tgts.flatten())
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            return float(loss.detach())
+
+        for remat in (False, True):
+            model.cfg = dataclasses.replace(cfg, remat=remat)
+            ms, launches, peak, loss = _timed(
+                step, device, f"seq {kind} remat={remat}")
+            check(math.isfinite(loss), f"{kind}: loss {loss}")
+            k3 = launches["flash_forward"]
+            if kind == "ulysses":
+                want = base.num_layers * (2 if remat else 1)
+                check(k3 == want and launches["flash_backward_dq"]
+                      == base.num_layers, f"Ulysses: K3 launches {launches},"
+                      f" expected {want} forward, {base.num_layers} backward"
+                      " a step")
+            out[f"remat={remat}"] = {
+                "ms": ms, "tokens_s": n * SP_T_LOCAL / ms * 1e3,
+                "peak_gb": peak, "k3_launches": launches}
+            print(f"[seq {kind}] remat={remat}: "
+                  f"{n * SP_T_LOCAL / ms * 1e3:.1f} tokens/s, loss {loss:.4f}")
+        res[kind] = out
+        del model, params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[seq] phase {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def k1_step_parity(opt, tag):
+    """The optimizer's step through K1 against the same step through the
+    plain fold from the same state, so on the same fused buffers: the
+    parameters after the two must be bit-equal (K1 rounds each product and
+    sum on its own, as the plain fold does).  The plain step's state stays.
+    Its launches are not the path's: the caller has read the path's
+    counts."""
+    from bluefog_tpu_torch.ops.gossip_kernel import gossip_mix
+
+    params = [p for g in opt.param_groups for p in g["params"]]
+    state = params + [v for p in params for v in opt.state[p].values()
+                      if torch.is_tensor(v)]
+    snap = [t.detach().clone() for t in state]
+    counters = _counters(opt)
+    before = gossip_mix.launches
+    try:
+        opt.backend = "kernel"
+        opt.step()
+        launched = gossip_mix.launches - before
+        after = [p.detach().clone() for p in params]
+        with torch.no_grad():
+            for t, v in zip(state, snap):
+                t.copy_(v)
+        del snap
+        _restore(opt, counters)
+        opt.backend = "plain"
+        opt.step()
+        torch.cuda.synchronize()
+    finally:
+        opt.backend = "auto"
+    worst = max(_rel(p.detach(), a)[1] for p, a in zip(params, after))
+    equal = all(torch.equal(p.detach(), a) for p, a in zip(params, after))
+    print(f"[{tag}] K1 step ({launched} launches) vs plain-fold step over "
+          f"{len(params)} parameters: max |diff| / max |value| {worst:.3e}, "
+          f"bit-equal (required): {equal}")
+    check(launched > 0, f"{tag}: the K1 step launched no K1")
+    check(equal, f"{tag}: the K1 step differs from the plain step: {worst}")
+    return {"rel_err": worst, "bit_equal": equal, "launches": launched}
+
+
+def _tp_losses(model, params, ids, axis):
+    """Each tp rank's mean next-token loss (the rolled targets)."""
+    import torch.nn.functional as F
+    from torch.func import functional_call
+
+    logits = functional_call(model, params, (ids,), {"axis": axis})
+    tgt = torch.roll(ids, -1, dims=-1).expand(logits.shape[:-1])
+    ce = F.cross_entropy(logits.flatten(0, -2), tgt.flatten(),
+                         reduction="none")
+    return ce.view(logits.shape[0], -1).mean(-1)
+
+
+def phase_tensor(device):
+    """TPTransformerLM at GPT-small's widths.  In f32 on one bf rank's tp
+    group: the parameters gathered and replayed at tp = 1 through the
+    dense TransformerLM give its logits, and tp_value_and_grad's corrected
+    gradients (through the rule table) equal the dense model's.  Then bf 4
+    x tp 2 in bf16, batch 8 x 1024 a bf rank, AdamW 3e-4 (decay 0.01)
+    gossiping over Exponential-2(4) on K1: tokens/s, K3's and K1's
+    launches."""
+    import torch.nn.functional as F
+    from bluefog_tpu_torch import convert
+    from bluefog_tpu_torch.models.transformer import TransformerLM
+    from bluefog_tpu_torch.optim import DistributedNeighborAllreduceOptimizer
+    from bluefog_tpu_torch.parallel import tensor as pt
+    from bluefog_tpu_torch.parallel.axes import Axis
+    from bluefog_tpu_torch.topology import ExponentialTwoGraph
+
+    t0 = time.perf_counter()
+    base = slice_config()
+    gen = torch.Generator(device=device).manual_seed(13)
+    axis = Axis("tp", TP_SIZE, 0)
+    out = {}
+    # parity, f32
+    cfg = dataclasses.replace(base, dtype=torch.float32)
+    mesh = pt.make_hybrid_mesh({"tp": TP_SIZE}, ranks=range(TP_SIZE))
+    model = pt.TPTransformerLM(cfg, mesh).to(device)
+    ids = torch.randint(0, cfg.vocab_size, (PARITY_BATCH, TP_SEQ),
+                        generator=gen, device=device)
+    p = dict(model.named_parameters())
+    losses, grads = pt.tp_value_and_grad(
+        lambda p, i: _tp_losses(model, p, i, axis), model, axis,
+        rule_table=pt.tp_param_rules())(p, ids)
+    full = pt.gather_tp_params(pt.unbox_params(model), model, axis)
+    dense = TransformerLM(cfg).to(device)
+    dense.load_state_dict({k: torch.from_numpy(v) for k, v in
+                           convert.gpt_from_tp({k: v[0] for k, v in
+                                                full.items()}).items()})
+    del full
+    with torch.no_grad():
+        tp_logits = model(ids)
+    logits = dense(ids)
+    loss = F.cross_entropy(logits.flatten(0, -2),
+                           torch.roll(ids, -1, -1).flatten())
+    names, leaves = zip(*dense.named_parameters())
+    want = dict(zip(names, torch.autograd.grad(loss, leaves)))
+    got = {k: torch.from_numpy(v).to(device) for k, v in convert.gpt_from_tp(
+        {k: v[0] for k, v in
+         pt.gather_tp_params(grads, model, axis).items()}).items()}
+    rd = {"logits": max(_rel(tp_logits[r], logits.detach())[1]
+                        for r in range(TP_SIZE)),
+          "grads": _worst(got, want)}
+    print(f"[tp] f32 parity at tp {TP_SIZE}, batch {PARITY_BATCH} x {TP_SEQ}:"
+          f" gathered and replayed at tp = 1 through TransformerLM, logits "
+          f"max |diff| / max |ref| {rd['logits']:.3e}; corrected gradients "
+          f"against the dense model's {rd['grads'][0]:.3e} "
+          f"({rd['grads'][1]}; tol {SLICE_TOL:.3e}); losses "
+          f"{losses.tolist()} / {float(loss.detach()):.6f}")
+    check(rd["logits"] <= SLICE_TOL and rd["grads"][0] <= SLICE_TOL,
+          f"tensor-parallel parity: {rd}")
+    out["parity"] = rd
+    del model, dense, p, grads, got, want, logits, tp_logits, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bf 4 x tp 2 in bf16
+    mesh = pt.make_hybrid_mesh({"bf": TP_BF, "tp": TP_SIZE},
+                               ranks=range(TP_BF * TP_SIZE))
+    model = pt.TPTransformerLM(base, mesh).to(device)
+    params = dict(model.named_parameters())
+    for v in params.values():
+        v.grad = torch.zeros_like(v)
+    opt = DistributedNeighborAllreduceOptimizer(
+        torch.optim.AdamW(list(params.values()), lr=3e-4, weight_decay=0.01),
+        topology=ExponentialTwoGraph(TP_BF))
+    k1_per_step = _launches_a_step(params.values())[0]
+    data = torch.randint(0, base.vocab_size, (TP_BF, TP_BATCH, TP_SEQ),
+                         generator=gen, device=device)
+    value_and_grad = pt.tp_value_and_grad(
+        lambda p, i: _tp_losses(model, p, i, axis), model, axis)
+    history = []
+
+    def step():
+        losses = []
+        for r in range(TP_BF):
+            p_r = {k: v[r] for k, v in params.items()}
+            loss, g = value_and_grad(p_r, data[r])
+            with torch.no_grad():
+                for k, v in params.items():
+                    v.grad[r].copy_(g[k])
+            losses.append(loss.mean())
+        opt.step()
+        history.append(float(torch.stack(losses).mean()))
+        return history[-1]
+
+    ms, launches, peak, loss = _timed(
+        step, device, f"tp bf {TP_BF} x tp {TP_SIZE}")
+    tokens_s = TP_BF * TP_BATCH * TP_SEQ / ms * 1e3
+    want_k3 = base.num_layers * TP_BF
+    check(launches["flash_forward"] == want_k3
+          and launches["flash_backward_dq"] == want_k3
+          and launches["flash_backward_dkv"] == want_k3,
+          f"tp: K3 launches {launches}, expected {want_k3} a step")
+    check(launches["gossip_mix"] == k1_per_step,
+          f"tp: K1 launches {launches['gossip_mix']}, expected {k1_per_step}")
+    check(all(math.isfinite(x) for x in history), f"tp losses {history}")
+    out["k1_parity"] = k1_step_parity(opt, "tp")
+    print(f"[tp] {tokens_s:.1f} tokens/s over the {TP_BF} bf ranks; K3 at "
+          f"({TP_SIZE * TP_BATCH}, {base.num_heads // TP_SIZE}, {TP_SEQ}, "
+          f"{base.hidden_size // base.num_heads}); losses {history}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    out.update(ms=ms, tokens_s=tokens_s, peak_gb=peak, launches=launches,
+               losses=history)
+    del model, params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _causal_auto(q, k, v):
+    from bluefog_tpu_torch.ops.ring_attention import local_attention
+
+    return local_attention(q, k, v, causal=True, backend="auto")
+
+
+def phase_hybrid(device):
+    """dp 2 x pp 2 x tp 2 on GPT-small's 12 TPBlocks, 6 a stage: each dp
+    rank's (pp, tp) group runs M = 4 microbatches of 2 x 1024 under 1F1B and
+    under GPipe, the tokens embedded before injection and the head folded
+    into the loss.  In f32, both schedules' corrected gradients against each
+    other and against the unpipelined TP step's; in bf16 the two schedules
+    again, each one's peak memory, tokens/s and K3's launches; then an SGD
+    step of both dp ranks gossiped over dp on K1."""
+    import torch.nn.functional as F
+    from torch.func import functional_call
+    from bluefog_tpu_torch.ops.collectives import (
+        fuse_apply, neighbor_allreduce)
+    from bluefog_tpu_torch.parallel import pipeline as pp
+    from bluefog_tpu_torch.parallel import tensor as pt
+    from bluefog_tpu_torch.parallel.axes import Axis
+    from bluefog_tpu_torch.topology import ExponentialTwoGraph
+
+    t0 = time.perf_counter()
+    base = slice_config()
+    n_l = base.num_layers // HYB_PP
+    mesh = pt.make_hybrid_mesh({"bf": HYB_DP, "tp": HYB_TP},
+                               ranks=range(HYB_DP * HYB_TP))
+    tp_in_stage, tp_axis = Axis("tp", HYB_TP, 1), Axis("tp", HYB_TP, 0)
+    stage_axis = Axis("pp", HYB_PP, 0)
+    gen = torch.Generator(device=device).manual_seed(14)
+    ids = torch.randint(0, base.vocab_size,
+                        (HYB_DP, HYB_MICRO * HYB_MB, TP_SEQ), generator=gen,
+                        device=device)
+    n_tok = HYB_MICRO * HYB_MB * TP_SEQ
+
+    def head_loss(head, y, tgt):
+        # y (tp, mb, T, C): each tp rank's copy of the last stage's output;
+        # the sum over the ranks of each one's loss on the dp rank's tokens
+        z = F.layer_norm(y.float(), y.shape[-1:], eps=1e-6)
+        z = z * head["scale"][:, None, None] + head["bias"][:, None, None]
+        logits = torch.matmul(z.flatten(1, 2), head["kernel"])
+        ce = F.cross_entropy(logits.flatten(0, 1),
+                             tgt.flatten().repeat(HYB_TP), reduction="sum")
+        return ce / n_tok
+
+    def runner(model):
+        params = dict(model.named_parameters())
+        suffixes = [k[len("block_0."):] for k in params
+                    if k.startswith("block_0.")]
+        block, dtype = model.block_0, model.cfg.dtype
+
+        def stage_fn(sp, x):
+            for i in range(n_l):
+                x = functional_call(
+                    block, {s: v[:, :, i] for s, v in sp.items()},
+                    (x, _causal_auto), {"axis": tp_in_stage})
+            return x
+
+        def run(schedule, r):
+            """One dp rank's pipelined step: (its loss, its corrected
+            gradients keyed like the model's parameters)."""
+            p = {k: v[r] for k, v in params.items()}
+            sp = {s: torch.stack([torch.stack(
+                [p[f"block_{st * n_l + i}.{s}"] for i in range(n_l)], dim=1)
+                for st in range(HYB_PP)]) for s in suffixes}
+            tok = p["tok.embedding"].detach().requires_grad_()
+            pos = p["pos.embedding"].detach().requires_grad_()
+            rows = torch.arange(HYB_TP, device=device)[:, None, None]
+            x = (tok[rows, ids[r]] + pos[:, :TP_SEQ][:, None]).to(dtype)
+            xs = x.unflatten(1, (HYB_MICRO, HYB_MB)).transpose(0, 1)
+            tgt = torch.roll(ids[r], -1, dims=-1).unflatten(
+                0, (HYB_MICRO, HYB_MB))
+            head = {"scale": p["ln_f.scale"], "bias": p["ln_f.bias"],
+                    "kernel": p["lm_head.kernel"]}
+            fn = (pp.pipeline_train_step_1f1b if schedule == "1f1b"
+                  else pp.pipeline_train_step_gpipe)
+            loss, sg, hg, dxs = fn(stage_fn, sp, xs.detach(), tgt, head_loss,
+                                   axis=stage_axis, head_params=head,
+                                   collect_input_grads=True)
+            torch.autograd.backward(xs, dxs)
+            raw = {"tok.embedding": tok.grad, "pos.embedding": pos.grad,
+                   "ln_f.scale": hg["scale"], "ln_f.bias": hg["bias"],
+                   "lm_head.kernel": hg["kernel"]}
+            for st in range(HYB_PP):
+                for i in range(n_l):
+                    for s in suffixes:
+                        raw[f"block_{st * n_l + i}.{s}"] = sg[s][st, :, i]
+            # the loss summed the tp ranks' copies
+            return (float(loss) / HYB_TP,
+                    pt.tp_correct_grads(raw, model, tp_axis))
+        return params, run
+
+    res = {}
+    # f32: the schedules against each other and against the TP step
+    model = pt.TPTransformerLM(dataclasses.replace(base, dtype=torch.float32),
+                               mesh).to(device)
+    params, run = runner(model)
+    f32 = {s: run(s, 0) for s in ("1f1b", "gpipe")}
+    tp_loss, tp_grads = pt.tp_value_and_grad(
+        lambda p, i: _tp_losses(model, p, i, tp_axis), model, tp_axis)(
+            {k: v[0] for k, v in params.items()}, ids[0])
+    between = _worst(f32["1f1b"][1], f32["gpipe"][1])
+    against = _worst(f32["gpipe"][1], tp_grads)
+    print(f"[hybrid] f32, dp {HYB_DP} x pp {HYB_PP} x tp {HYB_TP}, M = "
+          f"{HYB_MICRO} x {HYB_MB} x {TP_SEQ}: losses 1F1B "
+          f"{f32['1f1b'][0]:.6f}, GPipe {f32['gpipe'][0]:.6f}, unpipelined "
+          f"{float(tp_loss[0]):.6f}; corrected gradients 1F1B vs GPipe "
+          f"{between[0]:.3e} ({between[1]}), GPipe vs the TP step "
+          f"{against[0]:.3e} ({against[1]}; tol {SLICE_TOL:.1e})")
+    check(between[0] <= SLICE_TOL and against[0] <= SLICE_TOL,
+          f"hybrid f32 gradients disagree: {between}, {against}")
+    res.update(f32_between=between[0], f32_against_tp=against[0])
+    del model, params, run, f32, tp_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bf16: the schedules' memory and time, and the dp step
+    model = pt.TPTransformerLM(base, mesh).to(device)
+    params, run = runner(model)
+    grads = {}
+    for schedule in ("1f1b", "gpipe"):
+        ms, launches, peak, (loss, g) = _timed(
+            lambda: run(schedule, 0), device, f"hybrid {schedule}")
+        check(launches["flash_forward"] > 0
+              and launches["flash_backward_dq"] > 0
+              and launches["flash_backward_dkv"] > 0,
+              f"hybrid {schedule}: K3 launches {launches}")
+        check(math.isfinite(loss), f"hybrid {schedule}: loss {loss}")
+        grads[schedule] = g
+        res[schedule] = {"ms": ms, "peak_gb": peak, "launches": launches,
+                         "loss": loss, "tokens_s": n_tok / ms * 1e3}
+    between = _worst(grads["1f1b"], grads["gpipe"])
+    print(f"[hybrid] bf16: 1F1B vs GPipe corrected gradients "
+          f"{between[0]:.3e} ({between[1]}; tol {SLICE_TOL:.1e}); peak 1F1B "
+          f"{res['1f1b']['peak_gb']:.2f} GB, GPipe "
+          f"{res['gpipe']['peak_gb']:.2f} GB; "
+          f"{res['1f1b']['tokens_s']:.1f} / {res['gpipe']['tokens_s']:.1f} "
+          f"tokens/s a dp rank")
+    check(between[0] <= SLICE_TOL, f"hybrid bf16 schedules disagree: "
+          f"{between}")
+    res["bf16_between"] = between[0]
+    del grads
+    sched = ExponentialTwoGraph(HYB_DP)
+    _zero_launches()
+    new = {k: torch.empty_like(v) for k, v in params.items()}
+    for r in range(HYB_DP):
+        _, g = run("gpipe", r)
+        with torch.no_grad():
+            for k, v in params.items():
+                new[k][r] = v[r] - 0.1 * g[k]
+    with torch.no_grad():
+        mixed = fuse_apply(lambda t: neighbor_allreduce(t, sched,
+                                                        backend="kernel"),
+                           new)
+    torch.cuda.synchronize(device)
+    res["dp_step_launches"] = _launches()
+    check(res["dp_step_launches"]["gossip_mix"] > 0,
+          "hybrid: the dp gossip launched no K1")
+    check(all(bool(torch.isfinite(v).all()) for v in mixed.values()),
+          "hybrid: non-finite parameters after the dp step")
+    # the plain fold on the same fused buffers: bit for bit
+    with torch.no_grad():
+        plain = fuse_apply(lambda t: neighbor_allreduce(t, sched,
+                                                        backend="plain"),
+                           new)
+    worst = _worst(mixed, plain)
+    equal = all(torch.equal(mixed[k], plain[k]) for k in plain)
+    print(f"[hybrid] the dp gossip through K1 vs the plain fold over "
+          f"{len(plain)} parameters: max |diff| / max |value| {worst[0]:.3e}"
+          f", bit-equal (required): {equal}")
+    check(equal, f"hybrid: K1's dp gossip differs from the plain fold: "
+          f"{worst}")
+    res["k1_parity"] = {"rel_err": worst[0], "bit_equal": equal}
+    del plain
+    print(f"[hybrid] the dp step (GPipe on both dp ranks, SGD, gossip over "
+          f"dp): launches {res['dp_step_launches']}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    del model, params, run, new, mixed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def moe_routing(model, cfg, p0, ids, axis, tag):
+    """Where the MoE path's tokens go: one forward of a dp rank's
+    parameters on its tokens ``ids`` (ep, B, T), and for each layer the
+    dropped fraction, each expert's load (the mean over the ep ranks) and
+    the mean cosine between the last T/2 tokens of a sequence at the
+    layer's input; the first layer's router on the embeddings alone (before
+    any attention) beside it.  Then ``expert_parallel_ffn`` against
+    ``moe_ffn_reference`` on the inputs of the layer that drops the most,
+    at the path's own capacity, in f32: the same tokens dropped (each
+    rank's queues its own: the reference's leading dimension), the outputs
+    within the slice's tolerance."""
+    import torch.nn.functional as F
+    from torch.func import functional_call
+    from bluefog_tpu_torch.models import moe as pmm
+    from bluefog_tpu_torch.ops import moe as pmoe
+
+    layers = [m for m in model.modules() if isinstance(m, pmm.MoEMLP)]
+    inputs = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, a: inputs.append(a[0].detach())) for m in layers]
+    try:
+        with torch.no_grad():
+            functional_call(model, p0, (ids,))
+    finally:
+        for h in hooks:
+            h.remove()
+    e, c = cfg.num_experts, cfg.gpt.hidden_size
+    t_local = ids[0].numel()
+    cap = cfg.capacity(t_local)
+    out = {"capacity": cap, "layers": []}
+    with torch.no_grad():
+        seq = torch.arange(ids.shape[-1], device=ids.device)
+        emb = (functional_call(model.tok, {"weight": p0["tok.weight"]},
+                               (ids,))
+               + functional_call(model.pos, {"weight": p0["pos.weight"]},
+                                 (seq,)))
+        ln = functional_call(
+            model.blocks[0].ln2, {"weight": p0["block_0.ln2.weight"],
+                                  "bias": p0["block_0.ln2.bias"]}, (emb,))
+        m0 = pmoe.get_router(cfg.router)(
+            ln.reshape(cfg.ep_size, -1, c), p0["block_0.mlp.router"],
+            num_experts=e, capacity=cap).metrics
+        out["embeddings"] = {
+            "dropped": float(m0["dropped_frac"].mean()),
+            "load": m0["expert_load"].mean(0).tolist()}
+        print(f"[{tag}] routing of the embeddings alone (layer 0's router "
+              f"on its LayerNorm of tok + pos): dropped "
+              f"{out['embeddings']['dropped']:.4f}, expert load "
+              f"{[round(v, 3) for v in out['embeddings']['load']]}")
+        del emb, ln
+        for i, (mt, x) in enumerate(zip(pmm.moe_metrics(model), inputs)):
+            tail = F.normalize(x[..., x.shape[-2] // 2:, :].float(), dim=-1)
+            cos = float((tail @ tail.transpose(-1, -2)).mean())
+            row = {"dropped": float(mt["dropped_frac"].mean()),
+                   "load": mt["expert_load"].mean(0).tolist(), "cos": cos}
+            out["layers"].append(row)
+            print(f"[{tag}] layer {i}: dropped {row['dropped']:.4f}, expert "
+                  f"load {[round(v, 3) for v in row['load']]}, mean cosine "
+                  f"of a sequence's last {x.shape[-2] // 2} tokens "
+                  f"{cos:.3f}")
+            del tail
+        worst = max(range(len(inputs)),
+                    key=lambda i: out["layers"][i]["dropped"])
+        x = inputs[worst].reshape(cfg.ep_size, t_local, c).float()
+        del inputs
+        pre = f"block_{worst}.mlp."
+        router, wi, wo = (p0[pre + n].float() for n in ("router", "wi", "wo"))
+        y, _, m = pmoe.expert_parallel_ffn(
+            x, router, wi, wo, axis=axis, num_experts=e, capacity=cap,
+            router=cfg.router)
+        ref, _, m_ref = pmoe.moe_ffn_reference(
+            x, router, wi.flatten(0, 1), wo.flatten(0, 1), num_experts=e,
+            capacity=cap, router=cfg.router)
+        rel = _rel(y, ref)[1]
+        drop, drop_ref = (float(v["dropped_frac"].mean()) for v in (m, m_ref))
+        print(f"[{tag}] expert_parallel_ffn against moe_ffn_reference on "
+              f"layer {worst}'s inputs ({cfg.ep_size} x {t_local} tokens) at "
+              f"the path's capacity {cap}, f32: max |diff| / max |ref| "
+              f"{rel:.3e} (tol {SLICE_TOL:.1e}); dropped {drop:.4f} / "
+              f"{drop_ref:.4f}")
+        check(drop > 0 and drop == drop_ref,
+              f"{tag}: the FFN check dropped {drop} / {drop_ref} tokens")
+        check(rel <= SLICE_TOL, f"{tag}: expert_parallel_ffn at the path's "
+              f"capacity: {rel}")
+        out["ffn_at_capacity"] = {"layer": worst, "rel_err": rel,
+                                  "dropped": drop}
+        del x, y, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe(device):
+    """Switch-MoE at GPT-small's widths, 8 experts.  In f32,
+    ``expert_parallel_ffn`` over ep 4 against ``moe_ffn_reference`` on the
+    same 4 x 512 tokens at ample capacity, both routers.  Then
+    ``MoETransformerLM``, top-1 and top-2, dp 2 x ep 4, batch 4 x 1024 a
+    rank in bf16, AdamW 3e-4 (decay 0.01) gossiping over dp on K1: the
+    (T, E, C) dispatch memory reckoned first, the dropped fraction,
+    tokens/s, K3's and K1's launches."""
+    from torch.func import functional_call
+    from bluefog_tpu_torch.models import moe as pmm
+    from bluefog_tpu_torch.ops import moe as pmoe
+    from bluefog_tpu_torch.optim import DistributedNeighborAllreduceOptimizer
+    from bluefog_tpu_torch.parallel.axes import Axis
+    from bluefog_tpu_torch.topology import ExponentialTwoGraph
+
+    t0 = time.perf_counter()
+    base = slice_config()
+    gen = torch.Generator(device=device).manual_seed(15)
+    c, e = base.hidden_size, MOE_EXPERTS
+    hidden = base.mlp_ratio * c
+    axis = Axis("ep", MOE_EP, 0)
+    res = {}
+    x = torch.randn(MOE_EP, MOE_CHECK_TOKENS, c, generator=gen, device=device)
+    rk = torch.randn(c, e, generator=gen, device=device) / math.sqrt(c)
+    wi = torch.randn(e, c, hidden, generator=gen, device=device) / math.sqrt(c)
+    wo = torch.randn(e, hidden, c, generator=gen, device=device) / math.sqrt(
+        hidden)
+    for router in ("top1", "top2"):
+        k = 2 if router == "top2" else 1
+        y, _, m = pmoe.expert_parallel_ffn(
+            x, rk, wi.view(MOE_EP, e // MOE_EP, c, hidden),
+            wo.view(MOE_EP, e // MOE_EP, hidden, c), axis=axis,
+            num_experts=e, capacity=k * MOE_CHECK_TOKENS, router=router)
+        ref, _, _ = pmoe.moe_ffn_reference(
+            x.reshape(-1, c), rk, wi, wo, num_experts=e,
+            capacity=k * MOE_EP * MOE_CHECK_TOKENS, router=router)
+        rel = _rel(y.reshape(-1, c), ref)[1]
+        print(f"[moe] expert_parallel_ffn ({router}) against "
+              f"moe_ffn_reference on {MOE_EP} x {MOE_CHECK_TOKENS} tokens, "
+              f"f32: max |diff| / max |ref| {rel:.3e} (tol {SLICE_TOL:.1e}); "
+              f"dropped {float(m['dropped_frac'].mean()):.4f}")
+        check(rel <= SLICE_TOL, f"expert_parallel_ffn ({router}): {rel}")
+        res[f"ffn_{router}"] = rel
+    del x, wi, wo, y, ref
+    tokens = MOE_BATCH * MOE_SEQ
+    data = torch.randint(0, base.vocab_size,
+                         (MOE_DP, MOE_EP, MOE_BATCH, MOE_SEQ), generator=gen,
+                         device=device)
+    for router in ("top1", "top2"):
+        cfg = pmm.MoEConfig(gpt=base, num_experts=e, ep_size=MOE_EP,
+                            router=router)
+        cap = cfg.capacity(tokens)
+        tec = MOE_EP * tokens * e * cap * 4
+        print(f"[moe {router}] (T, E, C) = ({tokens}, {e}, {cap}) a rank: "
+              f"{tec / 1e9:.3f} GB in f32 for the group's dispatch (the "
+              f"same for combine and each slot tensor) a layer, x "
+              f"{base.num_layers} layers")
+        model = pmm.MoETransformerLM(cfg).to(device)
+        params = {k: v.detach().unsqueeze(0).expand(MOE_DP, *v.shape)
+                  .clone().requires_grad_()
+                  for k, v in model.named_parameters()}
+        for v in params.values():
+            v.grad = torch.zeros_like(v)
+        opt = DistributedNeighborAllreduceOptimizer(
+            torch.optim.AdamW(list(params.values()), lr=3e-4,
+                              weight_decay=0.01),
+            topology=ExponentialTwoGraph(MOE_DP))
+        k1_per_step = _launches_a_step(params.values())[0]
+        history, dropped = [], []
+
+        def step():
+            losses, drops = [], []
+            for r in range(MOE_DP):
+                p_r = {k: v[r] for k, v in params.items()}
+                ids = data[r]
+                logits = functional_call(model, p_r, (ids,))
+                loss = pmm.moe_lm_loss(model, logits,
+                                       torch.roll(ids, -1, dims=-1), cfg)
+                g = torch.autograd.grad(loss, list(p_r.values()))
+                with torch.no_grad():
+                    for v, gv in zip(params.values(), g):
+                        v.grad[r].copy_(gv)
+                losses.append(float(loss.detach()))
+                drops.append(float(torch.stack([
+                    mt["dropped_frac"].mean()
+                    for mt in pmm.moe_metrics(model)]).mean()))
+            opt.step()
+            history.append(sum(losses) / MOE_DP)
+            dropped.append(sum(drops) / MOE_DP)
+            return history[-1]
+
+        ms, launches, peak, _ = _timed(step, device, f"moe {router}")
+        want_k3 = base.num_layers * MOE_DP
+        check(launches["flash_forward"] == want_k3
+              and launches["flash_backward_dkv"] == want_k3,
+              f"moe {router}: K3 launches {launches}, expected {want_k3}")
+        check(launches["gossip_mix"] == k1_per_step,
+              f"moe {router}: K1 launches {launches['gossip_mix']}, "
+              f"expected {k1_per_step}")
+        check(all(math.isfinite(v) for v in history),
+              f"moe {router}: losses {history}")
+        parity = k1_step_parity(opt, f"moe {router}")
+        routing = moe_routing(model, cfg, {k: v[0] for k, v in
+                                           params.items()}, data[0], axis,
+                              f"moe {router}")
+        tokens_s = MOE_DP * MOE_EP * tokens / ms * 1e3
+        print(f"[moe {router}] dp {MOE_DP} x ep {MOE_EP}: {tokens_s:.1f} "
+              f"tokens/s, dropped fraction {dropped[-1]:.4f}, losses "
+              f"{history}, K3 at ({MOE_EP * MOE_BATCH}, {base.num_heads}, "
+              f"{MOE_SEQ}, {base.hidden_size // base.num_heads})")
+        res[router] = {"ms": ms, "tokens_s": tokens_s, "peak_gb": peak,
+                       "launches": launches, "dropped": dropped[-1],
+                       "capacity": cap, "losses": history,
+                       "k1_parity": parity, "routing": routing}
+        del model, params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[moe] phase {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def phase_longcontext():
+    """``examples.longcontext_lm`` at its defaults on the card, once for
+    each ``--attn``, each ending OK."""
+    from bluefog_tpu_torch.examples import longcontext_lm as lc
+
+    res = {}
+    for kind in lc.ATTNS:
+        t0 = time.perf_counter()
+        out = lc.main(["--attn", kind])
+        res[kind] = {"s": time.perf_counter() - t0,
+                     "tokens_s": out["tokens_s"], "first": out["losses"][0],
+                     "last": out["losses"][-1]}
+        check(out["ok"], f"longcontext_lm --attn {kind} did not reach OK: "
+              f"{out['losses'][0]} -> {out['losses'][-1]}")
+        print(f"[longcontext] --attn {kind}: OK, loss {res[kind]['first']:.3f}"
+              f" -> {res[kind]['last']:.4f}, {res[kind]['s']:.1f} s")
+    return res
+
+
 def main():
     # cuBLAS's deterministic workspace for the deterministic BERT phases,
     # set before any handle exists (the processes of phase 1b inherit it)
@@ -3568,6 +4535,9 @@ def main():
     push_launches = phase_pushsum(device, win_len)
 
     k3 = phase_k3(device)
+    # phase 24 here, beside phase 7: later in the script torch.profiler's
+    # traces of these calls came back empty (an H100 run, after phase 22)
+    k3_shapes = phase_k3_shapes(device)
     torch.cuda.empty_cache()
     k3_launches = phase_gpt(device)
 
@@ -3589,6 +4559,18 @@ def main():
     ckpt = phase_checkpoint()
     vit = phase_vit(device)
 
+    # every shape these paths hand K3 is held against the twins after them
+    k3_paths = {}
+    for tag, phase in (("seq", phase_sequence), ("tp", phase_tensor),
+                       ("hybrid", phase_hybrid), ("moe", phase_moe),
+                       ("longcontext", lambda _: phase_longcontext())):
+        seen = set()
+        with k3_calls(seen):
+            k3_paths[tag] = phase(device)
+        k3_paths[tag + "_k3_calls"] = check_k3_calls(seen, device, tag)
+    seq, tensor, hybrid, moe, longctx = (
+        k3_paths[t] for t in ("seq", "tp", "hybrid", "moe", "longcontext"))
+
     sl = procs[SLICE_PROCESSES]["slice"]
     fa = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     via = "(via bluefog_tpu/ops/ring_attention.py:122)"
@@ -3607,7 +4589,16 @@ def main():
             "bert_finetune": bert_ft["one_level"]["launches"],
             **{f"gate_{k}": v["launches"] for k, v in gates.items()},
             "elastic_resume": ckpt["elastic"]["launches"],
-            "vit": vit["launches"]},
+            "vit": vit["launches"],
+            "tp": tensor["launches"]["gossip_mix"],
+            "hybrid_dp_step": hybrid["dp_step_launches"]["gossip_mix"],
+            **{f"moe_{r}": moe[r]["launches"]["gossip_mix"]
+               for r in ("top1", "top2")}},
+        "plain_fold_bit_equal_on_slice_paths": {
+            "tp": tensor["k1_parity"]["bit_equal"],
+            "hybrid_dp_step": hybrid["k1_parity"]["bit_equal"],
+            **{f"moe_{r}": moe[r]["k1_parity"]["bit_equal"]
+               for r in ("top1", "top2")}},
         "non_circulant": routing,
         "bert_machine_rows": bert["k1"],
     }, {
@@ -3659,10 +4650,26 @@ def main():
         "launches": k3_launches[name],
         **k3[part],
         "launches_over_processes": sl["gpt"]["k3"][i],
-    } for i, (name, part, src, line) in enumerate((
-        ("flash_forward", "fwd", "flash_attention.cu", 589),
-        ("flash_backward_dkv", "dkv", "flash_attention_bwd.cu", 941),
-        ("flash_backward_dq", "dq", "flash_attention_bwd.cu", 1287)))]
+        "launches_on_slice_paths": {
+            "tp": tensor["launches"][name],
+            **{f"ulysses_remat={r}": seq["ulysses"][f"remat={r}"][
+                "k3_launches"][name] for r in (False, True)},
+            **{f"hybrid_{s}": hybrid[s]["launches"][name]
+               for s in ("1f1b", "gpipe")},
+            **{f"moe_{r}": moe[r]["launches"][name]
+               for r in ("top1", "top2")}},
+        "new_shapes": {shape: v[part] for shape, v in k3_shapes.items()},
+        "twin_checked": {key: max(rels[o] for o in outs)
+                         for key, rels in K3_TWIN_CHECKED.items()},
+        "twin_checked_on_paths": {
+            tag: k3_paths[tag + "_k3_calls"]
+            for tag in ("seq", "tp", "hybrid", "moe", "longcontext")},
+    } for i, (name, part, src, line, outs) in enumerate((
+        ("flash_forward", "fwd", "flash_attention.cu", 589, ("o", "l", "m")),
+        ("flash_backward_dkv", "dkv", "flash_attention_bwd.cu", 941,
+         ("dk", "dv")),
+        ("flash_backward_dq", "dq", "flash_attention_bwd.cu", 1287,
+         ("dq", "di"))))]
     print("kernels: K1 gossip_mix (cuda, bluefog_tpu_torch/csrc/gossip_mix.cu"
           f", replaces neighbor_allreduce_pallas): {k1_launches} launches on "
           f"the main path, {k1['ms']:.4f} ms per step against a "
@@ -3738,6 +4745,37 @@ def main():
           f"{ckpt['resume']['load_ms']:.1f} ms; elastic gap "
           f"{ckpt['elastic']['gap']:.4f}; ViT-base {vit['img_s']:.1f} img/s, "
           f"K3 launches {vit['k3_launches']}")
+    print("sequence, tensor, pipeline and expert parallelism: "
+          + "; ".join(
+              f"{kind} over {v['ranks']} ranks {v['remat=False']['tokens_s']:.1f}"
+              f" tokens/s ({v['remat=True']['tokens_s']:.1f} with remat), "
+              f"peak {v['remat=False']['peak_gb']:.2f} / "
+              f"{v['remat=True']['peak_gb']:.2f} GB, f32 logits "
+              f"{v['float32']['logits']:.2e} and gradients "
+              f"{v['float32']['grads']:.2e} of the whole sequence's, remat "
+              f"bit-equal {v['bfloat16']['remat_bit_equal']}"
+              for kind, v in seq.items())
+          + f"; TP bf {TP_BF} x tp {TP_SIZE} {tensor['tokens_s']:.1f} tokens/s"
+          f" (f32 replay {tensor['parity']['logits']:.2e}, gradients "
+          f"{tensor['parity']['grads'][0]:.2e}); hybrid 1F1B "
+          f"{hybrid['1f1b']['peak_gb']:.2f} GB / GPipe "
+          f"{hybrid['gpipe']['peak_gb']:.2f} GB, "
+          f"{hybrid['1f1b']['tokens_s']:.1f} / "
+          f"{hybrid['gpipe']['tokens_s']:.1f} tokens/s; MoE "
+          + ", ".join(f"{r} {moe[r]['tokens_s']:.1f} tokens/s, dropped "
+                      f"{moe[r]['dropped']:.4f} (embeddings alone "
+                      f"{moe[r]['routing']['embeddings']['dropped']:.4f}), "
+                      f"FFN at capacity "
+                      f"{moe[r]['routing']['ffn_at_capacity']['rel_err']:.2e}"
+                      for r in ("top1", "top2"))
+          + f"; K1 vs the plain fold bit-equal: TP "
+          f"{tensor['k1_parity']['bit_equal']}, hybrid "
+          f"{hybrid['k1_parity']['bit_equal']}, MoE "
+          + "/".join(str(moe[r]["k1_parity"]["bit_equal"])
+                     for r in ("top1", "top2"))
+          + f"; K3 held against its twins at {len(K3_TWIN_CHECKED)} shapes"
+          + "; longcontext_lm "
+          + ", ".join(f"{k} OK in {v['s']:.1f} s" for k, v in longctx.items()))
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -196,9 +196,17 @@ def test_configs_and_gpt_small_shapes_match_jax():
 
 
 def test_remat_and_the_benchmark_model():
-    with pytest.raises(NotImplementedError, match="remat"):
-        ptr.TransformerLM(dataclasses.replace(_port_cfg(torch.float32),
-                                              remat=True))
+    # remat checkpoints each block; through the benchmark's functional_call
+    # loss the gradients are the ones without it, bit for bit
+    ids = torch.from_numpy(_ids()).long()
+    grads = []
+    for remat in (False, True):
+        model = ptr.TransformerLM(dataclasses.replace(
+            _port_cfg(torch.float32), remat=remat))
+        p = dict(model.named_parameters())
+        loss = sb.lm_loss(model, (p, {}), (ids,))
+        grads.append(torch.autograd.grad(loss, list(p.values())))
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
     spec = sb.MODELS["gpt-small"]
     assert spec.tokens and spec.loss is sb.lm_loss
     # the benchmark's loss is the JAX one: targets rolled, not shifted
