@@ -98,6 +98,7 @@ from bluefog_tpu_torch.parallel.api import (
     neighbor_allgather,
     neighbor_allreduce,
     neighbor_allreduce_aperiodic,
+    rank_shard,
     rank_stack,
     win_accumulate,
     win_create,

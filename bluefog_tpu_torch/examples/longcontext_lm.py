@@ -30,6 +30,15 @@ and on the CPU::
 
 It prints ``OK`` when the loss has fallen below 0.7 of its first value, and
 exits with status 1 otherwise.
+
+Under ``bfrun`` (``python -m bluefog_tpu_torch.runtime.launch -np P -m
+bluefog_tpu_torch.examples.longcontext_lm ...``) the ``--ranks`` ranks of
+the axis are spread over the P processes: each holds its block of the
+sequence, the KV rotation or the all-to-all crosses the processes
+(:mod:`bluefog_tpu_torch.parallel.axes`), and each process's gradient of its
+tokens' share of the loss is summed over the processes
+(:func:`~bluefog_tpu_torch.parallel.axes.reduce_partials`) before the step,
+so every process keeps the same parameters.
 """
 
 from __future__ import annotations
@@ -47,7 +56,7 @@ import torch.nn.functional as F
 from bluefog_tpu_torch.models.transformer import GPTConfig, TransformerLM
 from bluefog_tpu_torch.ops.ring_attention import (
     all_to_all_attention, ring_attention, zigzag_shard)
-from bluefog_tpu_torch.parallel.axes import Axis
+from bluefog_tpu_torch.parallel import axes as ax
 from bluefog_tpu_torch.parallel.context import resolve_device
 
 __all__ = ["make_batch", "shard_sequence", "main"]
@@ -98,6 +107,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)
 
+    import bluefog_tpu_torch as bf
+    from bluefog_tpu_torch.runtime.launch import initialize_cluster
+
+    initialize_cluster()
     dev = resolve_device(args.device)
     n = args.ranks
     t_global = n * args.t_local
@@ -110,15 +123,26 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     zigzag = args.attn == "ring-zigzag"
     if zigzag and args.t_local % 2:
         raise SystemExit("--t-local must be even for ring-zigzag")
+    spread = torch.distributed.is_initialized() and (
+        torch.distributed.get_world_size() > 1)
+    axis, talk = ax.Axis("sp", n, 0), True
+    if spread:
+        # each process holds its block of the context's n ranks
+        ctx = bf.init(size=n, device=dev)
+        dev = ctx.device
+        axis = ax.make_hybrid_mesh({"sp": n}).axis("sp")
+        talk = ctx.process_rank == 0
+    own = slice(axis.start, axis.start + axis.local)
 
     cfg = GPTConfig(vocab_size=256, hidden_size=128, num_layers=2,
                     num_heads=8, max_position=t_global, dtype=torch.float32,
                     remat=args.remat)
     model = TransformerLM(cfg, torch.Generator().manual_seed(args.seed)
                           ).to(dev)
-    print(f"ranks={n} global_seq={t_global} attn={args.attn} "
-          f"period={args.period} remat={args.remat} device={dev}")
-    axis = Axis("sp", n, 0)
+    if talk:
+        print(f"ranks={n} global_seq={t_global} attn={args.attn} "
+              f"period={args.period} remat={args.remat} device={dev}"
+              + (f" processes={ctx.process_count}" if spread else ""))
     if args.attn == "ulysses":
         attn = functools.partial(all_to_all_attention, axis=axis,
                                  causal=True, backend="auto")
@@ -128,29 +152,37 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
 
     tokens = torch.from_numpy(make_batch(args.seed + 1, args.batch, t_global,
                                          cfg.vocab_size, args.period)).to(dev)
-    toks, tgts, pos = shard_sequence(tokens, n, zigzag)
+    toks, tgts, pos = (t[own] for t in shard_sequence(tokens, n, zigzag))
     opt = torch.optim.Adam(model.parameters(), lr=args.lr)
+    params = list(model.parameters())
 
     losses = []
     t0 = time.perf_counter()
     for s in range(args.steps):
         logits = model(toks, attn_fn=attn, positions=pos)
-        loss = F.cross_entropy(logits.flatten(0, -2), tgts.flatten())
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
+        # this process's tokens' share of the mean over all of them
+        loss = F.cross_entropy(logits.flatten(0, -2), tgts.flatten(),
+                               reduction="sum") / tokens.numel()
+        grads = torch.autograd.grad(loss, params)
+        *grads, total = ax.reduce_partials([*grads, loss.detach()], axis)
+        for p, g in zip(params, grads):
+            p.grad = g
         opt.step()
-        losses.append(float(loss))
-        if s % 10 == 0 or s == args.steps - 1:
+        losses.append(float(total))
+        if talk and (s % 10 == 0 or s == args.steps - 1):
             print(f"step {s:4d}  loss {losses[-1]:.4f}")
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
     tps = args.steps * args.batch * t_global / dt
-    print(f"\n{tps:,.0f} tokens/s total ({tps / n:,.0f}/rank)  loss "
-          f"{losses[0]:.3f} -> {losses[-1]:.3f}")
     ok = losses[-1] <= 0.7 * losses[0]
-    print("OK: induction learned across shard boundaries" if ok else
-          "FAIL: loss barely moved; cross-shard attention suspect")
+    if talk:
+        print(f"\n{tps:,.0f} tokens/s total ({tps / n:,.0f}/rank)  loss "
+              f"{losses[0]:.3f} -> {losses[-1]:.3f}")
+        print("OK: induction learned across shard boundaries" if ok else
+              "FAIL: loss barely moved; cross-shard attention suspect")
+    if spread:
+        bf.shutdown()
     return {"losses": losses, "tokens_s": tps, "ok": ok}
 
 

@@ -43,6 +43,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
+
 from bluefog_tpu_torch.models.transformer import Dense, Embed, LayerNorm
 
 __all__ = ["BertConfig", "SelfAttention", "EncoderLayer", "BertEncoder"]
@@ -61,7 +64,7 @@ class BertConfig:
     type_vocab_size: int = 2
     dropout_rate: float = 0.1
     dtype: torch.dtype = torch.bfloat16
-    remat: bool = False              # not ported: BertEncoder raises
+    remat: bool = False              # checkpoint each encoder layer
 
     @staticmethod
     def large() -> "BertConfig":
@@ -145,6 +148,35 @@ class EncoderLayer(nn.Module):
         return self.LayerNorm_1(x + y)
 
 
+def _remat_layer(layer: EncoderLayer, x: torch.Tensor, mask, deterministic,
+                 generator) -> torch.Tensor:
+    """``layer(x, ...)`` under a non-reentrant checkpoint of a function of
+    the layer's parameter tensors (whatever ``functional_call`` has swapped
+    in now), as flax's ``nn.remat`` of each layer: only the layer's input
+    stays for the backward, which recomputes the rest.  The recomputation
+    draws the same dropout masks: checkpoint restores the default
+    generators, and an explicit ``generator`` is set back to where the
+    forward found it (and returned to where it stood after)."""
+    names, tensors = zip(*layer.named_parameters())
+    before = None if generator is None else generator.get_state()
+    calls = [0]
+
+    def run(x, *tensors):
+        again = calls[0] > 0 and generator is not None
+        calls[0] += 1
+        now = generator.get_state() if again else None
+        if again:
+            generator.set_state(before)
+        try:
+            return functional_call(layer, dict(zip(names, tensors)),
+                                   (x, mask, deterministic, generator))
+        finally:
+            if again:
+                generator.set_state(now)
+
+    return checkpoint(run, x, *tensors, use_reentrant=False)
+
+
 class BertEncoder(nn.Module):
     """Embeddings, the encoder stack and, with ``num_classes``, the pooled
     classification head: ``(B, S)`` token ids -> ``(B, num_classes)`` f32
@@ -156,12 +188,6 @@ class BertEncoder(nn.Module):
                  *, token_types: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.remat:
-            # as GPTConfig.remat: torch.utils.checkpoint would recompute a
-            # layer outside the trainer's functional_call
-            raise NotImplementedError(
-                "BertConfig.remat is not ported yet (ROADMAP Queue 1 item 6, "
-                "with GPTConfig.remat)")
         self.cfg = cfg
         self.num_classes = num_classes
         c, dt = cfg.hidden_size, cfg.dtype
@@ -207,7 +233,11 @@ class BertEncoder(nn.Module):
         x = self.LayerNorm_0(x)
         x = _dropout(x, cfg.dropout_rate, deterministic, generator)
         for layer in self.layers:
-            x = layer(x, attention_mask, deterministic, generator)
+            if cfg.remat:
+                x = _remat_layer(layer, x, attention_mask, deterministic,
+                                 generator)
+            else:
+                x = layer(x, attention_mask, deterministic, generator)
         if self.num_classes is None:
             return x
         pooled = torch.tanh(self.pooler(x[:, 0]))

@@ -41,7 +41,7 @@ from bluefog_tpu_torch.sharding.rules import (
     PartitionSpec as P, Rule, RuleTable)
 
 __all__ = ["MoEConfig", "MoEMLP", "MoETransformerLM", "moe_param_rules",
-           "moe_aux_losses", "moe_metrics", "moe_lm_loss"]
+           "moe_aux_losses", "moe_metrics", "moe_lm_loss", "set_ep_axis"]
 
 
 def moe_param_rules(ep_axis: str = "ep",
@@ -108,7 +108,9 @@ class MoEMLP(nn.Module):
     and the dense reference path on ``(..., T, D)``; above 1, ``(ep, E / ep,
     ...)`` experts, each rank's drawn from its own stream, and the
     expert-parallel FFN on ``(ep, B, T, D)``.  The router ``(D, E)`` is
-    replicated."""
+    replicated.  :attr:`axis` is the ``ep`` axis the FFN runs over; over
+    processes set it to the mesh's (:func:`set_ep_axis`), and the leading
+    dimension then holds the ranks this process owns."""
 
     def __init__(self, cfg: MoEConfig, seed: int = 0):
         super().__init__()
@@ -130,6 +132,7 @@ class MoEMLP(nn.Module):
         self.wi = nn.Parameter(draw(c, (local_e, c, hidden), 1, lead, fold))
         self.wo = nn.Parameter(draw(hidden, (local_e, hidden, c), 2, lead,
                                     fold))
+        self.axis = Axis(cfg.ep_axis, cfg.ep_size, 0)
         self.last_aux: Optional[torch.Tensor] = None
         self.last_metrics: Dict[str, torch.Tensor] = {}
 
@@ -142,10 +145,9 @@ class MoEMLP(nn.Module):
                 flat, self.router, wi, wo, num_experts=cfg.num_experts,
                 capacity=cfg.capacity(flat.shape[0]), router=cfg.router)
         else:
-            flat = x.reshape(cfg.ep_size, -1, x.shape[-1])
+            flat = x.reshape(self.axis.local, -1, x.shape[-1])
             y, aux, metrics = expert_parallel_ffn(
-                flat, self.router, wi, wo,
-                axis=Axis(cfg.ep_axis, cfg.ep_size, 0),
+                flat, self.router, wi, wo, axis=self.axis,
                 num_experts=cfg.num_experts,
                 capacity=cfg.capacity(flat.shape[1]), router=cfg.router)
         self.last_aux, self.last_metrics = aux, metrics
@@ -164,6 +166,13 @@ def MoETransformerLM(cfg: MoEConfig,
 
 def _moe_layers(model: nn.Module) -> List[MoEMLP]:
     return [m for m in model.modules() if isinstance(m, MoEMLP)]
+
+
+def set_ep_axis(model: nn.Module, axis: Axis) -> None:
+    """Run every MoE layer of ``model`` over ``axis`` (dimension 0), e.g. a
+    mesh's ``ep`` axis whose ranks span processes."""
+    for m in _moe_layers(model):
+        m.axis = axis.at(0)
 
 
 def moe_aux_losses(model: nn.Module) -> List[torch.Tensor]:

@@ -28,6 +28,7 @@ from torch import nn
 
 __all__ = [
     "space_to_depth",
+    "s2d_stem_kernel_from_7x7",
     "Conv",
     "BatchNorm",
     "ResNetBlock",
@@ -53,6 +54,36 @@ def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
     x = x.reshape(n, h // block, block, w // block, block, c)
     x = x.permute(0, 1, 3, 2, 4, 5)
     return x.reshape(n, h // block, w // block, block * block * c)
+
+
+def s2d_stem_kernel_from_7x7(w7: torch.Tensor) -> torch.Tensor:
+    """Embed a ``(K, C, 7, 7)`` stride-2 stem kernel (the ``"conv"`` stem's
+    weight) as the ``(K, 4C, 4, 4)`` stride-1 kernel that computes the same
+    function on :func:`space_to_depth` (2) input with padding (2, 1) (the
+    ``"s2d"`` stem's weight; reference ``resnet.py::
+    s2d_stem_kernel_from_7x7``, there in flax's ``(7, 7, C, K)`` layout).
+
+    With ``z[p, (a 2 + b) C + c] = x[2p + a, 2q + b, c]``, tap ``dp`` of the
+    s2d conv reads ``x[2i + 2dp + a - 4]`` where the stride-2 conv with
+    padding 3 reads ``x[2i + di - 3]``: ``di = 2dp + a - 1``, a bijection
+    from ``(dp, a)`` onto ``di`` in ``-1 .. 6``, whose one slot ``di = -1``
+    stays zero."""
+    k, c, kh, kw = w7.shape
+    if (kh, kw) != (7, 7):
+        raise ValueError(f"a 7x7 stem kernel, got {tuple(w7.shape)}")
+    w4 = w7.new_zeros(k, 4 * c, 4, 4)
+    for dp in range(4):
+        for a in range(2):
+            di = 2 * dp + a - 1
+            if not 0 <= di < 7:
+                continue
+            for dq in range(4):
+                for b in range(2):
+                    dj = 2 * dq + b - 1
+                    if 0 <= dj < 7:
+                        w4[:, (a * 2 + b) * c:(a * 2 + b + 1) * c, dp, dq] = (
+                            w7[:, :, di, dj])
+    return w4
 
 
 def _same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:

@@ -31,7 +31,7 @@ from torch import nn
 
 from bluefog_tpu_torch.models.resnet import _lecun_normal_
 from bluefog_tpu_torch.models.transformer import (
-    AttnFn, Block, Dense, GPTConfig, LayerNorm)
+    AttnFn, Block, Dense, GPTConfig, LayerNorm, TransformerLM)
 from bluefog_tpu_torch.ops.ring_attention import local_attention
 
 __all__ = ["ViTConfig", "ViT"]
@@ -47,7 +47,7 @@ class ViTConfig:
     num_heads: int = 12
     mlp_ratio: int = 4
     dtype: torch.dtype = torch.bfloat16
-    remat: bool = False              # not ported: ViT raises
+    remat: bool = False              # checkpoint each block
 
     @staticmethod
     def base() -> "ViTConfig":
@@ -78,10 +78,6 @@ class ViT(nn.Module):
     def __init__(self, cfg: ViTConfig, in_channels: int = 3,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.remat:
-            raise NotImplementedError(
-                "ViTConfig.remat is not ported yet (ROADMAP Queue 1 item 6, "
-                "with GPTConfig.remat)")
         self.cfg = cfg
         trunk = cfg.trunk()
         c, p = cfg.hidden_size, cfg.patch_size
@@ -127,5 +123,9 @@ class ViT(nn.Module):
         x = torch.cat([self.cls.to(dt).expand(b, 1, c), x], dim=1)
         x = x + self.pos_embed.to(dt)
         for block in self.blocks:
-            x = block(x, attn_fn)
+            if cfg.remat:
+                # flax's nn.remat of each block, as GPTConfig.remat
+                x = TransformerLM._remat_block(block, x, attn_fn)
+            else:
+                x = block(x, attn_fn)
         return self.head(self.ln_f(x[:, 0]))

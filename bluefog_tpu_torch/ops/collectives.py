@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import functools
 import hashlib
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -66,7 +67,7 @@ __all__ = ["fuse_apply", "fuse_plan", "neighbor_allreduce",
            "allreduce",
            "allgather", "broadcast", "barrier", "pair_gossip",
            "neighbor_allgather", "hierarchical_neighbor_allreduce",
-           "hierarchical_neighbor_allreduce_2d"]
+           "hierarchical_neighbor_allreduce_2d", "sharded_neighbor_allreduce"]
 
 
 def fuse_plan(leaves: List[torch.Tensor], threshold_bytes=8 << 20
@@ -358,6 +359,140 @@ def _send_table(send_weights, sched, device) -> torch.Tensor:
             f"send_weights must be ({sched.num_slots},) or "
             f"({sched.size}, {sched.num_slots}), got {tuple(send_w.shape)}")
     return send_w
+
+
+def sharded_neighbor_allreduce(x, schedule, axis_name: str = "bf", *,
+                               rule_table=None, specs=None, inner_axes=None,
+                               **kwargs):
+    """Gossip of meshes (reference ``collectives.py::
+    sharded_neighbor_allreduce``): the gossip step of a hybrid ``(bf,
+    fsdp/tp)`` mesh, where each inner-mesh coordinate exchanges only its own
+    shard with the same coordinate of the neighbour meshes.
+
+    ``x`` is a tree of stacked leaves ``(n, *inner, *local)``: the gossip
+    ranks (``axis_name``) first (over processes, the owned ones), then one
+    dimension per inner axis of ``inner_axes`` (``{axis: size}``, in mesh
+    order; none by default), then each shard.  Gossip is elementwise, so
+    the shards need no other collective: the gossip is
+    :func:`neighbor_allreduce` on the leaves as they are, K1 in one process
+    and K1's peer form over processes, fused into one buffer per dtype as
+    the decentralized optimizers fuse.  What this adds is the rule table's
+    contract:
+
+    - ``rule_table`` (a :class:`~bluefog_tpu_torch.sharding.RuleTable`,
+      resolved on each leaf's shard shape) or a resolved ``specs`` tree
+      declares every leaf's partition, one of them and not both; without
+      either it raises (use :func:`neighbor_allreduce` for unsharded trees);
+    - a spec that shards a leaf over ``axis_name`` raises: the gossip mixes
+      the same coordinate across ranks.
+
+    The reference's wire counters become
+    ``sharded_neighbor_allreduce.last_wire``, ``(shard_bytes,
+    saved_bytes)`` of the last call: the bytes one inner coordinate of one
+    rank ships (its shards, once a slot) and what a gather-then-gossip wire
+    would have shipped on top.  ``kwargs`` pass to
+    :func:`neighbor_allreduce`."""
+    from bluefog_tpu_torch.sharding.mesh import shard_size_ratio, spec_leaves
+    from bluefog_tpu_torch.sharding.rules import (RuleTable, named_tree_map,
+                                                  spec_mentions)
+
+    if rule_table is not None and specs is not None:
+        raise ValueError("pass rule_table OR specs, not both")
+    axes = dict(inner_axes or {})
+    lead = 1 + len(axes)
+    if isinstance(rule_table, RuleTable):
+        specs = named_tree_map(
+            lambda name, leaf: rule_table.resolve(name, tuple(
+                leaf.shape[lead:])), x)
+    elif rule_table is not None:
+        specs = rule_table  # an already-resolved spec tree
+    if specs is None:
+        raise ValueError(
+            "sharded_neighbor_allreduce needs the rule table (or its "
+            "resolved specs): the single-source-of-truth contract; use "
+            "plain neighbor_allreduce for unsharded trees")
+    leaves = pytree.tree_leaves(x)
+    spec_flat = spec_leaves(specs)
+    if len(spec_flat) != len(leaves):
+        raise ValueError(f"spec tree has {len(spec_flat)} leaves, "
+                         f"x has {len(leaves)}")
+    inner = tuple(axes.values())
+    sched = _as_schedule(schedule)
+    k = int(np.prod(inner, dtype=np.int64))
+    whole = all(tuple(leaf.shape[1:lead]) == inner for leaf in leaves)
+    for leaf, spec in zip(leaves, spec_flat):
+        if spec_mentions(spec, axis_name):
+            raise ValueError(
+                f"spec {spec} shards a leaf over the GOSSIP axis "
+                f"{axis_name!r}; gossip mixes same-coordinate elements "
+                "across ranks: shard over inner axes only")
+        if leaf.dim() < lead or (whole is False and _T.owned_rows(
+                sched.size * k) != int(np.prod(leaf.shape[:lead]))):
+            raise ValueError(f"a leaf of shape {tuple(leaf.shape)}: the "
+                             f"inner axes {axes} must follow the rank "
+                             "dimension")
+    if not whole:
+        # the inner axes span processes: each process holds some mesh
+        # positions, and each gossips with the same inner coordinate of the
+        # neighbour meshes, one row a position (rank b k + c reads b' k + c)
+        sched = _expanded(sched, k)
+        kwargs = _expanded_weights(kwargs, k)
+        shapes = [leaf.shape for leaf in leaves]
+        x = pytree.tree_map(lambda t: t.reshape(-1, *t.shape[lead:]), x)
+    out = fuse_apply(lambda t: neighbor_allreduce(t, sched, **kwargs), x)
+    if not whole:
+        flat, spec_ = pytree.tree_flatten(out)
+        out = pytree.tree_unflatten([t.reshape(shp) for t, shp in
+                                     zip(flat, shapes)], spec_)
+    shard = saved = 0
+    for leaf, spec in zip(leaves, spec_flat):
+        nbytes = int(np.prod(leaf.shape[lead:], dtype=np.int64)) * (
+            leaf.element_size())
+        shard += nbytes
+        saved += nbytes * (shard_size_ratio(spec, axes) - 1)
+    sharded_neighbor_allreduce.last_wire = (shard * sched.num_slots,
+                                            saved * sched.num_slots)
+    return out
+
+
+sharded_neighbor_allreduce.last_wire = (0, 0)
+
+_EXPANDED: "weakref.WeakKeyDictionary[GossipSchedule, dict]" = (
+    weakref.WeakKeyDictionary())
+
+
+def _expanded(sched: GossipSchedule, k: int) -> GossipSchedule:
+    """``sched`` over ``k`` copies of every rank: rank ``b k + c`` reads
+    ``src k + c`` in the slots, with the weights, of rank ``b`` (cached by
+    the schedule, weakly)."""
+    cache = _EXPANDED.setdefault(sched, {})
+    if k not in cache:
+        c = np.tile(np.arange(k), sched.size)[:, None]
+        src = np.repeat(sched.recv_src, k, axis=0)
+        cache[k] = GossipSchedule(
+            size=sched.size * k,
+            perms=tuple(tuple((s * k + j, d * k + j) for s, d in perm
+                              for j in range(k)) for perm in sched.perms),
+            self_weights=np.repeat(sched.self_weights, k),
+            recv_weights=np.repeat(sched.recv_weights, k, axis=0),
+            recv_src=np.where(src >= 0, src * k + c, -1).astype(
+                sched.recv_src.dtype),
+            is_circulant=False, name=f"{sched.name}x{k}")
+    return cache[k]
+
+
+def _expanded_weights(kwargs, k: int):
+    """Per-rank weight overrides (``(n,)`` self weights, ``(n, K)`` slot
+    tables) repeated for :func:`_expanded`'s ``k`` copies of each rank."""
+    out = dict(kwargs)
+    for key in ("self_weight", "recv_weights", "send_weights"):
+        w = out.get(key)
+        if w is None or np.ndim(w) == 0:
+            continue
+        w = np.asarray(w.cpu() if isinstance(w, torch.Tensor) else w)
+        if key == "self_weight" or w.ndim == 2:
+            out[key] = np.repeat(w, k, axis=0)
+    return out
 
 
 def neighbor_allreduce_dynamic(x, schedules, step: int, *,

@@ -173,6 +173,8 @@ def expert_parallel_ffn(x, router_kernel, wi_local, wo_local, *, axis: Axis,
     ``x``: ``(ep, T_local, D)`` each rank's tokens; ``wi_local`` /
     ``wo_local``: ``(ep, E / ep, D, H)`` / ``(ep, E / ep, H, D)`` each
     rank's experts (global expert ``e = s (E / ep) + j`` on rank ``s``).
+    Over processes the leading dimension holds the axis's ranks this
+    process owns (``axis.local`` of them) and the all-to-all crosses.
     Returns ``(y, aux, metrics)``: ``(ep, T_local, D)`` expert outputs (zero
     for dropped tokens; add the residual outside), each rank's aux loss
     ``(ep,)`` and its router metrics."""
@@ -180,18 +182,19 @@ def expert_parallel_ffn(x, router_kernel, wi_local, wo_local, *, axis: Axis,
         raise ValueError(f"expert_parallel_ffn takes the {axis.name!r} ranks "
                          f"on dim 0, got dim {axis.dim}")
     ep, local_e, d = axis.size, wi_local.shape[1], x.shape[-1]
+    held = axis.local                   # ranks of the axis held here
     dispatch, combine, aux, metrics = get_router(router)(
         x, router_kernel, num_experts=num_experts, capacity=capacity,
         noise=noise, noise_scale=noise_scale)
     # (ep, T, E, C) x (ep, T, D) -> each rank's expert-major send buffer
     sends = torch.einsum("rtec,rtd->recd", dispatch.to(x.dtype), x)
-    sends = sends.reshape(ep, ep, local_e, capacity, d)   # (src, dst, ...)
+    sends = sends.reshape(held, ep, local_e, capacity, d)  # (src, dst, ...)
     recvd = ax.all_to_all(sends, axis, -4, -4)            # (dst, src, ...)
-    inputs = recvd.transpose(1, 2).reshape(ep, local_e, ep * capacity, d)
+    inputs = recvd.transpose(1, 2).reshape(held, local_e, ep * capacity, d)
     outputs = _local_ffn(inputs, wi_local, wo_local)
-    outputs = outputs.reshape(ep, local_e, ep, capacity, d).transpose(1, 2)
+    outputs = outputs.reshape(held, local_e, ep, capacity, d).transpose(1, 2)
     back = ax.all_to_all(outputs, axis, -4, -4)           # (src, holder, ...)
-    expert_outputs = back.reshape(ep, num_experts, capacity, d)
+    expert_outputs = back.reshape(held, num_experts, capacity, d)
     y = torch.einsum("rtec,recd->rtd", combine.to(x.dtype), expert_outputs)
     return y, aux, metrics
 

@@ -183,6 +183,9 @@ def _fold_rows(state, rows, q, k, v, **kw):
     through untouched."""
     if rows.numel() == q.shape[0]:
         return _fold_block(state, q, k, v, **kw)
+    # no rows (a process whose ranks all skip this block) still folds its
+    # empty batch: every process must use each rotated block, so that each
+    # process runs the backward of every rotation
     pick = lambda t: t.index_select(0, rows)  # noqa: E731
     new = _fold_block(tuple(map(pick, state)), pick(q), pick(k), pick(v),
                       **kw)
@@ -247,6 +250,8 @@ def ring_attention(q, k, v, axis: ax.Axis, *, causal: bool = False,
     rest skip it.  ``layout='zigzag'`` (see :func:`zigzag_shard`; the output
     stays in zigzag order): every rank folds exactly two half-chunks a step
     (:func:`_ring_zigzag_causal`).  Non-causal attention ignores the layout.
+    Over processes the leading dimension holds the axis's ranks this
+    process owns, and the KV rotation crosses the processes.
     """
     n = axis.size
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
@@ -258,12 +263,12 @@ def ring_attention(q, k, v, axis: ax.Axis, *, causal: bool = False,
             f"t_q={q.shape[-3]}, t_k={k.shape[-3]}")
     lead = q.movedim(axis.dim, 0).shape[:-3]
     q, k, v = (_rank_major(t, axis) for t in (q, k, v))
-    ring = ax.Axis(axis.name, n, 0)
-    _, b, t_q, h, d = q.shape
+    ring = axis.at(0)
+    local, b, t_q, h, d = q.shape
     dev = q.device
-    state = (torch.full((n, b, h, t_q), _NEG_INF, device=dev),
-             torch.zeros((n, b, h, t_q), device=dev),
-             torch.zeros((n, b, h, t_q, d), device=dev))
+    state = (torch.full((local, b, h, t_q), _NEG_INF, device=dev),
+             torch.zeros((local, b, h, t_q), device=dev),
+             torch.zeros((local, b, h, t_q, d), device=dev))
     kw = dict(scale=scale, kv_tile=kv_tile)
     if causal and layout == "zigzag":
         denom, o = _ring_zigzag_causal(state, q, k, v, ring, **kw)
@@ -276,7 +281,7 @@ def ring_attention(q, k, v, axis: ax.Axis, *, causal: bool = False,
                 state = _fold_block(state, q, k, v, kpos0=0, qpos=qpos,
                                     masked=causal, **kw)
             else:
-                state = _fold_rows(state, torch.arange(s, n, device=dev),
+                state = _fold_rows(state, _ring_rows(ring, s, n, dev),
                                    q, k, v, kpos0=0, qpos=qpos,
                                    masked=False, **kw)
             if s != n - 1:
@@ -285,6 +290,15 @@ def ring_attention(q, k, v, axis: ax.Axis, *, causal: bool = False,
     out = o / torch.clamp(denom[..., None], min=1e-30)
     out = out.transpose(-3, -2).to(q.dtype)             # (n, B', t, H, D)
     return out.reshape(*lead, *out.shape[-3:]).movedim(0, axis.dim)
+
+
+def _ring_rows(ring: ax.Axis, lo: int, hi: int, dev) -> torch.Tensor:
+    """The rows of rank-major tensors whose ranks are in ``[lo, hi)``: of
+    the ring's ranks held here (all of them in one process)."""
+    held = ring.local_ranks()
+    first, last = max(lo, held.start), min(hi, held.stop)
+    return torch.arange(first - held.start, max(first, last) - held.start,
+                        device=dev)
 
 
 def _ring_zigzag_causal(state, q, k, v, ring: ax.Axis, *, scale: float,
@@ -322,9 +336,9 @@ def _ring_zigzag_causal(state, q, k, v, ring: ax.Axis, *, scale: float,
             back = _fold_block(back, qb, kf, vf, masked=False, **kw)
         else:
             back = _fold_block(back, qb, kf, vf, masked=False, **kw)
-            front = _fold_rows(front, torch.arange(s, n, device=dev), qf,
+            front = _fold_rows(front, _ring_rows(ring, s, n, dev), qf,
                                kf, vf, masked=False, **kw)
-            back = _fold_rows(back, torch.arange(0, s, device=dev), qb, kb,
+            back = _fold_rows(back, _ring_rows(ring, 0, s, dev), qb, kb,
                               vb, masked=False, **kw)
         if s != n - 1:
             k, v = ax.shift(k, ring), ax.shift(v, ring)

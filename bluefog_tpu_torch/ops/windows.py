@@ -42,8 +42,13 @@ through K2's peer form (``'kernel'``) or its plain twin (``'plain'``), and
 process's own: every op pushes, so no peer reads it.  On the CPU the rows a
 process's slots take arrive over gloo and the receiver lands them.
 
-Not ported: window partitioning (``rule_table=`` / ``partition=``, with the
-sharding slice), and the timeline, blackbox and metrics hooks (with the
+A window can declare its partition (``win_create(rule_table=)``, read back
+with :func:`win_partition`): the buffers of a leaf are partitioned as the
+leaf is, by the one rule table that places the parameters and the optimizer
+state.  Its leaves are then stacked ``(n, *inner, *shard)`` (each rank's
+whole mesh in its row), and a put or accumulate moves each shard to the
+same coordinate of the neighbour meshes through K2, as it moves any row.
+Not ported: the timeline, blackbox and metrics hooks (with the
 observability slice).
 """
 
@@ -75,16 +80,21 @@ __all__ = [
     "win_update_then_collect",
     "win_sync",
     "win_associated_p",
+    "win_partition",
 ]
 
 
 @dataclasses.dataclass(frozen=True)
 class WindowSpec:
-    """Static window metadata: the schedule the window was created with, and
-    its name."""
+    """Static window metadata: the schedule the window was created with, its
+    name, and its declared ``partition``: ``((leaf_name, PartitionSpec),
+    ...)`` over the window's leaves, resolved from the rule table that
+    shards the leaves it windows (``win_create(rule_table=)``), or None
+    (undeclared)."""
 
     schedule: GossipSchedule
     name: str = "win"
+    partition: Optional[Tuple] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,7 +212,8 @@ class WindowState:
 
 
 def win_create(x, schedule, *, name: str = "win", associated_p: bool = False,
-               rule_table=None, partition=None) -> WindowState:
+               rule_table=None, partition=None,
+               inner_axes=None) -> WindowState:
     """Allocate window buffers for the pytree ``x`` of rank-stacked tensors,
     on ``x``'s device.
 
@@ -213,12 +224,17 @@ def win_create(x, schedule, *, name: str = "win", associated_p: bool = False,
     all initial mass lives at self with weight 1.  Read ``p`` with
     :func:`win_associated_p`.
 
-    ``rule_table`` / ``partition`` (window partitioning) are not ported and
-    raise ``NotImplementedError``."""
+    ``rule_table`` (a :class:`~bluefog_tpu_torch.sharding.RuleTable`)
+    declares the buffers' partition from the one rule table, resolved on
+    each leaf's shard shape: the leaves are ``(n, *inner, *shard)`` with one
+    dimension per axis of ``inner_axes`` (``{axis: size}``, none by
+    default).  ``partition`` (a matching spec tree, or the ``((name, spec),
+    ...)`` tuple) declares it explicitly instead; not both.  Read it back
+    with :func:`win_partition`."""
+    if rule_table is not None and partition is not None:
+        raise ValueError("pass rule_table OR partition, not both")
     if rule_table is not None or partition is not None:
-        raise NotImplementedError(
-            "window partitioning (rule_table= / partition=) is not ported "
-            "yet; it comes with the sharding slice")
+        partition = _declared(x, rule_table, partition, inner_axes)
     sched = _as_schedule(schedule)
     layout = _Layout.of(x)
     rows = _T.owned_rows(sched.size)
@@ -252,8 +268,36 @@ def win_create(x, schedule, *, name: str = "win", associated_p: bool = False,
                      for dt, b in bufs.items()}
         p_peers = torch.zeros(rows, k, **f32) if associated_p else None
     p = torch.ones(rows, **f32) if associated_p else None
-    return WindowState(WindowSpec(sched, name), layout, bufs, peers, p,
-                       p_peers, links)
+    return WindowState(WindowSpec(sched, name, partition), layout, bufs,
+                       peers, p, p_peers, links)
+
+
+def _declared(x, rule_table, partition, inner_axes) -> Tuple:
+    """The canonical ``((leaf_name, spec), ...)`` partition of ``x``."""
+    from bluefog_tpu_torch.sharding.rules import (PartitionSpec, named_leaves,
+                                                  named_tree_map)
+
+    if isinstance(partition, tuple) and not isinstance(partition,
+                                                       PartitionSpec):
+        return tuple(partition)
+    if rule_table is not None:
+        if not callable(getattr(rule_table, "resolve", None)):
+            raise TypeError(f"rule_table must be a RuleTable, got "
+                            f"{type(rule_table).__name__}")
+        lead = 1 + len(inner_axes or {})
+        partition = named_tree_map(
+            lambda name, leaf: rule_table.resolve(name, tuple(
+                leaf.shape[lead:])), x)
+    return tuple(named_leaves(partition,
+                              is_leaf=lambda v: isinstance(v, PartitionSpec)))
+
+
+def win_partition(state: WindowState):
+    """The window buffers' declared partition, ``{leaf_name:
+    PartitionSpec}`` as resolved at :func:`win_create`, or None when the
+    window was created undeclared."""
+    part = state.spec.partition
+    return None if part is None else dict(part)
 
 
 def win_associated_p(state: WindowState) -> torch.Tensor:

@@ -15,5 +15,7 @@ from bluefog_tpu_torch.optim.optimizers import (  # noqa: F401
     GradientTrackingOptimizer,
     decentralized_optimizer,
     get_comm_every,
+    optimizer_state_specs,
     set_comm_every,
+    shard_optimizer_state,
 )

@@ -95,6 +95,8 @@ __all__ = [
     "DistributedChocoSGDOptimizer",
     "DistributedGradientTrackingOptimizer",
     "DistributedExactDiffusionOptimizer",
+    "optimizer_state_specs",
+    "shard_optimizer_state",
 ]
 
 
@@ -209,8 +211,10 @@ class DecentralizedOptimizer(_Wrapped):
                  num_steps_per_communication: int, backend: str,
                  machine_schedule=None, local_size: int = 1,
                  matrix_fn=None, max_rotations: Optional[int] = None,
-                 runtime_cadence: bool = False, two_level: bool = False):
+                 runtime_cadence: bool = False, two_level: bool = False,
+                 sharding: Optional[tuple] = None):
         super().__init__(base, backend)
+        self.sharding = sharding
         self.schedules = tuple(schedules) if schedules else None
         self.matrix_fn = matrix_fn
         self.max_rotations = max_rotations
@@ -229,7 +233,9 @@ class DecentralizedOptimizer(_Wrapped):
             if any(s.size != size for s in self.schedules or ()):
                 raise ValueError("every phase of a dynamic topology must "
                                  "have the same size")
-            _check_stacked(self._params(), size)
+            if sharding is None:
+                # (gossip of meshes checks its (n, *inner) rows per call)
+                _check_stacked(self._params(), size)
         if communication_type == CommunicationType.win_put:
             self.window = W.win_create(self._params(), self.schedule,
                                        name="winput_opt")
@@ -284,6 +290,14 @@ class DecentralizedOptimizer(_Wrapped):
                     t, w, max_rotations=self.max_rotations), params)
         sched = self.schedule
         sw = sched.self_weights - 1.0 if change else None
+        if self.sharding is not None:
+            # gossip of meshes: the same fused buffers, through the rule
+            # table's contract
+            names, table, inner = self.sharding
+            return list(C.sharded_neighbor_allreduce(
+                dict(zip(names, params)), sched, rule_table=table,
+                inner_axes=inner, self_weight=sw,
+                backend=self.backend).values())
         return C.fuse_apply(
             lambda t: C.neighbor_allreduce(t, sched, self_weight=sw,
                                            backend=self.backend), params)
@@ -390,6 +404,9 @@ def decentralized_optimizer(
     max_rotations: Optional[int] = None,
     runtime_cadence: bool = False,
     two_level: bool = False,
+    rule_table=None,
+    param_names: Optional[Sequence[str]] = None,
+    inner_axes=None,
 ) -> DecentralizedOptimizer:
     """Wrap ``base`` so each :meth:`~DecentralizedOptimizer.step` also
     performs decentralized averaging.
@@ -426,6 +443,14 @@ def decentralized_optimizer(
       runtime_cadence: let :func:`set_comm_every` retune the gossip cadence
         between steps (it starts at ``num_steps_per_communication``); gossip
         types only.
+      rule_table / param_names / inner_axes: gossip of meshes.  The
+        parameters are stacked ``(n, *inner, *shard)`` over a hybrid mesh
+        (``inner_axes``, ``{axis: size}``, after the gossip ranks), named
+        ``param_names`` in order, and each gossip runs through
+        :func:`~bluefog_tpu_torch.ops.collectives.
+        sharded_neighbor_allreduce` under ``rule_table``: the same fused
+        buffers and K1 launches, under the table's contract (a static or
+        periodic topology only).
     """
     ct = communication_type
     if ct not in _PORTED:
@@ -464,13 +489,24 @@ def decentralized_optimizer(
             "runtime_cadence applies to the gossip communication types "
             "(there is no local-SGD gate to retune on "
             f"{ct.value!r})")
+    sharding = None
+    if rule_table is not None:
+        if schedules is None:
+            raise ValueError("rule_table= needs a static or periodic "
+                             "neighbor_allreduce topology")
+        names = list(param_names or ())
+        if len(names) != len([p for g in base.param_groups
+                              for p in g["params"]]):
+            raise ValueError("rule_table= needs param_names=, one name a "
+                             "parameter, in order")
+        sharding = (names, rule_table, dict(inner_axes or {}))
     return DecentralizedOptimizer(
         base, schedules, communication_type=ct, atc=atc,
         num_steps_per_communication=num_steps_per_communication,
         backend=backend, machine_schedule=machine_schedule,
         local_size=local_size, matrix_fn=matrix_fn,
         max_rotations=max_rotations, runtime_cadence=runtime_cadence,
-        two_level=two_level)
+        two_level=two_level, sharding=sharding)
 
 
 def DistributedNeighborAllreduceOptimizer(
@@ -482,16 +518,21 @@ def DistributedNeighborAllreduceOptimizer(
     backend: str = "auto",
     max_rotations: Optional[int] = None,
     runtime_cadence: bool = False,
+    rule_table=None,
+    param_names: Optional[Sequence[str]] = None,
+    inner_axes=None,
 ) -> DecentralizedOptimizer:
     """Reference ``bf.DistributedNeighborAllreduceOptimizer``: decentralized
     gossip averaging of the parameters each step, over a static, periodic
-    or aperiodic topology (see :func:`decentralized_optimizer`)."""
+    or aperiodic topology (see :func:`decentralized_optimizer`; with
+    ``rule_table``, gossip of meshes)."""
     return decentralized_optimizer(
         base, topology,
         communication_type=CommunicationType.neighbor_allreduce,
         atc=atc, num_steps_per_communication=num_steps_per_communication,
         backend=backend, max_rotations=max_rotations,
-        runtime_cadence=runtime_cadence)
+        runtime_cadence=runtime_cadence, rule_table=rule_table,
+        param_names=param_names, inner_axes=inner_axes)
 
 
 def DistributedGradientAllreduceOptimizer(
@@ -853,3 +894,135 @@ def DistributedExactDiffusionOptimizer(
     """
     return ExactDiffusionOptimizer(
         base, _symmetric_schedule(topology, "exact diffusion"), backend)
+
+
+# ---------------------------------------------------------------------------
+# The optimizer state under the rule table (reference optimizers.py:129-168)
+# ---------------------------------------------------------------------------
+
+# the per-parameter state keys of a torch optimizer whose state is not built
+# yet (it is built at the first step)
+_LAZY_STATE = {torch.optim.Adam: ("step", "exp_avg", "exp_avg_sq"),
+               torch.optim.AdamW: ("step", "exp_avg", "exp_avg_sq"),
+               torch.optim.SGD: ("momentum_buffer",)}
+
+
+def _base_of(opt):
+    return opt.base if isinstance(opt, _Wrapped) else opt
+
+
+def _named_state(params: Dict[str, torch.Tensor], opt) -> Dict[str, dict]:
+    """An optimizer's state as a tree keyed like optax's: ``{key: {param
+    name: tensor}}``, so that each moment's path ends with its parameter's
+    (``exp_avg/block_0/qkv_kernel``).  ``opt`` is a ``torch.optim``
+    optimizer over ``params.values()`` in order, or a decentralized wrapper
+    of one (whose per-parameter tensors, ``tracker.y.<i>``, join as
+    ``tracker.y``).  A state not built yet is described by its keys
+    (:data:`_LAZY_STATE`) on tensors shaped like the parameters, 0-d for
+    ``step``."""
+    import re
+
+    base = _base_of(opt)
+    names = list(params)
+    plist = [p for g in base.param_groups for p in g["params"]]
+    if len(plist) != len(names):
+        raise ValueError(f"the optimizer holds {len(plist)} parameters, "
+                         f"params {len(names)}")
+    out: Dict[str, dict] = {}
+    for name, p in zip(names, plist):
+        st = base.state.get(p, {})
+        if not st:
+            keys = next((v for k, v in _LAZY_STATE.items()
+                         if type(base) is k), None)
+            if keys is None:
+                raise TypeError(f"no state yet, and the state keys of "
+                                f"{type(base).__name__} are not known")
+            ref = params[name]
+            st = {k: (torch.zeros((), dtype=torch.float32) if k == "step"
+                      else torch.zeros_like(torch.as_tensor(ref)))
+                  for k in keys}
+        for k, v in st.items():
+            if torch.is_tensor(v):
+                out.setdefault(k, {})[name] = v
+    if isinstance(opt, _Wrapped):
+        for key, t in opt.tensors().items():
+            m = re.fullmatch(r"(.*)\.(\d+)", key)
+            if m is not None and int(m.group(2)) < len(names):
+                out.setdefault(m.group(1), {})[names[int(m.group(2))]] = t
+            else:
+                out[key] = t
+    return out
+
+
+def optimizer_state_specs(rule_table, params: Dict[str, torch.Tensor],
+                          opt_or_state, *, lead: int = 0):
+    """The spec tree of an optimizer's state from the rule table that shards
+    ``params`` (reference ``optim/optimizers.py::optimizer_state_specs``):
+    every moment (AdamW's ``exp_avg`` / ``exp_avg_sq``, SGD's momentum, a
+    wrapper's per-parameter trackers) inherits its parameter's spec, by path
+    suffix and shape (:func:`~bluefog_tpu_torch.sharding.rules.
+    opt_state_specs`), so one rule change re-shards the parameter and its
+    state together; scalars (``step``) are replicated.
+
+    ``params``: ``{name: tensor}``, ``'.'``- or ``'/'``-joined names.
+    ``opt_or_state``: a ``torch.optim`` optimizer over ``params.values()``
+    (or a decentralized wrapper of one), or a state tree already keyed like
+    :func:`_named_state`'s.  ``lead`` leading dimensions of every tensor
+    (stacked ranks and inner mesh axes) are skipped: the specs resolve on
+    the rest."""
+    from bluefog_tpu_torch.sharding.rules import opt_state_specs
+
+    state = opt_or_state
+    if hasattr(opt_or_state, "param_groups"):
+        state = _named_state(params, opt_or_state)
+    cut = lambda t: torch.empty(0).new_empty(  # noqa: E731
+        tuple(torch.as_tensor(t).shape[lead:]), device="meta")
+    shapes = {k.replace(".", "/"): cut(v) for k, v in params.items()}
+    tree = {k: ({n.replace(".", "/"): cut(t) for n, t in v.items()}
+                if isinstance(v, dict) else cut(v))
+            for k, v in state.items()}
+    return opt_state_specs(rule_table, shapes, tree)
+
+
+def shard_optimizer_state(rule_table, params: Dict[str, torch.Tensor],
+                          state, mesh, *, into=None):
+    """Place an optimizer state of full leaves onto ``mesh`` under the rule
+    table's derived specs (reference ``optim/optimizers.py::
+    shard_optimizer_state``), with the machinery that places the parameters
+    (:func:`~bluefog_tpu_torch.sharding.make_shard_and_gather_fns`).
+
+    ``params`` are the full parameters (``{name: tensor}``) and ``state``
+    their optimizer's state: a ``torch.optim`` optimizer over them (or its
+    wrapper; a state not built yet is built at zero) or a tree keyed like
+    :func:`optimizer_state_specs` takes.  Returns ``{key: {name: stacked}}``
+    (scalars stay scalars).  With ``into``, a ``torch.optim`` optimizer over
+    the placed parameters in ``params``' order (or a wrapper of one), the
+    placed moments become its state, as a resumed run's are.  The spec
+    tree's and the result's names are ``'/'``-joined; ``step``, one count
+    for all the ranks of a stacked parameter, stays a scalar."""
+    from bluefog_tpu_torch.sharding.apply import make_shard_and_gather_fns
+
+    if hasattr(state, "param_groups"):
+        state = _named_state(params, state)
+    specs = optimizer_state_specs(rule_table, params, state)
+    fns, _ = make_shard_and_gather_fns(specs, mesh)
+    placed = {}
+    for key, sub in state.items():
+        sub_fns = fns[key]
+        if isinstance(sub, dict):
+            placed[key] = {n: (t.clone() if key == "step" else
+                               sub_fns[n.replace(".", "/")](t))
+                           for n, t in sub.items()}
+        else:
+            placed[key] = sub_fns(sub)
+    if into is not None:
+        base = _base_of(into)
+        plist = [p for g in base.param_groups for p in g["params"]]
+        for name, p in zip(params, plist):
+            st = {}
+            for key, sub in placed.items():
+                if isinstance(sub, dict) and name in sub:
+                    v = sub[name]
+                    st[key] = v if key == "step" else v.to(p.device, p.dtype)
+            base.state[p] = st
+    return placed

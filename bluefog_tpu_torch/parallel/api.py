@@ -33,7 +33,7 @@ from bluefog_tpu_torch.ops import windows as _W
 from bluefog_tpu_torch.parallel.context import get_context
 from bluefog_tpu_torch.topology.schedule import GossipSchedule
 
-__all__ = ["rank_stack", "neighbor_allreduce", "neighbor_allreduce_aperiodic",
+__all__ = ["rank_stack", "rank_shard", "neighbor_allreduce", "neighbor_allreduce_aperiodic",
            "neighbor_allgather",
            "allreduce", "allgather", "broadcast", "barrier",
            "hierarchical_neighbor_allreduce", "broadcast_parameters",
@@ -63,6 +63,27 @@ def rank_stack(x, size: Optional[int] = None, device=None):
     def one(leaf):
         leaf = torch.as_tensor(leaf).detach().to(device)
         return leaf.unsqueeze(0).expand(size, *leaf.shape).clone()
+
+    return pytree.tree_map(one, x)
+
+
+def rank_shard(x):
+    """Place a stacked tree so its rank axis lies on the context (reference
+    ``api.py::rank_shard``): every leaf on the context's device; over
+    processes, a leaf that carries all ``size`` ranks keeps the rows this
+    process owns (a leaf already cut to them stays as it is)."""
+    ctx = get_context()
+    start, rows = _T.owned_start(ctx.size), _T.owned_rows(ctx.size)
+
+    def one(leaf):
+        leaf = torch.as_tensor(leaf).to(ctx.device)
+        if leaf.dim() == 0 or leaf.shape[0] not in (ctx.size, rows):
+            raise ValueError(f"a stacked leaf has {ctx.size} (or, over "
+                             f"processes, {rows}) ranks first; got shape "
+                             f"{tuple(leaf.shape)}")
+        if leaf.shape[0] == ctx.size and rows != ctx.size:
+            leaf = leaf[start:start + rows].contiguous()
+        return leaf
 
     return pytree.tree_map(one, x)
 

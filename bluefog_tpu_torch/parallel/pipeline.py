@@ -30,6 +30,16 @@ reads them.  What the reference returns per device and valid on one stage
 (the loss and head gradients on the last, the input gradients on the first)
 is returned here as that stage's value.
 
+Over processes (``bfrun``) the stage axis may span them
+(:meth:`~bluefog_tpu_torch.parallel.axes.Mesh.axis`): each process runs the
+ticks of the stages it holds, and the hops go through
+:func:`~bluefog_tpu_torch.parallel.axes.ppermute` across the processes, as
+``shard_map`` runs every stage's program: 1F1B hands each tick's messages
+on both rails in one ``ppermute`` each way, zeros where a stage sends
+nothing; GPipe's last-stage outputs are a stand-in row where the last stage
+is not held, weighed by zero in the loss, so that every process runs the
+backward of every hop.
+
 The reference's ``bf_pipeline_bubble_fraction`` gauge comes with the port of
 its metrics package.
 """
@@ -108,19 +118,40 @@ def pipeline_apply(stage_fn: Callable, stage_params, microbatches, *,
     _check_axis(axis)
     if num_micro is None:
         num_micro = microbatches.shape[0]
-    n_stages = axis.size
+    n_stages, held = axis.size, axis.local_ranks()
     perm = pipeline_spmd_axis_perm(n_stages)
-    incoming = torch.zeros((n_stages, *microbatches.shape[1:]),
+    incoming = torch.zeros((axis.local, *microbatches.shape[1:]),
                            dtype=microbatches.dtype,
                            device=microbatches.device)
+    # the last stage's row; a process without it emits its last row, which
+    # the train step weighs by zero (every process runs the same hops)
+    last = (n_stages - 1 - held.start if n_stages - 1 in held
+            else axis.local - 1)
     outs = []
     for t in range(num_micro + n_stages - 1):
         inject = microbatches[min(t, num_micro - 1)]
-        x = torch.cat([inject[None].to(incoming.dtype), incoming[1:]])
+        x = (torch.cat([inject[None].to(incoming.dtype), incoming[1:]])
+             if held.start == 0 else incoming)
         y = stage_fn(stage_params, x)
-        outs.append(y[n_stages - 1])
+        outs.append(y[last])
         incoming = ax.ppermute(y, axis, perm)
     return torch.stack(outs[n_stages - 1:])
+
+
+def _hop(msgs, axis: Axis, step: int, like: torch.Tensor):
+    """Over processes: each held stage's message ``msgs[s]`` (or zeros) to
+    stage ``s + step``, through one ``ppermute`` every process makes;
+    returns the messages the held stages received, by stage."""
+    n, held = axis.size, axis.local_ranks()
+    out = torch.zeros((axis.local, *like.shape), dtype=like.dtype,
+                      device=like.device)
+    for s in held:
+        if msgs[s] is not None:
+            out[s - held.start] = msgs[s]
+    perm = [(i, i + step) for i in range(n) if 0 <= i + step < n]
+    got = ax.ppermute(out, axis, perm)
+    return [got[s - held.start] if s in held and 0 <= s - step < n else None
+            for s in range(n)]
 
 
 def _rows(leaves, rows):
@@ -146,6 +177,7 @@ def pipeline_train_step_1f1b(stage_fn: Callable, stage_params, microbatches,
     (stage 0's), else None."""
     _check_axis(axis)
     n_stages, n_micro = axis.size, microbatches.shape[0]
+    held, crossing = axis.local_ranks(), axis.spans_processes
     slots = min(n_stages, n_micro)
     head_params = {} if head_params is None else head_params
     leaves, spec = pytree.tree_flatten(stage_params)
@@ -163,7 +195,7 @@ def pipeline_train_step_1f1b(stage_fn: Callable, stage_params, microbatches,
     dev = microbatches.device
     for t in range(2 * (n_micro + n_stages - 1)):
         fwd, bwd = [], []
-        for s in range(n_stages):
+        for s in held:
             df, db = t - s, t - (2 * n_stages - 1 - s)
             if df >= 0 and df % 2 == 0 and df // 2 < n_micro:
                 fwd.append((s, df // 2))
@@ -171,7 +203,7 @@ def pipeline_train_step_1f1b(stage_fn: Callable, stage_params, microbatches,
                 bwd.append((s, db // 2))
         new_fwd, new_bwd = [None] * n_stages, [None] * n_stages
         if fwd:
-            rows = torch.tensor([s for s, _ in fwd], device=dev)
+            rows = torch.tensor([s - held.start for s, _ in fwd], device=dev)
             x_in = torch.stack([microbatches[m] if s == 0 else fwd_msg[s]
                                 for s, m in fwd])
             with torch.no_grad():
@@ -182,7 +214,7 @@ def pipeline_train_step_1f1b(stage_fn: Callable, stage_params, microbatches,
                 if s + 1 < n_stages:
                     new_fwd[s + 1] = y[i]
         if bwd:
-            rows = torch.tensor([s for s, _ in bwd], device=dev)
+            rows = torch.tensor([s - held.start for s, _ in bwd], device=dev)
             p_vars = _rows(leaves, rows)
             x_saved = torch.stack([stash[s][m % slots]
                                    for s, m in bwd]).requires_grad_()
@@ -215,12 +247,23 @@ def pipeline_train_step_1f1b(stage_fn: Callable, stage_params, microbatches,
                     new_bwd[s - 1] = dx[i]
                 elif collect_input_grads:
                     dx_buf[m] = dx[i]
+        if crossing:
+            # the hops between stages held by different processes (every
+            # message travels the hop; a stage reads one only when due)
+            like = microbatches[0]
+            new_fwd = _hop([new_fwd[s + 1] if s + 1 < n_stages else None
+                            for s in range(n_stages)], axis, 1, like)
+            new_bwd = _hop([new_bwd[s - 1] if s > 0 else None
+                            for s in range(n_stages)], axis, -1, like)
         fwd_msg, bwd_msg = new_fwd, new_bwd
     stage_grads = pytree.tree_unflatten(
         [a.to(p.dtype) for a, p in zip(g_acc, leaves)], spec)
     head_grads = pytree.tree_unflatten(
         [a.to(h.dtype) for a, h in zip(h_acc, h_leaves)], h_spec)
-    dxs = torch.stack(dx_buf) if collect_input_grads else None
+    dxs = None
+    if collect_input_grads:
+        dxs = (torch.stack(dx_buf) if 0 in held
+               else torch.zeros_like(microbatches))
     return loss_acc, stage_grads, head_grads, dxs
 
 
@@ -257,6 +300,8 @@ def pipeline_train_step_gpipe(stage_fn: Callable, stage_params, microbatches,
         head = pytree.tree_unflatten(h_vars, h_spec)
         loss = sum(loss_fn(head, outs[m], targets[m]).float()
                    for m in range(outs.shape[0]))
+        if axis.size - 1 not in axis.local_ranks():
+            loss = loss * 0.0       # a stand-in row: see pipeline_apply
         wrt = p_vars + h_vars + ([mb] if collect_input_grads else [])
         grads = torch.autograd.grad(loss, wrt, allow_unused=True)
     grads = [torch.zeros_like(w) if g is None else g

@@ -32,6 +32,14 @@ is then the JAX package's (:func:`tp_correct_grads`):
 and :func:`tp_value_and_grad` applies it.  What it returns is each rank's
 true gradient: the sharded leaves' true shard, the replicated leaves' full
 gradient on every rank of the axis.
+
+Over processes the stacked tensors hold the mesh positions this process
+owns; when the ``tp`` axis spans processes (``Mesh.axis`` says so), the
+``psum`` of the row-parallel layers and the correction's ``pmean`` go
+through the transport (:mod:`~bluefog_tpu_torch.parallel.axes`), and the
+parameters are placed from full leaves by
+:func:`~bluefog_tpu_torch.sharding.make_shard_and_gather_fns` under
+:func:`tp_param_rules`.
 """
 
 from __future__ import annotations
@@ -470,18 +478,31 @@ def unbox_params(template) -> Dict[str, torch.Tensor]:
 
 def gather_tp_params(params: Mapping[str, torch.Tensor], template,
                      axis: Axis) -> Dict[str, torch.Tensor]:
-    """All-gather every leaf sharded over ``axis`` to its full value on every
-    rank (the shards concatenated along the sharded dimension), the others
-    as they are: for a consolidated checkpoint, evaluation at ``tp = 1``, or
-    the parity tests.  ``params`` is keyed like the template (a gradient
-    mapping gathers the same way)."""
+    """Gather every leaf sharded over ``axis`` to its full value on every
+    rank (its shards reassembled along the sharded dimension by
+    :func:`~bluefog_tpu_torch.sharding.gather_tree`), the others as they
+    are: for a consolidated checkpoint, evaluation at ``tp = 1``, or the
+    parity tests.  ``params`` is keyed like the template (a gradient
+    mapping gathers the same way); over processes the shards of other
+    processes arrive through the axis (collective).  No gradient."""
+    from bluefog_tpu_torch.sharding.apply import _full_shape, gather_tree
+
     tmpl = _template(template)
+    axes = {axis.name: axis.size}
     out = {}
     for name, x in params.items():
         part = tmpl[name].partition
-        if axis.name in part:
-            dim = part.index(axis.name) - len(part)
-            out[name] = ax.all_gather(x, axis, dim)
-        else:
+        if axis.name not in part:
             out[name] = x
+            continue
+        shards = ax.blocks(x, axis)
+        local = tuple(shards[0].shape)
+        spec = P(*([None] * (len(local) - len(part))), *part)
+        shape = _full_shape(local, spec, axes)
+        full = gather_tree({name: torch.empty(shape, device="meta")},
+                           {name: spec}, axes,
+                           {(t,): {name: s} for t, s in enumerate(shards)}
+                           )[name]
+        out[name] = full.unsqueeze(axis.dim).expand(
+            *full.shape[:axis.dim], axis.local, *full.shape[axis.dim:])
     return out

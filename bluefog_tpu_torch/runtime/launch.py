@@ -19,7 +19,9 @@ Counterpart of ``bluefog_tpu/runtime/launch.py`` (``initialize_cluster`` and
 
   It starts ``N`` local processes the way ``torchrun`` does, each with
   ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``,
-  ``MASTER_ADDR`` and ``MASTER_PORT`` set, as fresh interpreters (the spawn
+  ``MASTER_ADDR`` and ``MASTER_PORT`` set (the rendezvous store, which the
+  launcher hosts, so no process races another program for its port), as
+  fresh interpreters (the spawn
   start method: no child inherits a CUDA state), and, unless the
   environment sets it, ``OMP_NUM_THREADS`` to the host's cores over ``N``,
   as torchrun limits it.  Where the CUDA toolkit is
@@ -39,7 +41,6 @@ import datetime
 import logging
 import os
 import signal
-import socket
 import subprocess
 import sys
 import time
@@ -68,7 +69,8 @@ def initialize_cluster(coordinator_address: Optional[str] = None,
     store), ``num_processes`` and ``process_id``; each argument not given
     is read from ``MASTER_ADDR``/``MASTER_PORT``, ``WORLD_SIZE`` and
     ``RANK``.  ``initialization_timeout`` is in seconds (default 300).  One
-    process (``num_processes == 1``) is a no-op.
+    process (``num_processes == 1``), or a process already in a group, is a
+    no-op.
 
     Failure policy, the reference's: when the caller asked for a cluster
     (any argument given), a rendezvous failure raises, since a training job
@@ -78,7 +80,7 @@ def initialize_cluster(coordinator_address: Optional[str] = None,
     does so without trying."""
     import torch.distributed as dist
 
-    if num_processes == 1:
+    if num_processes == 1 or dist.is_initialized():
         return
     explicit = (coordinator_address is not None or num_processes is not None
                 or process_id is not None)
@@ -104,12 +106,6 @@ def initialize_cluster(coordinator_address: Optional[str] = None,
                 f"num_processes={world}, process_id={rank}): {e}") from e
         _log.warning("torch.distributed rendezvous skipped (the environment "
                      "names no reachable cluster): %s", e)
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _child_env(env_specs: List[str]) -> dict:
@@ -197,7 +193,17 @@ def main(argv: Optional[List[str]] = None) -> int:
     env = _child_env(args.env)
     if not args.no_build:
         _prebuild()
-    port = args.master_port or _free_port()
+    # the launcher hosts the rendezvous store itself, on a port it holds
+    # from before the start, and every process joins it as a client (as
+    # torchrun's agent does): a free port picked here and bound later by
+    # process 0 could be taken in between by any other program on the host
+    from torch.distributed import TCPStore
+
+    store = TCPStore("127.0.0.1", args.master_port or 0, args.np,
+                     is_master=True, wait_for_workers=False,
+                     timeout=datetime.timedelta(seconds=300))
+    port = store.port
+    env["TORCHELASTIC_USE_AGENT_STORE"] = "True"
     # as torchrun does: the host's cores shared among the processes, unless
     # the caller says otherwise (one process's default of a thread per core
     # oversubscribes the host N times)

@@ -1,7 +1,7 @@
 """The rule table: one ordered ``regex -> PartitionSpec`` mapping as the
 single source of truth for how every leaf family is partitioned.
 
-Counterpart of ``bluefog_tpu/sharding/rules.py`` (the table only; the mesh,
+Counterpart of ``bluefog_tpu/sharding/rules.py`` (the table; the mesh and
 apply and gossip modules of that package are not ported yet).  Leaves are
 named by their ``'/'``-joined path, rules are searched first-match-wins,
 scalars are never partitioned, and a non-scalar leaf no rule matches raises

@@ -15,7 +15,7 @@ its last line:
    warning.
 1b. Ranks over processes (run right after the build, while this process
    holds no tensors): the ResNet-50 main path of phase 3 in this process,
-   2 + 3 steps under deterministic cuDNN, as the reference; then the same
+   1 + 2 steps under deterministic cuDNN, as the reference; then the same
    8 ranks spread over P = 2 and P = 4 processes that share the card,
    each group started by the port's launcher (``python -m
    bluefog_tpu_torch.runtime.launch -np P chip_smoke.py --mp-worker ...``),
@@ -26,7 +26,7 @@ its last line:
    and plain routes, and times it at that length on a packed staged buffer
    as the main path runs it (all processes' launches of a step between two
    barriers, against the bound of the rows each process's launch must read
-   and write); runs the main path for 2 + 3 steps under deterministic cuDNN
+   and write); runs the main path for 1 + 2 steps under deterministic cuDNN
    (img/s per process and over all, each process's own device idle share in
    one profiled step, K1's peer launches, one a step since every leaf fuses
    into one staged buffer, the handshake's host microseconds, the pack's
@@ -38,7 +38,7 @@ its last line:
    At P = 2 the group then runs every other algorithm over the processes,
    against one-process runs this process makes first: gradient tracking on
    MeshGrid2D(8) (BASELINE.json ``configs[3]``) and exact diffusion on
-   Ring(8) over ResNet-50, 2 + 3 steps each under deterministic cuDNN
+   Ring(8) over ResNet-50, 1 + 2 steps each under deterministic cuDNN
    (parameters and trackers, or master and last psi, within 2^-7 of one
    process's, bit-equality reported; 2 and 1 K1 peer launches a step a
    process); the callable one-peer Exp-2 topology's matrices, 6 rounds of
@@ -49,14 +49,14 @@ its last line:
    over that buffer, bit-equal to one process; ``pair_gossip``,
    ``neighbor_allgather``, sender-weighted gossip and int64 rows at that
    length, bit-equal to one process; GPT-small at seq 1024 and batch 8 a
-   rank, 2 + 3 steps (96 launches of each K3 kernel a step over the
+   rank, 1 + 2 steps (96 launches of each K3 kernel a step over the
    processes, 1 K1 peer launch a step a process, parameters within 2^-7 of
    one process's), and K1's peer form on GPT's one staged payload, bit-equal
    to its plain twin on the same rows (folded in column slices) and timed
    against its bytes bound.
-   Then P = 8, one rank a process (PyTorch's one process a GPU layout, m =
-   1), K1's check and times only.  A process that fails, or a group that
-   outlives its time limit, fails the phase.
+   P = 8, one rank a process (PyTorch's one process a GPU layout, m = 1),
+   K1's check and times only, runs in phase 30's P = 8 group.  A process
+   that fails, or a group that outlives its time limit, fails the phase.
 2. K1 against its plain version on the card: ``gossip_mix`` against
    ``gossip_mix_plain`` in f32 and bf16, over Exponential-2(8) and Ring(8), at
    an unaligned length and at the lengths the main path gives it, plus the
@@ -221,8 +221,9 @@ its last line:
    copies on the host), and K1 on the machine rows against its plain
    version, its bound and ``torch.matmul(W, x)``.
 19. ``examples.bert_finetune_hierarchical --model large --local-size 2``
-   at 2 epochs (its default 3, cut for the script's time limit when phases
-   24-29 came) and its ``--n-per-rank``, under deterministic algorithms,
+   at 1 epoch (its default 3, cut for the script's time limit when phases
+   24-29 and then phase 30 came) and its ``--n-per-rank``, under
+   deterministic algorithms,
    then with ``--two-level-mesh``: loss, accuracy and seq/s per epoch, the
    parameter spread, K1's launches, and the two forms' parameters, which
    must be bit-equal.
@@ -289,6 +290,36 @@ its last line:
    every (shape, dtype, causal) that the phase handed it which no earlier
    check took: MoE's (16, 12, 1024, 64), the pipeline's stage shapes and
    the f32 parity runs' among them.
+30. Gossip of meshes and the mesh axes over processes (GPT-small's
+   published widths).  In this process first: path 1, TP bf 4 x tp 2 with
+   its parameters placed by ``make_shard_and_gather_fns`` from
+   ``tp_param_rules`` (full leaves gathered from a seeded tp-2 model), the
+   AdamW state by ``shard_optimizer_state`` and the bf gossip through
+   ``sharded_neighbor_allreduce`` on K1: 3 steps bit-equal to phase 26's
+   optimizer on the same gradients, K1 against its plain fold, and WinPut
+   over a window declared by ``win_create(rule_table=)`` on K2 against
+   the plain put; then the f32 references the processes compare with
+   (path 1's tp group, the ring, zigzag and Ulysses models, MoE, the
+   hybrid's 1F1B step), saved in a temporary directory.  Then three groups
+   through the launcher (``--mesh-worker``), each process holding the mesh
+   positions of its ranks, the collectives of a group that spans
+   processes going through the transport: P = 2, path 1 with bf across the
+   processes (the state bit-equal to this process's, by sha1 of each row),
+   its WinPut on K2's peer form, the sequence paths (ring and zigzag over 8
+   sp ranks at T = 8192, Ulysses over 4 at 4,096; f32 logits and the
+   gradients summed by ``reduce_partials`` within 2^-7, bf16 AdamW steps)
+   and ``examples.longcontext_lm`` at 10 steps for each ``--attn``;
+   P = 4, MoE top-1 dp 2 x ep 4 (each ep group over two processes; f32
+   within 2^-7, bf16 steps, each block under remat, gossiping over dp on
+   K1's peer form, K1 against its plain fold) and the hybrid dp 2 x pp 2 x tp 2 (the stage hops
+   across processes; the f32 1F1B and GPipe gradients within 2^-7, bf16
+   schedules, a dp step on K1's peer form bit-equal to the plain fold);
+   P = 8, path 1 with tp across the processes (f32 logits and corrected
+   gradients within 2^-7, the tp psum alone, bf16 steps).  Each path
+   reports tokens/s against this run's one-process form, its collectives'
+   calls, bytes and host seconds a step, one collective alone against its
+   bytes bound, peak GB a process and K3's launches a process; K3 is held
+   against its twins at every shape the processes handed it.
 23. Report: a ``kernels:`` line, a line for K1 on this slice's paths and a
    line for the allreduce (not a TPU kernel), the kernels' JSON line (K1,
    K2 and K3's three kernels; K1's entry also carries its one-slot times,
@@ -1977,7 +2008,12 @@ def phase_examples():
 # Phase 1b: the ranks spread over processes that share the card
 # ---------------------------------------------------------------------------
 
-MP_PROCESSES = (2, 4, 8)       # P = 8: one rank a process, K1's check only
+# P = 8, one rank a process, K1's check only, runs in phase 30's P = 8 group
+# (one group start fewer)
+MP_PROCESSES = (2, 4)
+# steps of phase 1b's runs over processes and of their one-process
+# references (2 + 3 until PR 12; cut to make room for phase 30)
+MP_WARMUP, MP_TIMED = 1, 2
 MP_TIMEOUT_S = 600
 
 
@@ -2091,7 +2127,7 @@ def mp_k1(ctx, lengths):
 
 
 def mp_main_path(ctx, outdir):
-    """The ResNet-50 main path over this process's ranks, 2 + 3 steps under
+    """The ResNet-50 main path over this process's ranks, 1 + 2 steps under
     deterministic cuDNN (each timed step's wait in its handshake read
     apart), its parameters saved for the parent's comparison, then one
     profiled step; then the time of a step's pack alone (every parameter
@@ -2110,9 +2146,9 @@ def mp_main_path(ctx, outdir):
                         batch_size=BATCH, image_size=224, device=ctx.device)
         gossip_mix_peer.launches = gossip_mix.launches = 0
         tr.handshakes = 0
-        res = run(trainer, WARMUP, 0)
+        res = run(trainer, MP_WARMUP, 0)
         waits_us = []
-        for _ in range(TIMED):
+        for _ in range(MP_TIMED):
             before = tr.handshake_us
             one = run(trainer, 0, 1)
             waits_us.append(tr.handshake_us - before)
@@ -2152,7 +2188,7 @@ def mp_main_path(ctx, outdir):
     del to
     n_bytes = 2 * N_RANKS * sum(v[0].numel() * v.element_size()
                                 for v in leaves)
-    mean_ms = sum(res["step_ms"]) / TIMED
+    mean_ms = sum(res["step_ms"]) / MP_TIMED
     samples = trainer.batch[0].shape[0] * trainer.batch[0].shape[1]
     out = {"step_ms": res["step_ms"], "img_s": samples / (mean_ms / 1e3),
            "pack_ms": pack_ms, "split_pack_ms": split_ms,
@@ -2331,7 +2367,7 @@ def _slice_state(trainer, algo):
 
 
 def slice_references(device):
-    """The one-process runs the P = 2 group is held against: 2 + 3 steps
+    """The one-process runs the P = 2 group is held against: 1 + 2 steps
     of gradient tracking (grid) and exact diffusion (ring) over ResNet-50
     under deterministic cuDNN, and of GPT-small at seq 1024; their states
     on the host."""
@@ -2343,9 +2379,9 @@ def slice_references(device):
         with deterministic_cudnn():
             trainer = (_gpt_trainer(device) if algo == "gpt"
                        else _resnet_algo(device, algo))
-            res = run(trainer, WARMUP, TIMED)
+            res = run(trainer, MP_WARMUP, MP_TIMED)
         refs[algo] = _slice_state(trainer, algo)
-        refs[f"{algo}/step_ms"] = sum(res["step_ms"]) / TIMED
+        refs[f"{algo}/step_ms"] = sum(res["step_ms"]) / MP_TIMED
         refs[f"{algo}/samples"] = (trainer.batch[0].shape[0]
                                    * trainer.batch[0].shape[1])
         print(f"[processes] one-process reference {algo}: "
@@ -2359,7 +2395,7 @@ def slice_references(device):
 
 def mp_algo(ctx, outdir, algo):
     """Gradient tracking (grid), exact diffusion (ring) or GPT-small over
-    this process's ranks, 2 + 3 steps (deterministic cuDNN for ResNet-50):
+    this process's ranks, 1 + 2 steps (deterministic cuDNN for ResNet-50):
     the launches of K1's peer form and of K3, the step times, and the state
     saved for the parent's comparison with one process."""
     from bluefog_tpu_torch.examples.synthetic_benchmark import run
@@ -2374,7 +2410,7 @@ def mp_algo(ctx, outdir, algo):
         gossip_mix_peer.launches = gossip_mix.launches = 0
         for fn in k3:
             fn.launches = 0
-        res = run(trainer, WARMUP, TIMED)
+        res = run(trainer, MP_WARMUP, MP_TIMED)
     out = {"launches": gossip_mix_peer.launches,
            "virtual_launches": gossip_mix.launches,
            "k3": [fn.launches for fn in k3],
@@ -2597,7 +2633,7 @@ def mp_ops(ctx, win_len):
 def mp_worker(argv):
     """One process of phase 1b, started by the launcher: ``--mp-worker
     OUTDIR WHAT LENGTHS WIN_LEN`` (WHAT is ``all``, ``slice`` (all, then
-    the slice's algorithms), ``k1`` or ``bert`` (BERT-large alone); LENGTHS
+    the slice's algorithms) or ``bert`` (BERT-large alone); LENGTHS
     the main path's comma-separated per-rank lengths).  Writes its results to
     ``OUTDIR/p<process>.json``."""
     outdir, what, lengths, win_len = (argv[0], argv[1],
@@ -2616,11 +2652,10 @@ def mp_worker(argv):
            "ranks": list(ctx.owned_ranks), "device": str(ctx.device)}
     parts = {"init": time.perf_counter() - t0}
     steps = ([("bert", lambda: mp_bert(ctx, outdir))] if what == "bert"
-             else [("k1", lambda: mp_k1(ctx, lengths))])
-    if what in ("all", "slice"):
-        steps += [("main", lambda: mp_main_path(ctx, outdir)),
-                  ("k2", lambda: mp_k2(ctx, win_len)),
-                  ("pushsum", lambda: mp_pushsum(ctx, win_len))]
+             else [("k1", lambda: mp_k1(ctx, lengths)),
+                   ("main", lambda: mp_main_path(ctx, outdir)),
+                   ("k2", lambda: mp_k2(ctx, win_len)),
+                   ("pushsum", lambda: mp_pushsum(ctx, win_len))])
     if what == "slice":
         steps += [("gt", lambda: mp_algo(ctx, outdir, "gt")),
                   ("ed", lambda: mp_algo(ctx, outdir, "ed")),
@@ -2680,15 +2715,15 @@ def _run_processes(procs, what, lengths, win_len, outdir, env_extra=None):
 
 def phase_processes(device, lengths, win_len):
     """Phase 1b (see the module docstring): the one-process reference run,
-    then P = 2 and 4 processes (all checks) and P = 8 (K1's check and
-    times), each group started by the launcher."""
+    then P = 2 and 4 processes (all checks), each group started by the
+    launcher (P = 8's K1 check runs in phase 30's P = 8 group)."""
     from bluefog_tpu_torch.examples.synthetic_benchmark import build, run
 
     t_phase = time.perf_counter()
     with deterministic_cudnn():
         trainer = build("resnet50", "neighbor", "exp2", size=N_RANKS,
                         batch_size=BATCH, image_size=224, device=device)
-        run(trainer, WARMUP, TIMED)
+        run(trainer, MP_WARMUP, MP_TIMED)
     ref = {k: v.detach().cpu() for k, v in trainer.params.items()}
     del trainer
     gc.collect()
@@ -2699,47 +2734,49 @@ def phase_processes(device, lengths, win_len):
         for procs in MP_PROCESSES:
             outdir = os.path.join(tmp, f"P{procs}")
             os.makedirs(outdir)
-            what = ("k1" if procs == N_RANKS else
-                    "slice" if procs == SLICE_PROCESSES else "all")
+            what = "slice" if procs == SLICE_PROCESSES else "all"
             res, secs = _run_processes(procs, what, lengths, win_len, outdir)
             tag = f"[processes P={procs}]"
-            k1 = [r["k1"] for r in res]
-            ok = all(c[2] and c[3] for r in k1 for c in r["checked"])
             parts = {k: round(max(r["seconds"][k] for r in res), 1)
                      for k in res[0]["seconds"]}
             print(f"{tag} {secs:.1f} s for the group ({what}; the slowest "
                   f"process's seconds after start-up: {parts}); ranks "
                   f"{[r['ranks'] for r in res]} on {res[0]['device']}")
-            print(f"{tag} K1 peer form vs the virtual K1 (kernel, plain): "
-                  f"{k1[0]['checked']}; bit-equal in every process: {ok}")
-            check(ok, f"{tag} K1's peer form differs from the virtual K1")
-            k1_ms = max(r["ms"] for r in k1)
-            k1_plain = max(r["plain_ms"] for r in k1)
-            print(f"{tag} K1 peer form at the main path's lengths, all "
-                  f"processes together: {k1_ms:.4f} ms a step "
-                  f"({len(lengths)} launch(es) a process), plain twin "
-                  f"{k1_plain:.4f} ms, bound {k1[0]['bound_ms']:.4f} ms "
-                  f"({k1[0]['bound_by']}: {k1[0]['bytes'] / 1e9:.3f} GB, "
-                  f"{k1[0]['rows_a_rank']:g} rows a rank), "
-                  f"{k1[0]['bound_ms'] / k1_ms:.1%} of it; the "
-                  f"handshake alone (processes in step) "
-                  f"{max(r['handshake_us'] for r in k1):.1f} us a call")
-            entry = {"k1": {"ms": k1_ms, "plain_ms": k1_plain,
-                            "bound_ms": k1[0]["bound_ms"],
-                            "bound_by": k1[0]["bound_by"],
-                            "rows_a_rank": k1[0]["rows_a_rank"],
-                            "max_abs_err": max(r["max_abs_err"] for r in k1),
-                            "handshake_us": max(r["handshake_us"]
-                                                for r in k1)},
-                     "seconds": secs}
-            if what != "k1":
-                entry.update(_report_processes(tag, procs, res, ref, outdir,
-                                               len(lengths)))
+            entry = {"k1": report_k1(tag, res, lengths), "seconds": secs}
+            entry.update(_report_processes(tag, procs, res, ref, outdir,
+                                           len(lengths)))
             if what == "slice":
                 entry["slice"] = _report_slice(tag, procs, res, refs, outdir)
             out[procs] = entry
     print(f"[processes] phase {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+def report_k1(tag, res, lengths):
+    """The group's check of K1's peer form against the virtual K1
+    (:func:`mp_k1`, each process's ``res[q]["k1"]``): printed, checked, and
+    its times as the kernels line takes them."""
+    k1 = [r["k1"] for r in res]
+    ok = all(c[2] and c[3] for r in k1 for c in r["checked"])
+    print(f"{tag} K1 peer form vs the virtual K1 (kernel, plain): "
+          f"{k1[0]['checked']}; bit-equal in every process: {ok}")
+    check(ok, f"{tag} K1's peer form differs from the virtual K1")
+    k1_ms = max(r["ms"] for r in k1)
+    k1_plain = max(r["plain_ms"] for r in k1)
+    print(f"{tag} K1 peer form at the main path's lengths, all "
+          f"processes together: {k1_ms:.4f} ms a step "
+          f"({len(lengths)} launch(es) a process), plain twin "
+          f"{k1_plain:.4f} ms, bound {k1[0]['bound_ms']:.4f} ms "
+          f"({k1[0]['bound_by']}: {k1[0]['bytes'] / 1e9:.3f} GB, "
+          f"{k1[0]['rows_a_rank']:g} rows a rank), "
+          f"{k1[0]['bound_ms'] / k1_ms:.1%} of it; the "
+          f"handshake alone (processes in step) "
+          f"{max(r['handshake_us'] for r in k1):.1f} us a call")
+    return {"ms": k1_ms, "plain_ms": k1_plain,
+            "bound_ms": k1[0]["bound_ms"], "bound_by": k1[0]["bound_by"],
+            "rows_a_rank": k1[0]["rows_a_rank"],
+            "max_abs_err": max(r["max_abs_err"] for r in k1),
+            "handshake_us": max(r["handshake_us"] for r in k1)}
 
 
 def _report_processes(tag, procs, res, ref, outdir, per_step):
@@ -2754,13 +2791,13 @@ def _report_processes(tag, procs, res, ref, outdir, per_step):
               f"processes) {[round(w) for w in r['waits_us']]} us; peak "
               f"{r['peak_gb']:.2f} GB")
         check(r["finite"], f"{tag} process {q}: non-finite loss")
-        check(r["launches"] == per_step * (WARMUP + TIMED) and
+        check(r["launches"] == per_step * (MP_WARMUP + MP_TIMED) and
               r["virtual_launches"] == 0,
               f"{tag} process {q}: K1 peer launches {r['launches']}, virtual "
               f"{r['virtual_launches']}")
-        check(r["handshakes"] == WARMUP + TIMED,
+        check(r["handshakes"] == MP_WARMUP + MP_TIMED,
               f"{tag} process {q}: {r['handshakes']} handshakes in "
-              f"{WARMUP + TIMED} steps")
+              f"{MP_WARMUP + MP_TIMED} steps")
     total = sum(r["img_s"] for r in main)
     rates = ", ".join(f"{r['img_s']:.1f}" for r in main)
     print(f"{tag} ResNet-50 x {N_RANKS} ranks over {procs} processes, exp2, "
@@ -2779,7 +2816,7 @@ def _report_processes(tag, procs, res, ref, outdir, per_step):
             d = float((v.double() - want.double()).abs().max())
             worst = max(worst, d / max(float(want.double().abs().max()),
                                        1e-12))
-    print(f"{tag} parameters after {WARMUP + TIMED} steps against the "
+    print(f"{tag} parameters after {MP_WARMUP + MP_TIMED} steps against the "
           f"one-process run: max |diff| / max |value| {worst:.3e} (tol "
           f"{STEP_TOL:.3e})")
     check(worst <= STEP_TOL, f"{tag} parameters differ from one process")
@@ -2852,7 +2889,7 @@ def _report_slice(tag, procs, res, refs, outdir):
                          r["ranks"])
             worst, equal = max(worst, w), equal and e
         launches = [r["launches"] for r in runs]
-        step_ms = [sum(r["step_ms"]) / TIMED for r in runs]
+        step_ms = [sum(r["step_ms"]) / MP_TIMED for r in runs]
         rate = sum(r["samples"] / (ms / 1e3) for r, ms in zip(runs, step_ms))
         one = refs[f"{algo}/samples"] / (refs[f"{algo}/step_ms"] / 1e3)
         unit = "seq" if algo == "gpt" else "img"
@@ -2860,10 +2897,10 @@ def _report_slice(tag, procs, res, refs, outdir):
         if algo == "gpt":
             k3 = [sum(r["k3"][i] for r in runs) for i in range(3)]
             extra = (f"; K3 launches over the processes (forward, dK/dV, dQ)"
-                     f" {k3}, {[v // (WARMUP + TIMED) for v in k3]} a step; "
+                     f" {k3}, {[v // (MP_WARMUP + MP_TIMED) for v in k3]} a step; "
                      f"{rate * GPT_SEQ:.1f} tokens/s over all processes "
                      f"against one process's {one * GPT_SEQ:.1f}")
-            check(all(v == k3_per_step * (WARMUP + TIMED) for v in k3),
+            check(all(v == k3_per_step * (MP_WARMUP + MP_TIMED) for v in k3),
                   f"{tag} gpt: K3 launches {k3}")
         print(f"{tag} {algo}: step ms by process "
               f"{[round(v, 2) for v in step_ms]} (one process "
@@ -2873,10 +2910,10 @@ def _report_slice(tag, procs, res, refs, outdir):
               f"{[r['virtual_launches'] for r in runs]}; losses "
               f"{[round(v, 4) for v in runs[0]['losses']]}; peak "
               f"{max(r['peak_gb'] for r in runs):.2f} GB{extra}; state after "
-              f"{WARMUP + TIMED} steps against one process: max |diff| / max "
+              f"{MP_WARMUP + MP_TIMED} steps against one process: max |diff| / max "
               f"|value| {worst:.3e} (tol {STEP_TOL:.3e}), bit-equal: {equal}")
         check(all(r["finite"] for r in runs), f"{tag} {algo}: non-finite loss")
-        check(all(v == per_step * (WARMUP + TIMED) for v in launches)
+        check(all(v == per_step * (MP_WARMUP + MP_TIMED) for v in launches)
               and all(r["virtual_launches"] == 0 for r in runs),
               f"{tag} {algo}: K1 peer launches {launches}")
         check(worst <= STEP_TOL, f"{tag} {algo}: state differs from one "
@@ -2946,7 +2983,8 @@ def _report_slice(tag, procs, res, refs, outdir):
 
 BERT_BATCH, BERT_SEQ, BERT_LOCAL = 32, 128, 2   # the JAX benchmark's
 BERT_PROCESSES = 2
-BERT_FT_EPOCHS = 2    # the example's 3 cut for the script's time limit
+BERT_FT_EPOCHS = 1    # the example's 3 cut for the script's time limit
+# (2 until PR 12; 1 since phase 30: no check depends on the epochs)
 
 
 @contextlib.contextmanager
@@ -3871,18 +3909,19 @@ def k1_step_parity(opt, tag):
     sum on its own, as the plain fold does).  The plain step's state stays.
     Its launches are not the path's: the caller has read the path's
     counts."""
-    from bluefog_tpu_torch.ops.gossip_kernel import gossip_mix
+    from bluefog_tpu_torch.ops.gossip_kernel import gossip_mix, gossip_mix_peer
 
     params = [p for g in opt.param_groups for p in g["params"]]
     state = params + [v for p in params for v in opt.state[p].values()
                       if torch.is_tensor(v)]
     snap = [t.detach().clone() for t in state]
     counters = _counters(opt)
-    before = gossip_mix.launches
+    # over processes the step runs K1's peer form
+    before = gossip_mix.launches + gossip_mix_peer.launches
     try:
         opt.backend = "kernel"
         opt.step()
-        launched = gossip_mix.launches - before
+        launched = gossip_mix.launches + gossip_mix_peer.launches - before
         after = [p.detach().clone() for p in params]
         with torch.no_grad():
             for t, v in zip(state, snap):
@@ -4047,21 +4086,17 @@ def phase_hybrid(device):
     other and against the unpipelined TP step's; in bf16 the two schedules
     again, each one's peak memory, tokens/s and K3's launches; then an SGD
     step of both dp ranks gossiped over dp on K1."""
-    import torch.nn.functional as F
-    from torch.func import functional_call
     from bluefog_tpu_torch.ops.collectives import (
         fuse_apply, neighbor_allreduce)
-    from bluefog_tpu_torch.parallel import pipeline as pp
     from bluefog_tpu_torch.parallel import tensor as pt
     from bluefog_tpu_torch.parallel.axes import Axis
     from bluefog_tpu_torch.topology import ExponentialTwoGraph
 
     t0 = time.perf_counter()
     base = slice_config()
-    n_l = base.num_layers // HYB_PP
     mesh = pt.make_hybrid_mesh({"bf": HYB_DP, "tp": HYB_TP},
                                ranks=range(HYB_DP * HYB_TP))
-    tp_in_stage, tp_axis = Axis("tp", HYB_TP, 1), Axis("tp", HYB_TP, 0)
+    tp_axis = Axis("tp", HYB_TP, 0)
     stage_axis = Axis("pp", HYB_PP, 0)
     gen = torch.Generator(device=device).manual_seed(14)
     ids = torch.randint(0, base.vocab_size,
@@ -4069,62 +4104,16 @@ def phase_hybrid(device):
                         device=device)
     n_tok = HYB_MICRO * HYB_MB * TP_SEQ
 
-    def head_loss(head, y, tgt):
-        # y (tp, mb, T, C): each tp rank's copy of the last stage's output;
-        # the sum over the ranks of each one's loss on the dp rank's tokens
-        z = F.layer_norm(y.float(), y.shape[-1:], eps=1e-6)
-        z = z * head["scale"][:, None, None] + head["bias"][:, None, None]
-        logits = torch.matmul(z.flatten(1, 2), head["kernel"])
-        ce = F.cross_entropy(logits.flatten(0, 1),
-                             tgt.flatten().repeat(HYB_TP), reduction="sum")
-        return ce / n_tok
-
     def runner(model):
         params = dict(model.named_parameters())
-        suffixes = [k[len("block_0."):] for k in params
-                    if k.startswith("block_0.")]
-        block, dtype = model.block_0, model.cfg.dtype
+        run = hybrid_runner(model, stage_axis, device)
 
-        def stage_fn(sp, x):
-            for i in range(n_l):
-                x = functional_call(
-                    block, {s: v[:, :, i] for s, v in sp.items()},
-                    (x, _causal_auto), {"axis": tp_in_stage})
-            return x
-
-        def run(schedule, r):
+        def run_rank(schedule, r):
             """One dp rank's pipelined step: (its loss, its corrected
             gradients keyed like the model's parameters)."""
-            p = {k: v[r] for k, v in params.items()}
-            sp = {s: torch.stack([torch.stack(
-                [p[f"block_{st * n_l + i}.{s}"] for i in range(n_l)], dim=1)
-                for st in range(HYB_PP)]) for s in suffixes}
-            tok = p["tok.embedding"].detach().requires_grad_()
-            pos = p["pos.embedding"].detach().requires_grad_()
-            rows = torch.arange(HYB_TP, device=device)[:, None, None]
-            x = (tok[rows, ids[r]] + pos[:, :TP_SEQ][:, None]).to(dtype)
-            xs = x.unflatten(1, (HYB_MICRO, HYB_MB)).transpose(0, 1)
-            tgt = torch.roll(ids[r], -1, dims=-1).unflatten(
-                0, (HYB_MICRO, HYB_MB))
-            head = {"scale": p["ln_f.scale"], "bias": p["ln_f.bias"],
-                    "kernel": p["lm_head.kernel"]}
-            fn = (pp.pipeline_train_step_1f1b if schedule == "1f1b"
-                  else pp.pipeline_train_step_gpipe)
-            loss, sg, hg, dxs = fn(stage_fn, sp, xs.detach(), tgt, head_loss,
-                                   axis=stage_axis, head_params=head,
-                                   collect_input_grads=True)
-            torch.autograd.backward(xs, dxs)
-            raw = {"tok.embedding": tok.grad, "pos.embedding": pos.grad,
-                   "ln_f.scale": hg["scale"], "ln_f.bias": hg["bias"],
-                   "lm_head.kernel": hg["kernel"]}
-            for st in range(HYB_PP):
-                for i in range(n_l):
-                    for s in suffixes:
-                        raw[f"block_{st * n_l + i}.{s}"] = sg[s][st, :, i]
-            # the loss summed the tp ranks' copies
-            return (float(loss) / HYB_TP,
-                    pt.tp_correct_grads(raw, model, tp_axis))
-        return params, run
+            return run(schedule, {k: v[r] for k, v in params.items()},
+                       ids[r])
+        return params, run_rank
 
     res = {}
     # f32: the schedules against each other and against the TP step
@@ -4448,12 +4437,1214 @@ def phase_longcontext():
     return res
 
 
+# --- gossip of meshes and the axes over processes (phase 30) ---------------
+
+MESH_STEPS = 1                   # timed steps over processes, after one more
+MESH_TIMEOUT_S = 900
+MESH_SEQ = {"ring": 8, "ring-zigzag": 8, "ulysses": 4}    # ranks, 1024 each
+MESH_MOE_BATCH = 1               # the f32 MoE check's batch a rank
+MESH_GROUPS = {2: ("path1", "seq", "longcontext"), 4: ("moe", "hybrid"),
+               8: ("path1",)}
+MESH_REPS = 5                    # calls of a collective timed alone
+MESH_LC_STEPS = 10               # the loss is near 0.2 of its first by then
+MESH_P8_CHUNKS = 4               # path 1 at P = 8: batch 8 as 4 slices of 2
+
+
+def _set_compute_dtype(model, dtype):
+    """Switch a model's compute dtype in place (its parameters stay f32):
+    every config's ``dtype`` and every layer's ``dtype`` attribute."""
+    for mod in model.modules():
+        cfg = getattr(mod, "cfg", None)
+        if dataclasses.is_dataclass(cfg):
+            if hasattr(cfg, "gpt"):
+                mod.cfg = dataclasses.replace(
+                    cfg, gpt=dataclasses.replace(cfg.gpt, dtype=dtype))
+            elif hasattr(cfg, "dtype"):
+                mod.cfg = dataclasses.replace(cfg, dtype=dtype)
+        if isinstance(getattr(mod, "dtype", None), torch.dtype):
+            mod.dtype = dtype
+    return model
+
+
+def _rows_digest(params, box):
+    """sha1 of each stacked parameter's row at every position of ``box``
+    (the mesh positions its leading dimensions hold), ``name@position``."""
+    import hashlib
+    import itertools
+
+    out = {}
+    for name, v in params.items():
+        host = v.detach().cpu()
+        for pos in itertools.product(*(range(s.start, s.stop) for s in box)):
+            loc = tuple(i - s.start for i, s in zip(pos, box))
+            out[f"{name}@{pos}"] = hashlib.sha1(
+                host[loc].contiguous().view(torch.uint8).numpy().tobytes()
+            ).hexdigest()
+    return out
+
+
+def _tp_template(base):
+    """A tp-2 TPTransformerLM on the host (seed 0: phase 26's shards) and
+    GPT-small's full leaves gathered from it, which the shard functions
+    place.  Build it with no transport active."""
+    from bluefog_tpu_torch.parallel import tensor as pt
+
+    tmesh = pt.make_hybrid_mesh({"tp": TP_SIZE}, ranks=range(TP_SIZE))
+    model = pt.TPTransformerLM(base, tmesh)
+    full = {k: v[0] for k, v in pt.gather_tp_params(
+        pt.unbox_params(model), model, tmesh.axis("tp")).items()}
+    return model, full
+
+
+def _tp_place(full, mesh, device, optimizer=True):
+    """Path 1's state: the parameters placed by make_shard_and_gather_fns
+    from tp_param_rules (the rows this process owns, on the card), AdamW
+    3e-4 (decay 0.01) with its state placed by shard_optimizer_state, and
+    the gossip over Exponential-2(bf) through sharded_neighbor_allreduce."""
+    from bluefog_tpu_torch import sharding as S
+    from bluefog_tpu_torch.optim import (DistributedNeighborAllreduceOptimizer,
+                                         shard_optimizer_state)
+    from bluefog_tpu_torch.parallel import tensor as pt
+    from bluefog_tpu_torch.topology import ExponentialTwoGraph
+
+    table = pt.tp_param_rules()
+    specs = {k: table.resolve(k.replace(".", "/"), v.shape)
+             for k, v in full.items()}
+    fns, _ = S.make_shard_and_gather_fns(specs, mesh)
+    params = {k: fns[k](v).to(device).requires_grad_()
+              for k, v in full.items()}
+    if not optimizer:
+        return params, None
+    for v in params.values():
+        v.grad = torch.zeros_like(v)
+    base_opt = torch.optim.AdamW(list(params.values()), lr=3e-4,
+                                 weight_decay=0.01)
+    shard_optimizer_state(table, full, torch.optim.AdamW(
+        list(full.values())), mesh, into=base_opt)
+    opt = DistributedNeighborAllreduceOptimizer(
+        base_opt, topology=ExponentialTwoGraph(TP_BF), rule_table=table,
+        param_names=list(params), inner_axes={"tp": TP_SIZE})
+    return params, opt
+
+
+def _tp_data(device, batch=TP_BATCH):
+    gen = torch.Generator(device=device).manual_seed(31)
+    return torch.randint(0, slice_config().vocab_size,
+                         (TP_BF, batch, TP_SEQ), generator=gen,
+                         device=device)
+
+
+def _moe_data(device, batch):
+    gen = torch.Generator(device=device).manual_seed(33)
+    return torch.randint(0, slice_config().vocab_size,
+                         (MOE_DP, MOE_EP, batch, MOE_SEQ), generator=gen,
+                         device=device)
+
+
+def _hybrid_data(device):
+    gen = torch.Generator(device=device).manual_seed(34)
+    return torch.randint(0, slice_config().vocab_size,
+                         (HYB_DP, HYB_MICRO * HYB_MB, TP_SEQ),
+                         generator=gen, device=device)
+
+
+def _seq_ids(device, i, n):
+    gen = torch.Generator(device=device).manual_seed(50 + i)
+    return torch.randint(0, slice_config().vocab_size, (1, n * SP_T_LOCAL),
+                         generator=gen, device=device)
+
+
+def _seq_attn(kind, axis):
+    from bluefog_tpu_torch.ops.ring_attention import (all_to_all_attention,
+                                                       ring_attention)
+
+    if kind == "ulysses":
+        return functools.partial(all_to_all_attention, axis=axis,
+                                 causal=True, backend="auto")
+    return functools.partial(ring_attention, axis=axis, causal=True,
+                             layout="zigzag" if kind == "ring-zigzag"
+                             else "contiguous")
+
+
+def _tp_step_fn(model, params, opt, data, axis, bf_rows, chunks=1):
+    """One path-1 step: each held bf rank's corrected gradients (its tp
+    group; ``axis`` on dimension 0 of its slice), averaged over ``chunks``
+    equal slices of its batch, then the optimizer."""
+    from bluefog_tpu_torch.parallel import tensor as pt
+
+    vg = pt.tp_value_and_grad(lambda p, i: _tp_losses(model, p, i, axis),
+                              model, axis)
+    check(data.shape[1] % chunks == 0, f"batch {data.shape[1]} in {chunks}")
+
+    def step():
+        losses = []
+        for r, b in enumerate(bf_rows):
+            p_r = {k: v[r] for k, v in params.items()}
+            for c, ids in enumerate(data[b].split(data.shape[1] // chunks)):
+                loss, g = vg(p_r, ids)
+                with torch.no_grad():
+                    for k, v in params.items():
+                        if c:
+                            v.grad[r].add_(g[k])
+                        else:
+                            v.grad[r].copy_(g[k])
+                losses.append(float(loss.mean()))
+                del g
+            if chunks > 1:
+                with torch.no_grad():
+                    for v in params.values():
+                        v.grad[r].div_(chunks)
+        opt.step()
+        return sum(losses) / len(losses)
+    return step
+
+
+def mesh_winput(params, tag):
+    """The WinPut variant of path 1: a window over the placed parameters,
+    its partition declared by ``win_create(rule_table=)``; one put through
+    K2 (its peer form over processes) and ``win_update``, then from the same
+    self buffers the plain put and ``win_update``: the updates bit for bit
+    (a landing slot is read only through ``win_update``, which waits for
+    the other processes' deliveries)."""
+    from bluefog_tpu_torch.ops import deliver_kernel as k2
+    from bluefog_tpu_torch.ops import windows as W
+    from bluefog_tpu_torch.parallel import tensor as pt
+    from bluefog_tpu_torch.topology import ExponentialTwoGraph, build_schedule
+
+    table = pt.tp_param_rules()
+    sched = build_schedule(ExponentialTwoGraph(TP_BF))
+    x = {k: v.detach() for k, v in params.items()}
+    win = W.win_create(x, sched, rule_table=table, inner_axes={"tp": TP_SIZE})
+    part = W.win_partition(win)
+    want = {k.replace(".", "/"): table.resolve(k.replace(".", "/"),
+                                              v.shape[2:])
+            for k, v in x.items()}
+    check(part == want, f"{tag}: the window's partition {part}")
+    published = {dt: b.clone() for dt, b in win.bufs.items()}
+    counters = (k2.window_deliver, k2.window_deliver_peer)
+    before = [c.launches for c in counters]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    W.win_put(win, None, backend="kernel")
+    torch.cuda.synchronize()
+    put_ms = (time.perf_counter() - t0) * 1e3
+    launched = sum(c.launches - b for c, b in zip(counters, before))
+    W.win_update(win)
+    got = {dt: b.clone() for dt, b in win.bufs.items()}
+    for dt, b in win.bufs.items():
+        b.copy_(published[dt])
+    W.win_put(win, None, backend="plain")
+    W.win_update(win)
+    equal = all(torch.equal(got[dt], b) for dt, b in win.bufs.items())
+    nbytes = sum(p.numel() * p.element_size() for p in win.peers.values())
+    W.win_free(win)
+    del got, published
+    print(f"[{tag}] WinPut over the partitioned window ({len(part)} leaves "
+          f"declared from tp_param_rules, {nbytes / 1e9:.2f} GB of landing "
+          f"slots here): {launched} K2 launch(es), {put_ms:.2f} ms host; "
+          f"the update after it bit-equal to the one after the plain put "
+          f"(required): {equal}")
+    check(launched > 0 and equal, f"{tag}: K2's put over the partitioned "
+          f"window: {launched} launches, bit-equal {equal}")
+    return {"k2_launches": launched, "bit_equal": equal, "put_ms": put_ms,
+            "landing_bytes": nbytes}
+
+
+def mesh_references(device, refdir):
+    """Phase 30 in this process, before the groups: path 1's one-process
+    form against phase 26's step from the same state (bit for bit), the
+    digests of its state after 1 + MESH_STEPS steps (P = 2 holds its rows
+    to them), its WinPut variant, path 1's f32 tp-group run (P = 8), and
+    the virtual-rank f32 runs of the sequence, MoE and hybrid paths, saved
+    under ``refdir``."""
+    import torch.nn.functional as F
+    from torch.func import functional_call
+    from bluefog_tpu_torch import sharding as S
+    from bluefog_tpu_torch.examples.longcontext_lm import shard_sequence
+    from bluefog_tpu_torch.models import moe as pmm
+    from bluefog_tpu_torch.models.transformer import TransformerLM
+    from bluefog_tpu_torch.ops import collectives as C
+    from bluefog_tpu_torch.ops.gossip_kernel import gossip_mix
+    from bluefog_tpu_torch.optim import DistributedNeighborAllreduceOptimizer
+    from bluefog_tpu_torch.parallel import tensor as pt
+    from bluefog_tpu_torch.parallel.axes import Axis
+    from bluefog_tpu_torch.topology import ExponentialTwoGraph
+
+    t0 = time.perf_counter()
+    base = slice_config()
+    out = {}
+    # path 1 in one process: phase 26's state and step against the placed
+    # state and the sharded gossip, on the same gradients
+    model, full = _tp_template(base)
+    mesh = S.GossipMesh(TP_BF, {"tp": TP_SIZE}).mesh(ranks=range(N_RANKS))
+    ref_model = pt.TPTransformerLM(base, mesh).to(device)
+    a = dict(ref_model.named_parameters())
+    for v in a.values():
+        v.grad = torch.zeros_like(v)
+    opt_a = DistributedNeighborAllreduceOptimizer(
+        torch.optim.AdamW(list(a.values()), lr=3e-4, weight_decay=0.01),
+        topology=ExponentialTwoGraph(TP_BF))
+    b, opt_b = _tp_place(full, mesh, device)
+    check(all(torch.equal(a[k], b[k]) for k in a),
+          "path 1: the placed parameters differ from phase 26's")
+    data = _tp_data(device)
+    axis = Axis("tp", TP_SIZE, 0)
+    vg = pt.tp_value_and_grad(lambda p, i: _tp_losses(model, p, i, axis),
+                              model, axis)
+    equal, launches = [], 0
+    for _ in range(1 + MESH_STEPS):
+        for r in range(TP_BF):
+            _, g = vg({k: v[r] for k, v in a.items()}, data[r])
+            with torch.no_grad():
+                for k in a:
+                    a[k].grad[r].copy_(g[k])
+                    b[k].grad[r].copy_(g[k])
+            del g
+        opt_a.step()
+        before = gossip_mix.launches
+        opt_b.step()
+        launches = gossip_mix.launches - before
+        equal.append(all(torch.equal(a[k], b[k]) for k in a))
+    shard_b, saved_b = C.sharded_neighbor_allreduce.last_wire
+    print(f"[mesh path 1] one process, bf {TP_BF} x tp {TP_SIZE}: parameters "
+          f"placed by make_shard_and_gather_fns from tp_param_rules, AdamW "
+          f"state by shard_optimizer_state, the gossip through "
+          f"sharded_neighbor_allreduce ({launches} K1 launch(es) a step; "
+          f"{shard_b / 1e6:.1f} MB a shard coordinate a step on the wire, "
+          f"{saved_b / 1e6:.1f} MB fewer than gather-then-gossip): "
+          f"bit-equal to phase 26's step after each of {len(equal)} steps "
+          f"(required): {equal}")
+    check(all(equal) and launches > 0,
+          f"path 1 differs from phase 26's step: {equal}, {launches}")
+    with open(os.path.join(refdir, "path1_digests.json"), "w") as f:
+        json.dump(_rows_digest(b, mesh.owned()), f)
+    del a, opt_a, ref_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["path1"] = {"bit_equal": equal, "k1_launches": launches,
+                    "shard_bytes": shard_b, "saved_bytes": saved_b,
+                    "k1_parity": k1_step_parity(opt_b, "mesh path 1"),
+                    "winput": mesh_winput(b, "mesh path 1")}
+    del b, opt_b
+    gc.collect()
+    torch.cuda.empty_cache()
+    # path 1's f32 tp group (the P = 8 reference): bf rank 0's tokens
+    _set_compute_dtype(model, torch.float32)
+    p = {k: v.detach().to(device).requires_grad_()
+         for k, v in model.named_parameters()}
+    ids = _tp_data(device, PARITY_BATCH)[0]
+    losses, grads = pt.tp_value_and_grad(
+        lambda p, i: _tp_losses(model, p, i, axis), model, axis)(p, ids)
+    with torch.no_grad():
+        logits = functional_call(model, p, (ids,), {"axis": axis})
+    torch.save({"losses": losses.cpu(), "logits": logits[0].cpu()},
+               os.path.join(refdir, "path1_f32.pt"))
+    for t in range(TP_SIZE):
+        torch.save({k: g[t].cpu() for k, g in grads.items()},
+                   os.path.join(refdir, f"path1_f32_grads{t}.pt"))
+    del model, full, p, grads, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # path 2: the virtual-rank f32 runs
+    for i, (kind, n) in enumerate(MESH_SEQ.items()):
+        cfg = dataclasses.replace(base, dtype=torch.float32)
+        lm = TransformerLM(cfg, torch.Generator().manual_seed(0)).to(device)
+        toks, tgts, pos = shard_sequence(_seq_ids(device, i, n), n,
+                                         kind == "ring-zigzag")
+        logits = lm(toks, attn_fn=_seq_attn(kind, Axis("sp", n)),
+                    positions=pos)
+        loss = F.cross_entropy(logits.flatten(0, -2), tgts.flatten())
+        names, leaves = zip(*lm.named_parameters())
+        g = torch.autograd.grad(loss, leaves)
+        torch.save({"logits": logits.detach().cpu(),
+                    "grads": {k: v.cpu() for k, v in zip(names, g)}},
+                   os.path.join(refdir, f"seq_{kind}.pt"))
+        del lm, logits, g, loss, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # path 3: MoE dp 2 x ep 4, top-1, dp rank 0's f32 forward at ample
+    # capacity (see mesh_moe)
+    cfg = pmm.MoEConfig(gpt=dataclasses.replace(base, dtype=torch.float32),
+                        num_experts=MOE_EXPERTS, ep_size=MOE_EP,
+                        capacity_factor=MOE_EXPERTS, router="top1")
+    moe = pmm.MoETransformerLM(cfg).to(device)
+    p0 = dict(moe.named_parameters())
+    ids = _moe_data(device, MESH_MOE_BATCH)[0]
+    logits = functional_call(moe, p0, (ids,))
+    loss = pmm.moe_lm_loss(moe, logits, torch.roll(ids, -1, dims=-1), cfg)
+    g = torch.autograd.grad(loss, list(p0.values()))
+    torch.save({"logits": logits.detach().cpu(), "loss": loss.item(),
+                "grads": {k: v.cpu() for k, v in zip(p0, g)}},
+               os.path.join(refdir, "moe.pt"))
+    del moe, p0, logits, g, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # path 4: the hybrid's f32 1F1B step of dp rank 0
+    hmesh = pt.make_hybrid_mesh({"bf": HYB_DP, "tp": HYB_TP},
+                                ranks=range(HYB_DP * HYB_TP))
+    hmodel = pt.TPTransformerLM(dataclasses.replace(
+        base, dtype=torch.float32), hmesh)
+    params = {k: v.detach()[0].to(device)
+              for k, v in hmodel.named_parameters()}
+    loss, grads = hybrid_runner(hmodel, Axis("pp", HYB_PP, 0), device)(
+        "1f1b", params, _hybrid_data(device)[0])
+    torch.save({"loss": loss, "grads": {k: v.cpu() for k, v in
+                                        grads.items()}},
+               os.path.join(refdir, "hybrid.pt"))
+    del hmodel, params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[mesh] the one-process references: "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def hybrid_runner(model, stage_axis, device):
+    """``run(schedule, params, ids)``: one dp rank's pipelined step on the
+    stages of ``stage_axis`` held here (all of them in one process), with
+    ``params`` the dp rank's slice of ``model``'s stacked parameters (at
+    least every key of a held stage, and of the rim a held stage touches)
+    and ``ids`` its tokens.  Returns the loss (the last stage's; 0 where it
+    is not held) and the corrected gradients of the held stages' blocks, of
+    the embeddings where stage 0 is held and of the head where the last
+    is."""
+    import torch.nn.functional as F
+    from torch.func import functional_call
+    from bluefog_tpu_torch.parallel import pipeline as pp
+    from bluefog_tpu_torch.parallel import tensor as pt
+    from bluefog_tpu_torch.parallel.axes import Axis
+
+    n_l = model.cfg.num_layers // HYB_PP
+    held = list(stage_axis.local_ranks())
+    suffixes = [k[len("block_0."):] for k, _ in model.named_parameters()
+                if k.startswith("block_0.")]
+    block = model.block_0
+    tp_in_stage, tp_axis = Axis("tp", HYB_TP, 1), Axis("tp", HYB_TP, 0)
+    n_tok = HYB_MICRO * HYB_MB * TP_SEQ
+
+    def head_loss(head, y, tgt):
+        # y (tp, mb, T, C): each tp rank's copy of the last stage's output;
+        # the sum over the ranks of each one's loss on the dp rank's tokens
+        z = F.layer_norm(y.float(), y.shape[-1:], eps=1e-6)
+        z = z * head["scale"][:, None, None] + head["bias"][:, None, None]
+        logits = torch.matmul(z.flatten(1, 2), head["kernel"])
+        ce = F.cross_entropy(logits.flatten(0, 1),
+                             tgt.flatten().repeat(HYB_TP), reduction="sum")
+        return ce / n_tok
+
+    def stage_fn(sp, x):
+        for i in range(n_l):
+            x = functional_call(
+                block, {s: v[:, :, i] for s, v in sp.items()},
+                (x, _causal_auto), {"axis": tp_in_stage})
+        return x
+
+    def run(schedule, p, ids):
+        sp = {s: torch.stack([torch.stack(
+            [p[f"block_{st * n_l + i}.{s}"] for i in range(n_l)], dim=1)
+            for st in held]) for s in suffixes}
+        tok = p["tok.embedding"].detach().requires_grad_()
+        pos = p["pos.embedding"].detach().requires_grad_()
+        rows = torch.arange(HYB_TP, device=device)[:, None, None]
+        x = (tok[rows, ids] + pos[:, :TP_SEQ][:, None]).to(model.cfg.dtype)
+        xs = x.unflatten(1, (HYB_MICRO, HYB_MB)).transpose(0, 1)
+        tgt = torch.roll(ids, -1, dims=-1).unflatten(0, (HYB_MICRO, HYB_MB))
+        head = {"scale": p["ln_f.scale"], "bias": p["ln_f.bias"],
+                "kernel": p["lm_head.kernel"]}
+        fn = (pp.pipeline_train_step_1f1b if schedule == "1f1b"
+              else pp.pipeline_train_step_gpipe)
+        loss, sg, hg, dxs = fn(stage_fn, sp, xs.detach(), tgt, head_loss,
+                               axis=stage_axis, head_params=head,
+                               collect_input_grads=True)
+        raw = {}
+        if 0 in held:
+            torch.autograd.backward(xs, dxs)
+            raw.update({"tok.embedding": tok.grad, "pos.embedding": pos.grad})
+        if HYB_PP - 1 in held:
+            raw.update({"ln_f.scale": hg["scale"], "ln_f.bias": hg["bias"],
+                        "lm_head.kernel": hg["kernel"]})
+        for j, st in enumerate(held):
+            for i in range(n_l):
+                for s in suffixes:
+                    raw[f"block_{st * n_l + i}.{s}"] = sg[s][j, :, i]
+        # the loss summed the tp ranks' copies
+        return (float(loss) / HYB_TP,
+                pt.tp_correct_grads(raw, model, tp_axis))
+    return run
+
+
+def _mesh_wall(tr, step, device):
+    """One untimed step, then MESH_STEPS timed ones between two barriers of
+    the group (its processes time-slice the card): ms a step, this
+    process's launches a step, its peak GB, its collectives' stats a step,
+    its handshakes' host ms a step, and the last step's result."""
+    from bluefog_tpu_torch.ops.gossip_kernel import gossip_mix_peer
+    from bluefog_tpu_torch.parallel import axes as ax
+
+    step()
+    torch.cuda.synchronize(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    _zero_launches()
+    peer = gossip_mix_peer.launches
+    ax.reset_collective_stats()
+    hs = tr.handshake_us
+    tr.barrier()
+    t0 = time.perf_counter()
+    for _ in range(MESH_STEPS):
+        out = step()
+    torch.cuda.synchronize(device)
+    tr.barrier()
+    ms = (time.perf_counter() - t0) / MESH_STEPS * 1e3
+    stats = {op: {k: v / MESH_STEPS for k, v in st.items()}
+             for op, st in ax.COLLECTIVE_STATS.items()}
+    return {"ms": ms, "launches": _launches(MESH_STEPS),
+            "k1_peer_launches": (gossip_mix_peer.launches - peer)
+            / MESH_STEPS,
+            "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+            "collectives": stats,
+            "handshake_ms": (tr.handshake_us - hs) / MESH_STEPS / 1e3,
+            "result": out}
+
+
+def _mesh_collective(tr, fn, x, what):
+    """A collective alone at a path's shape: all processes' calls between
+    two barriers, MESH_REPS of them, against the bytes it must move on the
+    card (each process stages its payload once, and reads and writes each
+    row it gathers), over every process."""
+    from bluefog_tpu_torch.parallel import axes as ax
+
+    ax.reset_collective_stats()
+    y = fn(x)
+    st = ax.COLLECTIVE_STATS
+    rows = sum(s["remote_bytes"] + s["local_bytes"] for s in st.values())
+    nbytes = (2 * x.numel() * x.element_size() + 2 * rows) * tr.processes
+    del y
+    ms = _wall_ms(tr, lambda: fn(x), MESH_REPS)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"what": what, "ms": ms, "bytes": nbytes, "bound_ms": bound,
+            "of_bound": bound / ms}
+
+
+def _rel_to(got, ref):
+    """max |got - ref| / max |ref|, ``ref`` from the host."""
+    ref = ref.to(got.device, torch.float32)
+    return float((got.detach().float() - ref).abs().max()
+                 / ref.abs().max().clamp(min=1e-30))
+
+
+def _mesh_grads_rel(got, ref):
+    worst, where = 0.0, ""
+    for k, g in got.items():
+        rel = _rel_to(g, ref[k])
+        if not rel <= worst:
+            worst, where = rel, k
+    return worst, where
+
+
+def mesh_path1(ctx, refdir, device):
+    """Path 1 over processes: GPT-small TP, bf 4 x tp 2, placed from the
+    full leaves by make_shard_and_gather_fns; at P = 8 (tp across the
+    processes) first the f32 tp group's logits and corrected gradients
+    against the one-process run; AdamW steps gossiping through
+    sharded_neighbor_allreduce on K1's peer form; the state's digests; K1
+    against its plain fold; the WinPut variant; the tp psum alone."""
+    from torch.func import functional_call
+    from bluefog_tpu_torch import sharding as S
+    from bluefog_tpu_torch.parallel import axes as ax
+    from bluefog_tpu_torch.parallel import tensor as pt
+
+    base = slice_config()
+    with _one_process():
+        model, full = _tp_template(base)
+    mesh = S.GossipMesh(TP_BF, {"tp": TP_SIZE}).mesh()
+    box = mesh.owned()
+    axis = mesh.axis("tp", dim=0)
+    tr = ctx.transport
+    out = {"box": [[s.start, s.stop] for s in box],
+           "tp_crosses": axis.spans_processes}
+    if axis.spans_processes:
+        _set_compute_dtype(model, torch.float32)
+        p32, _ = _tp_place(full, mesh, device, optimizer=False)
+        p_r = {k: v[0] for k, v in p32.items()}
+        ids = _tp_data(device, PARITY_BATCH)[0]
+        losses, grads = pt.tp_value_and_grad(
+            lambda p, i: _tp_losses(model, p, i, axis), model, axis)(p_r, ids)
+        with torch.no_grad():
+            logits = functional_call(model, p_r, (ids,), {"axis": axis})
+        ref = torch.load(os.path.join(refdir, "path1_f32.pt"))
+        refg = torch.load(os.path.join(
+            refdir, f"path1_f32_grads{axis.start}.pt"))
+        out["f32"] = {
+            "logits": _rel_to(logits[0], ref["logits"]),
+            "loss": abs(float(losses[0]) - float(ref["losses"][axis.start]))
+            / abs(float(ref["losses"][axis.start])),
+            "grads": _mesh_grads_rel({k: g[0] for k, g in grads.items()},
+                                     refg)}
+        x = torch.randn(1, TP_BATCH, TP_SEQ, base.hidden_size,
+                        device=device).to(base.dtype)
+        out["psum_alone"] = _mesh_collective(
+            tr, lambda t: ax.psum(t, axis), x,
+            f"psum of {tuple(x.shape)} bf16 over the tp pair")
+        del p32, p_r, grads, logits, ref, refg
+        _set_compute_dtype(model, base.dtype)
+        gc.collect()
+        torch.cuda.empty_cache()
+    params, opt = _tp_place(full, mesh, device)
+    del full
+    # with tp across the card's 8 processes each holds one rank's whole
+    # batch at once (phase 26 runs the bf ranks one after another), and
+    # batch 8's f32 logits and their gradients alone take 5 GB a process:
+    # its batch in MESH_P8_CHUNKS slices, the gradients averaged
+    chunks = MESH_P8_CHUNKS if axis.spans_processes else 1
+    out["chunks"] = chunks
+    step = _tp_step_fn(model, params, opt, _tp_data(device), axis,
+                       range(box[0].start, box[0].stop), chunks)
+    out.update(_mesh_wall(tr, step, device))
+    out["digests"] = _rows_digest(params, box)
+    out["k1_parity"] = k1_step_parity(opt, f"mesh path 1 P={tr.processes}")
+    if not axis.spans_processes:
+        out["winput"] = mesh_winput(params, f"mesh path 1 P={tr.processes}")
+    del params, opt
+    return out
+
+
+def mesh_seq(refdir, device):
+    """Path 2 over processes: for each attention, the f32 logits and the
+    gradients (the replicated model's, summed over the processes by
+    reduce_partials) against the one-process run, then bf16 AdamW steps;
+    the KV rotation or the all-to-all alone."""
+    import torch.nn.functional as F
+    import bluefog_tpu_torch as bf
+    from bluefog_tpu_torch.examples.longcontext_lm import shard_sequence
+    from bluefog_tpu_torch.models.transformer import TransformerLM
+    from bluefog_tpu_torch.parallel import axes as ax
+
+    base = slice_config()
+    res = {}
+    for i, (kind, n) in enumerate(MESH_SEQ.items()):
+        ctx = bf.init(size=n)
+        tr = ctx.transport
+        axis = ax.make_hybrid_mesh({"sp": n}).axis("sp")
+        own = slice(axis.start, axis.start + axis.local)
+        attn = _seq_attn(kind, axis)
+        lm = TransformerLM(dataclasses.replace(base, dtype=torch.float32),
+                           torch.Generator().manual_seed(0)).to(device)
+        toks, tgts, pos = (t[own] for t in shard_sequence(
+            _seq_ids(device, i, n), n, kind == "ring-zigzag"))
+        share = 1.0 / (n * SP_T_LOCAL)
+
+        def loss_of(logits):
+            return F.cross_entropy(logits.flatten(0, -2), tgts.flatten(),
+                                   reduction="sum") * share
+
+        logits = lm(toks, attn_fn=attn, positions=pos)
+        names, leaves = zip(*lm.named_parameters())
+        g = ax.reduce_partials(torch.autograd.grad(loss_of(logits), leaves),
+                               axis)
+        ref = torch.load(os.path.join(refdir, f"seq_{kind}.pt"), mmap=True)
+        out = {"ranks": n, "held": [axis.start, axis.start + axis.local],
+               "f32": {"logits": _rel_to(logits, ref["logits"][own]),
+                       "grads": _mesh_grads_rel(dict(zip(names, g)),
+                                                ref["grads"])}}
+        del logits, g, ref
+        _set_compute_dtype(lm, base.dtype)
+        opt = torch.optim.AdamW(lm.parameters(), lr=3e-4, weight_decay=0.01)
+        params = list(lm.parameters())
+
+        def step():
+            logits = lm(toks, attn_fn=attn, positions=pos)
+            loss = loss_of(logits)
+            grads = torch.autograd.grad(loss, params)
+            for p_, g_ in zip(params, ax.reduce_partials(grads, axis)):
+                p_.grad = g_
+            opt.step()
+            return float(loss.detach())
+
+        out.update(_mesh_wall(tr, step, device))
+        q = torch.randn(axis.local, 1, SP_T_LOCAL, base.num_heads,
+                        base.hidden_size // base.num_heads,
+                        device=device).to(base.dtype)
+        out["alone"] = (_mesh_collective(
+            tr, lambda t: ax.all_to_all(t, axis, -2, -3, tiled=True), q,
+            f"all_to_all of q {tuple(q.shape)} bf16")
+            if kind == "ulysses" else _mesh_collective(
+                tr, lambda t: ax.shift(t, axis), q,
+                f"the ring's KV shift of {tuple(q.shape)} bf16"))
+        res[kind] = out
+        del lm, opt, params, toks, tgts, pos, q
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def mesh_longcontext():
+    """``examples.longcontext_lm`` under the launcher, each ``--attn``, at
+    MESH_LC_STEPS steps (phase 29 runs its default 60 in one process): its 8
+    sp ranks spread over the group's processes."""
+    from bluefog_tpu_torch.examples import longcontext_lm as lc
+
+    res = {}
+    for kind in lc.ATTNS:
+        t0 = time.perf_counter()
+        out = lc.main(["--attn", kind, "--steps", str(MESH_LC_STEPS)])
+        res[kind] = {"ok": out["ok"], "s": time.perf_counter() - t0,
+                     "tokens_s": out["tokens_s"],
+                     "first": out["losses"][0], "last": out["losses"][-1]}
+    return res
+
+
+def mesh_moe(ctx, refdir, device):
+    """Path 3 over processes: MoE top-1, dp 2 x ep 4, each process two
+    ep ranks of one dp rank: the f32 logits and gradients (experts its
+    own, the replicated trunk's summed over its ep group's processes)
+    against the one-process run, then bf16 AdamW steps gossiping each
+    process's parameters with the same ep ranks of the other dp rank on
+    K1's peer form, K1 against its plain fold; the all-to-all alone."""
+    import numpy as np
+    from torch.func import functional_call
+    from bluefog_tpu_torch.models import moe as pmm
+    from bluefog_tpu_torch.optim import DistributedNeighborAllreduceOptimizer
+    from bluefog_tpu_torch.parallel import axes as ax
+    from bluefog_tpu_torch.topology import ExponentialTwoGraph, Topology
+
+    base = slice_config()
+    tr = ctx.transport
+    mesh = ax.make_hybrid_mesh({"dp": MOE_DP, "ep": MOE_EP})
+    box = mesh.owned()
+    d, eps = box[0].start, box[1]
+    axis = mesh.axis("ep", dim=0)
+    # the f32 check at ample capacity: at the path's, where the router
+    # drops most tokens at init, rounding that differs between the batch
+    # folds of one process and of two (cuBLAS picks by shape) moves a token
+    # past the capacity and the drops cascade (4.6e-2 measured); no token
+    # drops at capacity = the tokens of a rank
+    cfg = pmm.MoEConfig(gpt=dataclasses.replace(base, dtype=torch.float32),
+                        num_experts=MOE_EXPERTS, ep_size=MOE_EP,
+                        capacity_factor=MOE_EXPERTS, router="top1")
+    with _one_process():
+        moe = pmm.MoETransformerLM(cfg)
+    pmm.set_ep_axis(moe, axis)
+    expert = lambda k: k.endswith(("mlp.wi", "mlp.wo"))  # noqa: E731
+    host = {k: v.detach() for k, v in moe.named_parameters()}
+    p = {k: (v[eps] if expert(k) else v).to(device, copy=True)
+         .requires_grad_() for k, v in host.items()}
+    share = axis.local / MOE_EP
+
+    def loss_of(model, logits, ids):
+        return pmm.moe_lm_loss(model, logits, torch.roll(ids, -1, dims=-1),
+                               cfg) * share
+
+    def grads_of(loss, p_r):
+        g = dict(zip(p_r, torch.autograd.grad(loss, list(p_r.values()))))
+        trunk = [k for k in g if not expert(k)]
+        for k, v in zip(trunk, ax.reduce_partials([g[k] for k in trunk],
+                                                  axis)):
+            g[k] = v
+        return g
+
+    ids = _moe_data(device, MESH_MOE_BATCH)[0][eps]
+    logits = functional_call(moe, p, (ids,))
+    g = grads_of(loss_of(moe, logits, ids), p)
+    ref = torch.load(os.path.join(refdir, "moe.pt"), mmap=True)
+    out = {"held": [eps.start, eps.stop], "dp": d,
+           "f32": {"logits": _rel_to(logits, ref["logits"][eps]),
+                   "grads": _mesh_grads_rel(
+                       g, {k: (v[eps] if expert(k) else v)
+                           for k, v in ref["grads"].items()})}}
+    del logits, g, ref, p
+    gc.collect()
+    torch.cuda.empty_cache()
+    # bf16 steps: each process one row of the (dp, ep block) gossip, each
+    # block under remat: four processes' activations without it, ~19 GiB a
+    # process with the peer memory, do not fit the card together (probe)
+    _set_compute_dtype(moe, base.dtype)
+    moe.cfg = dataclasses.replace(moe.cfg, remat=True)
+    cfg = dataclasses.replace(cfg, capacity_factor=1.25)   # phase 29's
+    for m in moe.modules():
+        if isinstance(m, pmm.MoEMLP):
+            m.cfg = dataclasses.replace(m.cfg, capacity_factor=1.25)
+    params = {k: (v[eps] if expert(k) else v)[None].to(device, copy=True)
+              .requires_grad_() for k, v in host.items()}
+    del host
+    blocks = MOE_EP // axis.local
+    topo = Topology(np.kron(ExponentialTwoGraph(MOE_DP).weights,
+                            np.eye(blocks)), name="exp2(dp) x ep blocks")
+    # one parameter at a time: the foreach step's temporaries would cost
+    # another copy of the parameters in each of the card's four processes
+    opt = DistributedNeighborAllreduceOptimizer(
+        torch.optim.AdamW(list(params.values()), lr=3e-4, weight_decay=0.01,
+                          foreach=False), topology=topo)
+    data = _moe_data(device, MOE_BATCH)[d][eps]
+
+    def step():
+        p_r = {k: v[0] for k, v in params.items()}
+        logits = functional_call(moe, p_r, (data,))
+        loss = loss_of(moe, logits, data)
+        g = grads_of(loss, p_r)
+        del logits
+        for k, v in params.items():     # the gradients as they are
+            v.grad = g.pop(k)[None]
+        opt.step()
+        return float(loss.detach()) / share
+
+    out.update(_mesh_wall(tr, step, device))
+    out["k1_parity"] = k1_step_parity(opt, f"mesh moe P={tr.processes}")
+    x = torch.randn(axis.local, MOE_EP, MOE_EXPERTS // MOE_EP,
+                    cfg.capacity(MOE_BATCH * MOE_SEQ), base.hidden_size,
+                    device=device).to(base.dtype)
+    out["alone"] = _mesh_collective(
+        tr, lambda t: ax.all_to_all(t, axis, -4, -4), x,
+        f"the dispatch all-to-all of {tuple(x.shape)} bf16")
+    del params, opt, moe, x
+    return out
+
+
+def mesh_hybrid(ctx, refdir, device):
+    """Path 4 over processes: dp 2 x pp 2 x tp 2, each process one stage
+    of one dp rank (tp whole): the f32 1F1B and GPipe gradients of its
+    stage (with the embeddings on stage 0, the head on the last) against
+    the one-process run, the bf16 schedules' times, then an SGD step
+    gossiped over dp on K1's peer form against the plain fold; the stage
+    hop alone."""
+    import numpy as np
+    from bluefog_tpu_torch.ops.collectives import fuse_apply, neighbor_allreduce
+    from bluefog_tpu_torch.parallel import axes as ax
+    from bluefog_tpu_torch.parallel import tensor as pt
+    from bluefog_tpu_torch.topology import (ExponentialTwoGraph, Topology,
+                                            build_schedule)
+
+    base = slice_config()
+    tr = ctx.transport
+    mesh = ax.make_hybrid_mesh({"dp": HYB_DP, "pp": HYB_PP, "tp": HYB_TP})
+    box = mesh.owned()
+    d = box[0].start
+    stage_axis = mesh.axis("pp", dim=0)
+    held = list(stage_axis.local_ranks())
+    with _one_process():
+        model = pt.TPTransformerLM(dataclasses.replace(
+            base, dtype=torch.float32), pt.make_hybrid_mesh(
+                {"bf": HYB_DP, "tp": HYB_TP}, ranks=range(HYB_DP * HYB_TP)))
+    host = {k: v.detach() for k, v in model.named_parameters()}
+    run = hybrid_runner(model, stage_axis, device)
+    ids = _hybrid_data(device)
+    ref = torch.load(os.path.join(refdir, "hybrid.pt"), mmap=True)
+    p = {k: v[0].to(device) for k, v in host.items()}
+    out = {"stages": held, "dp": d, "f32": {}}
+    for schedule in ("1f1b", "gpipe"):
+        loss, g = run(schedule, p, ids[0])
+        out["f32"][schedule] = {"grads": _mesh_grads_rel(g, ref["grads"]),
+                                "keys": len(g)}
+        if HYB_PP - 1 in held:
+            out["f32"][schedule]["loss"] = abs(loss - ref["loss"]) / abs(
+                ref["loss"])
+        del g
+    del p, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    _set_compute_dtype(model, base.dtype)
+    p = {k: v[d].to(device) for k, v in host.items()}
+    for schedule in ("1f1b", "gpipe"):
+        out[schedule] = _mesh_wall(tr, lambda: run(schedule, p, ids[d])[0],
+                                   device)
+    # the dp step: every process's row of its dp rank's parameters
+    _, g = run("gpipe", p, ids[d])
+    with torch.no_grad():
+        new = {k: (v - 0.1 * g[k] if k in g else v)[None]
+               for k, v in p.items()}
+    sched = build_schedule(Topology(np.kron(
+        ExponentialTwoGraph(HYB_DP).weights, np.eye(HYB_PP)),
+        name="exp2(dp) x stages"))
+    from bluefog_tpu_torch.ops.gossip_kernel import gossip_mix_peer
+
+    before = gossip_mix_peer.launches
+    with torch.no_grad():
+        mixed = fuse_apply(lambda t: neighbor_allreduce(
+            t, sched, backend="kernel"), new)
+        torch.cuda.synchronize(device)
+        launched = gossip_mix_peer.launches - before
+        plain = fuse_apply(lambda t: neighbor_allreduce(
+            t, sched, backend="plain"), new)
+    out["dp_step"] = {"k1_peer_launches": launched, "bit_equal": all(
+        torch.equal(mixed[k], plain[k]) for k in plain)}
+    x = torch.randn(1, HYB_TP, HYB_MB, TP_SEQ, base.hidden_size,
+                    device=device).to(base.dtype)
+    out["alone"] = _mesh_collective(
+        tr, lambda t: ax.ppermute(t, stage_axis, [(0, 1)]), x,
+        f"the stage hop of {tuple(x.shape)} bf16")
+    del p, new, mixed, plain, model, host
+    return out
+
+
+def mesh_worker(argv):
+    """One process of phase 30, started by the launcher: ``--mesh-worker
+    OUTDIR REFDIR LENGTHS``; runs its group's paths (:data:`MESH_GROUPS`;
+    at P = 8 first phase 1b's K1 check, :func:`mp_k1`, at the main path's
+    comma-separated LENGTHS) and writes ``OUTDIR/p<process>.json``."""
+    outdir, refdir = argv[0], argv[1]
+    lengths = [int(v) for v in argv[2].split(",")]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from bluefog_tpu_torch.runtime.launch import initialize_cluster
+
+    initialize_cluster()
+    import bluefog_tpu_torch as bf
+
+    t0 = time.perf_counter()
+    ctx = bf.init(size=N_RANKS)
+    device = ctx.device
+    out = {"process": ctx.process_rank, "processes": ctx.process_count,
+           "device": str(device)}
+    seconds = {"init": time.perf_counter() - t0}
+    if ctx.process_count == N_RANKS:
+        t1 = time.perf_counter()
+        out["k1"] = mp_k1(ctx, lengths)
+        seconds["k1"] = time.perf_counter() - t1
+    seen = set()
+    for i, what in enumerate(MESH_GROUPS[ctx.process_count]):
+        t1 = time.perf_counter()
+        if i:
+            ctx = bf.init(size=N_RANKS)   # the last path's memory freed
+        with k3_calls(seen):
+            if what == "path1":
+                out[what] = mesh_path1(ctx, refdir, device)
+            elif what == "seq":
+                out[what] = mesh_seq(refdir, device)
+            elif what == "moe":
+                out[what] = mesh_moe(ctx, refdir, device)
+            elif what == "longcontext":
+                out[what] = mesh_longcontext()
+            else:
+                out[what] = mesh_hybrid(ctx, refdir, device)
+        gc.collect()
+        torch.cuda.empty_cache()
+        seconds[what] = time.perf_counter() - t1
+    out["seconds"] = seconds
+    out["k3_shapes"] = [[list(shape), str(dt), causal]
+                        for shape, dt, causal in sorted(seen, key=str)]
+    bf.shutdown()
+    with open(os.path.join(outdir, f"p{out['process']}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _mesh_group(procs, outdir, refdir, lengths):
+    """Start ``procs`` processes of this script's phase-30 worker through
+    the launcher; their results in process order (a failed or late group
+    fails the phase)."""
+    cmd = [sys.executable, "-m", "bluefog_tpu_torch.runtime.launch",
+           "--no-build", "-np", str(procs), os.path.abspath(__file__),
+           "--mesh-worker", outdir, refdir, ",".join(map(str, lengths))]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))]
+        + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    # P processes share the card's memory: let each one's cached blocks grow
+    # in place (the transport's peer memory is its own cudaMalloc)
+    env.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env=env,
+                            start_new_session=True)
+    try:
+        log, _ = proc.communicate(timeout=MESH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        log, _ = proc.communicate()
+        print(log[-6000:])
+        check(False, f"phase 30: {procs} processes did not finish in "
+              f"{MESH_TIMEOUT_S} s")
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        # every process's error line, then the end of the group's output
+        errors = dict.fromkeys(line for line in log.splitlines()
+                               if re.search(r"Error|error:", line))
+        print("\n".join(list(errors)[:40]))
+        print(log[-6000:])
+    check(proc.returncode == 0,
+          f"phase 30: {procs} processes: the launcher exited "
+          f"{proc.returncode}")
+    res = []
+    for q in range(procs):
+        with open(os.path.join(outdir, f"p{q}.json")) as f:
+            res.append(json.load(f))
+    return res, secs
+
+
+def _collectives_line(rows):
+    """The processes' collectives a step (each row one process's), summed
+    over the processes."""
+    total = {}
+    for r in rows:
+        for op, st in r["collectives"].items():
+            agg = total.setdefault(op, {"calls": 0, "remote_bytes": 0,
+                                        "local_bytes": 0, "host_s": 0.0})
+            for k in agg:
+                agg[k] += st[k]
+    return total
+
+
+def _alone_line(rows):
+    """A collective timed alone: the slowest process's ms."""
+    ms = max(r["alone"]["ms"] for r in rows)
+    return {**{k: rows[0]["alone"][k] for k in ("what", "bytes",
+                                                "bound_ms")},
+            "ms": ms, "of_bound": rows[0]["alone"]["bound_ms"] / ms}
+
+
+def phase_mesh_processes(device, single, lengths):
+    """Phase 30 (see the module docstring): the one-process references
+    (:func:`mesh_references`), then the groups of :data:`MESH_GROUPS`.
+    ``single`` holds this run's one-process tokens/s of phases 25, 26, 28
+    and 29; ``lengths`` the main path's for phase 1b's K1 check at P = 8,
+    which the P = 8 group runs (its entry ``k1``)."""
+    t_phase = time.perf_counter()
+    refdir = tempfile.mkdtemp(prefix="bf-mesh-")
+    out, shapes = {}, set()
+    try:
+        out["one_process"] = mesh_references(device, refdir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info(device)
+        print(f"[mesh] this process holds {torch.cuda.memory_allocated() / 2**30:.2f}"
+              f" GiB ({torch.cuda.memory_reserved() / 2**30:.2f} reserved); "
+              f"the card {free / 2**30:.2f} of {total / 2**30:.2f} GiB free")
+        with open(os.path.join(refdir, "path1_digests.json")) as f:
+            digests = json.load(f)
+        for procs in MESH_GROUPS:
+            outdir = os.path.join(refdir, f"P{procs}")
+            os.makedirs(outdir)
+            res, secs = _mesh_group(procs, outdir, refdir, lengths)
+            tag = f"[mesh P={procs}]"
+            print(f"{tag} {secs:.1f} s for the group; the slowest process's "
+                  "seconds after start-up: "
+                  + str({k: round(max(r["seconds"][k] for r in res), 1)
+                         for k in res[0]["seconds"]}))
+            entry = {"seconds": secs}
+            if "k1" in res[0]:
+                entry["k1"] = report_k1(f"[processes P={procs}]", res,
+                                        lengths)
+            shapes.update((tuple(sh), getattr(torch, dt[len("torch."):]),
+                           causal) for r in res
+                          for sh, dt, causal in r["k3_shapes"])
+            if "path1" in res[0]:
+                entry["path1"] = _report_mesh_path1(tag, procs, res, digests,
+                                                    single)
+            if "seq" in res[0]:
+                entry["seq"] = _report_mesh_seq(tag, res, single)
+            if "longcontext" in res[0]:
+                entry["longcontext"] = res[0]["longcontext"]
+                print(f"{tag} examples.longcontext_lm under the launcher: "
+                      + ", ".join(f"{k} OK {v['ok']} ({v['first']:.3f} -> "
+                                  f"{v['last']:.4f}, {v['s']:.1f} s)"
+                                  for k, v in res[0]["longcontext"].items()))
+                check(all(v["ok"] for r in res
+                          for v in r["longcontext"].values()),
+                      f"{tag} longcontext_lm over processes did not reach OK")
+            if "moe" in res[0]:
+                entry["moe"] = _report_mesh_moe(tag, res, single)
+            if "hybrid" in res[0]:
+                entry["hybrid"] = _report_mesh_hybrid(tag, res, single)
+            out[procs] = entry
+    finally:
+        shutil.rmtree(refdir, ignore_errors=True)
+    # K3 at every shape the processes handed it, held against the twins here
+    out["k3_calls"] = check_k3_calls(shapes, device, "mesh processes")
+    print(f"[mesh] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _report_mesh_path1(tag, procs, res, digests, single):
+    rows = [r["path1"] for r in res]
+    crosses = rows[0]["tp_crosses"]
+    same = all(v == digests[k] for r in rows for k, v in r["digests"].items())
+    n_tok = TP_BF * TP_BATCH * TP_SEQ
+    ms = max(r["ms"] for r in rows)
+    entry = {"tp_crosses": crosses,
+             "bit_equal_to_one_process": None if crosses else same,
+             "ms": ms, "tokens_s": n_tok / ms * 1e3,
+             "one_process_tokens_s": single["tp"],
+             "peak_gb": max(r["peak_gb"] for r in rows),
+             "launches": rows[0]["launches"],
+             "k1_peer_launches": rows[0]["k1_peer_launches"],
+             "handshake_ms": max(r["handshake_ms"] for r in rows),
+             "collectives": _collectives_line(rows),
+             "k1_parity": all(r["k1_parity"]["bit_equal"] for r in rows)}
+    print(f"{tag} path 1 (bf {TP_BF} x tp {TP_SIZE}, processes hold "
+          f"{[r['box'] for r in rows]}; tp across processes: {crosses}): "
+          f"{entry['tokens_s']:.1f} tokens/s over the processes (one process"
+          f" {single['tp']:.1f}), {ms:.2f} ms a step, peak "
+          f"{entry['peak_gb']:.2f} GB a process, launches a step a process "
+          f"{rows[0]['launches']}, handshakes {entry['handshake_ms']:.2f} ms;"
+          + (f" batch in {rows[0]['chunks']} slices;" if crosses else
+             f" the state after {1 + MESH_STEPS} steps bit-equal to one "
+             f"process's: {same};")
+          + f" K1 peer vs plain fold bit-equal "
+          f"{entry['k1_parity']}; collectives a step "
+          f"{entry['collectives']}; K1 peer launches a step a process "
+          f"{rows[0]['k1_peer_launches']:g}")
+    check(entry["k1_parity"], f"{tag} path 1: K1 differs from its plain fold")
+    held_bf = rows[0]["box"][0][1] - rows[0]["box"][0][0]
+    # tp folds into K3's batch: a launch a layer a held bf rank a slice
+    want_k3 = base_layers() * held_bf * rows[0]["chunks"]
+    check(all(r["launches"]["flash_forward"] == want_k3
+              and r["launches"]["flash_backward_dq"] == want_k3
+              for r in rows),
+          f"{tag} path 1: K3 launches {rows[0]['launches']}, expected "
+          f"{want_k3} a process a step")
+    check(all(r["k1_peer_launches"] > 0 for r in rows),
+          f"{tag} path 1: no K1 peer launch a step")
+    if crosses:
+        f32 = {"logits": max(r["f32"]["logits"] for r in rows),
+               "loss": max(r["f32"]["loss"] for r in rows),
+               "grads": max((r["f32"]["grads"] for r in rows),
+                            key=lambda v: v[0])}
+        entry["f32"] = f32
+        entry["psum_alone"] = _alone_line(
+            [{"alone": r["psum_alone"]} for r in rows])
+        print(f"{tag} path 1 f32, the tp psum across processes: logits "
+              f"{f32['logits']:.3e}, loss {f32['loss']:.3e}, corrected "
+              f"gradients {f32['grads'][0]:.3e} ({f32['grads'][1]}) of the "
+              f"one-process run's (tol {SLICE_TOL:.1e}); "
+              f"{entry['psum_alone']['what']} alone "
+              f"{entry['psum_alone']['ms']:.3f} ms for all processes, "
+              f"bound {entry['psum_alone']['bound_ms']:.4f} ms")
+        check(max(f32["logits"], f32["loss"], f32["grads"][0]) <= SLICE_TOL,
+              f"{tag} path 1 f32 disagrees with one process: {f32}")
+    else:
+        check(same, f"{tag} path 1: the state differs from one process's")
+        entry["winput"] = [r["winput"] for r in rows]
+    return entry
+
+
+def base_layers():
+    return slice_config().num_layers
+
+
+def _report_mesh_seq(tag, res, single):
+    out = {}
+    for kind, n in MESH_SEQ.items():
+        rows = [r["seq"][kind] for r in res]
+        ms = max(r["ms"] for r in rows)
+        f32 = {"logits": max(r["f32"]["logits"] for r in rows),
+               "grads": max((r["f32"]["grads"] for r in rows),
+                            key=lambda v: v[0])}
+        e = {"f32": f32, "ms": ms, "tokens_s": n * SP_T_LOCAL / ms * 1e3,
+             "one_process_tokens_s": single["seq"][kind],
+             "peak_gb": max(r["peak_gb"] for r in rows),
+             "launches": rows[0]["launches"],
+             "collectives": _collectives_line(rows),
+             "handshake_ms": max(r["handshake_ms"] for r in rows),
+             "alone": _alone_line(rows)}
+        print(f"{tag} {kind} over {n} sp ranks ({n * SP_T_LOCAL} tokens, "
+              f"held {[r['held'] for r in rows]}): f32 logits "
+              f"{f32['logits']:.3e}, gradients {f32['grads'][0]:.3e} of the "
+              f"one-process run's (tol {SLICE_TOL:.1e}); bf16 "
+              f"{e['tokens_s']:.1f} tokens/s over the processes (one process "
+              f"{e['one_process_tokens_s']:.1f}), peak {e['peak_gb']:.2f} GB "
+              f"a process, K3 a step a process {e['launches']}; collectives "
+              f"a step {e['collectives']}, handshakes {e['handshake_ms']:.2f}"
+              f" ms; {e['alone']['what']} alone {e['alone']['ms']:.3f} ms, "
+              f"bound {e['alone']['bound_ms']:.4f} ms")
+        check(max(f32["logits"], f32["grads"][0]) <= SLICE_TOL,
+              f"{tag} {kind} disagrees with one process: {f32}")
+        want = base_layers() if kind == "ulysses" else 0
+        check(all(r["launches"]["flash_forward"] == want for r in rows),
+              f"{tag} {kind}: K3 launches {rows[0]['launches']}, expected "
+              f"{want} a process a step")
+        out[kind] = e
+    return out
+
+
+def _report_mesh_moe(tag, res, single):
+    rows = [r["moe"] for r in res]
+    ms = max(r["ms"] for r in rows)
+    f32 = {"logits": max(r["f32"]["logits"] for r in rows),
+           "grads": max((r["f32"]["grads"] for r in rows),
+                        key=lambda v: v[0])}
+    e = {"f32": f32, "ms": ms,
+         "tokens_s": MOE_DP * MOE_EP * MOE_BATCH * MOE_SEQ / ms * 1e3,
+         "one_process_tokens_s": single["moe"],
+         "peak_gb": max(r["peak_gb"] for r in rows),
+         "launches": rows[0]["launches"],
+         "k1_peer_launches": rows[0]["k1_peer_launches"],
+         "k1_parity": all(r["k1_parity"]["bit_equal"] for r in rows),
+         "collectives": _collectives_line(rows),
+         "handshake_ms": max(r["handshake_ms"] for r in rows),
+         "alone": _alone_line(rows)}
+    print(f"{tag} MoE top-1, dp {MOE_DP} x ep {MOE_EP} (processes hold ep "
+          f"{[r['held'] for r in rows]}): f32 logits {f32['logits']:.3e}, "
+          f"gradients {f32['grads'][0]:.3e} ({f32['grads'][1]}) of the "
+          f"one-process run's (tol {SLICE_TOL:.1e}); bf16 "
+          f"{e['tokens_s']:.1f} tokens/s (one process "
+          f"{e['one_process_tokens_s']:.1f}), peak {e['peak_gb']:.2f} GB a "
+          f"process, launches a step a process {e['launches']}, K1 peer vs "
+          f"plain fold bit-equal {e['k1_parity']}; collectives a step "
+          f"{e['collectives']}; {e['alone']['what']} alone "
+          f"{e['alone']['ms']:.3f} ms, bound {e['alone']['bound_ms']:.4f} ms")
+    check(max(f32["logits"], f32["grads"][0]) <= SLICE_TOL,
+          f"{tag} MoE disagrees with one process: {f32}")
+    check(e["k1_parity"], f"{tag} MoE: K1 differs from its plain fold")
+    # remat: each layer's forward twice a step, its backward once
+    check(all(r["launches"]["flash_forward"] == 2 * base_layers()
+              and r["launches"]["flash_backward_dkv"] == base_layers()
+              for r in rows), f"{tag} MoE: K3 launches {e['launches']}")
+    return e
+
+
+def _report_mesh_hybrid(tag, res, single):
+    rows = [r["hybrid"] for r in res]
+    n_tok = HYB_MICRO * HYB_MB * TP_SEQ
+    e = {"f32": {}, "alone": _alone_line(rows)}
+    for s in ("1f1b", "gpipe"):
+        worst = max((r["f32"][s]["grads"] for r in rows), key=lambda v: v[0])
+        loss = max(r["f32"][s].get("loss", 0.0) for r in rows)
+        e["f32"][s] = {"grads": worst, "loss": loss}
+        ms = max(r[s]["ms"] for r in rows)
+        e[s] = {"ms": ms, "tokens_s": HYB_DP * n_tok / ms * 1e3,
+                "one_process_tokens_s": single["hybrid"][s],
+                "peak_gb": max(r[s]["peak_gb"] for r in rows),
+                "launches": [r[s]["launches"] for r in rows],
+                "collectives": _collectives_line([r[s] for r in rows])}
+        check(max(worst[0], loss) <= SLICE_TOL,
+              f"{tag} hybrid {s} disagrees with one process: {worst}, {loss}")
+        check(all(la["flash_forward"] > 0 for la in e[s]["launches"]),
+              f"{tag} hybrid {s}: a process launched no K3")
+    dp = {"k1_peer_launches": [r["dp_step"]["k1_peer_launches"]
+                               for r in rows],
+          "bit_equal": all(r["dp_step"]["bit_equal"] for r in rows)}
+    e["dp_step"] = dp
+    print(f"{tag} hybrid dp {HYB_DP} x pp {HYB_PP} x tp {HYB_TP} (processes "
+          f"hold dp/stage {[(r['dp'], r['stages']) for r in rows]}): f32 "
+          + ", ".join(f"{s} gradients {e['f32'][s]['grads'][0]:.3e}, loss "
+                      f"{e['f32'][s]['loss']:.3e}" for s in ("1f1b", "gpipe"))
+          + f" of the one-process 1F1B's (tol {SLICE_TOL:.1e}); bf16 "
+          + ", ".join(f"{s} {e[s]['tokens_s']:.1f} tokens/s over both dp "
+                      f"ranks (one process {e[s]['one_process_tokens_s']:.1f}"
+                      f" a dp rank), peak {e[s]['peak_gb']:.2f} GB, K3 "
+                      f"{[la['flash_forward'] for la in e[s]['launches']]}"
+                      for s in ("1f1b", "gpipe"))
+          + f"; the dp step on K1's peer form ({dp['k1_peer_launches']} "
+          f"launches) bit-equal to the plain fold: {dp['bit_equal']}; "
+          f"{e['alone']['what']} alone {e['alone']['ms']:.3f} ms, bound "
+          f"{e['alone']['bound_ms']:.4f} ms")
+    check(dp["bit_equal"] and all(v > 0 for v in dp["k1_peer_launches"]),
+          f"{tag} hybrid dp step: {dp}")
+    return e
+
+
 def main():
     # cuBLAS's deterministic workspace for the deterministic BERT phases,
     # set before any handle exists (the processes of phase 1b inherit it)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if len(sys.argv) > 1 and sys.argv[1] == "--mp-worker":
         return mp_worker(sys.argv[2:])
+    if len(sys.argv) > 1 and sys.argv[1] == "--mesh-worker":
+        return mesh_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs an NVIDIA GPU", file=sys.stderr)
@@ -4570,6 +5761,16 @@ def main():
         k3_paths[tag + "_k3_calls"] = check_k3_calls(seen, device, tag)
     seq, tensor, hybrid, moe, longctx = (
         k3_paths[t] for t in ("seq", "tp", "hybrid", "moe", "longcontext"))
+    seen = set()
+    with k3_calls(seen):
+        mesh = phase_mesh_processes(device, {
+            "tp": tensor["tokens_s"], "moe": moe["top1"]["tokens_s"],
+            "seq": {k: v["remat=False"]["tokens_s"] for k, v in seq.items()},
+            "hybrid": {s: hybrid[s]["tokens_s"] for s in ("1f1b", "gpipe")}},
+            mp_lengths)
+    k3_paths["mesh_k3_calls"] = check_k3_calls(seen, device, "mesh")
+    procs[N_RANKS] = {"k1": mesh[N_RANKS]["k1"],
+                      "seconds": mesh[N_RANKS]["seconds"]}
 
     sl = procs[SLICE_PROCESSES]["slice"]
     fa = "jax/experimental/pallas/ops/tpu/flash_attention.py"
@@ -4601,6 +5802,12 @@ def main():
                for r in ("top1", "top2")}},
         "non_circulant": routing,
         "bert_machine_rows": bert["k1"],
+        "gossip_of_meshes": {
+            "launches_a_step": mesh["one_process"]["path1"]["k1_launches"],
+            "bit_equal_to_phase_26": all(
+                mesh["one_process"]["path1"]["bit_equal"]),
+            "plain_fold_bit_equal": mesh["one_process"]["path1"][
+                "k1_parity"]["bit_equal"]},
     }, {
         "name": "window_deliver",
         "route": "cuda",
@@ -4608,6 +5815,7 @@ def main():
         "replaces": "bluefog_tpu/ops/pallas_gossip.py:460",
         "launches": k2_launches,
         **k2,
+        "partitioned_window_put": mesh["one_process"]["path1"]["winput"],
     }, {
         "name": "gossip_mix_peer",
         "route": "cuda",
@@ -4627,6 +5835,17 @@ def main():
         "launches_on_bert": bert_procs["launches"],
         "bert_machine_rows": bert_procs["k1"],
         "gpt_payload": sl["gpt_k1"],
+        "launches_on_mesh_paths": {
+            "path1_P2": mesh[2]["path1"]["k1_peer_launches"],
+            "path1_P8": mesh[8]["path1"]["k1_peer_launches"],
+            "moe_P4": mesh[4]["moe"]["k1_peer_launches"],
+            "hybrid_dp_step_P4": mesh[4]["hybrid"]["dp_step"][
+                "k1_peer_launches"]},
+        "plain_fold_bit_equal_on_mesh_paths": {
+            "path1_P2": mesh[2]["path1"]["k1_parity"],
+            "path1_P8": mesh[8]["path1"]["k1_parity"],
+            "moe_P4": mesh[4]["moe"]["k1_parity"],
+            "hybrid_dp_step_P4": mesh[4]["hybrid"]["dp_step"]["bit_equal"]},
     }, {
         "name": "window_deliver_peer",
         "route": "cuda",
@@ -4642,6 +5861,7 @@ def main():
         "processes": 4,
         "by_processes": {str(p): {**v["pushsum"], **v["k2"]}
                          for p, v in procs.items() if "pushsum" in v},
+        "partitioned_window_put_P2": mesh[2]["path1"]["winput"],
     }] + [{
         "name": name,
         "route": "cuda",
@@ -4663,7 +5883,14 @@ def main():
                          for key, rels in K3_TWIN_CHECKED.items()},
         "twin_checked_on_paths": {
             tag: k3_paths[tag + "_k3_calls"]
-            for tag in ("seq", "tp", "hybrid", "moe", "longcontext")},
+            for tag in ("seq", "tp", "hybrid", "moe", "longcontext",
+                        "mesh")},
+        "twin_checked_over_processes": mesh["k3_calls"],
+        "launches_a_process_on_mesh_paths": {
+            "path1_P2": mesh[2]["path1"]["launches"][name],
+            "path1_P8": mesh[8]["path1"]["launches"][name],
+            "ulysses_P2": mesh[2]["seq"]["ulysses"]["launches"][name],
+            "moe_P4": mesh[4]["moe"]["launches"][name]},
     } for i, (name, part, src, line, outs) in enumerate((
         ("flash_forward", "fwd", "flash_attention.cu", 589, ("o", "l", "m")),
         ("flash_backward_dkv", "dkv", "flash_attention_bwd.cu", 941,
@@ -4776,6 +6003,19 @@ def main():
           + f"; K3 held against its twins at {len(K3_TWIN_CHECKED)} shapes"
           + "; longcontext_lm "
           + ", ".join(f"{k} OK in {v['s']:.1f} s" for k, v in longctx.items()))
+    print("gossip of meshes and the axes over processes (phase 30): "
+          + "; ".join(
+              f"{name} P={p} {v['tokens_s']:.1f} tokens/s (one process "
+              f"{v['one_process_tokens_s']:.1f})"
+              for p, entry in ((p, mesh[p]) for p in MESH_GROUPS)
+              for name, v in (
+                  [("path 1", entry["path1"])] if "path1" in entry else [])
+              + [(k, v) for k, v in entry.get("seq", {}).items()]
+              + ([("MoE", entry["moe"])] if "moe" in entry else []))
+          + f"; hybrid 1F1B {mesh[4]['hybrid']['1f1b']['tokens_s']:.1f} "
+          f"tokens/s over 4 processes; path 1 at P = 2 bit-equal to one "
+          f"process {mesh[2]['path1']['bit_equal_to_one_process']}, at P = 8"
+          f" f32 within {max(mesh[8]['path1']['f32']['logits'], mesh[8]['path1']['f32']['grads'][0]):.2e}")
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

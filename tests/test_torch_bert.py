@@ -202,8 +202,8 @@ def test_bert_dropout_rate_and_shape():
 
 
 def test_bert_remat_and_token_types_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        pb.BertEncoder(dataclasses.replace(pb.BertConfig.tiny(), remat=True))
+    # remat is ported (test_bert_remat_*); token types still need the table
+    pb.BertEncoder(dataclasses.replace(pb.BertConfig.tiny(), remat=True))
     model = pb.BertEncoder(pb.BertConfig.tiny())
     ids = torch.zeros(1, 4, dtype=torch.long)
     with pytest.raises(ValueError, match="token_types"):
@@ -320,3 +320,61 @@ def test_synthetic_benchmark_bert_batch_and_loss():
     logits = model(ids)
     want = torch.nn.functional.cross_entropy(logits, labels)
     assert torch.equal(loss, want) and logits.dtype == torch.float32
+
+
+def _bert_grads(model, ids, mask, typ, **kw):
+    out = model(torch.from_numpy(ids).long(), torch.from_numpy(mask),
+                torch.from_numpy(typ).long(), **kw)
+    loss = (out.float() ** 2).mean()
+    names, params = zip(*model.named_parameters())
+    return dict(zip(names, torch.autograd.grad(loss, params)))
+
+
+def test_bert_remat_gradients_bit_equal_to_no_remat():
+    """Each layer under a non-reentrant checkpoint (through functional_call,
+    as GPTConfig.remat): the same gradients bit for bit, deterministic and
+    with dropout from an explicit generator (the recomputation draws the
+    same masks, and the generator ends where the plain run leaves it)."""
+    ids, mask, typ = _inputs(2)
+    for kw in ({}, {"deterministic": False}):
+        grads, ends = [], []
+        for remat in (False, True):
+            cfg = dataclasses.replace(pb.BertConfig.tiny(),
+                                      dtype=torch.float32, remat=remat)
+            model = pb.BertEncoder(cfg, num_classes=3, token_types=True)
+            gen = torch.Generator().manual_seed(5)
+            extra = dict(kw, generator=gen) if kw else {}
+            grads.append(_bert_grads(model, ids, mask, typ, **extra))
+            ends.append(gen.get_state())
+        for k, g in grads[0].items():
+            assert torch.equal(g, grads[1][k]), k
+        assert torch.equal(ends[0], ends[1])
+
+
+def test_bert_remat_gradients_match_flax_remat(flax_bert):
+    """The port's remat BERT against flax's ``remat=True`` BERT (nn.remat of
+    each layer): the gradients of the same loss, f32, within F32_TOL of
+    each gradient's scale."""
+    ids, mask, typ, out = flax_bert
+    params = out["f32", 3, "mask_types"][0]
+    cfg = dataclasses.replace(jb.BertConfig.tiny(), dtype=jnp.float32,
+                              remat=True)
+    jmodel = jb.BertEncoder(cfg, num_classes=3)
+
+    def loss_fn(p):
+        y = jmodel.apply({"params": p}, jnp.asarray(ids), jnp.asarray(mask),
+                         jnp.asarray(typ))
+        return jnp.mean(jnp.asarray(y, jnp.float32) ** 2)
+
+    want = convert.bert_from_flax(jax.jit(jax.grad(loss_fn))(params))
+    model = pb.BertEncoder(dataclasses.replace(
+        pb.BertConfig.tiny(), dtype=torch.float32, remat=True),
+        num_classes=3, token_types=True)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                           convert.bert_from_flax(params).items()})
+    got = _bert_grads(model, ids, mask, typ)
+    assert set(got) == set(want)
+    for k, g in want.items():
+        np.testing.assert_allclose(got[k].numpy(), g, rtol=0,
+                                   atol=F32_TOL * max(float(np.abs(g).max()),
+                                                      1e-30), err_msg=k)

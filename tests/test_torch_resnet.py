@@ -200,3 +200,28 @@ def test_space_to_depth_and_convert_round_trip():
                 jax.tree_util.tree_map(np.asarray, variables["batch_stats"])))
     with pytest.raises(ValueError, match="s2d stem"):
         _models("basic", "s2d")[1](torch.zeros(1, 7, 8, 3))
+
+
+def test_s2d_stem_kernel_from_7x7_matches_reference_and_the_conv_stem():
+    """The embedded 4x4 kernel equals the JAX helper's (in flax's layout),
+    and the s2d stem with it computes the 7x7/s2 stem's function on the
+    same images, f32, to RTOL of the output's scale."""
+    conv = pres.ResNet18(num_classes=10, num_filters=8, dtype=torch.float32)
+    s2d = pres.ResNet18(num_classes=10, num_filters=8, dtype=torch.float32,
+                        stem="s2d")
+    w7 = conv.conv_init.weight.detach()
+    w4 = pres.s2d_stem_kernel_from_7x7(w7)
+    want = jres.s2d_stem_kernel_from_7x7(w7.permute(2, 3, 1, 0).numpy())
+    np.testing.assert_array_equal(w4.permute(2, 3, 1, 0).numpy(), want)
+    with torch.no_grad():
+        s2d.conv_init.weight.copy_(w4)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2, 32, 32, 3)).astype(np.float32))
+    with torch.no_grad():
+        a = conv.conv_init(x.permute(0, 3, 1, 2))
+        b = s2d.conv_init(pres.space_to_depth(x, 2).permute(0, 3, 1, 2))
+    assert a.shape == b.shape == (2, 8, 16, 16)
+    np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=0,
+                               atol=RTOL * float(a.abs().max()))
+    with pytest.raises(ValueError):
+        pres.s2d_stem_kernel_from_7x7(torch.zeros(8, 3, 5, 5))

@@ -13,6 +13,7 @@ package's gate sends the attention to the flash kernel: the test checks both
 gates on that shape.
 """
 
+import dataclasses
 import importlib
 
 import jax
@@ -129,8 +130,8 @@ def test_vit_configs_and_benchmark_image_size():
         for f in ("image_size", "patch_size", "num_classes", "hidden_size",
                   "num_layers", "num_heads", "mlp_ratio"):
             assert getattr(got, f) == getattr(want, f), f
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        pv.ViT(pv.ViTConfig(remat=True))
+    # remat is ported (test_vit_remat_*): a remat ViT builds
+    pv.ViT(dataclasses.replace(pv.ViTConfig.tiny(), remat=True))
     # --image-size rounded down to a multiple of the patch size, the
     # config's classes, as the JAX benchmark
     assert sb.MODELS["vit-tiny"].sized
@@ -144,3 +145,36 @@ def test_vit_configs_and_benchmark_image_size():
     assert int(labels.max()) < 10
     res = sb.run(trainer, warmup=0, iters=1)
     assert np.isfinite(res["losses"][0]).all()
+
+
+def _vit_grads(model, x, y):
+    loss = sb.image_loss(model, (dict(model.named_parameters()), {}),
+                         (torch.from_numpy(x), torch.from_numpy(y)))
+    names, params = zip(*model.named_parameters())
+    return dict(zip(names, torch.autograd.grad(loss, params)))
+
+
+def test_vit_remat_gradients_bit_equal_and_match_flax_remat(flax_vit):
+    """Each block under a non-reentrant checkpoint through functional_call:
+    gradients bit-equal to no remat, and within TOL of flax's ``remat=True``
+    ViT's (nn.remat of each block)."""
+    params, x, y, _, _ = flax_vit
+    plain = _vit_grads(_port(params), x, y)
+    model = pv.ViT(dataclasses.replace(pv.ViTConfig.tiny(), remat=True))
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                           convert.vit_from_flax(params).items()})
+    got = _vit_grads(model, x, y)
+    for k, g in plain.items():
+        assert torch.equal(got[k], g), k
+    jmodel = jv.ViT(dataclasses.replace(jv.ViTConfig.tiny(), remat=True))
+
+    def loss_fn(p):
+        logits = jmodel.apply({"params": p}, jnp.asarray(x))
+        return optax.softmax_cross_entropy_with_integer_labels(
+            logits, jnp.asarray(y)).mean()
+
+    want = convert.vit_from_flax(jax.jit(jax.grad(loss_fn))(params))
+    for k, g in want.items():
+        np.testing.assert_allclose(got[k].numpy(), g, rtol=0,
+                                   atol=TOL * float(np.abs(g).max()),
+                                   err_msg=k)

@@ -416,10 +416,11 @@ def test_sync_and_misuse():
         PW.win_sync(st, {"x": x})
     with pytest.raises(ValueError, match="shape"):
         PW.win_sync(st, x[:, :2])
-    with pytest.raises(NotImplementedError):
+    # window partitioning is ported (tests/test_torch_sharding.py): a
+    # table that is none raises, a canonical declaration reads back
+    with pytest.raises(TypeError, match="RuleTable"):
         PW.win_create(x, psched, rule_table=object())
-    with pytest.raises(NotImplementedError):
-        PW.win_create(x, psched, partition=())
+    assert PW.win_partition(PW.win_create(x, psched, partition=())) == {}
     with pytest.raises(ValueError):
         PW.win_create(torch.ones(N - 1, 3), psched)
     assert PW.win_free(st) is None
