@@ -49,6 +49,13 @@ parallel.tensor, .pipeline, .rng                parallel.tensor, .pipeline,
 sharding.rules (the rule table)                 sharding.rules
 examples/longcontext_lm.py                      examples.longcontext_lm
 the exchange of pallas_gossip (remote DMA)      ops.transport
+csrc/*.cc, runtime.native (engine, windows)     csrc/*.cc, runtime.native
+utils.timeline, utils.logging                   utils.timeline, utils.logging
+runtime.async_windows (AsyncWindow,             runtime.async_windows
+  TreePacker, async push-sum and DSGD)
+sharding.gossip (run_sharded_gossip)            sharding.gossip
+examples/async_pushsum.py, async_dsgd.py,       examples.async_pushsum, ...
+  async_dsgd_mp.py (shm)
 ==============================================  ===============================
 
 Ranks are virtual: ``n`` gossip ranks live on one device as the leading axis
@@ -62,69 +69,68 @@ is used only when a caller asks for it.  The package imports ``torch`` and
 numpy, never JAX.
 """
 
-from bluefog_tpu_torch import topology
-from bluefog_tpu_torch.parallel.context import (
-    get_context,
-    in_neighbor_machine_ranks,
-    in_neighbor_ranks,
-    init,
-    initialized,
-    load_machine_topology,
-    load_topology,
-    local_rank,
-    local_size,
-    machine_rank,
-    machine_size,
-    out_neighbor_machine_ranks,
-    out_neighbor_ranks,
-    owned_ranks,
-    process_count,
-    process_rank,
-    rank,
-    set_machine_topology,
-    set_topology,
-    shutdown,
-    size,
-)
-from bluefog_tpu_torch.parallel.api import (
-    allgather,
-    allreduce,
-    allreduce_parameters,
-    barrier,
-    broadcast,
-    broadcast_optimizer_state,
-    broadcast_parameters,
-    hierarchical_neighbor_allreduce,
-    neighbor_allgather,
-    neighbor_allreduce,
-    neighbor_allreduce_aperiodic,
-    rank_shard,
-    rank_stack,
-    win_accumulate,
-    win_create,
-    win_free,
-    win_get,
-    win_put,
-    win_update,
-    win_update_then_collect,
-)
-from bluefog_tpu_torch.optim import (
-    CommunicationType,
-    DistributedChocoSGDOptimizer,
-    DistributedExactDiffusionOptimizer,
-    DistributedGradientAllreduceOptimizer,
-    DistributedGradientTrackingOptimizer,
-    DistributedHierarchicalNeighborAllreduceOptimizer,
-    DistributedNeighborAllreduceOptimizer,
-    DistributedWinPutOptimizer,
-    decentralized_optimizer,
-)
-
-from bluefog_tpu_torch.utils.checkpoint import (
-    CheckpointManager,
-    resize_rank_state,
-    run_with_restart,
-)
-from bluefog_tpu_torch.utils.failure import HangError, Heartbeat
+from importlib import import_module as _import_module
+from importlib import util as _util
 
 __version__ = "0.1.0"
+
+# The public names and the modules that hold them.  They load at first
+# access (PEP 562), so ``python -m bluefog_tpu_torch.runtime.launch`` and a
+# child process that only joins the cluster do not import torch and the
+# whole package through this file.
+_EXPORTS = {
+    "bluefog_tpu_torch.parallel.context": (
+        "get_context", "in_neighbor_machine_ranks", "in_neighbor_ranks",
+        "init", "initialized", "load_machine_topology", "load_topology",
+        "local_rank", "local_size", "machine_rank", "machine_size",
+        "out_neighbor_machine_ranks", "out_neighbor_ranks", "owned_ranks",
+        "process_count", "process_rank", "rank", "set_machine_topology",
+        "set_topology", "shutdown", "size",
+    ),
+    "bluefog_tpu_torch.parallel.api": (
+        "allgather", "allreduce", "allreduce_parameters", "barrier",
+        "broadcast", "broadcast_optimizer_state", "broadcast_parameters",
+        "hierarchical_neighbor_allreduce", "neighbor_allgather",
+        "neighbor_allreduce", "neighbor_allreduce_aperiodic", "rank_shard",
+        "rank_stack", "win_accumulate", "win_create", "win_free", "win_get",
+        "win_put", "win_update", "win_update_then_collect", "enqueue_host_op",
+        "poll", "synchronize", "wait_all_host_ops",
+    ),
+    "bluefog_tpu_torch.utils.timeline": (
+        "timeline_context", "timeline_end_activity", "timeline_start",
+        "timeline_start_activity", "timeline_stop",
+    ),
+    "bluefog_tpu_torch.optim": (
+        "CommunicationType", "DistributedChocoSGDOptimizer",
+        "DistributedExactDiffusionOptimizer",
+        "DistributedGradientAllreduceOptimizer",
+        "DistributedGradientTrackingOptimizer",
+        "DistributedHierarchicalNeighborAllreduceOptimizer",
+        "DistributedNeighborAllreduceOptimizer", "DistributedWinPutOptimizer",
+        "decentralized_optimizer",
+    ),
+    "bluefog_tpu_torch.utils.checkpoint": (
+        "CheckpointManager", "resize_rank_state", "run_with_restart",
+    ),
+    "bluefog_tpu_torch.utils.failure": (
+        "HangError", "Heartbeat",
+    ),
+}
+_WHERE = {name: mod for mod, names in _EXPORTS.items() for name in names}
+__all__ = ["topology", *_WHERE]
+
+
+def __getattr__(name):
+    mod = _WHERE.get(name)
+    if mod is not None:
+        value = getattr(_import_module(mod), name)
+    elif _util.find_spec(f"{__name__}.{name}") is not None:
+        value = _import_module(f"{__name__}.{name}")
+    else:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

@@ -26,17 +26,15 @@ from __future__ import annotations
 
 import ctypes
 import glob as _glob
-import hashlib
 import os
-import shutil
 import struct
-import subprocess
-import tempfile
 import threading
 from pathlib import Path
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
+
+from bluefog_tpu_torch.utils import hostbuild
 
 __all__ = [
     "crc32c",
@@ -62,46 +60,23 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _compiler() -> Optional[str]:
-    for name in (os.environ.get("CXX"), "g++", "c++", "clang++"):
-        found = shutil.which(name) if name else None
-        if found:
-            return found
-    return None
-
-
 def _library_path() -> Path:
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(_SOURCE.read_bytes())
-    return _BUILD_DIR / f"libbf_tfrecord-{h.hexdigest()[:16]}.so"
+    return hostbuild.library_path(_BUILD_DIR, "bf_tfrecord", [_SOURCE],
+                                  CXX_FLAGS)
 
 
 def load_native() -> ctypes.CDLL:
     """The host library of ``csrc/tfrecord.cc``, compiled on first call when
     its hash-named file is missing.  The build goes to a private directory
     and is renamed into place, so concurrent first calls never load a
-    half-written file.  Raises ``RuntimeError`` without a C++ compiler."""
+    half-written file (:mod:`bluefog_tpu_torch.utils.hostbuild`).  Raises
+    ``RuntimeError`` without a C++ compiler."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        path = _library_path()
-        if not path.exists():
-            cxx = _compiler()
-            if cxx is None:
-                raise RuntimeError(
-                    "no C++ compiler ($CXX, g++, c++, clang++) to build "
-                    f"{_SOURCE.name}")
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
-                out = Path(tmp) / path.name
-                res = subprocess.run(
-                    [cxx, *CXX_FLAGS, "-o", str(out), str(_SOURCE)],
-                    capture_output=True, text=True)
-                if res.returncode != 0:
-                    raise RuntimeError(f"building {_SOURCE.name} failed:\n"
-                                       f"{res.stdout}{res.stderr}")
-                os.replace(out, path)
+        path = hostbuild.build_library(_BUILD_DIR, "bf_tfrecord", [_SOURCE],
+                                       CXX_FLAGS)
         lib = ctypes.CDLL(str(path))
         lib.bf_crc32c.argtypes = [ctypes.c_void_p, ctypes.c_longlong]
         lib.bf_crc32c.restype = ctypes.c_uint32

@@ -33,7 +33,9 @@ is ``n`` independent optimizers with the same hyper-parameters.  Modes:
 - **WinPut**: the local step, then the one-sided window round: publish the
   new parameters (``win_sync``), put them into every out-neighbour's landing
   slot (``win_put``, kernel K2) and merge self and slots (``win_update``).
-  With one static topology that equals an ATC gossip step.
+  With one static topology that equals an ATC gossip step.  Its
+  ``async_=True`` mode runs the rank loops on the host runtime instead,
+  at independent rates (:mod:`bluefog_tpu_torch.runtime.async_windows`).
 
 A ``neighbor_allreduce`` topology may change with time: a sequence of
 topologies is cycled by the *communication* count (not the step count, so
@@ -573,27 +575,40 @@ def DistributedHierarchicalNeighborAllreduceOptimizer(
 
 
 def DistributedWinPutOptimizer(
-    base: torch.optim.Optimizer,
+    base: Optional[torch.optim.Optimizer],
     *,
     topology,
     num_steps_per_communication: int = 1,
     async_: bool = False,
     lr=None,
-) -> DecentralizedOptimizer:
-    """Reference ``bf.DistributedWinPutOptimizer``, synchronous mode: after
-    the local step, push the parameters to the out-neighbours with
-    ``win_put`` and merge the landed ones with ``win_update`` (see the module
-    docstring).  The window is created from the parameters at construction
-    and lives in the optimizer's ``window``.
+):
+    """Reference ``bf.DistributedWinPutOptimizer``.  Two modes:
+
+    - ``async_=False`` (default): after the local step, push the
+      parameters to the out-neighbours with ``win_put`` and merge the
+      landed ones with ``win_update`` (see the module docstring).  The
+      window is created from the parameters at construction and lives in
+      the optimizer's ``window``.  Returns a :class:`DecentralizedOptimizer`.
+    - ``async_=True``: returns an
+      :class:`~bluefog_tpu_torch.runtime.async_windows.AsyncWinPutOptimizer`,
+      rank loops on the host runtime stepping at independent rates over
+      the native window table, with no barrier anywhere (the reference MPI
+      backend's execution model).  ``base`` is unused in this mode (the
+      subgradient-push update is plain SGD on the de-biased iterate): pass
+      the learning rate as ``lr``.  The ranks are threads of this process;
+      one OS process per rank is
+      :func:`~bluefog_tpu_torch.runtime.async_windows.run_async_dsgd_rank`.
 
     Args:
-      base: a ``torch.optim`` optimizer over rank-stacked parameters.
+      base: a ``torch.optim`` optimizer over rank-stacked parameters (the
+        synchronous mode).
       topology: one static :class:`Topology` or :class:`GossipSchedule` (a
-        sequence of exactly one is accepted; longer ones raise).
+        sequence of exactly one is accepted; longer ones raise); the async
+        mode takes a :class:`Topology` only.
       num_steps_per_communication: run the window round every k-th step;
-        the window keeps its stale slots in between.
-      async_: the host-runtime mode (rank loops at independent rates); not
-        ported yet, raises ``NotImplementedError``.
+        the window keeps its stale slots in between.  The async mode has
+        no rounds and takes only 1.
+      async_: the host-runtime mode.
       lr: the async mode's learning rate; passing it without ``async_``
         raises, as in the JAX package.
 
@@ -601,10 +616,25 @@ def DistributedWinPutOptimizer(
     the returned optimizer's ``backend`` attribute selects another.
     """
     if async_:
-        raise NotImplementedError(
-            "DistributedWinPutOptimizer(async_=True) runs on the host runtime "
-            "(rank loops at independent rates), which is not ported yet; it "
-            "comes with slice 6")
+        from bluefog_tpu_torch.runtime.async_windows import (
+            AsyncWinPutOptimizer)
+
+        if not isinstance(topology, Topology):
+            raise TypeError(
+                "async_=True requires a Topology (host rank loops, not a "
+                f"compiled schedule); got {type(topology)}")
+        if lr is None:
+            # base's learning rate lives in its param groups, not in a
+            # rank loop; a silent default would diverge from what the
+            # caller asked for, so demand it explicitly, as the JAX package
+            raise ValueError(
+                "async_=True applies plain SGD on the de-biased iterate "
+                "(base is unused); pass the learning rate via lr=")
+        if num_steps_per_communication != 1:
+            raise ValueError(
+                "async_=True has no synchronous communication rounds; "
+                "num_steps_per_communication does not apply")
+        return AsyncWinPutOptimizer(topology, lr=lr)
     if lr is not None:
         raise ValueError(
             "lr= applies only to async_=True (the sync path takes its "

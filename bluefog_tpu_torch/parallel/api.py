@@ -8,10 +8,12 @@ stacked-array collectives (:func:`neighbor_allreduce`,
 the parameter-sync helpers of the reference's ``utility.py``
 (:func:`broadcast_parameters`, :func:`allreduce_parameters`,
 :func:`broadcast_optimizer_state`) and the name-keyed window registry
-(``win_create`` ... ``win_update_then_collect``).  As there, all ranks'
+(``win_create`` ... ``win_update_then_collect``), and the nonblocking
+host-op surface on the native engine (:func:`enqueue_host_op`,
+:func:`poll`, :func:`synchronize`, :func:`wait_all_host_ops`).  As there, all ranks'
 values live in one tensor with a leading ``size``-long rank axis: ``x[r]`` is
 rank ``r``'s value.  The ranks are virtual, on the context's one device.
-``win_mutex`` is not ported yet (it comes with the host runtime).
+``win_mutex`` is not ported yet (it comes with the window server).
 
 In a context that spans processes every stacked tensor is this process's
 owned block of ``m`` ranks (``rank_stack`` makes one), and the collectives
@@ -39,7 +41,8 @@ __all__ = ["rank_stack", "rank_shard", "neighbor_allreduce", "neighbor_allreduce
            "hierarchical_neighbor_allreduce", "broadcast_parameters",
            "allreduce_parameters", "broadcast_optimizer_state", "win_create",
            "win_free", "win_put", "win_accumulate", "win_get", "win_update",
-           "win_update_then_collect"]
+           "win_update_then_collect", "enqueue_host_op", "poll",
+           "synchronize", "wait_all_host_ops"]
 
 
 def _sched(topology) -> GossipSchedule:
@@ -279,3 +282,39 @@ def win_update_then_collect(name: str):
     """Sum of ``name``'s self and landing buffers; the slots are zeroed."""
     out, _ = _W.win_update_then_collect(_get_win(name))
     return out
+
+
+# -- the nonblocking host-op surface (reference bluefog/torch/mpi_ops.py
+# poll / synchronize over its handle manager).  The card's work is
+# asynchronous on its streams by construction, so the handles here track
+# host ops (checkpoint IO, metric flushes) on the engine thread of
+# runtime/native.py.
+
+
+def enqueue_host_op(fn, *, op: str = "host_op", name: str = "") -> int:
+    """Run ``fn()`` on the background engine thread; returns a handle."""
+    from bluefog_tpu_torch.runtime.native import engine
+
+    return engine().enqueue(fn, op=op, name=name)
+
+
+def poll(handle: int) -> bool:
+    """True once the host op behind ``handle`` has completed."""
+    from bluefog_tpu_torch.runtime.native import engine
+
+    return engine().poll(handle)
+
+
+def synchronize(handle: int, timeout_s=None):
+    """Block until the host op completes and clear its handle (reference
+    ``bf.synchronize`` = WaitAndClear).  Raises the op's exception again."""
+    from bluefog_tpu_torch.runtime.native import engine
+
+    return engine().synchronize(handle, timeout_s=timeout_s)
+
+
+def wait_all_host_ops(timeout_s=None):
+    """Drain every pending host op (before shutdown or a checkpoint)."""
+    from bluefog_tpu_torch.runtime.native import engine
+
+    return engine().wait_all(timeout_s=timeout_s)

@@ -30,13 +30,14 @@ Counterpart of ``bluefog_tpu/runtime/launch.py`` (``initialize_cluster`` and
   launcher stops the others and exits with that status.
 
 Not ported yet: ``--supervise`` and ``--timeline`` (with the host runtime's
-failure handling and timeline), ``--simulate`` (the JAX package's virtual CPU
+failure handling, ROADMAP Queue 1 item 9b), ``--simulate`` (the JAX package's virtual CPU
 devices), and ``ibfrun``.
 """
 
 from __future__ import annotations
 
 import argparse
+import atexit
 import datetime
 import logging
 import os
@@ -98,6 +99,11 @@ def initialize_cluster(coordinator_address: Optional[str] = None,
                 f"{world}, process_id={rank}")
         dist.init_process_group("gloo", init_method=f"tcp://{addr}",
                                 world_size=world, rank=rank, timeout=timeout)
+        # leave the group before the interpreter's teardown: a live gloo
+        # group destroyed by static destructors at exit can abort the
+        # process ("terminate called without an active exception") after
+        # its work is done
+        atexit.register(_leave_cluster)
         _log.info("cluster initialized: process %d/%d", rank, world)
     except Exception as e:
         if explicit:
@@ -106,6 +112,13 @@ def initialize_cluster(coordinator_address: Optional[str] = None,
                 f"num_processes={world}, process_id={rank}): {e}") from e
         _log.warning("torch.distributed rendezvous skipped (the environment "
                      "names no reachable cluster): %s", e)
+
+
+def _leave_cluster() -> None:
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def _child_env(env_specs: List[str]) -> dict:

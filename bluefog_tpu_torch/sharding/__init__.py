@@ -8,15 +8,17 @@ the optimizer state (moments inherit their parameter's spec,
 ``(bf, fsdp/tp)`` mesh (:class:`GossipMesh`).  On it the gossip connects
 meshes, not devices: ``ops.collectives.sharded_neighbor_allreduce`` gossips
 each inner coordinate's shard with the same coordinate of the neighbour
-meshes.  The reference's ``run_sharded_gossip`` runs over the host window
-runtime and comes with it; its metric counters come with the metrics
-package.
+meshes, and :func:`run_sharded_gossip` does the same over the host window
+table (:mod:`bluefog_tpu_torch.runtime.async_windows`).  The metric
+counters come with the metrics package.
 """
 
 from bluefog_tpu_torch.sharding.apply import (gather_tree,
                                               make_shard_and_gather_fns,
                                               reassemble_vectors, shard_tree,
                                               tree_wire_bytes)
+from bluefog_tpu_torch.sharding.gossip import (ShardedGossipReport,
+                                               run_sharded_gossip)
 from bluefog_tpu_torch.sharding.mesh import (GossipMesh, ShardView,
                                              inner_coords, num_shards,
                                              shard_shape, shard_size_ratio,
@@ -54,4 +56,6 @@ __all__ = [
     "gather_tree",
     "reassemble_vectors",
     "tree_wire_bytes",
+    "ShardedGossipReport",
+    "run_sharded_gossip",
 ]

@@ -231,8 +231,8 @@ def reassemble_vectors(template, specs, axes: Mapping[str, int],
     """The full tree from per-coordinate packed flat vectors (the serving
     snapshot and warm-start read path): each coordinate's vector holds its
     shard of every leaf, in the template's leaf order, each raveled in C
-    order, in ``dtype`` (the layout of the reference's spec-aware
-    ``TreePacker``, whose port comes with the host runtime).  Keys as in
+    order, in ``dtype`` (the layout of the spec-aware
+    :class:`~bluefog_tpu_torch.runtime.async_windows.TreePacker`).  Keys as in
     :func:`gather_tree`."""
     names = list(axes.keys())
     t_leaves, treedef = pytree.tree_flatten(template)

@@ -14,6 +14,7 @@ from bluefog_tpu_torch.topology.graphs import (  # noqa: F401
     StarGraph,
     SymmetricExponentialGraph,
     Topology,
+    heal,
 )
 from bluefog_tpu_torch.topology.dynamic import (  # noqa: F401
     GetDynamicOnePeerSendRecvRanks,

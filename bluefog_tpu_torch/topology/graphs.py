@@ -17,7 +17,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+import re
+from typing import Dict, FrozenSet, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -34,6 +35,7 @@ __all__ = [
     "IsRegularGraph",
     "GetRecvWeights",
     "GetSendWeights",
+    "heal",
 ]
 
 
@@ -48,12 +50,19 @@ class Topology:
       weights: ``(n, n)`` float64 row-stochastic matrix, orientation per the
         module docstring.
       name: human-readable tag.
+      inactive: ranks healed out of the graph (:func:`heal`): their rows
+        are identity self-loops and no active row references them.  Rank
+        numbers stay valid, and the derived ``name`` keeps one collapsed
+        suffix.
     """
 
     weights: np.ndarray
     name: str = "custom"
+    inactive: FrozenSet[int] = frozenset()
 
     def __post_init__(self):
+        object.__setattr__(self, "inactive",
+                           frozenset(int(r) for r in self.inactive))
         w = np.asarray(self.weights, dtype=np.float64)
         if w.ndim != 2 or w.shape[0] != w.shape[1]:
             raise ValueError(f"weights must be square, got shape {w.shape}")
@@ -261,3 +270,59 @@ def GetSendWeights(topo: Topology, rank: int) -> Tuple[float, Dict[int, float]]:
     applies to this rank's tensor."""
     return topo.self_weight(rank), {i: float(topo.weights[i, rank])
                                     for i in topo.out_neighbors(rank)}
+
+
+# a healed name carries exactly one provenance suffix: repeated healing
+# collapses it instead of growing a "+heal(...)+heal(...)" chain
+_PROVENANCE_RE = re.compile(r"(\+heal\([^)]*\))+$")
+
+
+def _base_name(name: str) -> str:
+    """``name`` without its ``+heal(...)`` suffix chain."""
+    return _PROVENANCE_RE.sub("", name)
+
+
+def heal(topo: Topology, dead_ranks) -> Topology:
+    """Renormalise the mixing weights over the ranks that survive
+    ``dead_ranks`` (counterpart of ``bluefog_tpu.topology.heal``).
+
+    Each surviving row drops its dead in-neighbours' columns and is
+    rescaled by the surviving row mass (the weights keep their relative
+    proportions), so it stays row-stochastic; a survivor whose every
+    neighbour died becomes a pure self-loop.  Dead rows become identity
+    self-loops: their indices stay valid, but no surviving row references
+    them.  Push-sum's weight channel de-biases whatever row-stochastic
+    matrix is in effect, so switching to the healed one mid-run keeps the
+    surviving average unbiased.
+
+    ``heal(topo, [])`` returns ``topo``; killing every rank raises
+    ``ValueError``.  ``heal(heal(t, a), b)`` equals ``heal(t, a | b)``,
+    and the name carries one ``+heal([union])`` suffix, the union on
+    :attr:`Topology.inactive`."""
+    dead = frozenset(int(r) for r in dead_ranks)
+    if not dead:
+        return topo
+    n = topo.size
+    bad = [r for r in dead if not (0 <= r < n)]
+    if bad:
+        raise ValueError(f"dead ranks {sorted(bad)} out of range for "
+                         f"size-{n} topology")
+    all_dead = dead | topo.inactive
+    if len(all_dead) >= n:
+        raise ValueError("cannot heal a topology with every rank dead")
+    w = topo.weights.copy()
+    for r in dead:
+        w[r, :] = 0.0
+        w[:, r] = 0.0
+        w[r, r] = 1.0
+    for i in range(n):
+        if i in all_dead:
+            continue
+        s = w[i].sum()
+        if s <= 0.0:
+            w[i, i] = 1.0  # every neighbour died: an isolated self-loop
+        else:
+            w[i] /= s
+    return Topology(weights=w,
+                    name=f"{_base_name(topo.name)}+heal({sorted(all_dead)})",
+                    inactive=all_dead)

@@ -19,7 +19,7 @@ every thread's stack, then escalates:
   (SIGTERM, then SIGKILL) so a supervisor restarts it.
 
 The process supervisor, ``run_supervised``, needs the host runtime's
-``runtime/resilience.py`` and comes with it; the reference's hooks into its
+``runtime/resilience.py`` and comes with it (ROADMAP Queue 1 item 9b); the reference's hooks into its
 flight recorder and metrics come with those subsystems.
 """
 

@@ -15,7 +15,9 @@ its last line:
    warning.
 1b. Ranks over processes (run right after the build, while this process
    holds no tensors): the ResNet-50 main path of phase 3 in this process,
-   1 + 2 steps under deterministic cuDNN, as the reference; then the same
+   1 + 1 steps (cut from 1 + 2 for the time limit) under deterministic
+   cuDNN, as the
+   reference; then the same
    8 ranks spread over P = 2 and P = 4 processes that share the card,
    each group started by the port's launcher (``python -m
    bluefog_tpu_torch.runtime.launch -np P chip_smoke.py --mp-worker ...``),
@@ -26,7 +28,7 @@ its last line:
    and plain routes, and times it at that length on a packed staged buffer
    as the main path runs it (all processes' launches of a step between two
    barriers, against the bound of the rows each process's launch must read
-   and write); runs the main path for 1 + 2 steps under deterministic cuDNN
+   and write); runs the main path for 1 + 1 steps under deterministic cuDNN
    (img/s per process and over all, each process's own device idle share in
    one profiled step, K1's peer launches, one a step since every leaf fuses
    into one staged buffer, the handshake's host microseconds, the pack's
@@ -38,7 +40,7 @@ its last line:
    At P = 2 the group then runs every other algorithm over the processes,
    against one-process runs this process makes first: gradient tracking on
    MeshGrid2D(8) (BASELINE.json ``configs[3]``) and exact diffusion on
-   Ring(8) over ResNet-50, 1 + 2 steps each under deterministic cuDNN
+   Ring(8) over ResNet-50, 1 + 1 steps each under deterministic cuDNN
    (parameters and trackers, or master and last psi, within 2^-7 of one
    process's, bit-equality reported; 2 and 1 K1 peer launches a step a
    process); the callable one-peer Exp-2 topology's matrices, 6 rounds of
@@ -49,7 +51,7 @@ its last line:
    over that buffer, bit-equal to one process; ``pair_gossip``,
    ``neighbor_allgather``, sender-weighted gossip and int64 rows at that
    length, bit-equal to one process; GPT-small at seq 1024 and batch 8 a
-   rank, 1 + 2 steps (96 launches of each K3 kernel a step over the
+   rank, 1 + 1 steps (96 launches of each K3 kernel a step over the
    processes, 1 K1 peer launch a step a process, parameters within 2^-7 of
    one process's), and K1's peer form on GPT's one staged payload, bit-equal
    to its plain twin on the same rows (folded in column slices) and timed
@@ -222,13 +224,14 @@ its last line:
    version, its bound and ``torch.matmul(W, x)``.
 19. ``examples.bert_finetune_hierarchical --model large --local-size 2``
    at 1 epoch (its default 3, cut for the script's time limit when phases
-   24-29 and then phase 30 came) and its ``--n-per-rank``, under
-   deterministic algorithms,
+   24-29 and then phase 30 came) and ``--n-per-rank 32`` (its 128, cut
+   when phase 31 came), under deterministic algorithms,
    then with ``--two-level-mesh``: loss, accuracy and seq/s per epoch, the
    parameter spread, K1's launches, and the two forms' parameters, which
    must be bit-equal.
 20. The gates: ``examples.mnist_epoch_gate`` at its defaults and
-   ``examples.cifar_resnet_gate --filters 64`` at its defaults, each
+   ``examples.cifar_resnet_gate --filters 64`` at 2 epochs (its 6, cut
+   when phase 31 came), each
    asserting its target and its parity with the allreduce arm; both arms'
    accuracy, img/s and seconds, and K1's launches.
 21. Checkpoints: ``examples.imagenet_resnet`` (ResNet-50, 8 x 32 at 64x64,
@@ -254,17 +257,21 @@ its last line:
    (``local_attention`` on the full T, K3), within 2^-7 in f32 and 2^-4 in
    bf16; remat's gradients against no remat's (bit-equality recorded).
    Then bf16 AdamW steps with and without remat: tokens/s, peak memory,
-   K3's launches a step (Ulysses: 12, 24 forwards with remat).
+   K3's launches a step (Ulysses: one a layer, two forwards with remat).
+   Phases 25-30 run GPT-small's widths at 6 of its 12 layers
+   (``SLICE_LAYERS``), cut for the script's time limit.
 26. Tensor parallelism, ``TPTransformerLM`` at GPT-small's widths: in f32 on
    one tp 2 group at batch 2 x 1024, the gathered parameters replayed at tp
    = 1 through the dense ``TransformerLM`` give its logits and the
    corrected gradients (through the rule table) its gradients, within
    2^-7; then bf 4 x tp 2 in bf16, batch 8 x 1024 a bf rank, AdamW 3e-4
-   (decay 0.01) gossiping over Exponential-2(4): 48 launches of each K3
-   kernel a step and K1's per the fuse plan, tokens/s; then the AdamW step
+   (decay 0.01) gossiping over Exponential-2(4): 4 launches of each K3
+   kernel a layer a step (48 at 12 layers) and K1's per the fuse plan,
+   tokens/s; then the AdamW step
    through K1 against the same step through the plain fold from the same
    state, bit for bit.
-27. Hybrid dp 2 x pp 2 x tp 2: GPT-small's 12 TPBlocks, 6 a stage, bf16,
+27. Hybrid dp 2 x pp 2 x tp 2: GPT-small's TPBlocks (6 of its 12, as in
+   phases 25-30), half a stage, bf16,
    M = 4 microbatches of 2 x 1024 a dp rank under 1F1B and GPipe (tokens
    embedded before injection, the head folded into the loss): in f32 both
    schedules' corrected gradients within 2^-7 of each other and of the
@@ -277,8 +284,8 @@ its last line:
    ample capacity), both routers; then ``MoETransformerLM`` (GPT-small
    trunk, 8 experts), top-1 and top-2, dp 2 x ep 4, batch 4 x 1024 a rank
    in bf16, AdamW gossiping over dp on K1: the (T, E, C) dispatch memory
-   reckoned first, the dropped fraction, tokens/s, 24 launches of each K3
-   kernel a step and K1's per the fuse plan; the AdamW step through K1
+   reckoned first, the dropped fraction, tokens/s, 2 launches of each K3
+   kernel a layer a step and K1's per the fuse plan; the AdamW step through K1
    bit-equal to the plain fold's; each layer's dropped fraction, expert
    load and the mean cosine between a sequence's last 512 tokens at its
    input (the embeddings' routing beside them), and ``expert_parallel_ffn``
@@ -320,6 +327,26 @@ its last line:
    calls, bytes and host seconds a step, one collective alone against its
    bytes bound, peak GB a process and K3's launches a process; K3 is held
    against its twins at every shape the processes handed it.
+31. The asynchronous host runtime on one host, no TPU kernel on its path
+   (K1-K3's counters are read around it and reported): the port's host
+   library built from ``bluefog_tpu_torch/csrc/*.cc``; 31a ``TreePacker``
+   round trips, bit-exact, of ResNet-50's parameters (f32) and a 2-layer
+   GPT-small (bf16) from CUDA tensors to the f64 window vector, the fused
+   and the per-leaf paths, pack and unpack ms against a pinned D2H and H2D
+   of the same f32 bytes; 31b ``examples.async_pushsum`` and 31c
+   ``examples.async_dsgd`` (LeNet-5 on the card, 8 rank threads) at their
+   defaults, with their checks; 31d ResNet-50 (batch 32 a rank, 224x224,
+   bf16) trained through ``DistributedWinPutOptimizer(async_=True)`` by 8
+   rank threads on Exponential-2, each on its own CUDA stream, 10 s with
+   ``overlap=False`` and 10 s with ``True``: steps a rank, img/s against
+   phase 3's, the mass audit (exact), the consensus gap, a rank step's host
+   ms (consume, unpack, ``loss_and_grad``, pack, deposit, and the
+   harvester's hidden seconds), peak device GB and host RSS; 31e
+   ``examples.async_dsgd_mp --ranks 2`` over shared memory, its workers on
+   the card; 31f ``run_sharded_gossip`` on GPT-small's widths at 2 layers,
+   4 ranks on Ring(4), ``{tp: 2}`` of ``tp_param_rules``, parameters drawn
+   on the card, 3 rounds with rank 2 healed out before the last: bit-equal
+   to the ``axes={}`` run, each coordinate's mass audit exact.
 23. Report: a ``kernels:`` line, a line for K1 on this slice's paths and a
    line for the allreduce (not a TPU kernel), the kernels' JSON line (K1,
    K2 and K3's three kernels; K1's entry also carries its one-slot times,
@@ -2013,7 +2040,7 @@ def phase_examples():
 MP_PROCESSES = (2, 4)
 # steps of phase 1b's runs over processes and of their one-process
 # references (2 + 3 until PR 12; cut to make room for phase 30)
-MP_WARMUP, MP_TIMED = 1, 2
+MP_WARMUP, MP_TIMED = 1, 1   # 1 + 2 cut to 1 + 1 for the time limit
 MP_TIMEOUT_S = 600
 
 
@@ -2127,7 +2154,7 @@ def mp_k1(ctx, lengths):
 
 
 def mp_main_path(ctx, outdir):
-    """The ResNet-50 main path over this process's ranks, 1 + 2 steps under
+    """The ResNet-50 main path over this process's ranks, 1 + 1 steps under
     deterministic cuDNN (each timed step's wait in its handshake read
     apart), its parameters saved for the parent's comparison, then one
     profiled step; then the time of a step's pack alone (every parameter
@@ -2367,7 +2394,7 @@ def _slice_state(trainer, algo):
 
 
 def slice_references(device):
-    """The one-process runs the P = 2 group is held against: 1 + 2 steps
+    """The one-process runs the P = 2 group is held against: 1 + 1 steps
     of gradient tracking (grid) and exact diffusion (ring) over ResNet-50
     under deterministic cuDNN, and of GPT-small at seq 1024; their states
     on the host."""
@@ -2395,7 +2422,7 @@ def slice_references(device):
 
 def mp_algo(ctx, outdir, algo):
     """Gradient tracking (grid), exact diffusion (ring) or GPT-small over
-    this process's ranks, 1 + 2 steps (deterministic cuDNN for ResNet-50):
+    this process's ranks, 1 + 1 steps (deterministic cuDNN for ResNet-50):
     the launches of K1's peer form and of K3, the step times, and the state
     saved for the parent's comparison with one process."""
     from bluefog_tpu_torch.examples.synthetic_benchmark import run
@@ -2984,6 +3011,9 @@ def _report_slice(tag, procs, res, refs, outdir):
 BERT_BATCH, BERT_SEQ, BERT_LOCAL = 32, 128, 2   # the JAX benchmark's
 BERT_PROCESSES = 2
 BERT_FT_EPOCHS = 1    # the example's 3 cut for the script's time limit
+BERT_FT_N_PER_RANK = 32   # the example's 128 cut (4 steps, not 16)
+CIFAR_GATE_EPOCHS = 2     # the example's 6 cut: its loss was 0.0094
+#                           after the second epoch at the default
 # (2 until PR 12; 1 since phase 30: no check depends on the epochs)
 
 
@@ -3217,7 +3247,8 @@ def phase_bert_finetune():
             gossip_mix.launches = 0
             res = bft.main(["--model", "large", "--local-size",
                             str(BERT_LOCAL), "--epochs",
-                            str(BERT_FT_EPOCHS)] + extra)
+                            str(BERT_FT_EPOCHS), "--n-per-rank",
+                            str(BERT_FT_N_PER_RANK)] + extra)
             launches = gossip_mix.launches
         trainer = res.pop("trainer")
         per_step, _ = _launches_a_step(trainer.params.values())
@@ -3389,7 +3420,8 @@ def phase_bert_processes(outdir):
 
 def phase_gates():
     """``examples.mnist_epoch_gate`` at its defaults and
-    ``examples.cifar_resnet_gate --filters 64`` at its defaults: each gate
+    ``examples.cifar_resnet_gate --filters 64`` at its defaults but
+    ``CIFAR_GATE_EPOCHS``: each gate
     asserts its target and its parity with the allreduce arm; both arms'
     accuracy, steps, img/s and wall-clock, and K1's launches (the gossip
     arm's fuse plan a step; none in the allreduce arm)."""
@@ -3400,7 +3432,8 @@ def phase_gates():
     out = {}
     for name, mod, argv, model in (
             ("mnist", mnist_epoch_gate, [], LeNet5()),
-            ("cifar", cifar_resnet_gate, ["--filters", "64"],
+            ("cifar", cifar_resnet_gate,
+             ["--filters", "64", "--epochs", str(CIFAR_GATE_EPOCHS)],
              cifar_resnet_gate.make_model(64))):
         per_step, _ = _launches_a_step(p[None] for p in model.parameters())
         gc.collect()
@@ -3596,11 +3629,15 @@ BF16_SLICE_TOL = 2.0 ** -4     # 12-layer GPT at width 768 on the CPU, 8 x
 # 128 tokens: the ring 1.1% off in logits, 1.6% in gradients
 
 
+SLICE_LAYERS = 6   # GPT-small's 12 cut for the script's time limit
+
+
 def slice_config():
-    """GPT-small's published widths, the configuration of these phases."""
+    """GPT-small's published widths at ``SLICE_LAYERS`` layers, the
+    configuration of phases 25-30."""
     from bluefog_tpu_torch.models.transformer import GPTConfig
 
-    return GPTConfig.small()
+    return dataclasses.replace(GPTConfig.small(), num_layers=SLICE_LAYERS)
 
 
 def _slice_kernels():
@@ -4079,7 +4116,7 @@ def _causal_auto(q, k, v):
 
 
 def phase_hybrid(device):
-    """dp 2 x pp 2 x tp 2 on GPT-small's 12 TPBlocks, 6 a stage: each dp
+    """dp 2 x pp 2 x tp 2 on GPT-small's TPBlocks, half a stage: each dp
     rank's (pp, tp) group runs M = 4 microbatches of 2 x 1024 under 1F1B and
     under GPipe, the tokens embedded before injection and the head folded
     into the loss.  In f32, both schedules' corrected gradients against each
@@ -5637,6 +5674,366 @@ def _report_mesh_hybrid(tag, res, single):
     return e
 
 
+# ---------------------------------------------------------------------------
+# Phase 31: the asynchronous host runtime (native window table, TreePacker
+# on the card, rank threads and processes)
+# ---------------------------------------------------------------------------
+
+ASYNC_RANKS = 8
+ASYNC_BATCH = 32                 # a rank, at 224x224 (configs[1])
+ASYNC_SECONDS = 10.0             # each of 31d's two runs
+ASYNC_LR = 0.01                  # phase 3's SGD rate (no momentum here)
+SHARD_LAYERS = 2                 # GPT-small's 12 cut for 31f's host vectors
+SHARD_RANKS = 4
+SHARD_ROUNDS = 3
+PACK_REPS = 5
+
+
+def _host_rss_gb():
+    """(resident, peak resident) GB of this process: /proc's VmRSS and
+    getrusage's maximum."""
+    import resource
+
+    rss = float("nan")
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                rss = int(line.split()[1]) * 1024 / 1e9
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+    return rss, peak
+
+
+def _host_wall_ms(fn, reps, warm=1):
+    """Mean wall milliseconds of ``fn`` (which returns with the card done)
+    over ``reps`` calls, after ``warm``."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _copy_ms(n_f32, device):
+    """Device milliseconds of one pinned D2H and one H2D copy of ``n_f32``
+    f32: the transfer bound of a pack and of an unpack."""
+    dev = torch.empty(n_f32, dtype=torch.float32, device=device)
+    host = torch.empty(n_f32, dtype=torch.float32, pin_memory=True)
+    d2h = time_ms(lambda: host.copy_(dev, non_blocking=True), PACK_REPS)
+    h2d = time_ms(lambda: dev.copy_(host, non_blocking=True), PACK_REPS)
+    return d2h, h2d
+
+
+def host_packer(device):
+    """31a: TreePacker on the card.  ResNet-50's parameters (f32) and a
+    2-layer GPT-small (bf16) packed from CUDA tensors into the f64 window
+    vector and unpacked, bit-exact, through the fused path and the per-leaf
+    path; pack and unpack ms against the measured pinned copies of the
+    same f32 bytes."""
+    import numpy as np
+
+    from bluefog_tpu_torch.models.resnet import ResNet50
+    from bluefog_tpu_torch.models.transformer import TransformerLM
+    from bluefog_tpu_torch.runtime.async_windows import TreePacker
+
+    out = {}
+    gpt_cfg = dataclasses.replace(slice_config(), num_layers=SHARD_LAYERS)
+    for tag, make in (
+            ("resnet50_f32", lambda: ResNet50(num_classes=1000)),
+            ("gpt_small_2l_bf16", lambda: TransformerLM(gpt_cfg).to(
+                torch.bfloat16))):
+        net = make().to(device)
+        tree = {k: v.detach() for k, v in net.named_parameters()}
+        del net
+        n = sum(v.numel() for v in tree.values())
+        fused, leafwise = TreePacker(tree), TreePacker(tree, fused=False)
+        check(fused.fused and not leafwise.fused,
+              f"31a {tag}: the packer took the wrong path")
+        vec = fused.pack(tree)
+        ref = leafwise.pack(tree)
+        check(vec.tobytes() == ref.tobytes(),
+              f"31a {tag}: the fused pack differs from the per-leaf pack")
+        for how, packer in (("fused", fused), ("per-leaf", leafwise)):
+            back = packer.unpack(vec)
+            torch.cuda.synchronize()
+            bad = [k for k in tree if back[k].dtype != tree[k].dtype
+                   or not torch.equal(back[k], tree[k])]
+            check(not bad, f"31a {tag}: {how} round trip not bit-exact at "
+                  f"{bad[:3]}")
+        del back
+        buf = np.empty(n, np.float64)
+        row = {"n": n, "leaves": len(tree),
+               "dtype": str(next(iter(tree.values())).dtype)[6:]}
+        for how, packer in (("fused", fused), ("per_leaf", leafwise)):
+            row[f"{how}_pack_ms"] = _host_wall_ms(
+                lambda: packer.pack(tree, out=buf), PACK_REPS)
+            row[f"{how}_unpack_ms"] = _host_wall_ms(
+                lambda: packer.unpack(vec), PACK_REPS)
+        d2h, h2d = _copy_ms(n, device)
+        row.update(copy_d2h_ms=d2h, copy_h2d_ms=h2d,
+                   copy_gb_s=(4 * n / 1e9) / (d2h / 1e3))
+        print(f"[31a] TreePacker {tag}: {n:,} elements in {len(tree)} "
+              f"leaves, round trip bit-exact (fused and per-leaf); pack "
+              f"{row['fused_pack_ms']:.2f} ms fused / "
+              f"{row['per_leaf_pack_ms']:.2f} ms per-leaf against a pinned "
+              f"D2H of its f32 bytes {d2h:.2f} ms ({row['copy_gb_s']:.1f} "
+              f"GB/s); unpack {row['fused_unpack_ms']:.2f} ms fused / "
+              f"{row['per_leaf_unpack_ms']:.2f} ms per-leaf against an H2D "
+              f"{h2d:.2f} ms")
+        out[tag] = row
+        del tree, vec, ref, fused, leafwise
+        torch.cuda.empty_cache()
+    return out
+
+
+def host_pushsum():
+    """31b: examples.async_pushsum at its defaults, with its checks."""
+    from bluefog_tpu_torch.examples import async_pushsum
+
+    t0 = time.perf_counter()
+    res = async_pushsum.main(["--name", f"smoke_ps_{os.getpid()}"])
+    res["s"] = time.perf_counter() - t0
+    check(res["ok"], f"31b async_pushsum failed: {res['failures']}")
+    print(f"[31b] async_pushsum: steps {res['steps_per_rank']}, max error "
+          f"{res['max_abs_err']:.2e}, mass {res['total_mass']!r}, "
+          f"{res['s']:.2f} s")
+    return res
+
+
+def host_async_dsgd(device):
+    """31c: examples.async_dsgd on the card at its defaults (LeNet-5, 8 rank
+    threads, Exp-2, the skew), with its four checks."""
+    from bluefog_tpu_torch.examples import async_dsgd
+
+    t0 = time.perf_counter()
+    res = async_dsgd.main(["--name", f"smoke_dsgd_{os.getpid()}",
+                           "--device", device.type])
+    res["s"] = time.perf_counter() - t0
+    check(res["ok"], f"31c async_dsgd failed: {res['failures']}")
+    print(f"[31c] async_dsgd (LeNet-5, cuda): steps {res['steps_per_rank']},"
+          f" loss drop {[round(d, 3) for d in res['loss_drop']]}, sum(p) - n"
+          f" {res['total_mass'] - ASYNC_RANKS:.3e}, consensus gap "
+          f"{res['consensus_gap']:.4f} (scale {res['param_scale']:.3f}), "
+          f"{res['s']:.2f} s")
+    return res
+
+
+def host_resnet_async(device, sync_img_s):
+    """31d: ResNet-50 trained asynchronously through
+    DistributedWinPutOptimizer(async_=True): 8 rank threads on Exp-2, each
+    on its own CUDA stream, batch ASYNC_BATCH a rank at 224x224, bf16
+    compute, plain SGD at ASYNC_LR on the de-biased iterate, no extra skew;
+    once with overlap=False and once with overlap=True."""
+    import copy
+
+    import numpy as np
+
+    from bluefog_tpu_torch.examples.synthetic_benchmark import build
+    from bluefog_tpu_torch.optim import DistributedWinPutOptimizer
+    from bluefog_tpu_torch.topology import ExponentialTwoGraph
+
+    trainer = build("resnet50", "none", "exp2", size=ASYNC_RANKS,
+                    batch_size=ASYNC_BATCH, image_size=224, device=device)
+    params0 = {k: v[0].detach().clone() for k, v in trainer.params.items()}
+    for v in trainer.params.values():
+        v.grad = None
+    # functional_call swaps a module's parameters for its duration: one
+    # module a rank thread
+    models = [copy.deepcopy(trainer.model) for _ in range(ASYNC_RANKS)]
+    batch = trainer.batch
+    losses_seen = []
+
+    def loss_and_grad(r, step, params):
+        b_r = {k: v[r] for k, v in trainer.buffers.items()}
+        params = {k: v.requires_grad_() for k, v in params.items()}
+        loss = trainer.loss_fn(models[r], (params, b_r),
+                               tuple(t[r] for t in batch))
+        grads = torch.autograd.grad(loss, list(params.values()))
+        return float(loss.detach()), dict(zip(params, grads))
+
+    # warm cuDNN's plans (the process's cache, which every rank thread's
+    # handle then finds) before the clock runs
+    loss_and_grad(0, 0, {k: v.clone() for k, v in params0.items()})
+    torch.cuda.synchronize()
+    out = {"batch": ASYNC_BATCH, "sync_img_s": sync_img_s}
+    for overlap in (False, True):
+        opt = DistributedWinPutOptimizer(
+            None, topology=ExponentialTwoGraph(ASYNC_RANKS), async_=True,
+            lr=ASYNC_LR)
+        opt.name = f"smoke_resnet_async_{overlap}_{os.getpid()}"
+        torch.cuda.reset_peak_memory_stats()
+        rep = opt.run(params0, loss_and_grad, duration_s=ASYNC_SECONDS,
+                      skew=[0.0] * ASYNC_RANKS, overlap=overlap)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        rss, hwm = _host_rss_gb()
+        steps = rep.steps_per_rank
+        img_s = sum(steps) * ASYNC_BATCH / rep.wall_time_s
+        per_step = {k: sum(p[k] for p in rep.phase_s) * 1e3 / sum(steps)
+                    for k in rep.phase_s[0]
+                    if overlap or k != "harvest"}
+        mass_err = abs(rep.total_mass - ASYNC_RANKS)
+        first = [ls[0] for ls in rep.losses]
+        last = [ls[-1] for ls in rep.losses]
+        losses_seen += first + last
+        row = {"steps_per_rank": steps, "img_s": img_s,
+               "wall_s": rep.wall_time_s, "mass_err": mass_err,
+               "consensus_gap": rep.consensus_gap, "host_ms": per_step,
+               "peak_gb": peak_gb, "rss_gb": rss, "rss_peak_gb": hwm,
+               "loss_first": first, "loss_last": last}
+        tag = f"overlap={overlap}"
+        out[tag] = row
+        print(f"[31d] ResNet-50 async {tag}: steps/rank {steps} in "
+              f"{rep.wall_time_s:.1f} s, {img_s:.1f} img/s over all ranks "
+              f"(synchronous phase 3: {sync_img_s:.1f}); |sum(p) - n| "
+              f"{mass_err:.3e}; consensus gap {rep.consensus_gap:.4e}; "
+              f"host ms a rank step "
+              + ", ".join(f"{k} {v:.1f}" for k, v in per_step.items())
+              + f"; peak device {peak_gb:.2f} GB, host RSS {rss:.2f} GB "
+              f"(peak {hwm:.2f}); loss first {np.mean(first):.4f} last "
+              f"{np.mean(last):.4f}")
+        check(mass_err <= 1e-9, f"31d {tag}: mass audit {rep.total_mass!r}")
+        check(min(steps) >= 2, f"31d {tag}: a rank starved: {steps}")
+        check(math.isfinite(rep.consensus_gap),
+              f"31d {tag}: consensus gap {rep.consensus_gap}")
+        del rep
+    check(all(math.isfinite(v) for v in losses_seen),
+          "31d: a non-finite loss")
+    del trainer, models, params0, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def host_async_mp(device):
+    """31e: examples.async_dsgd_mp --ranks 2 over shared memory, its two
+    worker processes on the card, with its checks (run in rank 0)."""
+    env = dict(os.environ)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m",
+                        "bluefog_tpu_torch.examples.async_dsgd_mp",
+                        "--ranks", "2", "--device", device.type],
+                       capture_output=True, text=True,
+                       env=env, timeout=300)
+    secs = time.perf_counter() - t0
+    text = r.stdout + r.stderr
+    check(r.returncode == 0 and "ASYNC_MP_REPORT" in r.stdout,
+          f"31e async_dsgd_mp failed ({r.returncode}):\n{text[-3000:]}")
+    line = next(ln for ln in r.stdout.splitlines()
+                if ln.startswith("ASYNC_MP_REPORT"))
+    print(f"[31e] async_dsgd_mp --ranks 2 (shm, workers on the card): "
+          f"{line[len('ASYNC_MP_REPORT '):]}; {secs:.2f} s")
+    return {"report": line, "s": secs}
+
+
+def host_sharded_gossip(device):
+    """31f: run_sharded_gossip on GPT-small's widths at SHARD_LAYERS layers,
+    SHARD_RANKS ranks on Ring(4), inner axes {tp: 2} of tp_param_rules
+    (the tensor-parallel rule table), each rank's parameters drawn on the
+    card, 3
+    rounds, rank 2 healed out before the last: against the axes={} run bit
+    for bit, and each coordinate's mass audit exact through the heal."""
+    from bluefog_tpu_torch.parallel import tensor as pt
+    from bluefog_tpu_torch.sharding.gossip import run_sharded_gossip
+    from bluefog_tpu_torch.topology import RingGraph
+
+    base = dataclasses.replace(slice_config(), num_layers=SHARD_LAYERS)
+    _, full = _tp_template(base)
+    table = pt.tp_param_rules()
+    specs = {k: table.resolve(k.replace(".", "/"), v.shape)
+             for k, v in full.items()}
+    sharded = sum(1 for s in specs.values() if any(e is not None for e in s))
+    params0 = []
+    for r in range(SHARD_RANKS):
+        g = torch.Generator(device=device).manual_seed(100 + r)
+        params0.append({k: v.to(device) + 0.02 * torch.randn(
+            v.shape, generator=g, device=device) for k, v in full.items()})
+    n = sum(v.numel() for v in full.values())
+    del full
+    topo = RingGraph(SHARD_RANKS)
+    runs = {}
+    # both runs heal rank 2 out before their last round, so the heal's
+    # audit and the bit-equality hold through it; they run at once, on two
+    # host threads (each is one thread of model-sized numpy passes; two
+    # runs, not three, and together: the script's time)
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(tag, axes):
+        t0 = time.perf_counter()
+        rep = run_sharded_gossip(topo, params0, specs, axes,
+                                 rounds=SHARD_ROUNDS,
+                                 heal_after=SHARD_ROUNDS - 1, dead_ranks=[2],
+                                 name=f"smoke_sg_{tag}_{os.getpid()}")
+        return rep, time.perf_counter() - t0
+
+    t_both = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        futs = {tag: pool.submit(one, tag, axes)
+                for tag, axes in (("gathered", {}), ("tp2", {"tp": 2}))}
+        done = {tag: f.result() for tag, f in futs.items()}
+    both_s = time.perf_counter() - t_both
+    for tag, (rep, secs) in done.items():
+        worst = max(abs(m - SHARD_RANKS) for m in rep.total_mass.values())
+        check(worst <= 1e-9, f"31f {tag}: mass audit off by {worst}")
+        runs[tag] = {"rep": rep, "s": secs, "mass_err": worst,
+                     "coords": len(rep.total_mass)}
+        print(f"[31f] run_sharded_gossip {tag}: {len(rep.total_mass)} "
+              f"coordinate(s), per-coordinate |mass - {SHARD_RANKS}| <= "
+              f"{worst:.3e}, {rep.deposits} deposits of "
+              f"{rep.shard_bytes_per_deposit:,} bytes (saved "
+              f"{rep.saved_bytes_per_deposit:,}), {secs:.2f} s (both runs "
+              f"together {both_s:.2f} s)")
+    a, b = runs["gathered"]["rep"], runs["tp2"]["rep"]
+    check(a.params[2] is None and b.params[2] is None
+          and a.dead_ranks == b.dead_ranks == [2],
+          "31f: the heal did not take rank 2 out")
+    bad = [(r, k) for r in range(SHARD_RANKS) if r != 2 for k in a.params[r]
+           if not torch.equal(a.params[r][k], b.params[r][k])]
+    check(not bad, f"31f: the tp 2 run differs from the gathered run at "
+          f"{bad[:3]}")
+    print(f"[31f] {n:,} parameters ({sharded} leaves sharded over tp), the "
+          f"{{tp: 2}} run bit-equal to the gathered run on every surviving "
+          f"rank, through the heal")
+    out = {k: {kk: vv for kk, vv in v.items() if kk != "rep"}
+           for k, v in runs.items()}
+    out["n"], out["bit_equal"] = n, True
+    del params0, runs, a, b
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_host_runtime(device, sync_img_s):
+    """Phase 31: the native host runtime built from the checkout, then
+    31a-31f.  No TPU kernel lies on this path; K1-K3's counters are read
+    around it and reported."""
+    from bluefog_tpu_torch.ops.deliver_kernel import window_deliver
+    from bluefog_tpu_torch.runtime import native
+
+    t0 = time.perf_counter()
+    native.load()
+    build_s = time.perf_counter() - t0
+    print(f"[31] native host runtime {native.library_path().name} loaded "
+          f"(built from bluefog_tpu_torch/csrc/*.cc if missing) in "
+          f"{build_s:.2f} s")
+    counters = [window_deliver, *_slice_kernels()]
+    for k in counters:
+        k.launches = 0
+    out = {"build_s": build_s}
+    out["packer"] = host_packer(device)
+    out["pushsum"] = host_pushsum()
+    out["async_dsgd"] = host_async_dsgd(device)
+    out["resnet"] = host_resnet_async(device, sync_img_s)
+    out["mp"] = host_async_mp(device)
+    out["sharded"] = host_sharded_gossip(device)
+    out["launches"] = {k.__name__: k.launches for k in counters}
+    out["s"] = time.perf_counter() - t0
+    print(f"[31] kernel launches during phase 31 (none of its path's work is "
+          f"a TPU kernel): {out['launches']}; the phase took {out['s']:.1f} s")
+    return out
+
+
 def main():
     # cuBLAS's deterministic workspace for the deterministic BERT phases,
     # set before any handle exists (the processes of phase 1b inherit it)
@@ -5688,10 +6085,11 @@ def main():
                     batch_size=BATCH, image_size=224, device=device)
     leaves = list(trainer.params.values())
     k1 = phase_k1(device, main_lengths)
-    k1_launches = phase_main_path(
+    main_launches, main_res = phase_main_path(
         trainer, {gossip_mix: len(main_lengths)}, "main",
         f"ResNet-50 x {N_RANKS} virtual ranks, exp2, batch {BATCH}/rank, "
-        "bf16")[0]["gossip_mix"]
+        "bf16")
+    k1_launches = main_launches["gossip_mix"]
     phase_step_parity(trainer, "parity")
     phase_host_breakdown(trainer, "main")
     del trainer, leaves
@@ -5771,6 +6169,8 @@ def main():
     k3_paths["mesh_k3_calls"] = check_k3_calls(seen, device, "mesh")
     procs[N_RANKS] = {"k1": mesh[N_RANKS]["k1"],
                       "seconds": mesh[N_RANKS]["seconds"]}
+    torch.cuda.empty_cache()
+    host = phase_host_runtime(device, main_res["samples_per_s"])
 
     sl = procs[SLICE_PROCESSES]["slice"]
     fa = "jax/experimental/pallas/ops/tpu/flash_attention.py"
@@ -6016,6 +6416,22 @@ def main():
           f"tokens/s over 4 processes; path 1 at P = 2 bit-equal to one "
           f"process {mesh[2]['path1']['bit_equal_to_one_process']}, at P = 8"
           f" f32 within {max(mesh[8]['path1']['f32']['logits'], mesh[8]['path1']['f32']['grads'][0]):.2e}")
+    pk, rn = host["packer"], host["resnet"]
+    print("the asynchronous host runtime (phase 31): TreePacker "
+          + "; ".join(f"{tag} pack {v['fused_pack_ms']:.2f} / unpack "
+                      f"{v['fused_unpack_ms']:.2f} ms fused (per-leaf "
+                      f"{v['per_leaf_pack_ms']:.2f} / "
+                      f"{v['per_leaf_unpack_ms']:.2f}) against copies "
+                      f"{v['copy_d2h_ms']:.2f} / {v['copy_h2d_ms']:.2f} ms"
+                      for tag, v in pk.items())
+          + f"; async_dsgd LeNet-5 steps {host['async_dsgd']['steps_per_rank']}"
+          f", gap {host['async_dsgd']['consensus_gap']:.4f}; ResNet-50 async "
+          + ", ".join(f"{k} {v['img_s']:.1f} img/s (mass error "
+                      f"{v['mass_err']:.1e}, gap {v['consensus_gap']:.3e})"
+                      for k, v in rn.items() if k.startswith("overlap"))
+          + f" against {rn['sync_img_s']:.1f} img/s synchronous; sharded "
+          f"gossip {host['sharded']['n']:,} params bit-equal "
+          f"{host['sharded']['bit_equal']}; phase {host['s']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

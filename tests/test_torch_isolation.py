@@ -96,11 +96,17 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 
 def test_host_sources_name_nothing_of_the_jax_package():
-    """The port's host C++ sources, its own copy of ``tfrecord.cc`` among
+    """The port's host C++ sources, its own copies of ``tfrecord.cc`` and
+    of the host runtime (engine, logging, timeline, window table) among
     them, refer to the port's files only (the CUDA kernels name the TPU
     kernel each one replaces)."""
-    sources = sorted((REPO / "bluefog_tpu_torch" / "csrc").glob("*.cc"))
-    assert [p.name for p in sources] == ["tfrecord.cc"]
+    csrc = REPO / "bluefog_tpu_torch" / "csrc"
+    sources = sorted([*csrc.glob("*.cc"), *csrc.glob("*.h")])
+    assert [p.name for p in sources] == [
+        "bf_runtime.h", "engine.cc", "logging.cc", "tfrecord.cc",
+        "timeline.cc", "windows.cc"]
+    # the port's shm segments carry a prefix of their own
+    assert '"/bftwin_"' in (csrc / "windows.cc").read_text()
     bad = [f"{p.name}:{i}" for p in sources
            for i, line in enumerate(p.read_text().splitlines(), 1)
            if re.search(r"bluefog_tpu(?!_torch)\b", line)]
@@ -127,6 +133,33 @@ def test_new_entry_points_default_to_cuda_and_raise_without_it():
         assert loader.device == ctx.device
     finally:
         pbf.shutdown()
+
+
+def test_scan_covers_the_host_runtime():
+    """The import scan above reaches the host runtime's modules, and none of
+    them loads the JAX package's native library."""
+    files = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    for mod in ("runtime/native.py", "runtime/async_windows.py",
+                "utils/timeline.py", "utils/logging.py", "utils/hostbuild.py",
+                "sharding/gossip.py", "examples/async_pushsum.py",
+                "examples/async_dsgd.py", "examples/async_dsgd_mp.py"):
+        assert f"bluefog_tpu_torch/{mod}" in files, mod
+    text = (REPO / "bluefog_tpu_torch" / "runtime" / "native.py").read_text()
+    assert "libbf_runtime" not in text
+
+
+def test_async_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
+    """The asynchronous examples put their models on the GPU unless the
+    caller asks for the CPU (``--device cpu``)."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; the examples run there for real")
+    from bluefog_tpu_torch.examples import async_dsgd, async_dsgd_mp
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        async_dsgd.main(["--duration", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        async_dsgd_mp.main(["--worker", "0", "--bdir", str(tmp_path)])
+    assert not list(tmp_path.iterdir())  # raised before any rendezvous
 
 
 def test_kernel_build_needs_nvcc():

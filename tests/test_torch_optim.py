@@ -179,9 +179,12 @@ def test_win_put_optimizer_checks():
         popt.DistributedWinPutOptimizer(base, topology=phases)
     opt = popt.DistributedWinPutOptimizer(base, topology=phases[:1])
     assert opt.window is not None and opt.schedule.size == N
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        popt.DistributedWinPutOptimizer(base, topology=pt.RingGraph(N),
-                                        async_=True, lr=0.1)
+    # the host-runtime mode: rank loops at independent rates (its runs are
+    # held against the JAX package's in test_torch_async_windows.py)
+    aopt = popt.DistributedWinPutOptimizer(base, topology=pt.RingGraph(N),
+                                           async_=True, lr=0.1)
+    assert type(aopt).__name__ == "AsyncWinPutOptimizer"
+    assert aopt.lr == 0.1 and aopt.topology.size == N
     with pytest.raises(ValueError, match="async_"):
         jopt.DistributedWinPutOptimizer(optax.sgd(0.1),
                                         topology=jt.RingGraph(N),
