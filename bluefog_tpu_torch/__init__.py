@@ -94,7 +94,8 @@ _EXPORTS = {
         "neighbor_allreduce", "neighbor_allreduce_aperiodic", "rank_shard",
         "rank_stack", "win_accumulate", "win_create", "win_free", "win_get",
         "win_put", "win_update", "win_update_then_collect", "enqueue_host_op",
-        "poll", "synchronize", "wait_all_host_ops",
+        "poll", "synchronize", "wait_all_host_ops", "win_mutex",
+        "win_mutex_break", "win_mutex_sweep",
     ),
     "bluefog_tpu_torch.utils.timeline": (
         "timeline_context", "timeline_end_activity", "timeline_start",
@@ -113,7 +114,7 @@ _EXPORTS = {
         "CheckpointManager", "resize_rank_state", "run_with_restart",
     ),
     "bluefog_tpu_torch.utils.failure": (
-        "HangError", "Heartbeat",
+        "HangError", "Heartbeat", "run_supervised",
     ),
 }
 _WHERE = {name: mod for mod, names in _EXPORTS.items() for name in names}

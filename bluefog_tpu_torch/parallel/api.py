@@ -13,7 +13,9 @@ host-op surface on the native engine (:func:`enqueue_host_op`,
 :func:`poll`, :func:`synchronize`, :func:`wait_all_host_ops`).  As there, all ranks'
 values live in one tensor with a leading ``size``-long rank axis: ``x[r]`` is
 rank ``r``'s value.  The ranks are virtual, on the context's one device.
-``win_mutex`` is not ported yet (it comes with the window server).
+:func:`win_mutex` (with :func:`win_mutex_sweep` and
+:func:`win_mutex_break`) guards a named window: a process-local lock in
+one process, a leased lock on the launcher's store across processes.
 
 In a context that spans processes every stacked tensor is this process's
 owned block of ``m`` ranks (``rank_stack`` makes one), and the collectives
@@ -24,6 +26,10 @@ helpers and the windows act on it across the processes (see
 
 from __future__ import annotations
 
+import contextlib
+import os
+import threading
+import time
 from typing import Optional
 
 import torch
@@ -42,7 +48,8 @@ __all__ = ["rank_stack", "rank_shard", "neighbor_allreduce", "neighbor_allreduce
            "allreduce_parameters", "broadcast_optimizer_state", "win_create",
            "win_free", "win_put", "win_accumulate", "win_get", "win_update",
            "win_update_then_collect", "enqueue_host_op", "poll",
-           "synchronize", "wait_all_host_ops"]
+           "synchronize", "wait_all_host_ops", "win_mutex",
+           "win_mutex_sweep", "win_mutex_break"]
 
 
 def _sched(topology) -> GossipSchedule:
@@ -318,3 +325,396 @@ def wait_all_host_ops(timeout_s=None):
     from bluefog_tpu_torch.runtime.native import engine
 
     return engine().wait_all(timeout_s=timeout_s)
+
+
+# ---------------------------------------------------------------------------
+# win_mutex: exclusion over a named window (reference api.py:563-897)
+# ---------------------------------------------------------------------------
+
+_win_mutexes: dict = {}
+_win_mutexes_guard = threading.Lock()
+_dist_held = threading.local()  # per-thread reentrancy counts per name
+_store_cache: list = []
+_store_guard = threading.Lock()
+
+_WIN_MUTEX_PREFIX = "bluefog_tpu/win_mutex/"
+# break subkeys live in a disjoint prefix: a lock key derived from a window
+# literally named "x.break" can never collide with window "x"'s break key
+_WIN_MUTEX_BREAK_PREFIX = "bluefog_tpu/win_mutex_break/"
+# every name ever locked, one per line: the sweep's key list
+_WIN_MUTEX_REGISTRY = "bluefog_tpu/win_mutex_names"
+_LEASE_MARK = " lease_until="
+# a value no writer ever stores: compare_set(key, _PROBE, _PROBE) reads a
+# key without blocking (the store answers the probe itself when the key is
+# absent) and changes nothing
+_PROBE = "\x00probe"
+
+
+def _world_size() -> int:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1") or 1)
+
+
+def _coordination_store():
+    """The launcher's ``TCPStore`` (``MASTER_ADDR``/``MASTER_PORT``, which
+    ``bfrun`` hosts), or None in a one-process job.
+
+    In a job of several processes a missing store is an error, not a
+    fallback: a process-local lock would let two processes into the
+    critical section, the race win_mutex exists to prevent."""
+    if _world_size() <= 1:
+        return None
+    with _store_guard:
+        if _store_cache:
+            return _store_cache[0]
+        addr = os.environ.get("MASTER_ADDR")
+        port = os.environ.get("MASTER_PORT")
+        store = None
+        try:
+            if addr and port:
+                import datetime
+
+                from torch.distributed import TCPStore
+
+                store = TCPStore(addr, int(port), is_master=False,
+                                 wait_for_workers=False,
+                                 timeout=datetime.timedelta(seconds=60))
+            else:
+                import torch.distributed as dist
+
+                if dist.is_initialized():
+                    store = dist.distributed_c10d._get_default_store()
+        except Exception as e:
+            raise RuntimeError(
+                "win_mutex: a job of several processes but the launcher's "
+                "store is unreachable; refusing to downgrade to a "
+                "process-local lock") from e
+        if store is None:
+            raise RuntimeError(
+                "win_mutex: a job of several processes (WORLD_SIZE > 1) but "
+                "no store: start it under bfrun (MASTER_ADDR/MASTER_PORT) "
+                "or initialize torch.distributed; refusing to downgrade to "
+                "a process-local lock")
+        _store_cache.append(store)
+        return store
+
+
+def _store_get(store, key: str) -> Optional[str]:
+    """The key's value, or None when it is absent or released."""
+    v = store.compare_set(key, _PROBE, _PROBE)
+    v = v.decode() if isinstance(v, bytes) else str(v)
+    return None if v in (_PROBE, "") else v
+
+
+def _store_acquire(store, key: str, value: str) -> Optional[str]:
+    """Atomically take ``key`` when it is absent or released; None on
+    success, else the holder's value."""
+    got = store.compare_set(key, "", value)
+    got = got.decode() if isinstance(got, bytes) else str(got)
+    return None if got == value else got
+
+
+def _store_release(store, key: str, expected: str) -> bool:
+    """Release ``key`` iff its value is still ``expected`` (an atomic
+    compare-and-release: the empty value is free)."""
+    got = store.compare_set(key, expected, "")
+    got = got.decode() if isinstance(got, bytes) else str(got)
+    return got == ""
+
+
+def _parse_lock_value(v: str):
+    """``(owner, lease_expiry_unix_or_None, lease_duration_s_or_None)``
+    from a lock key's value (stamp format ``<expiry>[/<duration>]``).
+    Values without the lease marker (hand-planted keys) have no lease and
+    are never stolen automatically."""
+    if _LEASE_MARK in v:
+        owner, _, stamp = v.rpartition(_LEASE_MARK)
+        expiry, _, dur = stamp.partition("/")
+        try:
+            return owner, float(expiry), (float(dur) if dur else None)
+        except ValueError:
+            return v, None, None
+    return v, None, None
+
+
+@contextlib.contextmanager
+def win_mutex(name: str = "win", *, for_self: bool = True, ranks=None,
+              timeout_s: float = 60.0, poll_interval_s: float = 0.002,
+              lease_s: Optional[float] = 30.0):
+    """Mutual exclusion over window ``name`` (reference ``bf.win_mutex``,
+    an MPI passive-target ``MPI_Win_lock_all`` epoch guarding concurrent
+    one-sided access).
+
+    - One process: a process-local reentrant lock per window name (the
+      real race there is host threads, engine workers against the main
+      thread, mutating the same named window).
+    - Several processes (``WORLD_SIZE > 1``): a distributed lock on the
+      launcher's ``TCPStore``.  Acquisition is an atomic ``compare_set``
+      from empty, release an atomic compare-and-release, and contenders
+      poll with a backoff.  Reentrant within a thread; raises
+      ``TimeoutError`` after ``timeout_s``.  A job of several processes
+      without a store raises: it never downgrades to a local lock.
+
+    Lease and failure semantics (several processes): the lock value
+    carries a lease stamp (expiry and duration) that a background
+    heartbeat refreshes every ``lease_s/3`` while the holder lives, so a
+    live holder is never stolen however long its critical section runs.
+    If the holder dies, the next contender recovers the lock.  Stealing
+    needs all of: (a) the stamp is expired by the wall clock, (b) the
+    contender has watched the value stay unchanged for a full lease on
+    its own monotonic clock (so clock skew between hosts alone can never
+    steal from a heartbeating holder), and (c) the contender wins the
+    atomic break subkey and re-confirms the value unchanged in the same
+    atomic compare-and-release that frees it.  Keys without a lease stamp
+    are never stolen automatically: :func:`win_mutex_break` clears them
+    once their owner is known dead.  ``lease_s=None`` disables the lease.
+    A holder frozen (not dead) past its lease can be stolen; its
+    refresher sees the loss at its next beat, logs it, and stops.
+
+    ``for_self``/``ranks`` are accepted for the reference's call sites;
+    the lock is per window name, not per rank.
+    """
+    del for_self, ranks  # the lock's granularity is the window name
+    store = _coordination_store()
+    if store is None:
+        with _win_mutexes_guard:
+            lock = _win_mutexes.setdefault(name, threading.RLock())
+        with lock:
+            yield
+        return
+
+    held = getattr(_dist_held, "counts", None)
+    if held is None:
+        held = _dist_held.counts = {}
+    if held.get(name, 0) > 0:  # reentrant within this thread
+        held[name] += 1
+        try:
+            yield
+        finally:
+            held[name] -= 1
+        return
+
+    key = _WIN_MUTEX_PREFIX + name
+    owner = (f"{os.environ.get('RANK', '0')}:{os.getpid()}:"
+             f"{threading.get_ident()}")
+
+    def stamped():
+        if lease_s is None:
+            return owner
+        return (f"{owner}{_LEASE_MARK}"
+                f"{time.time() + lease_s:.3f}/{lease_s:.1f}")
+
+    store.append(_WIN_MUTEX_REGISTRY, name + "\n")
+    deadline = time.monotonic() + timeout_s
+    backoff = poll_interval_s
+    tracker = _StealTracker(store, key, owner)
+    mine = stamped()
+    while True:
+        holder = _store_acquire(store, key, mine)
+        if holder is None:
+            break
+        tracker.poll()
+        if time.monotonic() > deadline:
+            raise TimeoutError(
+                f"win_mutex({name!r}): lock held for {timeout_s:.0f}s by "
+                f"{holder!r} (rank:pid:thread); a leased lock recovers "
+                "when its owner dies; if this one has no lease and the "
+                "owner is dead, recover with win_mutex_break(name)")
+        # exponential backoff: N contenders busy-polling the one store
+        # would starve its other work
+        time.sleep(backoff)
+        backoff = min(backoff * 2, 0.1)
+        mine = stamped()
+    held[name] = 1
+    cur = [mine]
+    stop_refresh = threading.Event()
+    refresher = None
+    if lease_s is not None:
+        def refresh():
+            # a live holder's lease must never lapse: re-stamp well inside
+            # the lease period until release.  If the key is no longer
+            # ours (stolen from a frozen incarnation of us), say so and
+            # stop; a transient store error must not kill the heartbeat
+            # (the lease survives two missed beats)
+            from bluefog_tpu_torch.utils.logging import log
+
+            while not stop_refresh.wait(lease_s / 3.0):
+                try:
+                    new = stamped()
+                    got = store.compare_set(key, cur[0], new)
+                except Exception:
+                    continue  # transient: retry at the next beat
+                got = got.decode() if isinstance(got, bytes) else str(got)
+                if got != new:
+                    log.error(
+                        "win_mutex(%r): lease lost (key now %r): this "
+                        "holder was frozen past its lease and the lock was "
+                        "stolen; exclusion is no longer guaranteed for the "
+                        "rest of this critical section", name, got)
+                    return
+                cur[0] = new
+        refresher = threading.Thread(target=refresh, daemon=True,
+                                     name=f"bf-win-mutex:{name}")
+        refresher.start()
+    try:
+        yield
+    finally:
+        held[name] = 0
+        stop_refresh.set()
+        if refresher is not None:
+            refresher.join(timeout=5)
+        if refresher is not None and refresher.is_alive():
+            # a refresher stuck in a store call could re-stamp after our
+            # release; leave the key to its lease instead (self-healing)
+            from bluefog_tpu_torch.utils.logging import log
+
+            log.warn("win_mutex(%r): refresher still in flight at release; "
+                     "leaving the key to its lease", name)
+        elif not _store_release(store, key, cur[0]) and lease_s is None:
+            # no lease means no self-healing: a failed release is loud
+            raise RuntimeError(
+                f"win_mutex({name!r}): the key no longer holds this "
+                "holder's value at release")
+
+
+class _StealTracker:
+    """Per-contender steal state: recovers a key whose leased holder died.
+
+    Rate-limited (one read per ~lease/10, not per poll), and immune to
+    clock skew: stealing also needs the value to have stayed unchanged
+    for a full lease on this contender's monotonic clock, which a live
+    holder's heartbeat (every lease/3) makes impossible whatever the
+    hosts' wall clocks say."""
+
+    def __init__(self, store, key: str, owner: str):
+        self.store = store
+        self.key = key
+        self.owner = owner
+        self.observed: Optional[str] = None
+        self.first_seen = 0.0   # monotonic time self.observed appeared
+        self.next_check = 0.0   # monotonic rate limiter
+
+    def poll(self) -> None:
+        now_m = time.monotonic()
+        if now_m < self.next_check:
+            return
+        try:
+            cur = _store_get(self.store, self.key)
+        except Exception:
+            cur = None
+        if cur is None:
+            self.observed = None
+            return  # the key is free: the acquire loop races for it
+        if cur != self.observed:
+            self.observed, self.first_seen = cur, now_m
+        _, expiry, dur = _parse_lock_value(cur)
+        if expiry is None:
+            self.next_check = now_m + 1.0
+            return  # lease-less values are never stolen automatically
+        confirm_s = max(1.0, dur if dur is not None else 2.0)
+        self.next_check = now_m + max(0.5, confirm_s / 10.0)
+        if time.time() <= expiry:
+            return  # the writer's clock says live
+        if now_m - self.first_seen < confirm_s:
+            return  # not yet watched unchanged for a full lease
+        if _break_stale(self.store, self.key, self.owner, cur):
+            self.observed = None
+
+
+def _break_stale(store, key: str, breaker: str, observed: str) -> bool:
+    """Release ``key`` iff its value is still exactly ``observed``,
+    serialised through an atomic break subkey (one breaker at a time).
+    True if the stale key was released."""
+    now = time.time()
+    assert key.startswith(_WIN_MUTEX_PREFIX), key
+    bkey = _WIN_MUTEX_BREAK_PREFIX + key[len(_WIN_MUTEX_PREFIX):]
+    bval = f"{breaker}{_LEASE_MARK}{now + 10.0:.3f}/10.0"
+    try:
+        bheld = _store_acquire(store, bkey, bval)
+    except Exception:
+        return False
+    if bheld is not None:
+        # the previous breaker may itself have died mid-break
+        _, bexp, _ = _parse_lock_value(bheld)
+        if bexp is not None and now > bexp:
+            try:
+                _store_release(store, bkey, bheld)
+            except Exception:
+                pass
+        return False
+    stole = False
+    try:
+        stole = _store_release(store, key, observed)
+        if stole:
+            from bluefog_tpu_torch.utils.logging import log
+
+            log.warn("win_mutex: broke expired lock %s (was %r)", key,
+                     observed)
+    except Exception:
+        pass
+    finally:
+        try:
+            _store_release(store, bkey, bval)
+        except Exception:
+            pass
+    return stole
+
+
+def win_mutex_sweep(grace_s: float = 0.0) -> int:
+    """Clear every win_mutex key whose lease expired more than ``grace_s``
+    ago: the restart path's janitor (a restarted worker calls this before
+    it re-enters training, so locks its previous incarnation died holding
+    cannot stall the job until a contender's stealing notices).
+
+    Releases go through the same break-subkey and value-unchanged
+    protocol as stealing, on a fresh read, so the sweep cannot release a
+    lock that was just stolen and re-acquired.  Returns the number of
+    keys cleared; 0 in a one-process job."""
+    store = _coordination_store()
+    if store is None:
+        return 0
+    try:
+        if not store.check([_WIN_MUTEX_REGISTRY]):
+            return 0
+        raw = store.get(_WIN_MUTEX_REGISTRY)
+    except Exception:
+        return 0
+    names = sorted({n for n in (raw.decode() if isinstance(raw, bytes)
+                                else str(raw)).split("\n") if n})
+    removed = 0
+    now = time.time()
+    breaker = f"sweep:{os.getpid()}:{threading.get_ident()}"
+    for name in names:
+        key = _WIN_MUTEX_PREFIX + name
+        try:
+            value = _store_get(store, key)
+        except Exception:
+            continue
+        if value is None:
+            continue
+        _, expiry, _ = _parse_lock_value(value)
+        if expiry is not None and now > expiry + grace_s:
+            if _break_stale(store, key, breaker, value):
+                removed += 1
+    return removed
+
+
+def win_mutex_break(name: str = "win") -> bool:
+    """Forcibly release a distributed :func:`win_mutex` whose holder died
+    (the ``MPI_Win_unlock_all``-after-failure analog).  True if a held
+    lock was cleared.  Call it only when the owner named by the
+    ``TimeoutError`` is known dead: breaking a live holder's lock removes
+    the exclusion it relies on.  In one process it does nothing (a
+    holder's death is the process's death)."""
+    store = _coordination_store()
+    if store is None:
+        return False
+    key = _WIN_MUTEX_PREFIX + name
+    try:
+        value = _store_get(store, key)
+        return value is not None and _store_release(store, key, value)
+    except Exception:
+        return False

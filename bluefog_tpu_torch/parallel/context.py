@@ -131,13 +131,26 @@ def _process_device(device, processes: int) -> torch.device:
     return dev
 
 
+SIMULATE_ENV = "BLUEFOG_TPU_TORCH_SIMULATE"
+
+
+def simulated_size() -> Optional[int]:
+    """The virtual rank count ``bfrun --simulate N`` asked for (None when
+    it did not): ``init()`` then defaults to N ranks on the CPU."""
+    v = os.environ.get(SIMULATE_ENV, "").strip()
+    return int(v) if v else None
+
+
 def init(*, topology: Optional[Topology] = None,
          machine_topology: Optional[Topology] = None,
          size: Optional[int] = None, local_size: Optional[int] = None,
-         device="cuda") -> BluefogContext:
+         device=None) -> BluefogContext:
     """Initialize ``size`` ranks on ``device`` (the reference's
     ``bf.init()``).  ``size`` defaults to the topology's; the topology
     defaults to ``ExponentialTwoGraph(size)``, as in the JAX package.
+    ``device`` defaults to the card; under ``bfrun --simulate N``, where
+    the caller asked for N virtual ranks on the CPU, ``size`` defaults to
+    N and ``device`` to the CPU.
 
     ``local_size`` ranks make a machine (default 1 in one process, a
     process's ``size / P`` ranks over ``P`` processes); with more than one
@@ -148,6 +161,11 @@ def init(*, topology: Optional[Topology] = None,
     ``[p m, (p+1) m)``, ``m = size / P`` (``P`` must divide ``size``), and
     the context gets a transport; ``init`` is then collective."""
     global _CTX
+    sim = simulated_size()
+    if device is None:
+        device = "cpu" if sim else "cuda"
+    if size is None and topology is None and sim:
+        size = sim
     proc, procs = _process_group()
     dev = _process_device(device, procs)
     if size is None:

@@ -28,14 +28,20 @@ Win* and its lock/flush epochs).  This module runs that execution model:
   decentralized training on that foundation (subgradient-push, Nedić and
   Olshevsky), the execution model of the reference's
   ``DistributedWinPutOptimizer``; :func:`run_async_dsgd_rank` runs one rank
-  per OS process over shared memory.
+  per OS process over shared memory or over TCP
+  (:mod:`bluefog_tpu_torch.runtime.window_server`), across hosts.
+- Peer-fault tolerance (``resilience=``, :mod:`bluefog_tpu_torch.runtime.
+  resilience`) and elastic membership (``join_at_s=``/``leave_at_s=`` in
+  threads, ``join=``/``leave_after_s=``/``initial_members=`` across
+  processes, :mod:`bluefog_tpu_torch.runtime.membership`) in both runners.
 
 Deferred, each raising ``NotImplementedError`` that names its ROADMAP item:
-the TCP transport, peer-fault resilience and elastic membership (Queue 1
-item 9b), serve-while-training snapshots and the control plane (item 10),
-the fleet health plane and the sampling profiler (item 11).  The JAX
-package's calls into chaos, blackbox, metrics, tracing and lockcheck come
-back with those packages (items 10-11); none of them changes a result.
+serve-while-training snapshots and the control plane (item 10), the fleet
+health plane and the sampling profiler (item 11).  The JAX package's calls
+into chaos, blackbox, metrics, tracing and lockcheck come back with those
+packages (items 10-11); none of them changes a result.  In their place a
+thread runner's ``step_hook`` injects a rank's stall or death
+(:class:`RankKilled`).
 """
 
 from __future__ import annotations
@@ -46,11 +52,16 @@ import os
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple
+from typing import (TYPE_CHECKING, Callable, Dict, List, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 
+from bluefog_tpu_torch.runtime import membership as _mship
 from bluefog_tpu_torch.runtime import native as _native
+from bluefog_tpu_torch.runtime import resilience as _res
+from bluefog_tpu_torch.topology.graphs import heal as _heal
+from bluefog_tpu_torch.topology.graphs import replan as _replan
 from bluefog_tpu_torch.utils import timeline as _timeline
 
 if TYPE_CHECKING:
@@ -71,6 +82,7 @@ __all__ = [
     "DSGDReport",
     "DoubleBuffer",
     "FileBarrier",
+    "RankKilled",
     "shm_unlink_window",
 ]
 
@@ -126,6 +138,14 @@ class _PyWinTable:
     def _get(self, name):
         with self._mu:
             return self._wins.get(name)
+
+    def info(self, name):
+        """``(n_slots, n_elems, dtype)`` or None (the window server's
+        geometry check)."""
+        w = self._get(name)
+        if w is None:
+            return None
+        return len(w["slots"]), w["self"].size, w["self"].dtype
 
     def free(self, name):
         with self._mu:
@@ -305,6 +325,37 @@ class AsyncWindow:
         if v < 0:
             raise RuntimeError(f"deposit into {self.name!r}[{slot}] failed")
         return int(v)
+
+    def deposit_async(self, slot: int, arr: np.ndarray, *,
+                      accumulate: bool = True, copy: bool = True,
+                      drain: bool = False) -> int:
+        """The pipelined transports' spelling of :meth:`deposit`, so one
+        loop body (``deposit_async`` + :meth:`flush` fence) runs on every
+        transport.  In-process and shm deposits have landed when the call
+        returns, so this is the synchronous deposit; ``copy`` and
+        ``drain`` (a graceful leaver's handoff, a wire flag on the TCP
+        transport) change nothing here."""
+        del copy, drain
+        return self.deposit(slot, arr, accumulate=accumulate)
+
+    def flush(self, timeout_s: Optional[float] = None) -> None:
+        """Fence for :meth:`deposit_async`: nothing is ever in flight."""
+
+    def ack_ewma(self) -> Optional[float]:
+        """Wire-transport parity: memory deposits have no ack channel."""
+        return None
+
+    @property
+    def reconnects(self) -> int:
+        """Wire-transport parity: memory never reconnects."""
+        return 0
+
+    def set_codec(self, codec: Optional[str]) -> None:
+        """Wire-transport parity: only ``None``/``"none"`` is accepted."""
+        if codec not in (None, "none"):
+            raise ValueError(
+                f"in-process/shm windows have no wire codec; cannot set "
+                f"{codec!r}")
 
     def read(self, slot: int, *, consume: bool = True,
              out: Optional[np.ndarray] = None) -> Tuple[np.ndarray, int]:
@@ -616,6 +667,14 @@ def _create_windows(name: str, slots_per_rank: Sequence[int],
     return wins
 
 
+class RankKilled(Exception):
+    """Raised from a thread runner's ``step_hook`` (or a rank's
+    ``loss_and_grad``) to kill that rank thread mid-run: the in-process
+    counterpart of a SIGKILLed rank process.  The rank stops without a
+    drain or a final publish; the runner writes its push-sum mass off as
+    ``died_mass``, so the survivors' audit stays exact."""
+
+
 @dataclass
 class PushSumReport:
     """Outcome of an asynchronous push-sum run."""
@@ -627,6 +686,13 @@ class PushSumReport:
     true_mean: np.ndarray      # (n_elems,)
     max_abs_err: float
     total_mass: float          # sum of p over ranks; must stay == n_ranks
+    # fault-tolerant runs: ranks declared DEAD and the push-sum mass they
+    # carried to the grave (audit invariant: total_mass + died_mass == n)
+    dead_ranks: List[int] = field(default_factory=list)
+    died_mass: float = 0.0
+    # per-rank health transition log [(t, from_state, to_state)] from the
+    # shared board
+    health_transitions: Optional[Dict[int, list]] = None
 
 
 def run_async_pushsum(
@@ -638,7 +704,8 @@ def run_async_pushsum(
     timeout_s: float = 30.0,
     name: str = "async_pushsum",
     poll_interval_s: float = 0.002,
-    resilience=None,
+    resilience: Optional[_res.ResilienceConfig] = None,
+    step_hook: Optional[Callable[[int, int], None]] = None,
     native: Optional[bool] = None,
 ) -> PushSumReport:
     """Asynchronous push-sum over ``topology`` with deliberately skewed
@@ -651,7 +718,20 @@ def run_async_pushsum(
       skew: per-rank extra sleep (seconds) per step; the default makes the
         slowest rank ~5x the fastest.
       tol / timeout_s: the convergence gate.
-      resilience: peer-fault tolerance, not ported yet (item 9b).
+      resilience: peer-fault tolerance.  Ranks beat a shared
+        :class:`~bluefog_tpu_torch.runtime.resilience.HealthBoard` each
+        round; a rank that stops beating (a killed or stalled thread) is
+        declared DEAD after ``dead_after_s`` of silence and the survivors
+        renormalise their mixing weights over the surviving set
+        (:func:`~bluefog_tpu_torch.topology.graphs.heal`); push-sum's
+        weight channel keeps the surviving average unbiased.  A rank that
+        beats again is REJOINED and re-admitted at the next round
+        boundary.  Convergence is then judged by survivor consensus (the
+        mass-weighted mean of what survived, not the mean of ``x0``).
+        ``dead_after_s`` must exceed the slowest rank's per-step sleep.
+      step_hook: ``(rank, step) -> None``, called at the top of every
+        rank step: it may sleep (a stall) or raise :class:`RankKilled`
+        (a death).  The fault drills' entry point.
       native: ``False`` runs on the Python twin of the window table.
 
     A rank's step, with no barrier anywhere: consume its landing slots,
@@ -659,11 +739,9 @@ def run_async_pushsum(
     mass and deposit the same fraction into each out-neighbour's window
     (accumulate); publish its estimate and sleep ``skew[r]``.  A monitor
     raises the stop flag on convergence; the ranks then drain the mass
-    still in flight, so ``sum(p) == n`` holds exactly.
+    still in flight, so ``sum(p) == n`` holds exactly (with deaths,
+    ``total_mass + died_mass == n``).
     """
-    if resilience is not None:
-        raise _not_ported("resilience=", "9b",
-                          "peer-fault tolerance over the window server")
     n = topology.size
     x0 = np.asarray(x0, np.float64)
     if x0.shape[0] != n:
@@ -690,14 +768,38 @@ def run_async_pushsum(
     estimates = x0.copy()
     est_mu = threading.Lock()
     errors: List[BaseException] = []
+    board = (_res.HealthBoard(n, suspect_after_s=resilience.suspect_after_s,
+                              dead_after_s=resilience.dead_after_s)
+             if resilience is not None else None)
+    died = [False] * n
+    died_mass = [0.0] * n
 
     def rank_loop(r: int):
         x = x0[r].copy()
         p = 1.0
         try:
-            frac = 1.0 / (len(out_nbrs[r]) + 1)
+            my_out = list(out_nbrs[r])
+            frac = 1.0 / (len(my_out) + 1)
+            known_dead: set = set()
             while not stop.is_set():
-                # 1. consume whatever landed (possibly nothing)
+                if step_hook is not None:
+                    step_hook(r, steps[r])
+                if board is not None:
+                    board.beat(r)
+                    dead_now = board.dead_ranks() - {r}
+                    if dead_now != known_dead:
+                        # round boundary: re-admit any REJOINED rank (it
+                        # left the dead set by beating again) and heal
+                        # the mixing weights over the current survivors
+                        for j in known_dead - dead_now:
+                            board.admit(j)
+                        known_dead = set(dead_now)
+                        healed = _heal(topology, known_dead)
+                        my_out = list(healed.out_neighbors(r))
+                        frac = 1.0 / (len(my_out) + 1)
+                # 1. consume whatever landed (possibly nothing; slots of
+                # dead in-neighbours still drain their final in-flight
+                # mass, which is what keeps the audit exact)
                 for k in range(len(in_nbrs[r])):
                     buf, fresh = wins[r].read(k, consume=True)
                     if fresh > 0:
@@ -705,7 +807,7 @@ def run_async_pushsum(
                         p += buf[-1]
                 # 2. split mass outward: receivers need not be listening
                 payload = np.concatenate([x * frac, [p * frac]])
-                for j in out_nbrs[r]:
+                for j in my_out:
                     wins[j].deposit(slot_of[j][r], payload, accumulate=True)
                 x *= frac
                 p *= frac
@@ -723,6 +825,12 @@ def run_async_pushsum(
             with est_mu:
                 estimates[r] = x / p
             wins[r].set_self(np.concatenate([x, [p]]))
+        except RankKilled:
+            # a killed rank: no drain, no publish; being in-process, it
+            # leaves a last will of the mass it took down, which makes
+            # the survivors' audit exact (total_mass + died_mass == n)
+            died[r] = True
+            died_mass[r] = p
         except BaseException as e:  # surfaced by the caller
             errors.append(e)
             stop.set()
@@ -738,10 +846,20 @@ def run_async_pushsum(
         time.sleep(poll_interval_s * 5)
         if errors:
             break
+        alive = [r for r in range(n) if not died[r]]
+        if not alive:
+            break  # every rank was killed; the report says so
         with est_mu:
-            err = float(np.abs(estimates - true_mean).max())
-        # every rank must also have taken a few steps (no vacuous pass)
-        if err < tol and min(steps) >= 3:
+            if board is None:
+                err = float(np.abs(estimates - true_mean).max())
+            else:
+                # with deaths the surviving average is the mass-weighted
+                # mean of what survived: judge survivor consensus
+                zs = estimates[alive]
+                err = float(np.abs(zs - zs.mean(axis=0)).max())
+        # every live rank must also have taken a few steps (no vacuous
+        # pass)
+        if err < tol and min(steps[r] for r in alive) >= 3:
             converged = True
             break
     stop.set()
@@ -763,13 +881,23 @@ def run_async_pushsum(
         raise errors[0]
 
     # mass invariant: self mass plus anything deposited after a rank's
-    # final drain (the threads are joined, so the reads race with nothing)
+    # final drain (the threads are joined, so the reads race with
+    # nothing).  A dead rank's window still counts: its landing slots hold
+    # the mass that was in flight toward the corpse.
     total_mass = 0.0
     for r in range(n):
-        total_mass += float(wins[r].read_self()[-1])
+        if not died[r]:
+            total_mass += float(wins[r].read_self()[-1])
         total_mass += _landed_mass(wins[r], range(len(in_nbrs[r])))
+    alive = [r for r in range(n) if not died[r]]
     with est_mu:
-        final_err = float(np.abs(estimates - true_mean).max())
+        if not alive:
+            final_err = float("inf")  # no survivors, no consensus claim
+        elif board is None or not any(died):
+            final_err = float(np.abs(estimates - true_mean).max())
+        else:
+            zs = estimates[alive]
+            final_err = float(np.abs(zs - zs.mean(axis=0)).max())
     report = PushSumReport(
         converged=converged and final_err < 10 * tol,
         wall_time_s=wall,
@@ -778,6 +906,11 @@ def run_async_pushsum(
         true_mean=true_mean,
         max_abs_err=final_err,
         total_mass=total_mass,
+        dead_ranks=[r for r in range(n) if died[r]],
+        died_mass=float(sum(died_mass)),
+        health_transitions=(
+            {r: board.transitions(r) for r in range(n)}
+            if board is not None else None),
     )
     for w in wins:
         w.free()
@@ -802,8 +935,28 @@ class DSGDReport:
     # per rank, seconds of each part of its steps (the runner's own
     # clock): consume, unpack, loss_and_grad, pack, deposit — the host
     # breakdown of a rank step — and, with overlap, the harvester's
-    # seconds hidden under them.  Empty for the process runner.
+    # seconds hidden under them.  The process runner fills its own
+    # rank's entry only (rank 0's report).
     phase_s: List[Dict[str, float]] = field(default_factory=list)
+    # fault-tolerant runs only:
+    dead_ranks: List[int] = field(default_factory=list)
+    # thread mode: mass the killed threads carried to the grave (exact
+    # audit: total_mass + died_mass == n, or == baseline_mass)
+    died_mass: float = 0.0
+    # process mode: the surviving set's mass measured at the post-heal
+    # rendezvous (exact audit: total_mass == baseline_mass); elastic runs
+    # re-measure it at every admission.  Thread mode, elastic: every unit
+    # of mass that ever entered (initial members + one per admission).
+    baseline_mass: Optional[float] = None
+    # thread mode: per-rank health transitions [(t, from, to)]
+    health_transitions: Optional[Dict[int, list]] = None
+    # elastic membership: ranks that completed a graceful drain (their
+    # mass handed off, conserved) and ranks admitted by a join
+    left_ranks: List[int] = field(default_factory=list)
+    joined_ranks: List[int] = field(default_factory=list)
+    # process mode over tcp: bytes the reporting rank's deposit streams
+    # put on the wire
+    wire_bytes: int = 0
 
 
 class DoubleBuffer:
@@ -934,6 +1087,14 @@ class DoubleBuffer:
         return [(k, self._stage[k], self._fresh.pop(k))
                 for k in self._slots if k in self._fresh]
 
+    def staged_mass(self) -> float:
+        """Push-sum weight staged and not applied yet.  Call after
+        :meth:`pause`: a quiesce-rendezvous adds it to the local mass, so
+        taken-but-unapplied mass cannot hide from the audit."""
+        with self._mu:
+            return float(sum(float(self._stage[k][-1])
+                             for k in self._fresh))
+
     def close(self) -> List[Tuple[int, np.ndarray, int]]:
         """Stop the harvester and hand back whatever is staged (slot
         order), so taken mass is never dropped.  Idempotent."""
@@ -993,16 +1154,8 @@ def _stream_context(packer: TreePacker):
     return torch.cuda.stream(torch.cuda.Stream(packer.device))
 
 
-def _check_dsgd_args(*, resilience=None, join_at_s=None, leave_at_s=None,
-                     snapshot_every=0, control=None, fleet=None,
+def _check_dsgd_args(*, snapshot_every=0, control=None, fleet=None,
                      profile=None) -> None:
-    if resilience is not None:
-        raise _not_ported("resilience=", "9b",
-                          "peer-fault tolerance over the window server")
-    if join_at_s is not None:
-        raise _not_ported("join_at_s=", "9b", "elastic membership")
-    if leave_at_s is not None:
-        raise _not_ported("leave_at_s=", "9b", "elastic membership")
     if snapshot_every:
         raise _not_ported("snapshot_every > 0", "10",
                           "serve-while-training snapshots")
@@ -1025,15 +1178,16 @@ def run_async_dsgd(
     skew: Optional[Sequence[float]] = None,
     name: str = "async_dsgd",
     poll_interval_s: float = 0.0,
-    resilience=None,
-    join_at_s=None,
-    leave_at_s=None,
+    resilience: Optional[_res.ResilienceConfig] = None,
+    join_at_s: Optional[Dict[int, Sequence[float]]] = None,
+    leave_at_s: Optional[Dict[int, float]] = None,
     snapshot_every: int = 0,
     control=None,
     stop_after_steps: Optional[int] = None,
     fleet=None,
     profile=None,
     overlap: bool = False,
+    step_hook: Optional[Callable[[int, int], None]] = None,
     native: Optional[bool] = None,
 ) -> DSGDReport:
     """Asynchronous decentralized SGD (subgradient-push, Nedić and
@@ -1060,7 +1214,8 @@ def run_async_dsgd(
     (inherent to asynchronous SGD, as in the reference's async mode).
 
     Args:
-      topology: directed graph over the rank threads.
+      topology: directed graph over the rank threads (with ``join_at_s``
+        or ``leave_at_s``, the job's capacity).
       params0: initial parameters (a tree; the same start on every rank).
         When its leaves are CUDA tensors, each rank thread runs on its own
         CUDA stream.
@@ -1071,20 +1226,41 @@ def run_async_dsgd(
         flight, so the audit is exact).
       skew: per-rank extra sleep per step; the default makes the slowest
         rank ~5x the fastest.
+      resilience: peer-fault tolerance (see :func:`run_async_pushsum`):
+        ranks beat a shared health board each round, a silent rank is
+        declared DEAD after ``dead_after_s`` and healed out of the mixing
+        weights; a rank that beats again is re-admitted at the next round
+        boundary.  A killed thread (:class:`RankKilled`) leaves a last
+        will of the mass it carried: ``total_mass + died_mass == n``.
+      join_at_s / leave_at_s: elastic membership.  ``join_at_s`` maps a
+        rank to the offsets (seconds from the start) at which it attaches
+        to the running job: the rank starts absent, then at each offset
+        warm-starts from a live member's published ``(x, p)`` (its
+        window's ``read_self``, no checkpoint anywhere), enters with a
+        fresh ``p = 1`` and is admitted through the JOINING state at a
+        round boundary.  ``leave_at_s`` maps a rank to the offset of its
+        graceful drain: it hands its whole ``(x, p)`` to its live
+        out-neighbours in drain deposits (a leaver's mass is conserved,
+        never written off like a corpse's) and stops; a later join offset
+        re-admits it.  Live ranks re-plan the mixing graph over the
+        current member set at round boundaries
+        (:func:`~bluefog_tpu_torch.topology.graphs.replan`, deterministic
+        in the member list), and the audit is exact over the churn:
+        ``total_mass + died_mass == baseline_mass``.
       stop_after_steps: end the run (all ranks drain) as soon as any rank
         has taken this many steps.
       overlap: compute/gossip overlap through :class:`DoubleBuffer`: a
         harvester per rank consumes landed deposits while the gradient
         runs, and the staged mixing is applied at the next round boundary
         in slot order (the serial fold order).
+      step_hook: ``(rank, step) -> None`` at the top of every rank step:
+        it may sleep (a stall) or raise :class:`RankKilled` (a death).
       native: ``False`` runs on the Python twin of the window table.
-      resilience, join_at_s, leave_at_s (item 9b), snapshot_every > 0,
-        control (item 10), fleet, profile (item 11): not ported yet; each
-        raises ``NotImplementedError``.
+      snapshot_every > 0, control (ROADMAP item 10), fleet, profile
+        (item 11): not ported yet; each raises ``NotImplementedError``.
     """
-    _check_dsgd_args(resilience=resilience, join_at_s=join_at_s,
-                     leave_at_s=leave_at_s, snapshot_every=snapshot_every,
-                     control=control, fleet=fleet, profile=profile)
+    _check_dsgd_args(snapshot_every=snapshot_every, control=control,
+                     fleet=fleet, profile=profile)
     n = topology.size
     packer = TreePacker(params0, np.float64)
     d = packer.size
@@ -1094,12 +1270,31 @@ def run_async_dsgd(
         skew = [base * (1.0 + 4.0 * r / max(n - 1, 1)) for r in range(n)]
 
     in_nbrs = [list(topology.in_neighbors(r)) for r in range(n)]
-    out_nbrs = [list(topology.out_neighbors(r)) for r in range(n)]
-    wins = _create_windows(
-        name, [max(len(in_nbrs[r]), 1) for r in range(n)], d + 1,
-        native=native)
-    slot_of = [{src: k for k, src in enumerate(in_nbrs[r])}
-               for r in range(n)]
+    joins: Dict[int, List[float]] = {}
+    for r, ts in (join_at_s or {}).items():
+        seq = [ts] if isinstance(ts, (int, float)) else list(ts)
+        joins[int(r)] = sorted(float(t) for t in seq)
+    leaves = {int(r): float(t) for r, t in (leave_at_s or {}).items()}
+    elastic = bool(joins or leaves)
+    members0 = frozenset(range(n)) - frozenset(joins)
+    if elastic and not members0:
+        raise ValueError("every rank has a join schedule; at least one "
+                         "initial member must seed the warm-start chain")
+
+    # slot scheme: elastic runs take one landing slot per capacity rank
+    # (slot index == source rank), stable under membership change; fixed
+    # fleets keep the dense in-degree sizing (~log2 n slots a rank instead
+    # of n, a real difference when d is model-sized)
+    cap_slots = elastic
+    if cap_slots:
+        wins = _create_windows(name, [n] * n, d + 1, native=native)
+        slot_of = None
+    else:
+        wins = _create_windows(
+            name, [max(len(in_nbrs[r]), 1) for r in range(n)], d + 1,
+            native=native)
+        slot_of = [{src: k for k, src in enumerate(in_nbrs[r])}
+                   for r in range(n)]
 
     stop = threading.Event()
     steps = [0] * n
@@ -1116,6 +1311,41 @@ def run_async_dsgd(
         import torch
 
         torch.cuda.synchronize(packer.device)
+    board = (_res.HealthBoard(
+        n,
+        suspect_after_s=(resilience.suspect_after_s
+                         if resilience is not None else 0.5),
+        dead_after_s=(resilience.dead_after_s
+                      if resilience is not None else 2.0),
+        members=members0 if elastic else None)
+        if (resilience is not None or elastic) else None)
+    died = [False] * n
+    died_mass = [0.0] * n
+
+    # the shared membership truth; each rank re-derives its plan from it
+    # at round boundaries, so every loop converges on the same replan
+    # with no coordination beyond this set
+    mem_mu = threading.Lock()
+    members = set(members0)
+    left_final: set = set()
+    ever_joined: set = set()
+    joined_mass = [0.0]
+    plan_cache: Dict[frozenset, Topology] = {}
+
+    def _plan(active: frozenset) -> Topology:
+        with mem_mu:
+            cached = plan_cache.get(active)
+        if cached is not None:
+            return cached
+        if elastic:
+            plan = _replan(topology, active)
+        else:
+            plan = _heal(topology, frozenset(range(n)) - active)
+        with mem_mu:
+            plan_cache[active] = plan
+        return plan
+
+    t_run0 = time.perf_counter()
 
     def rank_loop(r: int):
         p = 1.0
@@ -1123,12 +1353,13 @@ def run_async_dsgd(
         gvec = np.empty(d, np.float64)
         zbuf = np.empty(d, np.float64)
         payload = np.empty(d + 1, np.float64)
-        my_slots = range(len(in_nbrs[r]))
-        my_out = out_nbrs[r]
-        frac = 1.0 / (len(my_out) + 1)
+        my_joins = list(joins.get(r, []))
+        is_member = r in members0
+        leave_deadline = leaves.get(r)
+        my_slots = ([k for k in range(n) if k != r] if cap_slots
+                    else list(range(len(in_nbrs[r]))))
         ph = phases[r]
-        db = (DoubleBuffer(wins[r], list(my_slots), d + 1)
-              if overlap else None)
+        db = (DoubleBuffer(wins[r], my_slots, d + 1) if overlap else None)
 
         def consume(x, p, staged=None):
             if staged is None:
@@ -1143,54 +1374,197 @@ def run_async_dsgd(
             with _stream_context(packer):
                 x = x0.copy()
                 while not stop.is_set():
-                    t0 = time.perf_counter()
-                    if db is not None:
-                        # round boundary: fold what the harvester staged
-                        # under the last compute, then re-arm it
-                        staged, hidden = db.apply_staged()
-                        p = consume(x, p, staged)
-                        db.begin()
-                        ph["harvest"] += hidden
-                    else:
+                    if not is_member:
+                        # ---------------------------------- join the job
+                        if not my_joins:
+                            return  # a reserved slot, never scheduled
+                        t_join = my_joins.pop(0)
+                        while (time.perf_counter() - t_run0 < t_join
+                               and not stop.is_set()):
+                            time.sleep(0.002)
+                        if stop.is_set():
+                            return
+                        # warm start: a live member's published (x, p)
+                        # through its window, no checkpoint read.  The
+                        # pair is published under the window's self
+                        # mutex, so the joiner's first state is
+                        # round-consistent.
+                        if board is not None:
+                            board.mark_joining(r)
+                        z = None
+                        deadline = time.perf_counter() + max(duration_s,
+                                                             5.0)
+                        while (z is None and not stop.is_set()
+                               and time.perf_counter() < deadline):
+                            with mem_mu:
+                                cand = sorted(members - {r})
+                            for nb in cand:
+                                s = wins[nb].read_self()
+                                if s[-1] > 0.0:
+                                    z = s[:-1] / s[-1]
+                                    break
+                            if z is None:
+                                time.sleep(0.002)
+                        if z is None:
+                            z = x0  # no member published yet: cold start
+                        x = np.array(z, np.float64)
+                        p = 1.0  # fresh push-sum weight: mass enters here
+                        with mem_mu:
+                            members.add(r)
+                            joined_mass[0] += 1.0
+                            ever_joined.add(r)
+                            left_final.discard(r)
+                        if board is not None:
+                            board.admit(r)  # its own first round boundary
+                        is_member = True
+                        if overlap and db is None:
+                            # a member re-joining after a graceful leave
+                            # closed its harvester: a fresh one
+                            db = DoubleBuffer(wins[r], my_slots, d + 1)
+                        # publish at once: a second joiner may warm from
+                        # this rank before its first full round
+                        wins[r].set_self(np.concatenate([x, [p]]))
+
+                    # ---------------------------------------- gossip loop
+                    my_out: List[int] = []
+                    frac = 1.0
+                    known_active: Optional[frozenset] = None
+                    want_leave = False
+                    while not stop.is_set():
+                        if step_hook is not None:
+                            step_hook(r, steps[r])
+                        if (leave_deadline is not None
+                                and time.perf_counter() - t_run0
+                                >= leave_deadline):
+                            leave_deadline = None
+                            want_leave = True
+                            break
+                        if board is not None:
+                            board.beat(r)
+                        with mem_mu:
+                            active = frozenset(members)
+                        if resilience is not None:
+                            active = active - (board.dead_ranks() - {r})
+                        if active != known_active:
+                            # round boundary: re-admit ranks that came
+                            # back (REJOINED) or announced (JOINING),
+                            # then re-plan over the current member set
+                            if known_active is not None \
+                                    and board is not None:
+                                for j in active - known_active:
+                                    if board.state(j) in (_res.REJOINED,
+                                                          _res.JOINING):
+                                        board.admit(j)
+                            known_active = active
+                            plan = _plan(active)
+                            my_out = list(plan.out_neighbors(r))
+                            frac = 1.0 / (len(my_out) + 1)
+                        t0 = time.perf_counter()
+                        if db is not None:
+                            # round boundary: fold what the harvester
+                            # staged under the last compute, re-arm it
+                            staged, hidden = db.apply_staged()
+                            p = consume(x, p, staged)
+                            db.begin()
+                            ph["harvest"] += hidden
+                        else:
+                            p = consume(x, p)
+                        if elastic:
+                            # publish a coherent (x, p): what a joining
+                            # peer warm-starts from
+                            wins[r].set_self(np.concatenate([x, [p]]))
+                        t1 = time.perf_counter()
+                        tree = packer.unpack(np.divide(x, p, out=zbuf))
+                        t2 = time.perf_counter()
+                        loss, grads = loss_and_grad(r, steps[r], tree)
+                        losses[r].append(float(loss))
+                        t3 = time.perf_counter()
+                        packer.pack(grads, out=gvec)
+                        gvec *= lr * p
+                        x -= gvec
+                        t4 = time.perf_counter()
+                        payload[:-1] = x
+                        payload[-1] = p
+                        payload *= frac
+                        for j in my_out:
+                            wins[j].deposit(
+                                r if cap_slots else slot_of[j][r],
+                                payload, accumulate=True)
+                        x *= frac
+                        p *= frac
+                        t5 = time.perf_counter()
+                        ph["consume"] += t1 - t0
+                        ph["unpack"] += t2 - t1
+                        ph["loss_and_grad"] += t3 - t2
+                        ph["pack"] += t4 - t3
+                        ph["deposit"] += t5 - t4
+                        steps[r] += 1
+                        if (stop_after_steps is not None
+                                and steps[r] >= stop_after_steps):
+                            stop.set()
+                            break
+                        if skew[r] > 0 or poll_interval_s > 0:
+                            time.sleep(skew[r] + poll_interval_s)
+
+                    if not want_leave:
+                        # run ended: drain the mass in flight so the
+                        # audit is exact; the harvester's staged take is
+                        # mass this rank already owns
+                        if db is not None:
+                            p = consume(x, p, staged=db.close())
                         p = consume(x, p)
-                    t1 = time.perf_counter()
-                    tree = packer.unpack(np.divide(x, p, out=zbuf))
-                    t2 = time.perf_counter()
-                    loss, grads = loss_and_grad(r, steps[r], tree)
-                    losses[r].append(float(loss))
-                    t3 = time.perf_counter()
-                    packer.pack(grads, out=gvec)
-                    gvec *= lr * p
-                    x -= gvec
-                    t4 = time.perf_counter()
-                    payload[:-1] = x
-                    payload[-1] = p
-                    payload *= frac
-                    for j in my_out:
-                        wins[j].deposit(slot_of[j][r], payload,
-                                        accumulate=True)
-                    x *= frac
-                    p *= frac
-                    t5 = time.perf_counter()
-                    ph["consume"] += t1 - t0
-                    ph["unpack"] += t2 - t1
-                    ph["loss_and_grad"] += t3 - t2
-                    ph["pack"] += t4 - t3
-                    ph["deposit"] += t5 - t4
-                    steps[r] += 1
-                    if (stop_after_steps is not None
-                            and steps[r] >= stop_after_steps):
-                        stop.set()
-                        break
-                    if skew[r] > 0 or poll_interval_s > 0:
-                        time.sleep(skew[r] + poll_interval_s)
-            # run ended: drain the mass in flight so the audit is exact;
-            # the harvester's staged take is mass this rank already owns
+                        finals[r] = x / p
+                        wins[r].set_self(np.concatenate([x, [p]]))
+                        return
+
+                    # ------------------------------------ graceful drain
+                    # fold the landed mass, then hand the whole (x, p) to
+                    # live out-neighbours in drain deposits: a leaver's
+                    # mass is conserved in the audit
+                    if db is not None:
+                        p = consume(x, p, staged=db.close())
+                        db = None
+                    p = consume(x, p)
+                    with mem_mu:
+                        live = sorted(members - {r})
+                    live = [j for j in live if not died[j]]
+                    if board is not None:
+                        live = [j for j in live
+                                if board.state(j) != _res.DEAD]
+                    plan = _plan(known_active if known_active
+                                 else frozenset({r} | set(live)))
+                    tgt = [j for j in plan.out_neighbors(r) if j in live]
+                    tgt = tgt or live
+                    if tgt:
+                        payload[:-1] = x
+                        payload[-1] = p
+                        payload /= float(len(tgt))
+                        for j in tgt:
+                            wins[j].deposit_async(r, payload,
+                                                  accumulate=True,
+                                                  drain=True)
+                        x[:] = 0.0
+                        p = 0.0
+                    # else: no live member to hand off to; keep the mass
+                    # and publish it, the audit still counts it
+                    wins[r].set_self(np.concatenate([x, [p]]))
+                    with mem_mu:
+                        members.discard(r)
+                        left_final.add(r)
+                    if board is not None:
+                        board.mark_left(r)
+                    finals[r] = None
+                    is_member = False
+                    # back to the outer loop: a later join offset
+                    # re-admits this rank
+        except RankKilled:
+            # a killed rank: no drain, no final publish; its last will
+            # (the mass carried to the grave, the harvester's staged take
+            # included) keeps the audit exact
+            died[r] = True
             if db is not None:
-                p = consume(x, p, staged=db.close())
-            p = consume(x, p)
-            finals[r] = x / p
-            wins[r].set_self(np.concatenate([x, [p]]))
+                p += sum(float(buf[-1]) for _, buf, _ in db.close())
+            died_mass[r] = p
         except BaseException as e:
             errors.append(e)
             stop.set()
@@ -1219,21 +1593,45 @@ def run_async_dsgd(
 
     total_mass = 0.0
     for r in range(n):
-        total_mass += float(wins[r].read_self()[-1])
-        total_mass += _landed_mass(wins[r], range(len(in_nbrs[r])))
-    zs = np.stack(finals)
+        if not died[r]:
+            # a corpse's published snapshot is stale (its mass is its
+            # last will, died_mass); everyone else's final set_self is
+            # the truth
+            total_mass += float(wins[r].read_self()[-1])
+        total_mass += _landed_mass(
+            wins[r], [k for k in range(n) if k != r] if cap_slots
+            else range(len(in_nbrs[r])))
+    # consensus over the survivors (a killed rank has no final z; a
+    # leaver handed its state off)
+    alive = [r for r in range(n) if finals[r] is not None]
+    if alive:
+        zs = np.stack([finals[r] for r in alive])
+        gap = float(np.abs(zs - zs.mean(axis=0)).max())
+    else:
+        gap = float("inf")
     report = DSGDReport(
         wall_time_s=wall,
         steps_per_rank=list(steps),
         losses=losses,
-        final_params=[packer.unpack(finals[r]) for r in range(n)],
+        final_params=[packer.unpack(finals[r]) if finals[r] is not None
+                      else None for r in range(n)],
         total_mass=total_mass,
-        consensus_gap=float(np.abs(zs - zs.mean(axis=0)).max()),
+        consensus_gap=gap,
         phase_s=phases,
+        dead_ranks=[r for r in range(n) if died[r]],
+        died_mass=float(sum(died_mass)),
+        baseline_mass=(float(len(members0)) + joined_mass[0]
+                       if elastic else None),
+        health_transitions=(
+            {r: board.transitions(r) for r in range(n)}
+            if board is not None else None),
+        left_ranks=sorted(left_final),
+        joined_ranks=sorted(ever_joined),
     )
     for w in wins:
         w.free()
     return report
+
 
 
 # ---------------------------------------------------------------------------
@@ -1248,18 +1646,24 @@ def shm_unlink_window(name: str) -> bool:
 
 
 class FileBarrier:
-    """A filesystem barrier between rank processes on one host.
+    """A filesystem barrier between rank processes.
 
     The process runner needs a few rendezvous points around its training
     loop (windows created, deposits stopped, results published, audit
     done) and no collective runtime in between: a shared directory is the
-    whole requirement.  Rank ``r`` touches ``<dir>/<stage>.<r>`` and waits
-    until all ``n`` exist."""
+    whole requirement (a network filesystem across hosts).  Rank ``r``
+    touches ``<dir>/<stage>.<r>`` and waits until all ``n`` exist.
+
+    :attr:`exclude` is the barrier's fault tolerance: ranks declared DEAD
+    (or not members of an elastic job) go in this set and are no longer
+    waited for.  The set is re-read every poll, so a rank declared dead
+    while others already wait unblocks them at once."""
 
     def __init__(self, path: str, n_ranks: int, rank: int):
         self.path = path
         self.n = int(n_ranks)
         self.rank = int(rank)
+        self.exclude: set = set()
         os.makedirs(path, exist_ok=True)
 
     def wait(self, stage: str, timeout_s: float = 120.0) -> None:
@@ -1267,7 +1671,7 @@ class FileBarrier:
 
         def missing_ranks():
             return [r for r in range(self.n)
-                    if not os.path.exists(
+                    if r not in self.exclude and not os.path.exists(
                         os.path.join(self.path, f"{stage}.{r}"))]
 
         t0 = time.perf_counter()
@@ -1278,6 +1682,249 @@ class FileBarrier:
                     f"on rank {self.rank}; missing rank(s) "
                     f"{missing_ranks()} (dir {self.path})")
             time.sleep(0.005)
+
+
+class _ShmTransport:
+    """Same-host rank processes: windows in named shared memory."""
+
+    def create(self, wname: str, n_slots: int, n_elems: int) -> AsyncWindow:
+        # each rank owns its window names, so a leftover segment can only
+        # be stale (a crashed earlier run): clean it and create anew
+        shm_unlink_window(wname)
+        return AsyncWindow(wname, n_slots, n_elems, np.float64, shm=True)
+
+    def publish(self, barrier: FileBarrier, rank: int) -> None:
+        pass  # the shm namespace is the rendezvous
+
+    def collect(self, barrier: FileBarrier, ranks) -> None:
+        pass
+
+    def open(self, owner: int, wname: str, n_slots: int, n_elems: int):
+        return AsyncWindow(wname, attach=True)
+
+    def wire_bytes(self) -> int:
+        return 0
+
+    def close(self) -> None:
+        pass
+
+
+class _RemoteHandle:
+    """AsyncWindow-shaped adapter over a
+    :class:`~bluefog_tpu_torch.runtime.window_server.RemoteWindow` or
+    :class:`~bluefog_tpu_torch.runtime.window_server.
+    PipelinedRemoteWindow` (the geometry is captured at open time, as the
+    remote protocol needs it on every call)."""
+
+    def __init__(self, rw, n_slots: int, n_elems: int):
+        self._rw = rw
+        self.n_slots = n_slots
+        self.n_elems = n_elems
+        self.dtype = np.dtype(np.float64)
+
+    def deposit(self, slot, arr, *, accumulate=True):
+        return self._rw.deposit(
+            slot, np.ascontiguousarray(arr, self.dtype),
+            accumulate=accumulate)
+
+    def deposit_async(self, slot, arr, *, accumulate=True, copy=True,
+                      drain=False):
+        """Fire-and-forget on the pipelined transport; synchronous (the
+        same result, not overlapped) on the plain one, where the drain
+        mark is carried by the owner's audit protocol instead of a wire
+        flag."""
+        fn = getattr(self._rw, "deposit_async", None)
+        a = np.ascontiguousarray(arr, self.dtype)
+        if fn is None:
+            return self._rw.deposit(slot, a, accumulate=accumulate)
+        return fn(slot, a, accumulate=accumulate, copy=copy, drain=drain)
+
+    @property
+    def health(self):
+        """Peer health of the underlying pipelined stream (None on the
+        sync client or when resilience is off)."""
+        return getattr(self._rw, "health", None)
+
+    def ack_ewma(self) -> Optional[float]:
+        fn = getattr(self._rw, "ack_ewma", None)
+        return None if fn is None else fn()
+
+    @property
+    def reconnects(self) -> int:
+        return int(getattr(self._rw, "reconnects", 0))
+
+    def set_codec(self, codec: Optional[str]) -> None:
+        fn = getattr(self._rw, "set_codec", None)
+        if fn is not None:
+            fn(codec)
+        elif codec not in (None, "none"):
+            raise ValueError(
+                "the synchronous window client has no wire codec; "
+                f"cannot set {codec!r}")
+
+    def flush(self, timeout_s: Optional[float] = None) -> None:
+        """Fence for :meth:`deposit_async` (a no-op on the sync client)."""
+        fn = getattr(self._rw, "flush", None)
+        if fn is not None:
+            fn(timeout_s)
+
+    def read(self, slot, *, consume=True):
+        return self._rw.read(slot, self.n_elems, self.dtype, consume=consume)
+
+    def read_self(self):
+        return self._rw.read_self(self.n_elems, self.dtype)
+
+    def free(self):
+        self._rw.close()
+
+
+class _TcpTransport:
+    """Rank processes on any hosts: process-local windows served over TCP
+    (:mod:`bluefog_tpu_torch.runtime.window_server`).  Addresses
+    rendezvous through the barrier directory (one ``winaddr.<rank>`` file
+    per rank).
+
+    ``pipeline=True`` (the default) opens peers as
+    :class:`~bluefog_tpu_torch.runtime.window_server.PipelinedRemoteWindow`:
+    deposits are fire-and-forget through a per-peer background sender
+    (batched frames, windowed acks) and the DSGD loop fences with
+    ``flush()`` before its audit barrier.  ``wire_codec`` selects lossy
+    wire compression (``"f32"``/``"topk"``), opt-in, and off whenever the
+    exact push-sum mass audit matters.
+
+    Two keys of ``stream_options`` are consumed here (the rest forward to
+    the per-peer :class:`~bluefog_tpu_torch.runtime.window_server.
+    DepositStream`):
+
+    - ``shm=True``: the same-host route.  This rank's own windows go into
+      named shared memory (so co-located peers can attach them) and its
+      deposit streams route same-host deposits through the shm table
+      instead of TCP, falling back to TCP when the owner is on another
+      host.
+    - ``stripes=N``: one shared
+      :class:`~bluefog_tpu_torch.runtime.window_server.
+      StripedDepositStream` per peer (N parallel connections).
+
+    ``transport_tuning`` (the closed-loop stripe autotuner) comes with the
+    control plane, ROADMAP item 10."""
+
+    def __init__(self, bind_host: str = "0.0.0.0", *, pipeline: bool = True,
+                 wire_codec: Optional[str] = None,
+                 resilience: Optional[_res.ResilienceConfig] = None,
+                 stream_options: Optional[Dict] = None):
+        from bluefog_tpu_torch.runtime.window_server import WindowServer
+
+        self._stream_options = dict(stream_options or {})
+        if self._stream_options.pop("transport_tuning", None) is not None:
+            raise _not_ported("stream_options['transport_tuning']", "10",
+                              "the control plane's transport autotuner")
+        self._shm = bool(self._stream_options.pop("shm", False))
+        self._n_stripes = int(self._stream_options.pop("stripes", 0))
+        self._server = WindowServer()
+        self._server.start(bind_host)
+        self._pipeline = pipeline
+        self._codec = wire_codec
+        self._resilience = resilience
+        self._striped: Dict[int, object] = {}  # owner -> striped stream
+        self._streams: List = []               # every stream opened
+        self._addrs: Dict[int, Tuple[str, int]] = {}
+
+    def create(self, wname: str, n_slots: int, n_elems: int) -> AsyncWindow:
+        if self._shm and _native.enabled():
+            # this rank's windows go into the named-shm table, so
+            # co-located peers' deposit streams can attach them; the name
+            # is rank-owned, so a leftover segment is a stale artifact
+            shm_unlink_window(wname)
+            return AsyncWindow(wname, n_slots, n_elems, np.float64,
+                               shm=True)
+        return AsyncWindow(wname, n_slots, n_elems, np.float64)
+
+    def publish(self, barrier: FileBarrier, rank: int) -> None:
+        host, port = self._server.address
+        path = os.path.join(barrier.path, f"winaddr.{rank}")
+        with open(path + ".tmp", "w") as f:
+            f.write(f"{host}:{port}")
+        os.replace(path + ".tmp", path)
+
+    def collect(self, barrier: FileBarrier, ranks,
+                timeout_s: float = 60.0) -> None:
+        # the barrier directory may be a network filesystem across hosts:
+        # another host's winaddr file can lag the barrier, so poll.
+        # ``ranks`` is the set to resolve: the current member set of an
+        # elastic job, or one newly announced joiner
+        deadline = time.perf_counter() + timeout_s
+        for r in ranks:
+            path = os.path.join(barrier.path, f"winaddr.{r}")
+            while True:
+                try:
+                    with open(path) as f:
+                        host, port = f.read().strip().rsplit(":", 1)
+                    break
+                except (FileNotFoundError, ValueError):
+                    # ValueError: the file is visible but not written yet
+                    if time.perf_counter() > deadline:
+                        raise TimeoutError(
+                            f"rank {r}'s window address never appeared at "
+                            f"{path}")
+                    time.sleep(0.01)
+            self._addrs[r] = (host, int(port))
+
+    def open(self, owner: int, wname: str, n_slots: int, n_elems: int):
+        from bluefog_tpu_torch.runtime.window_server import (
+            PipelinedRemoteWindow, RemoteWindow, StripedDepositStream)
+
+        if self._pipeline:
+            cfg = self._resilience
+            res_kw = {}
+            if cfg is not None:
+                res_kw = dict(
+                    reconnect=cfg.backoff_kwargs(),
+                    heartbeat_interval_s=cfg.heartbeat_interval_s or 0.0,
+                    suspect_after_s=cfg.suspect_after_s,
+                    dead_after_s=cfg.dead_after_s)
+            # the runner's own sync reads (the warm start's read_self,
+            # the audit) retry torn or timed-out replies on a fresh
+            # connection under the same bounded budget
+            sync_retry = cfg.backoff_kwargs() if cfg is not None else None
+            if self._n_stripes > 0:
+                # one shared per-peer stripe pool: every window bound for
+                # this owner rides it, and a handle's flush fences all
+                # stripes at once
+                st = self._striped.get(owner)
+                if st is None:
+                    st = StripedDepositStream(
+                        self._addrs[owner], n_stripes=self._n_stripes,
+                        codec=self._codec, shm=self._shm,
+                        **res_kw, **self._stream_options)
+                    self._striped[owner] = st
+                    self._streams.append(st)
+                rw = PipelinedRemoteWindow(self._addrs[owner], wname,
+                                           stream=st, sync_retry=sync_retry)
+            else:
+                if "heartbeat_interval_s" in res_kw:
+                    res_kw["heartbeat_interval_s"] = (
+                        res_kw["heartbeat_interval_s"] or None)
+                rw = PipelinedRemoteWindow(
+                    self._addrs[owner], wname, codec=self._codec,
+                    shm=self._shm or None, sync_retry=sync_retry,
+                    **res_kw, **self._stream_options)
+                self._streams.append(rw.stream)
+        else:
+            rw = RemoteWindow(self._addrs[owner], wname)
+        return _RemoteHandle(rw, n_slots, n_elems)
+
+    def wire_bytes(self) -> int:
+        """Bytes this rank's deposit streams put on the wire."""
+        return int(sum(st.wire_bytes for st in self._streams))
+
+    def close(self) -> None:
+        for st in self._striped.values():
+            try:
+                st.close()
+            except Exception:
+                pass
+        self._striped.clear()
+        self._server.stop()
 
 
 def run_async_dsgd_rank(
@@ -1293,8 +1940,9 @@ def run_async_dsgd_rank(
     name: str = "async_dsgd_mp",
     poll_interval_s: float = 0.0,
     transport: str = "shm",
+    tcp_bind: str = "0.0.0.0",
     wire_codec: Optional[str] = None,
-    resilience=None,
+    resilience: Optional[_res.ResilienceConfig] = None,
     join: bool = False,
     leave_after_s: Optional[float] = None,
     initial_members: Optional[Sequence[int]] = None,
@@ -1310,79 +1958,139 @@ def run_async_dsgd_rank(
     rank is its own OS process: the reference's deployment shape
     (``mpirun -np N``) rather than :func:`run_async_dsgd`'s threads.
 
-    Each process creates its landing window in named shared memory
-    (``transport="shm"``) and deposits into its out-neighbours' windows
-    directly: a cross-process ``MPI_Put`` with no receiver involvement and
-    no barrier in the training loop.  ``barrier`` fires four times, all
-    outside the loop: windows created, deposits stopped, results
-    published, audit done.  The algorithm and its mass invariant are those
-    of :func:`run_async_dsgd`; ``skew_s`` is this rank's extra sleep per
-    step, ``stop_after_steps`` ends this rank's loop after that many steps
-    (``duration_s`` stays the cap), and ``overlap=True`` harvests landed
-    deposits under the gradient (:class:`DoubleBuffer`).  When ``params0``
-    lives on the card, the gradient runs there and :class:`TreePacker`
-    carries it to the shared window.
+    Each process creates its landing window and deposits into its
+    out-neighbours' windows directly: a cross-process ``MPI_Put`` with no
+    receiver involvement and no barrier in the training loop.  ``barrier``
+    fires four times, all outside the loop: windows created, deposits
+    stopped, results published, audit done.  The algorithm and its mass
+    invariant are those of :func:`run_async_dsgd`; ``skew_s`` is this
+    rank's extra sleep per step, ``stop_after_steps`` ends this rank's
+    loop after that many steps (``duration_s`` stays the cap), and
+    ``overlap=True`` harvests landed deposits under the gradient
+    (:class:`DoubleBuffer`).  When ``params0`` lives on the card, the
+    gradient runs there and :class:`TreePacker` carries it to the window.
 
-    Not ported yet, each raising ``NotImplementedError``: ``transport=
-    "tcp"``/``"tcp-sync"``, ``wire_codec``, ``resilience``, ``join``,
-    ``leave_after_s``, ``initial_members`` and ``stream_options`` (ROADMAP
-    Queue 1 item 9b), ``snapshot_every > 0`` and ``control`` (item 10),
+    ``transport`` selects the fabric: ``"shm"`` (named shared memory, ranks
+    on one host), ``"tcp"`` (each process serves its windows through a
+    :class:`~bluefog_tpu_torch.runtime.window_server.WindowServer`; ranks
+    may live on different hosts when the barrier directory is shared;
+    deposits ride the pipelined batched client and the loop fences with
+    ``flush()`` before the audit barrier), or ``"tcp-sync"`` (one
+    blocking round trip a deposit, kept for comparison).  ``wire_codec``
+    (``"f32"``/``"topk"``, tcp only) turns on lossy wire compression:
+    leave it ``None`` whenever the exact mass audit matters.
+    ``stream_options`` forwards DepositStream tuning (``max_in_flight``,
+    ``max_queue_items``, ``max_batch_bytes``) and takes ``shm=True`` (the
+    same-host route with TCP fallback) and ``stripes=N`` (see
+    :class:`_TcpTransport`).
+
+    ``resilience`` (tcp only) opts into peer-fault tolerance: deposit
+    streams reconnect with bounded backoff and replay their unacked
+    batches; a SUSPECT peer's share is withheld (kept, not deposited:
+    unbiased under the push-sum weight channel, and the sender stops
+    bleeding mass into a possible corpse); a peer whose reconnect budget
+    is exhausted is declared DEAD, announced to the other survivors
+    through a ``dead.<r>`` tombstone in the barrier directory, and healed
+    out of the mixing weights.  The survivors then hold a
+    quiesce-rendezvous (fence and heal barrier, dead ranks excluded) and
+    record the surviving set's exact mass as ``report.baseline_mass``:
+    the final audit must reproduce it (``report.total_mass ==
+    report.baseline_mass``).  Rank 0, the reporting rank, must survive,
+    and one failure settles before the next is detected.
+
+    Elastic membership (tcp; needs ``resilience=``): ``topology`` is the
+    job's capacity, and slot indices are rank numbers, so the windows
+    survive any membership change.  ``initial_members`` names the ranks
+    that start the job (default: all).  A later process calls this
+    function with ``join=True`` on a reserved (or departed) rank: it
+    starts its window server, warm-starts by reading a live member's
+    published ``(x, p)`` from its window (no checkpoint file anywhere),
+    announces itself through a ``member.<r>`` record in the barrier
+    directory, and is admitted at a round boundary through a
+    quiesce-rendezvous that re-measures the exact baseline over the grown
+    member set.  ``leave_after_s`` triggers the graceful drain: the
+    leaver fences its streams, waits for the members to fence theirs,
+    hands its whole push-sum mass to its out-neighbours in final
+    drain-flagged deposits (conserved in the audit), writes ``left.<r>``
+    and returns.  The live ranks re-plan the mixing graph over the
+    current member set (:func:`~bluefog_tpu_torch.topology.graphs.
+    replan`) at every membership boundary.  Rank 0 must be a stable
+    initial member; membership events settle one at a time.
+
+    Not ported yet, each raising ``NotImplementedError``:
+    ``snapshot_every > 0`` and ``control`` (ROADMAP Queue 1 item 10),
     ``fleet`` and ``profile`` (item 11).
 
-    Returns a :class:`DSGDReport` on rank 0 (``losses`` filled at index
-    ``rank`` only; the other ranks' curves stay in their processes), and
-    ``None`` elsewhere.
+    Returns a :class:`DSGDReport` on rank 0 (``losses`` and ``phase_s``
+    filled at index ``rank`` only; the other ranks' stay in their
+    processes), and ``None`` elsewhere (joiners and leavers included).
     """
-    if transport in ("tcp", "tcp-sync"):
-        raise _not_ported(f"transport={transport!r}", "9b",
-                          "the TCP window server")
-    if transport != "shm":
+    _check_dsgd_args(snapshot_every=snapshot_every, control=control,
+                     fleet=fleet, profile=profile)
+    if transport == "shm":
+        tx = _ShmTransport()
+    elif transport == "tcp":
+        tx = _TcpTransport(tcp_bind, pipeline=True, wire_codec=wire_codec,
+                           resilience=resilience,
+                           stream_options=stream_options)
+    elif transport == "tcp-sync":
+        tx = _TcpTransport(tcp_bind, pipeline=False)
+    else:
         raise ValueError(
             f"transport must be 'shm', 'tcp' or 'tcp-sync', got "
             f"{transport!r}")
-    for arg, val, what in (
-            ("wire_codec=", wire_codec, "the wire codecs"),
-            ("join=", join or None, "elastic membership"),
-            ("leave_after_s=", leave_after_s, "elastic membership"),
-            ("initial_members=", initial_members, "elastic membership"),
-            ("stream_options=", stream_options, "the deposit streams")):
-        if val is not None:
-            raise _not_ported(arg, "9b", what)
-    _check_dsgd_args(resilience=resilience, snapshot_every=snapshot_every,
-                     control=control, fleet=fleet, profile=profile)
-    # every window this process opens is freed in the finally: a mid-run
-    # exception (loss_and_grad raising, a peer missing a barrier) must not
-    # leak shm segments
+    # the transport may hold live resources already (the TCP server's
+    # thread and socket start in its constructor): everything from here
+    # on, setup failures included, must release them
     opened: List = []
     db: Optional[DoubleBuffer] = None
-
-    def _create(wname, n_slots, n_elems):
-        # each rank owns its window names, so a leftover segment can only
-        # be stale (a crashed earlier run): clean it and create anew
-        shm_unlink_window(wname)
-        w = AsyncWindow(wname, n_slots, n_elems, np.float64, shm=True)
-        opened.append(w)
-        return w
-
-    def _open(owner, wname, n_slots, n_elems):
-        w = AsyncWindow(wname, attach=True)
-        opened.append(w)
-        return w
-
     try:
+        elastic = bool(join or leave_after_s is not None
+                       or initial_members is not None)
+        if elastic and transport != "tcp":
+            raise ValueError(
+                "elastic membership (join/leave/initial_members) requires "
+                "transport='tcp' (member discovery rides the winaddr "
+                "records; the shm namespace has none)")
+        if (wire_codec is not None or stream_options) \
+                and transport != "tcp":
+            raise ValueError("wire_codec= and stream_options= ride the "
+                             "pipelined tcp transport")
         d = TreePacker(params0, np.float64).size
-        n_slots = max(len(list(topology.in_neighbors(rank))), 1)
-        win = _create(f"{name}:{rank}", n_slots, d + 1)
+        # elastic jobs take one landing slot per capacity rank (slot ==
+        # source rank, stable under membership change); fixed fleets keep
+        # the dense in-degree sizing
+        if elastic:
+            n_slots = topology.size
+            db_slots = [k for k in range(n_slots) if k != rank]
+        else:
+            n_slots = max(len(list(topology.in_neighbors(rank))), 1)
+            db_slots = list(range(n_slots))
+        win = tx.create(f"{name}:{rank}", n_slots, d + 1)
+        opened.append(win)
         if overlap:
             # the harvester lives here, so the finally stops its thread
             # before any window is freed, on every exit path
-            db = DoubleBuffer(win, list(range(n_slots)), d + 1)
+            db = DoubleBuffer(win, db_slots, d + 1)
+
+        def _create(wname, n_slots, n_elems):
+            w = tx.create(wname, n_slots, n_elems)
+            opened.append(w)
+            return w
+
+        def _open(owner, wname, n_slots, n_elems):
+            w = tx.open(owner, wname, n_slots, n_elems)
+            opened.append(w)
+            return w
 
         return _run_dsgd_rank_body(
             topology, rank, params0, loss_and_grad, barrier=barrier, lr=lr,
             duration_s=duration_s, skew_s=skew_s, name=name,
-            poll_interval_s=poll_interval_s, win=win,
+            poll_interval_s=poll_interval_s, win=win, transport=tx,
             create_window=_create, open_window=_open,
+            resilience=resilience if transport == "tcp" else None,
+            join=join, leave_after_s=leave_after_s,
+            initial_members=initial_members,
             stop_after_steps=stop_after_steps, overlap_buffer=db)
     finally:
         if db is not None:
@@ -1392,83 +2100,603 @@ def run_async_dsgd_rank(
                 w.free()
             except Exception:
                 pass
+        tx.close()
+
+
+def _write_roster(path: str, members) -> None:
+    """Rank 0's record of an elastic job's initial members (atomic)."""
+    p = os.path.join(path, "roster")
+    with open(p + ".tmp", "w") as f:
+        f.write(",".join(str(r) for r in sorted(members)))
+    os.replace(p + ".tmp", p)
+
+
+def _read_roster(path: str) -> Optional[set]:
+    """The initial members rank 0 recorded, or None before it did."""
+    try:
+        with open(os.path.join(path, "roster")) as f:
+            return {int(r) for r in f.read().split(",") if r}
+    except OSError:
+        return None
 
 
 def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
                         lr, duration_s, skew_s, name, poll_interval_s, win,
-                        create_window, open_window, stop_after_steps=None,
+                        transport, create_window, open_window,
+                        resilience=None, join=False, leave_after_s=None,
+                        initial_members=None, stop_after_steps=None,
                         overlap_buffer=None):
+    from bluefog_tpu_torch.utils.logging import log as _log
+
     n = topology.size
     packer = TreePacker(params0, np.float64)
     d = packer.size
+    cfg = resilience
+    elastic = bool(join or leave_after_s is not None
+                   or initial_members is not None)
+    if elastic and cfg is None:
+        raise ValueError(
+            "elastic membership (join/leave/initial_members) rides the "
+            "resilient rendezvous machinery; pass "
+            "resilience=ResilienceConfig(...)")
+    if (join or leave_after_s is not None) and rank == 0:
+        raise ValueError("rank 0 is the reporting rank and must be a "
+                         "stable initial member (cannot join or leave)")
+    members: set = (set(range(n)) if initial_members is None
+                    else {int(r) for r in initial_members})
+    if not join and rank not in members:
+        raise ValueError(f"rank {rank} is not in initial_members "
+                         f"{sorted(members)} (a later process joins "
+                         "with join=True)")
+    meta = None
+    dead: set = set()
+    left: set = set()
+    ever_joined: set = set()
+    handled: set = set()  # (kind, rank, token) records already consumed
     losses: List[float] = []
     steps = 0
+    baseline_mass: Optional[float] = None
+    exact = True  # False once a failure escapes the rendezvous protocol
+
     x = packer.pack(params0)
     p = 1.0
     gvec = np.empty(d, np.float64)
     zbuf = np.empty(d, np.float64)
     payload = np.empty(d + 1, np.float64)
+    self_buf = np.empty(d + 1, np.float64)
     peers: Dict[int, object] = {}
-    my_slots = range(len(list(topology.in_neighbors(rank))))
+    ph = dict.fromkeys(("consume", "unpack", "loss_and_grad", "pack",
+                        "deposit", "harvest"), 0.0)
+
+    # slot scheme (the shared arguments make every rank agree): elastic
+    # runs use slot index == source rank over capacity slots; fixed
+    # fleets keep the dense in-neighbour mapping of the topology
+    cap_slots = elastic
+    in_nbrs = list(topology.in_neighbors(rank))
+    my_slots = ([k for k in range(n) if k != rank] if cap_slots
+                else list(range(len(in_nbrs))))
     db: Optional[DoubleBuffer] = overlap_buffer
 
     def _peer_slots(j: int) -> int:
-        return max(len(list(topology.in_neighbors(j))), 1)
+        return (n if cap_slots
+                else max(len(list(topology.in_neighbors(j))), 1))
 
     def _slot_in(j: int) -> int:
         """Our landing slot in peer j's window."""
-        return list(topology.in_neighbors(j)).index(rank)
+        return (rank if cap_slots
+                else list(topology.in_neighbors(j)).index(rank))
 
     def _ensure_peer(j: int):
         if j not in peers:
-            peers[j] = open_window(j, f"{name}:{j}", _peer_slots(j), d + 1)
+            peers[j] = open_window(j, f"{name}:{j}", _peer_slots(j),
+                                   d + 1)
         return peers[j]
 
-    if rank == 0:
-        # per-rank (steps, last loss) land here, so the report carries
-        # every rank's step count across the process boundary
-        meta = create_window(f"{name}:meta", n, 2)
-    barrier.wait("created")
-    if rank != 0:
+    def _make_plan():
+        """The mixing plan over the current member set at this round
+        boundary: a fresh replan for elastic fleets, the renormalising
+        heal for fixed ones.  Deterministic in (members, dead), so every
+        rank that has seen the same records converges on the same matrix
+        with no extra coordination."""
+        if elastic:
+            return _replan(topology, members - dead)
+        return _heal(topology, dead)
+
+    def _local_mass() -> float:
+        """Own p plus unconsumed landing-slot mass, valid only while
+        nothing is in flight (inside a quiesce-rendezvous).  The overlap
+        harvester's staged take is mass this rank already holds: pause
+        it and count that too."""
+        local = p
+        if db is not None:
+            db.pause()
+            local += db.staged_mass()
+        return local + _landed_mass(win, my_slots)
+
+    def _mass_rendezvous(stage: str) -> float:
+        """Second half of a quiesce-rendezvous: publish the local mass,
+        meet at ``<stage>-resume``, and sum the member set's mass files,
+        the exact baseline every later audit must reproduce."""
+        mpath = os.path.join(barrier.path, f"{stage}.mass.{rank}")
+        with open(mpath + ".tmp", "w") as f:
+            # repr of a Python float round-trips to the same binary64
+            f.write(repr(float(_local_mass())))
+        os.replace(mpath + ".tmp", mpath)
+        barrier.wait(stage + "-resume", timeout_s=cfg.barrier_timeout_s)
+        total = 0.0
+        for r2 in sorted(members - dead):
+            with open(os.path.join(barrier.path,
+                                   f"{stage}.mass.{r2}")) as f:
+                total += float(f.read())
+        return total
+
+    # ---------------------------------------------------- fault handling
+    def _tombstone(j: int) -> None:
+        # announce a death to survivors that may never touch the dead
+        # rank's transport themselves (the barrier directory is the one
+        # shared medium every rank already polls)
+        try:
+            open(os.path.join(barrier.path, f"dead.{j}"), "w").close()
+        except OSError:
+            pass
+
+    def _tombstoned() -> set:
+        return {r2 for r2 in sorted(members)
+                if r2 != rank and r2 not in dead and os.path.exists(
+                    os.path.join(barrier.path, f"dead.{r2}"))}
+
+    def _heal_and_rebase(newly: set) -> None:
+        """Declare ``newly`` DEAD, heal the mixing weights over the
+        survivors, and hold the quiesce-rendezvous that makes the
+        surviving set's mass auditable exactly: every survivor fences its
+        live peers, meets at a heal barrier (the dead excluded), and
+        measures its local mass while nothing is in flight."""
+        nonlocal my_out, frac, baseline_mass, exact
+        pending = set(newly)
+        while pending:
+            for j in sorted(pending):
+                _tombstone(j)
+            dead.update(pending)
+            barrier.exclude |= pending
+            for j in pending:
+                peers.pop(j, None)  # the caller's finally frees it
+            pending = set()
+            plan = _make_plan()
+            my_out = list(plan.out_neighbors(rank))
+            frac = 1.0 / (len(my_out) + 1)
+            # fence the survivors: nothing of ours may be in flight when
+            # the baseline is measured; a fence that fails names the
+            # next corpse
+            for j in sorted(my_out):
+                try:
+                    _ensure_peer(j).flush(cfg.barrier_timeout_s)
+                except (RuntimeError, TimeoutError, OSError):
+                    pending.add(j)
+        stage = "heal" + "".join(f"-{j}" for j in sorted(dead))
+        try:
+            barrier.wait(stage, timeout_s=cfg.barrier_timeout_s)
+            # between the two heal barriers no survivor deposits, so the
+            # local mass is the whole truth
+            baseline_mass = _mass_rendezvous(stage)
+        except (TimeoutError, OSError, ValueError) as e:
+            # a survivor never made the rendezvous (it left the loop
+            # first, or a second failure overlapped the first): the run
+            # goes on healed, but the exactness claim is withdrawn
+            baseline_mass = None
+            exact = False
+            _log.warn("rank %d: heal rendezvous %r degraded (%s: %s); "
+                      "continuing without an exact baseline", rank, stage,
+                      type(e).__name__, e)
+
+    # ------------------------------------------------ elastic membership
+    def _admit_joiner(j: int, token: str) -> None:
+        """A ``member.<j>`` record appeared: admit the joiner at this
+        round boundary.  The quiesce-rendezvous (fence, join barrier,
+        mass files) re-establishes the exact baseline over the grown
+        member set; the joiner's fresh ``p = 1`` enters the books here."""
+        nonlocal my_out, frac, baseline_mass, exact
+        transport.collect(barrier, [j])
+        members.add(j)
+        dead.discard(j)
+        left.discard(j)
+        ever_joined.add(j)
+        barrier.exclude.discard(j)
+        plan = _make_plan()
+        my_out = list(plan.out_neighbors(rank))
+        frac = 1.0 / (len(my_out) + 1)
+        stage = f"join-{j}-{token}"
+        try:
+            for jj in my_out:
+                _ensure_peer(jj)
+            # fence: nothing of ours may be in flight while the grown
+            # member set measures its baseline
+            for jj in sorted(k for k in peers if k in members - dead):
+                peers[jj].flush(cfg.barrier_timeout_s)
+            barrier.wait(stage, timeout_s=cfg.barrier_timeout_s)
+            baseline_mass = _mass_rendezvous(stage)
+        except (RuntimeError, TimeoutError, OSError, ValueError) as e:
+            baseline_mass = None
+            exact = False
+            _log.warn("rank %d: join rendezvous %r degraded (%s: %s); "
+                      "continuing without an exact baseline", rank, stage,
+                      type(e).__name__, e)
+
+    def _release_leaver(j: int, token: str) -> None:
+        """A ``leaving.<j>`` record appeared: fence our stream to the
+        leaver (all our deposits applied), meet at its leave barrier
+        (after which nothing is in flight toward it), and wait at the
+        ``-fin`` barrier for its mass handoff to land.  The baseline is
+        unchanged: the leaver's mass moved into member windows."""
+        nonlocal my_out, frac, exact
+        stage = f"leave-{j}-{token}"
+        try:
+            h = peers.get(j)
+            if h is not None:
+                h.flush(cfg.barrier_timeout_s)
+            barrier.wait(stage, timeout_s=cfg.barrier_timeout_s)
+            # the leaver drains its window and hands its mass off
+            # between these two barriers
+            barrier.wait(stage + "-fin", timeout_s=cfg.barrier_timeout_s)
+        except (RuntimeError, TimeoutError, OSError) as e:
+            exact = False
+            _log.warn("rank %d: leave rendezvous %r degraded (%s: %s)",
+                      rank, stage, type(e).__name__, e)
+        members.discard(j)
+        left.add(j)
+        barrier.exclude.add(j)
+        peers.pop(j, None)  # the caller's finally closes it
+        plan = _make_plan()
+        my_out = list(plan.out_neighbors(rank))
+        frac = 1.0 / (len(my_out) + 1)
+
+    def _poll_membership() -> bool:
+        """Handle membership records at a round boundary (leaves first:
+        their rendezvous must not race an admission), then report whether
+        a member finished the run (the global end for joiners whose own
+        duration clock started late)."""
+        mview = _mship.scan(barrier.path, n)
+        for j, token in sorted(mview.leaving.items()):
+            if j == rank or j in left or j in dead or j not in members:
+                continue
+            if ("leaving", j, token) in handled:
+                continue
+            handled.add(("leaving", j, token))
+            _release_leaver(j, token)
+        for j, token in sorted(mview.announced.items()):
+            if j == rank or j in members:
+                continue
+            if ("member", j, token) in handled:
+                continue
+            handled.add(("member", j, token))
+            _admit_joiner(j, token)
+        for m in sorted(members - dead):
+            if m != rank and os.path.exists(
+                    os.path.join(barrier.path, f"stopped.{m}")):
+                return True
+        return False
+
+    def _graceful_leave() -> None:
+        """This rank's graceful drain: fence own streams, announce the
+        intent, wait for every member to fence theirs (the leave barrier:
+        nothing in flight toward this window afterwards), drain the
+        window, hand the whole (x, p) to live out-neighbours in
+        drain-flagged deposits, record ``left``, and confirm at the
+        ``-fin`` barrier so the members know the handoff landed."""
+        nonlocal x, p
+        token = _mship.new_token()
+        stage = f"leave-{rank}-{token}"
+        # our regular deposits must be applied before the members fence
+        for jj in sorted(k for k in peers if k in members - dead):
+            peers[jj].flush(cfg.barrier_timeout_s)
+        _mship.write_record(barrier.path, "leaving", rank, token)
+        barrier.wait(stage, timeout_s=cfg.barrier_timeout_s)
+        # every member fenced its stream to us before entering the
+        # barrier: nothing is in flight toward this window any more.  The
+        # harvester retires first; its staged take joins the handoff
+        if db is not None:
+            p = _fold(db.close(), x, p)
+        p = _take_and_fold(win, my_slots, x, p, payload)
+        live = sorted((members - dead) - {rank})
+        plan = _make_plan()
+        tgt = [j for j in plan.out_neighbors(rank) if j in live] or live
+        if not tgt:
+            raise RuntimeError("graceful leave with no live member to "
+                               "hand push-sum mass to")
+        share = np.empty(d + 1, np.float64)
+        share[:-1] = x
+        share[-1] = p
+        share /= float(len(tgt))
+        for j in tgt:
+            _ensure_peer(j).deposit_async(rank, share, accumulate=True,
+                                          drain=True)
+        for j in tgt:
+            peers[j].flush(cfg.barrier_timeout_s)  # the handoff applied
+        x[:] = 0.0
+        p = 0.0
+        win.set_self(np.zeros(d + 1))
+        _mship.write_record(barrier.path, "left", rank, token)
+        _mship.clear_record(barrier.path, "leaving", rank)
+        barrier.wait(stage + "-fin", timeout_s=cfg.barrier_timeout_s)
+
+    def _wait_resilient(stage: str) -> None:
+        """A barrier that learns its exclusion set: when ranks die between
+        the loop's detection window and a rendezvous, the timeout names
+        them and the survivors stop waiting for corpses.  Past the
+        rendezvous protocol there is no rebase, so exactness is off."""
+        nonlocal exact
+        if cfg is None:
+            barrier.wait(stage)
+            return
+        try:
+            barrier.wait(stage, timeout_s=cfg.barrier_timeout_s)
+        except TimeoutError:
+            missing = {r2 for r2 in range(n)
+                       if r2 not in barrier.exclude and not os.path.exists(
+                           os.path.join(barrier.path, f"{stage}.{r2}"))}
+            if not missing:
+                raise
+            for j in sorted(missing):
+                _tombstone(j)
+            dead.update(missing)
+            barrier.exclude |= missing
+            for j in missing:
+                peers.pop(j, None)
+            exact = False
+            barrier.wait(stage, timeout_s=cfg.barrier_timeout_s)
+
+    # ---------------------------------------------------------- startup
+    if join:
+        # the job is already running: the startup barriers are history.
+        # Clear records of this rank's previous life, publish our window
+        # address, and discover the roster from the records
+        for kind in ("dead", "left", "leaving", "member"):
+            _mship.clear_record(barrier.path, kind, rank)
+        transport.publish(barrier, rank)
+        # the roster is rank 0's record of the initial members, written
+        # once they all passed the "created" barrier, plus the admitted
+        # joiners, minus tombstones and completed leavers.  (The JAX
+        # package reads the roster off the window-address files alone; a
+        # member that published late, as on a loaded host, is then missing
+        # from the joiner's set, and the joiner neither reaches rank 0's
+        # meta window nor waits for that member at its rendezvous.)
+        roster_deadline = time.perf_counter() + cfg.barrier_timeout_s
+        while True:
+            initial = _read_roster(barrier.path)
+            mview = _mship.scan(barrier.path, n)
+            if initial is not None:
+                members = ((initial | set(mview.announced)) - mview.dead
+                           - set(mview.left) - {rank})
+                if members:
+                    break
+            if time.perf_counter() > roster_deadline:
+                raise RuntimeError(
+                    f"joiner rank {rank} found no live member records "
+                    f"in {barrier.path} within {cfg.barrier_timeout_s}s "
+                    "(is the job elastic, started with initial_members=?)")
+            time.sleep(0.05)
+        transport.collect(barrier, sorted(members))
         meta = open_window(0, f"{name}:meta", n, 2)
-    my_out = list(topology.out_neighbors(rank))
-    frac = 1.0 / (len(my_out) + 1)
-    for j in my_out:
-        _ensure_peer(j)
+        barrier.exclude = set(range(n)) - members - {rank}
+        # warm start from a member's window: one read_self of its
+        # published (x, p), round-consistent by construction (published
+        # under the window's self mutex).  No checkpoint file is read.
+        z = None
+        ws_deadline = time.perf_counter() + cfg.barrier_timeout_s
+        while z is None and time.perf_counter() < ws_deadline:
+            for nb in sorted(members):
+                try:
+                    s = _ensure_peer(nb).read_self()
+                except (RuntimeError, OSError, ConnectionError):
+                    continue
+                if s[-1] > 0.0:
+                    z = s[:-1] / s[-1]
+                    break
+            if z is None:
+                time.sleep(0.01)
+        if z is None:
+            raise RuntimeError(
+                f"joiner rank {rank} could not warm-start: no member "
+                "published an (x, p) window snapshot within "
+                f"{cfg.barrier_timeout_s}s (was the job started elastic, "
+                "with initial_members=, so members publish?)")
+        x = np.asarray(z, np.float64).copy()
+        p = 1.0  # a fresh push-sum weight: mass enters the system here
+        # announce, then meet the members at the admission rendezvous
+        token = _mship.new_token()
+        members.add(rank)
+        ever_joined.add(rank)
+        _mship.write_record(barrier.path, "member", rank, token)
+        stage = f"join-{rank}-{token}"
+        try:
+            # wait in short slices, re-scanning the records between them:
+            # a member the joiner discovered can drain (or die) before it
+            # ever polls this join record
+            deadline = time.perf_counter() + cfg.barrier_timeout_s
+            while True:
+                try:
+                    barrier.wait(stage, timeout_s=min(
+                        2.0, max(0.1, deadline - time.perf_counter())))
+                    break
+                except TimeoutError:
+                    if time.perf_counter() >= deadline:
+                        raise
+                    mv = _mship.scan(barrier.path, n)
+                    gone = (mv.dead | set(mv.left)) & members - {rank}
+                    if gone:
+                        members -= gone
+                        barrier.exclude |= gone
+            baseline_mass = _mass_rendezvous(stage)
+        except (TimeoutError, OSError, ValueError) as e:
+            baseline_mass = None
+            exact = False
+            _log.warn("rank %d: own join rendezvous degraded (%s: %s); "
+                      "continuing without an exact baseline",
+                      rank, type(e).__name__, e)
+        plan = _make_plan()
+        my_out = list(plan.out_neighbors(rank))
+        frac = 1.0 / (len(my_out) + 1)
+        for j in my_out:
+            _ensure_peer(j)
+    else:
+        if rank == 0:
+            # per-rank (steps, last loss) land here, so the report carries
+            # every rank's step count across the process boundary
+            meta = create_window(f"{name}:meta", n, 2)
+        transport.publish(barrier, rank)
+        barrier.exclude |= set(range(n)) - members
+        barrier.wait("created")
+        if elastic and rank == 0:
+            _write_roster(barrier.path, members)
+        transport.collect(barrier, sorted(members))
+        if rank != 0:
+            meta = open_window(0, f"{name}:meta", n, 2)
+        if elastic:
+            # every initial member starts with p = 1, so the baseline is
+            # exact by construction; admissions re-measure it
+            baseline_mass = float(len(members))
+        plan = _make_plan() if elastic else topology
+        my_out = list(plan.out_neighbors(rank))
+        frac = 1.0 / (len(my_out) + 1)
+        for j in my_out:
+            _ensure_peer(j)
+
+    def _publish_self() -> None:
+        self_buf[:-1] = x
+        self_buf[-1] = p
+        win.set_self(self_buf)
+
+    if elastic:
+        # the initial snapshot, so a joiner can warm-start even before
+        # this rank's first full round lands
+        _publish_self()
 
     t0 = time.perf_counter()
     with _stream_context(packer):
         while (time.perf_counter() - t0 < duration_s
                and (stop_after_steps is None or steps < stop_after_steps)):
+            if (elastic and leave_after_s is not None
+                    and time.perf_counter() - t0 >= leave_after_s):
+                _graceful_leave()
+                return None
+            if cfg is not None and steps % 16 == 0:
+                # throttled: n - 1 stat() calls against a possibly remote
+                # barrier directory have no place on every round; 16
+                # rounds add tens of ms to a detection deadline dominated
+                # by the reconnect budget (the deposit failure path below
+                # detects independently)
+                newly = _tombstoned()
+                if newly:
+                    _heal_and_rebase(newly)
+                if elastic and _poll_membership():
+                    break  # a member finished: meet at the stop barrier
+            ta = time.perf_counter()
             if db is not None:
                 # overlapped gossip-IN: apply the mass harvested under the
                 # previous round's compute, then re-arm the harvester
-                staged, _ = db.apply_staged()
+                staged, hidden = db.apply_staged()
                 p = _fold(staged, x, p)
                 db.begin()
+                ph["harvest"] += hidden
             else:
                 p = _take_and_fold(win, my_slots, x, p, payload)
-            loss, grads = loss_and_grad(rank, steps, packer.unpack(
-                np.divide(x, p, out=zbuf)))
+            if elastic:
+                # a coherent (x, p): what a joining peer warm-starts from
+                _publish_self()
+            tb = time.perf_counter()
+            tree = packer.unpack(np.divide(x, p, out=zbuf))
+            tc = time.perf_counter()
+            loss, grads = loss_and_grad(rank, steps, tree)
             losses.append(float(loss))
+            td = time.perf_counter()
             packer.pack(grads, out=gvec)
             gvec *= lr * p
             x -= gvec
+            te = time.perf_counter()
             payload[:-1] = x
             payload[-1] = p
             payload *= frac
+            failed: List[int] = []
+            withheld = 0
             for j in my_out:
-                _ensure_peer(j).deposit(_slot_in(j), payload,
-                                        accumulate=True)
+                if cfg is not None:
+                    try:
+                        # a replan can add an edge never opened before,
+                        # and the peer may have died since: an open
+                        # failure here is peer evidence, not a crash
+                        h = _ensure_peer(j).health
+                    except (RuntimeError, TimeoutError, OSError):
+                        failed.append(j)
+                        continue
+                    if h is not None:
+                        state = h.poll()
+                        if state == _res.REJOINED:
+                            # the stream reconnected to a peer we had
+                            # given up on mid-round: re-admit at this
+                            # round boundary and resume sending
+                            h.admit()
+                            state = _res.HEALTHY
+                        if state == _res.DEAD:
+                            failed.append(j)
+                            continue
+                        if state != _res.HEALTHY:
+                            # SUSPECT: withhold this peer's share instead
+                            # of bleeding mass into a possible corpse;
+                            # any row-stochastic split is unbiased under
+                            # the push-sum weight channel
+                            withheld += 1
+                            continue
+                # fire-and-forget on the pipelined transport: the payload
+                # is snapshotted at enqueue, so its reuse is safe
+                try:
+                    _ensure_peer(j).deposit_async(_slot_in(j), payload,
+                                                  accumulate=True)
+                except (RuntimeError, TimeoutError, OSError):
+                    if cfg is None:
+                        raise
+                    failed.append(j)
             x *= frac
             p *= frac
+            if failed or withheld:
+                # undelivered shares stay ours: mass never evaporates at a
+                # dead peer's doorstep
+                for _ in range(len(failed) + withheld):
+                    x += payload[:-1]
+                    p += payload[-1]
+            if failed:
+                _heal_and_rebase(set(failed))
+            tf = time.perf_counter()
+            ph["consume"] += tb - ta
+            ph["unpack"] += tc - tb
+            ph["loss_and_grad"] += td - tc
+            ph["pack"] += te - td
+            ph["deposit"] += tf - te
             steps += 1
             if skew_s > 0 or poll_interval_s > 0:
                 time.sleep(skew_s + poll_interval_s)
-    # an shm deposit has landed when it returns (the TCP transport's
-    # pipelined deposits fence here first), so after this barrier no rank
-    # deposits and the drain below is exact
-    barrier.wait("stopped")
+    # fence before the audit barrier: every pipelined deposit must be
+    # acknowledged as applied before this rank declares "I deposit no
+    # more", or in-flight mass would land after the owners' final drain
+    final_failed: set = set()
+    for j, h in sorted(peers.items()):
+        try:
+            h.flush()
+        except (RuntimeError, TimeoutError, OSError):
+            if cfg is None:
+                raise
+            final_failed.add(j)
+    if final_failed:
+        # a peer died after the last detection window: too late for a
+        # rebase rendezvous, so the exactness claim is withdrawn
+        for j in sorted(final_failed):
+            _tombstone(j)
+        dead.update(final_failed)
+        barrier.exclude |= final_failed
+        for j in final_failed:
+            peers.pop(j, None)
+        exact = False
+    wire_bytes = transport.wire_bytes()
+    # no rank deposits after this barrier, so the drain below is exact
+    _wait_resilient("stopped")
     wall = time.perf_counter() - t0
     if db is not None:
         # the harvester's staged take is mass this rank owns
@@ -1477,38 +2705,53 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
     win.set_self(np.concatenate([x, [p]]))
     meta.deposit(rank, np.array([steps, losses[-1] if losses else 0.0]),
                  accumulate=False)
-    barrier.wait("done")
+    _wait_resilient("done")
 
     report = None
     if rank == 0:
         wins = {rank: win}
         wins.update(peers)
-        for r in range(n):
+        alive = sorted(members - dead)
+        for r in alive:
             if r not in wins:
                 wins[r] = open_window(r, f"{name}:{r}", _peer_slots(r),
                                       d + 1)
         total_mass = 0.0
-        zs = np.empty((n, d))
-        for r in range(n):
+        zs = np.empty((len(alive), d))
+        for i, r in enumerate(alive):
             s = wins[r].read_self()
-            zs[r] = s[:-1] / s[-1]
+            zs[i] = s[:-1] / s[-1]
             total_mass += float(s[-1])
-            total_mass += _landed_mass(wins[r], range(wins[r].n_slots))
+            for k in range(wins[r].n_slots):
+                buf, fresh = wins[r].read(k, consume=False)
+                if fresh > 0:
+                    total_mass += float(buf[-1])
         steps_all = [int(meta.read(r, consume=False)[0][0])
                      for r in range(n)]
         all_losses: List[List[float]] = [[] for _ in range(n)]
         all_losses[rank] = losses
+        all_phases: List[Dict[str, float]] = [{} for _ in range(n)]
+        all_phases[rank] = ph
+        finals: list = [None] * n
+        for i, r in enumerate(alive):
+            finals[r] = packer.unpack(zs[i])
         report = DSGDReport(
             wall_time_s=wall,
             steps_per_rank=steps_all,
             losses=all_losses,
-            final_params=[packer.unpack(zs[r]) for r in range(n)],
+            final_params=finals,
             total_mass=total_mass,
             consensus_gap=float(np.abs(zs - zs.mean(axis=0)).max()),
+            phase_s=all_phases,
+            dead_ranks=sorted(dead),
+            baseline_mass=baseline_mass if exact else None,
+            left_ranks=sorted(left),
+            joined_ranks=sorted(ever_joined),
+            wire_bytes=wire_bytes,
         )
     # owners unlink only after the audit has read every segment (the
     # caller's finally frees everything this process opened)
-    barrier.wait("audited")
+    _wait_resilient("audited")
     return report
 
 

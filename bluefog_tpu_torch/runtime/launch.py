@@ -29,15 +29,26 @@ Counterpart of ``bluefog_tpu/runtime/launch.py`` (``initialize_cluster`` and
   processes do not all compile it.  If a process exits non-zero, the
   launcher stops the others and exits with that status.
 
-Not ported yet: ``--supervise`` and ``--timeline`` (with the host runtime's
-failure handling, ROADMAP Queue 1 item 9b), ``--simulate`` (the JAX package's virtual CPU
-devices), and ``ibfrun``.
+  ``--supervise N`` runs the group under
+  :func:`~bluefog_tpu_torch.utils.failure.run_supervised`: when it fails,
+  it is started again (a fresh store, a fresh rendezvous) after a bounded
+  backoff (``--restart-backoff``, ``--min-uptime``), up to N times, and
+  the script resumes from its checkpoint.  ``--timeline FILE`` records
+  each process's chrome-trace timeline (``BLUEFOG_TPU_TIMELINE``; over
+  several processes ``FILE`` gains a ``.rank<r>`` before its suffix).
+  ``--simulate N`` asks for N virtual ranks on the CPU: ``bf.init()``
+  then defaults to that size and the CPU (the JAX package's virtual CPU
+  devices).
+- :func:`interactive_main` is ``ibfrun``, ``python -m
+  bluefog_tpu_torch.runtime.ibfrun``: a REPL with the framework brought
+  up.
 """
 
 from __future__ import annotations
 
 import argparse
 import atexit
+import code
 import datetime
 import logging
 import os
@@ -47,7 +58,7 @@ import sys
 import time
 from typing import List, Optional
 
-__all__ = ["initialize_cluster", "main"]
+__all__ = ["initialize_cluster", "interactive_main", "main"]
 
 _log = logging.getLogger(__name__)
 
@@ -163,7 +174,33 @@ def _stop(procs) -> None:
             p.wait()
 
 
-_VALUED = ("-np", "--num-processes", "-x", "--master-port")
+_VALUED = ("-np", "--num-processes", "-x", "--master-port", "--supervise",
+           "--restart-backoff", "--min-uptime", "--timeline", "--simulate")
+
+
+def _timeline_path(path: str, rank: int, nprocs: int) -> str:
+    """``path`` for one process; over several, ``<root>.rank<r><ext>``."""
+    if nprocs <= 1:
+        return path
+    root, ext = os.path.splitext(path)
+    return f"{root}.rank{rank}{ext}"
+
+
+def _apply_common(args, env: dict) -> None:
+    """The options the launcher and ``ibfrun`` share, into ``env``."""
+    if args.simulate is not None:
+        if args.simulate < 1:
+            raise SystemExit("--simulate needs N >= 1")
+        env["BLUEFOG_TPU_TORCH_SIMULATE"] = str(args.simulate)
+
+
+def _add_common_args(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--timeline", default=None, metavar="FILE",
+                    help="write a chrome-trace timeline "
+                         "(BLUEFOG_TPU_TIMELINE)")
+    ap.add_argument("--simulate", type=int, default=None, metavar="N",
+                    help="N virtual ranks on the CPU: bf.init() defaults "
+                         "to that size and device")
 
 
 def _split(argv: List[str]):
@@ -184,9 +221,24 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m bluefog_tpu_torch.runtime.launch",
         usage="%(prog)s -np N [-x NAME[=VALUE]] [--master-port PORT] "
-              "[--no-build] (script.py | -m module) [args ...]",
+              "[--no-build] [--supervise MAX_RESTARTS] [--timeline FILE] "
+              "[--simulate N] (script.py | -m module) [args ...]",
         description="Launch a bluefog_tpu_torch script as N local processes "
                     "(bfrun)")
+    _add_common_args(ap)
+    ap.add_argument("--supervise", type=int, default=None,
+                    metavar="MAX_RESTARTS",
+                    help="restart the group when it fails, up to "
+                         "MAX_RESTARTS times (the script resumes from its "
+                         "checkpoint)")
+    ap.add_argument("--restart-backoff", type=float, default=2.0,
+                    metavar="SECONDS",
+                    help="with --supervise: the first restart's delay "
+                         "(doubles with jitter, capped; 0 restarts at once)")
+    ap.add_argument("--min-uptime", type=float, default=0.0,
+                    metavar="SECONDS",
+                    help="with --supervise: a run that died sooner earns no "
+                         "restart (a crash loop)")
     ap.add_argument("-np", "--num-processes", dest="np", type=int,
                     required=True, help="processes to start")
     ap.add_argument("-x", dest="env", action="append", default=[],
@@ -197,13 +249,28 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="port of process 0's store (default: a free one)")
     ap.add_argument("--no-build", action="store_true",
                     help="do not build the kernel library before the start")
-    own, target, rest = _split(list(sys.argv[1:] if argv is None else argv))
+    full = list(sys.argv[1:] if argv is None else argv)
+    own, target, rest = _split(full)
     args = ap.parse_args(own)
     if args.np < 1:
         ap.error("-np must be at least 1")
     if not target:
         ap.error("a script or -m module is needed")
+    if args.supervise is not None:
+        if args.supervise < 0:
+            ap.error("--supervise needs MAX_RESTARTS >= 0")
+        from bluefog_tpu_torch.utils.failure import run_supervised
+
+        # each attempt is this launcher again without --supervise: a fresh
+        # store and a fresh rendezvous for every restart
+        inner = _without_supervise(own) + target + rest
+        return run_supervised(
+            [sys.executable, "-m", "bluefog_tpu_torch.runtime.launch",
+             *inner],
+            max_restarts=args.supervise, min_uptime_s=args.min_uptime,
+            restart_backoff_s=args.restart_backoff)
     env = _child_env(args.env)
+    _apply_common(args, env)
     if not args.no_build:
         _prebuild()
     # the launcher hosts the rendezvous store itself, on a port it holds
@@ -227,6 +294,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         child = dict(env, RANK=str(rank), WORLD_SIZE=str(args.np),
                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(args.np),
                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        if args.timeline:
+            child["BLUEFOG_TPU_TIMELINE"] = _timeline_path(
+                os.path.abspath(args.timeline), rank, args.np)
         procs.append(subprocess.Popen([sys.executable, *target, *rest],
                                       env=child))
 
@@ -253,6 +323,68 @@ def main(argv: Optional[List[str]] = None) -> int:
     finally:
         for s, h in old.items():
             signal.signal(s, h)
+
+
+def _without_supervise(own: List[str]) -> List[str]:
+    """The launcher's own options minus the supervisor's."""
+    out, skip = [], False
+    for tok in own:
+        if skip:
+            skip = False
+            continue
+        name = tok.split("=", 1)[0]
+        if name in ("--supervise", "--restart-backoff", "--min-uptime"):
+            skip = "=" not in tok
+            continue
+        out.append(tok)
+    return out
+
+
+def interactive_main(argv: Optional[List[str]] = None) -> int:
+    """``ibfrun``: a REPL with the framework brought up (the reference's
+    ``ibfrun``; JAX package ``interactive_main``).  Bound names: ``bf``
+    (the package), ``torch`` and ``ctx`` (the active context).  Run as
+    ``python -m bluefog_tpu_torch.runtime.ibfrun [--simulate N]
+    [--topology exp2|ring|grid|star|full] [--size N] [--device D]``; the
+    session reads standard input, so a script can be piped in."""
+    ap = argparse.ArgumentParser(
+        prog="python -m bluefog_tpu_torch.runtime.ibfrun",
+        description="Interactive bluefog_tpu_torch session (ibfrun)")
+    _add_common_args(ap)
+    ap.add_argument("--topology", default="exp2",
+                    choices=["exp2", "ring", "grid", "star", "full"],
+                    help="initial virtual topology")
+    ap.add_argument("--size", type=int, default=None,
+                    help="ranks (default: --simulate's N, else 1)")
+    ap.add_argument("--device", default=None,
+                    help="default: the card, or the CPU under --simulate")
+    args = ap.parse_args(argv)
+    _apply_common(args, os.environ)
+    if args.timeline:
+        os.environ["BLUEFOG_TPU_TIMELINE"] = os.path.abspath(args.timeline)
+    initialize_cluster()
+
+    import torch
+
+    import bluefog_tpu_torch as bf
+    from bluefog_tpu_torch import topology as topo_lib
+    from bluefog_tpu_torch.parallel.context import simulated_size
+
+    n = args.size or simulated_size() or 1
+    builders = {
+        "exp2": topo_lib.ExponentialTwoGraph,
+        "ring": topo_lib.RingGraph,
+        "grid": topo_lib.MeshGrid2DGraph,
+        "star": topo_lib.StarGraph,
+        "full": topo_lib.FullyConnectedGraph,
+    }
+    ctx = bf.init(topology=builders[args.topology](n), device=args.device)
+    banner = (f"bluefog_tpu_torch interactive: {ctx.size} rank(s) on "
+              f"{ctx.device}, topology={args.topology}\n"
+              "Bound names: bf (the framework), torch, ctx (the context).")
+    code.interact(banner=banner, local={"bf": bf, "torch": torch,
+                                        "ctx": ctx})
+    return 0
 
 
 if __name__ == "__main__":

@@ -15,6 +15,12 @@ from bluefog_tpu_torch.topology.graphs import (  # noqa: F401
     SymmetricExponentialGraph,
     Topology,
     heal,
+    replan,
+    replan_penalized,
+)
+from bluefog_tpu_torch.topology.mapping import (  # noqa: F401
+    ici_ring_order,
+    remap_topology,
 )
 from bluefog_tpu_torch.topology.dynamic import (  # noqa: F401
     GetDynamicOnePeerSendRecvRanks,

@@ -36,6 +36,8 @@ __all__ = [
     "GetRecvWeights",
     "GetSendWeights",
     "heal",
+    "replan",
+    "replan_penalized",
 ]
 
 
@@ -272,13 +274,14 @@ def GetSendWeights(topo: Topology, rank: int) -> Tuple[float, Dict[int, float]]:
                                     for i in topo.out_neighbors(rank)}
 
 
-# a healed name carries exactly one provenance suffix: repeated healing
-# collapses it instead of growing a "+heal(...)+heal(...)" chain
-_PROVENANCE_RE = re.compile(r"(\+heal\([^)]*\))+$")
+# a healed/replanned name carries exactly one provenance suffix: repeated
+# membership change collapses it instead of growing a
+# "+heal(...)+heal(...)" chain
+_PROVENANCE_RE = re.compile(r"(\+(heal|replan|ctl)\([^)]*\))+$")
 
 
 def _base_name(name: str) -> str:
-    """``name`` without its ``+heal(...)`` suffix chain."""
+    """``name`` without its ``+heal(...)``/``+replan(...)`` suffix chain."""
     return _PROVENANCE_RE.sub("", name)
 
 
@@ -326,3 +329,164 @@ def heal(topo: Topology, dead_ranks) -> Topology:
     return Topology(weights=w,
                     name=f"{_base_name(topo.name)}+heal({sorted(all_dead)})",
                     inactive=all_dead)
+
+
+# the replan constructor ladder: the best graph family per live-member
+# count m, balancing spectral gap against degree caps as the fleet grows
+# and shrinks — a tiny fleet affords the one-step exact averager, a large
+# one caps out-degree at ~log2(m) with the exponential family
+_REPLAN_FULL_MAX = 4
+
+
+def _replan_graph(m: int) -> Topology:
+    if m == 1:
+        return Topology(weights=np.ones((1, 1)), name="self")
+    if m <= _REPLAN_FULL_MAX:
+        return FullyConnectedGraph(m)
+    return ExponentialGraph(m, base=2)
+
+
+def replan(topo: Topology, members, *, name: Optional[str] = None
+           ) -> Topology:
+    """Build a FRESH mixing plan over the *current* member set — the
+    generalization of :func:`heal` for intentional membership change
+    (ranks joining and leaving a running job, not just dying).
+
+    Where ``heal`` renormalizes the existing edge structure over the
+    survivors (inert self-loop padding for the dead — right for an
+    unplanned death mid-round), ``replan`` re-optimizes: it constructs a
+    new graph over the ``m = len(members)`` live ranks (one-step exact
+    averaging for tiny fleets, the exponential-2 family — out-degree
+    ``~log2(m)``, strong connectivity, healthy spectral gap — beyond),
+    then embeds it into the full ``n x n`` index space so rank numbering
+    stays stable: non-members become inert identity self-loops, exactly
+    the shape the rejoin/admission path expects.
+
+    Determinism is the coordination-free contract: the plan depends ONLY
+    on ``(topo.size, sorted(members))``, so every rank computing
+    ``replan`` from the same member list converges on the SAME matrix
+    with no extra rendezvous.  ``replan(replan(t, m1), m2) ==
+    replan(t, m2)`` — replanning is memoryless over member sets.
+
+    ``members`` must be a non-empty subset of ``range(topo.size)``.  The
+    result's :attr:`Topology.inactive` is the complement and the name is
+    a single collapsed ``+replan(n=m)`` suffix."""
+    n = topo.size
+    mem = sorted({int(r) for r in members})
+    if not mem:
+        raise ValueError("cannot replan over an empty member set")
+    bad = [r for r in mem if not (0 <= r < n)]
+    if bad:
+        raise ValueError(f"member ranks {bad} out of range for "
+                         f"size-{n} topology")
+    m = len(mem)
+    small = _replan_graph(m)
+    w = np.zeros((n, n))
+    idx = np.array(mem)
+    w[np.ix_(idx, idx)] = small.weights
+    mem_set = frozenset(mem)
+    for r in range(n):
+        if r not in mem_set:
+            w[r, r] = 1.0
+    return Topology(
+        weights=w,
+        name=name or f"{_base_name(topo.name)}+replan(n={m})",
+        inactive=frozenset(range(n)) - frozenset(mem))
+
+
+# the densify ladder the communication controller climbs when measured
+# mixing lags the spectral-gap prediction: each level trades more edges
+# (wire volume, ack pressure) for a larger spectral gap.  Level 0 is the
+# replan base family (out-degree ~log2 m), level 1 doubles the edge set
+# with the symmetric exponential family, level 2 is the one-step exact
+# averager.
+MAX_DENSIFY = 2
+
+
+def _densify_graph(m: int, level: int) -> Topology:
+    if m == 1:
+        return Topology(weights=np.ones((1, 1)), name="self")
+    if level >= 2 or m <= _REPLAN_FULL_MAX:
+        return FullyConnectedGraph(m)
+    if level == 1:
+        return SymmetricExponentialGraph(m, base=2)
+    return _replan_graph(m)
+
+
+def replan_penalized(topo: Topology, members, *, slow=(),
+                     densify: int = 0, name: Optional[str] = None
+                     ) -> Topology:
+    """The penalized form of :func:`replan` (the communication
+    controller's actuation, which comes with ROADMAP item 10):
+    a fresh mixing plan over ``members`` with **per-peer penalties**
+    applied — a peer in ``slow`` (a slow rank, a lossy link) keeps only
+    its canonical RING edges over the sorted member list, so its degree
+    drops from the family's ~log2(m) to exactly one in-edge and one
+    out-edge.  Strong connectivity is preserved by construction (the
+    ring spine covers every member), so the penalized graph still
+    passes the B-connectivity verifier — consensus keeps flowing, just
+    not at the worst link's pace.  ``densify`` raises the base family's
+    edge budget (0 = replan base, 1 = symmetric exponential, 2 = fully
+    connected) when measured mixing lags the spectral-gap prediction.
+
+    Determinism is the coordination-free contract, exactly as for
+    :func:`replan`: the result depends ONLY on ``(topo.size,
+    sorted(members), sorted(slow & members), min(densify, MAX_DENSIFY))``
+    — every rank deciding from the same disseminated evidence converges
+    on the SAME matrix with no rendezvous.  Memoryless over member sets
+    and penalty sets; slow ranks outside ``members`` are ignored.  With
+    no penalties and ``densify=0`` this is exactly ``replan``.
+
+    The derived ``name`` carries one collapsed ``+ctl(...)`` suffix
+    (the heal/replan provenance convention)."""
+    n = topo.size
+    mem = sorted({int(r) for r in members})
+    if not mem:
+        raise ValueError("cannot replan over an empty member set")
+    bad = [r for r in mem if not (0 <= r < n)]
+    if bad:
+        raise ValueError(f"member ranks {bad} out of range for "
+                         f"size-{n} topology")
+    level = max(0, min(int(densify), MAX_DENSIFY))
+    pen = sorted({int(r) for r in slow} & set(mem))
+    if not pen and level == 0:
+        base = replan(topo, mem)
+        return base if name is None else dataclasses.replace(
+            base, name=name)
+    m = len(mem)
+    small = _densify_graph(m, level)
+    w_small = small.weights.copy()
+    if pen and m > 1:
+        # drop every edge incident to a penalized member EXCEPT the
+        # canonical ring spine i -> (i+1) mod m over the sorted member
+        # list — degree reduction that can never disconnect the graph
+        pen_idx = {mem.index(r) for r in pen}
+        edge = w_small > 0.0
+        np.fill_diagonal(edge, False)
+        for i in range(m):
+            for j in range(m):
+                if not edge[i, j]:
+                    continue
+                if i in pen_idx or j in pen_idx:
+                    if i != (j + 1) % m:  # keep ring edge j -> j+1
+                        edge[i, j] = False
+        # re-uniform rows over the surviving edges (1/(in_degree+1))
+        w_small = np.zeros((m, m))
+        for i in range(m):
+            nbrs = [j for j in range(m) if edge[i, j]]
+            k = len(nbrs) + 1
+            w_small[i, i] = 1.0 / k
+            for j in nbrs:
+                w_small[i, j] = 1.0 / k
+    w = np.zeros((n, n))
+    idx = np.array(mem)
+    w[np.ix_(idx, idx)] = w_small
+    mem_set = frozenset(mem)
+    for r in range(n):
+        if r not in mem_set:
+            w[r, r] = 1.0
+    return Topology(
+        weights=w,
+        name=name or (f"{_base_name(topo.name)}"
+                      f"+ctl(n={m},slow={pen},densify={level})"),
+        inactive=frozenset(range(n)) - mem_set)

@@ -595,5 +595,16 @@ def run_with_restart(
                 raise
             log.warning("training failed (%s); restart %d/%d",
                         e, restarts, max_restarts)
-            # the reference also sweeps expired win_mutex leases here; the
-            # window mutexes come with the host runtime (ROADMAP Queue 1)
+            # janitor: win_mutex keys whose lease expired (held by a worker
+            # thread the failure killed, say) must not stall the restarted
+            # attempt until a contender's stealing notices
+            try:
+                from bluefog_tpu_torch.parallel.api import win_mutex_sweep
+
+                swept = win_mutex_sweep()
+                if swept:
+                    log.warning("cleared %d expired win_mutex lease(s) "
+                                "before restart", swept)
+            except Exception as sweep_err:  # the restart goes on regardless
+                log.warning("win_mutex sweep before restart failed: %s",
+                            sweep_err)

@@ -1,7 +1,7 @@
 """Failure detection: the hang watchdog.
 
-Counterpart of ``bluefog_tpu/utils/failure.py`` for :class:`HangError` and
-:class:`Heartbeat`.  A job that hangs without dying (a collective waiting on
+Counterpart of ``bluefog_tpu/utils/failure.py``: :class:`HangError`,
+:class:`Heartbeat` and the process supervisor :func:`run_supervised`.  A job that hangs without dying (a collective waiting on
 a wedged peer, a deadlocked host thread, a stuck IO) raises nothing, so a
 watchdog must notice the silence: :class:`Heartbeat` is armed with a
 deadline and beaten once per training step; on a missed deadline it logs
@@ -18,9 +18,10 @@ every thread's stack, then escalates:
 - ``action='exit'`` (or the raise path's escalation): terminate the process
   (SIGTERM, then SIGKILL) so a supervisor restarts it.
 
-The process supervisor, ``run_supervised``, needs the host runtime's
-``runtime/resilience.py`` and comes with it (ROADMAP Queue 1 item 9b); the reference's hooks into its
-flight recorder and metrics come with those subsystems.
+:func:`run_supervised` (``bfrun --supervise N``) is the recovery half: it
+re-runs a failed script with a bounded backoff, and the script resumes from
+its latest checkpoint.  The reference's hooks into its flight recorder and
+metrics (``incident_dir=``) come with those subsystems (ROADMAP item 11).
 """
 
 from __future__ import annotations
@@ -29,13 +30,14 @@ import ctypes
 import logging
 import os
 import signal
+import subprocess
 import sys
 import threading
 import time
 import traceback
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Sequence
 
-__all__ = ["HangError", "Heartbeat"]
+__all__ = ["HangError", "Heartbeat", "run_supervised"]
 
 log = logging.getLogger("bluefog_tpu_torch")
 
@@ -188,3 +190,72 @@ class Heartbeat:
         os.kill(os.getpid(), signal.SIGTERM)
         time.sleep(5.0)
         os.kill(os.getpid(), signal.SIGKILL)
+
+
+def run_supervised(
+    argv: Sequence[str],
+    *,
+    max_restarts: int = 3,
+    min_uptime_s: float = 0.0,
+    env: Optional[dict] = None,
+    incident_dir: Optional[str] = None,
+    restart_backoff_s: float = 2.0,
+    restart_backoff_cap_s: float = 30.0,
+    restart_jitter: float = 0.25,
+    restart_backoff_seed: Optional[int] = None,
+) -> int:
+    """Process-level supervisor: run ``argv`` until it exits 0, restarting
+    it on failure up to ``max_restarts`` times (``bfrun --supervise N``).
+
+    The recovery half of a peer's death and of the watchdog's kill
+    escalation: the re-run script resumes from its latest checkpoint
+    (``CheckpointManager.latest_step()``), so a crash or a wedged
+    collective costs at most the progress since the last save.
+    ``min_uptime_s`` guards against hot crash loops: a run that died
+    faster than this earns no restart.
+
+    Restarts back off (default ~2 s, doubling, capped at
+    ``restart_backoff_cap_s``, ±``restart_jitter`` relative jitter) so a
+    crash-looping job does not hammer shared resources: the checkpoint
+    store it re-reads at every start, the window-server ports it re-binds,
+    the store the whole gang re-registers with.  ``restart_backoff_s=0``
+    restarts at once.
+
+    Returns 0, or the last exit status once the restarts are spent.
+    ``incident_dir`` (the flight recorder's dumps across restarts) comes
+    with ROADMAP item 11 and raises ``NotImplementedError``."""
+    from bluefog_tpu_torch.runtime.resilience import Backoff
+
+    if incident_dir is not None:
+        raise NotImplementedError(
+            "run_supervised(incident_dir=) is not ported yet: it comes "
+            "with ROADMAP Queue 1 item 11 (the flight recorder)")
+    backoff = None
+    if restart_backoff_s > 0:
+        backoff = Backoff(base_s=restart_backoff_s,
+                          cap_s=restart_backoff_cap_s,
+                          jitter=restart_jitter,
+                          budget=max_restarts + 1,
+                          seed=restart_backoff_seed)
+    restarts = 0
+    while True:
+        t0 = time.monotonic()
+        proc = subprocess.run(list(argv), env=env)
+        uptime = time.monotonic() - t0
+        if proc.returncode == 0:
+            return 0
+        restarts += 1
+        if restarts > max_restarts:
+            log.error("supervisor: giving up after %d restarts (last rc %d)",
+                      max_restarts, proc.returncode)
+            return proc.returncode
+        if uptime < min_uptime_s:
+            log.error("supervisor: died after %.1fs (< min uptime %.1fs); "
+                      "not restarting a crash loop", uptime, min_uptime_s)
+            return proc.returncode
+        delay = backoff.next_delay() if backoff is not None else 0.0
+        log.warning("supervisor: job exited rc %d after %.1fs; restart "
+                    "%d/%d in %.1fs", proc.returncode, uptime, restarts,
+                    max_restarts, delay)
+        if delay > 0:
+            time.sleep(delay)

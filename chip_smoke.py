@@ -258,8 +258,9 @@ its last line:
    bf16; remat's gradients against no remat's (bit-equality recorded).
    Then bf16 AdamW steps with and without remat: tokens/s, peak memory,
    K3's launches a step (Ulysses: one a layer, two forwards with remat).
-   Phases 25-30 run GPT-small's widths at 6 of its 12 layers
-   (``SLICE_LAYERS``), cut for the script's time limit.
+   Phases 25-30 run GPT-small's widths at 2 of its 12 layers
+   (``SLICE_LAYERS``), cut for the script's time limit (6 until phase 32
+   came).
 26. Tensor parallelism, ``TPTransformerLM`` at GPT-small's widths: in f32 on
    one tp 2 group at batch 2 x 1024, the gathered parameters replayed at tp
    = 1 through the dense ``TransformerLM`` give its logits and the
@@ -345,8 +346,43 @@ its last line:
    ``examples.async_dsgd_mp --ranks 2`` over shared memory, its workers on
    the card; 31f ``run_sharded_gossip`` on GPT-small's widths at 2 layers,
    4 ranks on Ring(4), ``{tp: 2}`` of ``tp_param_rules``, parameters drawn
-   on the card, 3 rounds with rank 2 healed out before the last: bit-equal
-   to the ``axes={}`` run, each coordinate's mass audit exact.
+   on the card, 2 rounds (3 until phase 32 came, cut for the script's
+   time limit) with rank 2 healed out before the last: bit-equal to the
+   ``axes={}`` run, each coordinate's mass audit exact.
+32. The host runtime across hosts, no TPU kernel on its path (K1-K3's
+   counters are read around it and reported).  32a, the wire on loopback:
+   a ``WindowServer`` in a child process holds ResNet-50's f64 window
+   vector (25,557,032 elements, 204 MB a slot, 2 slots, in shared memory)
+   and the same vector cut into 8 windows; this process packs ResNet-50's
+   parameters from the card (``TreePacker``) and deposits them, a put,
+   through ``RemoteWindow`` (sync), ``PipelinedRemoteWindow``,
+   ``StripedDepositStream`` at 2 and 4 stripes (the 8 windows) and the
+   same-host shm route, each with codec none, f32 and top-k 0.1 (the sync
+   wire has no codec; the shm route carries the dense values whatever the
+   codec): ms a deposit and GB/s against a pinned D2H of the same bytes;
+   read back over the wire bit-exact (none, and the shm route), equal to
+   the f32 cast (f32), equal to ``wire_codec.decode(encode(...))`` (top-k),
+   and ``shm_deposits()`` counting every deposit of the shm route and none
+   of the others.  32b: ``examples.async_dsgd_mp --transport tcp --ranks
+   2``, the same with ``--resilient`` (workers on the card), and
+   ``examples.elastic_membership``, each with its own checks, the three
+   at once.  32c:
+   ResNet-50 on Exponential-2 at P = 2 processes time-slicing the card,
+   batch 32 a rank, 224x224, bf16 compute, through ``run_async_dsgd_rank``
+   with ``TreePacker`` on the card: ``TCP_SECONDS`` over shm, then over
+   tcp, in the same worker processes (``--tcp-worker``): img/s of each and
+   their ratio, rank 0's step host ms split as in 31d, bytes on the wire a
+   step, the mass audits exact.  32d, on the card, three drills at once:
+   ``async_dsgd_mp --ranks 3 --resilient --kill-rank 2`` (the survivors
+   declare the corpse dead within ``dead_after_s`` of the kill, heal, and
+   the audit over them equals the post-heal baseline exactly),
+   ``win_mutex`` across 2 processes under ``bfrun`` (``_MUTEX_DRILL``: a
+   child of rank 0 holds the lock and is SIGKILLed; rank 1 gets it only
+   after the 2 s lease), and ``bfrun --supervise 2`` restarting a script
+   on the card (``_SUPERVISED``) that kills itself at step 3 and resumes
+   from its checkpoint to exit 0; then ``--ranks 4 --elastic`` alone
+   (rank 3 joins from ``initial_members`` 0-2, rank 1 drains, the audit
+   exact).
 23. Report: a ``kernels:`` line, a line for K1 on this slice's paths and a
    line for the allreduce (not a TPU kernel), the kernels' JSON line (K1,
    K2 and K3's three kernels; K1's entry also carries its one-slot times,
@@ -3629,7 +3665,7 @@ BF16_SLICE_TOL = 2.0 ** -4     # 12-layer GPT at width 768 on the CPU, 8 x
 # 128 tokens: the ring 1.1% off in logits, 1.6% in gradients
 
 
-SLICE_LAYERS = 6   # GPT-small's 12 cut for the script's time limit
+SLICE_LAYERS = 2   # GPT-small's 12 cut for the script's time limit
 
 
 def slice_config():
@@ -5685,7 +5721,7 @@ ASYNC_SECONDS = 10.0             # each of 31d's two runs
 ASYNC_LR = 0.01                  # phase 3's SGD rate (no momentum here)
 SHARD_LAYERS = 2                 # GPT-small's 12 cut for 31f's host vectors
 SHARD_RANKS = 4
-SHARD_ROUNDS = 3
+SHARD_ROUNDS = 2                 # 3 until phase 32 came
 PACK_REPS = 5
 
 
@@ -5932,8 +5968,8 @@ def host_sharded_gossip(device):
     """31f: run_sharded_gossip on GPT-small's widths at SHARD_LAYERS layers,
     SHARD_RANKS ranks on Ring(4), inner axes {tp: 2} of tp_param_rules
     (the tensor-parallel rule table), each rank's parameters drawn on the
-    card, 3
-    rounds, rank 2 healed out before the last: against the axes={} run bit
+    card, SHARD_ROUNDS rounds, rank 2 healed out before the last: against
+    the axes={} run bit
     for bit, and each coordinate's mass audit exact through the heal."""
     from bluefog_tpu_torch.parallel import tensor as pt
     from bluefog_tpu_torch.sharding.gossip import run_sharded_gossip
@@ -6034,6 +6070,550 @@ def phase_host_runtime(device, sync_img_s):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 32: the host runtime across hosts (the TCP window server, wire v2,
+# deposit streams, peer faults, elastic membership, win_mutex, supervisor)
+# ---------------------------------------------------------------------------
+
+WIRE_N = 25_557_032              # ResNet-50's f64 window vector, 204 MB
+WIRE_CHUNKS = 8                  # the striped streams' per-coordinate windows
+WIRE_REPS = 2                    # deposits a way and codec, the last timed
+WIRE_TOPK = 0.1
+TCP_SECONDS = 4.0                # each of 32c's two runs
+TCP_BATCH = 32                   # a rank, at 224x224 (configs[1])
+
+_WIRE_OWNER = r'''
+import sys
+import numpy as np
+from bluefog_tpu_torch.runtime.async_windows import (AsyncWindow,
+                                                     shm_unlink_window)
+from bluefog_tpu_torch.runtime.window_server import WindowServer
+
+prefix, n, chunks = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+names = [prefix + ":full"] + [f"{prefix}:c{i}" for i in range(chunks)]
+sizes = [n] + [len(c) for c in np.array_split(np.empty(n, np.int8), chunks)]
+wins = []
+for nm, sz in zip(names, sizes):
+    shm_unlink_window(nm)
+    wins.append(AsyncWindow(nm, 2, sz, np.float64, shm=True))
+srv = WindowServer()
+_, port = srv.start("127.0.0.1")
+print(f"WIRE_OWNER {port}", flush=True)
+sys.stdin.readline()
+srv.stop()
+for w in wins:
+    w.free()
+'''
+
+
+def _wire_payload(device):
+    """ResNet-50's parameters, made on the card and packed by TreePacker
+    into the f64 window vector (25,557,032 elements)."""
+    from bluefog_tpu_torch.models.resnet import ResNet50
+    from bluefog_tpu_torch.runtime.async_windows import TreePacker
+
+    net = ResNet50(num_classes=1000).to(device)
+    tree = {k: v.detach() for k, v in net.named_parameters()}
+    vec = TreePacker(tree).pack(tree)
+    del net, tree
+    torch.cuda.empty_cache()
+    check(vec.size == WIRE_N, f"32a: the packed vector has {vec.size:,} "
+          f"elements, not {WIRE_N:,}")
+    return vec
+
+
+def host_wire(device):
+    """32a: the wire on loopback.  A WindowServer in a child process holds
+    ResNet-50's f64 window vector (2 slots of 25,557,032) and, for the
+    striped streams, the same vector cut into 8 windows; this process
+    deposits it (a put into slot 0) through RemoteWindow (sync),
+    PipelinedRemoteWindow, StripedDepositStream at 2 and 4 stripes and the
+    same-host shm route, with codec none, f32 and top-k 0.1 (the sync wire
+    has no codec; the shm route carries the dense values whatever the
+    stream's codec), and reads each back over the wire."""
+    import numpy as np
+
+    from bluefog_tpu_torch.runtime import wire_codec as wc
+    from bluefog_tpu_torch.runtime.window_server import (
+        DepositStream, PipelinedRemoteWindow, RemoteWindow,
+        StripedDepositStream)
+
+    vec = _wire_payload(device)
+    chunks = np.array_split(vec, WIRE_CHUNKS)
+    prefix = f"smoke_wire_{os.getpid()}"
+    repo = os.path.dirname(os.path.abspath(__file__))
+    owner = subprocess.Popen(
+        [sys.executable, "-c", _WIRE_OWNER, prefix, str(WIRE_N),
+         str(WIRE_CHUNKS)], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        text=True, env=dict(os.environ, PYTHONPATH=repo + os.pathsep
+                            + os.environ.get("PYTHONPATH", "")), cwd=repo)
+    out = {"n": WIRE_N, "bytes": vec.nbytes}
+    try:
+        line = owner.stdout.readline()
+        check(line.startswith("WIRE_OWNER"), f"32a: the owner said {line!r}")
+        addr = ("127.0.0.1", int(line.split()[1]))
+        full = prefix + ":full"
+        reader = RemoteWindow(addr, full, timeout_s=120)
+        chunk_readers = [RemoteWindow(addr, f"{prefix}:c{i}", timeout_s=120)
+                         for i in range(WIRE_CHUNKS)]
+
+        def read_back(striped):
+            if not striped:
+                return reader.read(0, WIRE_N, np.float64, consume=True)[0]
+            return np.concatenate([
+                r.read(0, len(c), np.float64, consume=True)[0]
+                for r, c in zip(chunk_readers, chunks)])
+
+        f32 = vec.astype(np.float32).astype(np.float64)
+        views, _ = wc.encode(vec, wc.CODEC_TOPK, topk_ratio=WIRE_TOPK)
+        topk = wc.decode(wc.CODEC_TOPK,
+                         memoryview(b"".join(bytes(v) for v in views)),
+                         WIRE_N, np.float64)
+        ctopk = [wc.decode(wc.CODEC_TOPK, memoryview(b"".join(
+            bytes(v) for v in wc.encode(c, wc.CODEC_TOPK,
+                                        topk_ratio=WIRE_TOPK)[0])),
+                           len(c), np.float64) for c in chunks]
+        want = {"none": vec, "f32": f32, "topk": topk}
+        want_striped = {"none": vec, "f32": f32,
+                        "topk": np.concatenate(ctopk)}
+        rows = {}
+        for way in ("sync", "pipelined", "striped2", "striped4", "shm"):
+            for codec in (("none",) if way == "sync"
+                          else ("none", "f32", "topk")):
+                striped = way.startswith("striped")
+                kw = {} if codec == "none" else {"codec": codec,
+                                                 "topk_ratio": WIRE_TOPK}
+                if way == "sync":
+                    h = RemoteWindow(addr, full, timeout_s=120)
+
+                    def go():
+                        h.deposit(0, vec, accumulate=False)
+                elif way == "pipelined":
+                    h = PipelinedRemoteWindow(addr, full, timeout_s=120, **kw)
+
+                    def go():
+                        h.deposit_async(0, vec, accumulate=False)
+                        h.flush(120)
+                elif striped:
+                    h = StripedDepositStream(addr, 120,
+                                             n_stripes=int(way[-1]), **kw)
+
+                    def go():
+                        for i, c in enumerate(chunks):
+                            h.deposit_async(f"{prefix}:c{i}".encode(), 0, c,
+                                            accumulate=False)
+                        h.flush(120)
+                else:
+                    h = DepositStream(addr, 120, shm=True, **kw)
+
+                    def go():
+                        h.deposit_async(full.encode(), 0, vec,
+                                        accumulate=False)
+                        h.flush(120)
+                for _ in range(WIRE_REPS - 1):
+                    go()
+                t0 = time.perf_counter()
+                go()
+                ms = (time.perf_counter() - t0) * 1e3
+                stream = getattr(h, "stream", h)
+                got = read_back(striped)
+                expect = ("none" if way == "shm" else codec)
+                ref = (want_striped if striped else want)[expect]
+                exact = got.tobytes() == ref.tobytes()
+                shm_n = getattr(stream, "shm_deposits", 0)
+                wire = getattr(stream, "wire_bytes", None)
+                row = {"ms": ms, "gb_s": vec.nbytes / 1e9 / (ms / 1e3),
+                       "exact": exact, "shm_deposits": shm_n,
+                       "wire_bytes_a_deposit": (wire / WIRE_REPS
+                                                if wire is not None
+                                                else vec.nbytes)}
+                rows[f"{way}/{codec}"] = row
+                h.close()
+                print(f"[32a] {way:9s} codec {codec:4s}: {ms:8.2f} ms a "
+                      f"deposit of {vec.nbytes / 1e6:.1f} MB "
+                      f"({row['gb_s']:.2f} GB/s), "
+                      f"{row['wire_bytes_a_deposit'] / 1e6:.1f} MB on the "
+                      f"wire, read back "
+                      f"{'bit-exact' if expect == 'none' else 'codec-exact'}"
+                      f" {exact}, shm deposits {shm_n}")
+                check(exact, f"32a {way}/{codec}: the read-back differs from "
+                      f"the {expect} reference")
+                if way == "shm":
+                    check(shm_n == WIRE_REPS,
+                          f"32a shm/{codec}: {shm_n} deposits took the shm "
+                          "route")
+                else:
+                    check(shm_n == 0, f"32a {way}: an shm deposit")
+        for r in [reader] + chunk_readers:
+            r.close()
+        d2h, _ = _copy_ms(2 * WIRE_N, device)  # the same bytes, as f32
+        out.update(rows=rows, copy_d2h_ms=d2h,
+                   copy_gb_s=vec.nbytes / 1e9 / (d2h / 1e3))
+        print(f"[32a] yardstick: a pinned D2H of the same {vec.nbytes / 1e6:.1f}"
+              f" MB {d2h:.2f} ms ({out['copy_gb_s']:.1f} GB/s)")
+    finally:
+        try:
+            owner.stdin.write("quit\n")
+            owner.stdin.flush()
+            owner.wait(timeout=30)
+        except Exception:
+            owner.kill()
+            owner.wait()
+    return out
+
+
+def _run_together(jobs):
+    """Run ``{tag: (argv after the interpreter, timeout s)}`` as concurrent
+    processes (each ``python -m ...`` or a script), fail on any non-zero
+    exit, and return ``{tag: (stdout, seconds)}``."""
+    env = dict(os.environ)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    procs = {tag: (subprocess.Popen([sys.executable, *argv],
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True,
+                                    env=env, cwd=repo), timeout)
+             for tag, (argv, timeout) in jobs.items()}
+    out = {}
+    try:
+        for tag, (p, timeout) in procs.items():
+            left = max(1.0, timeout - (time.perf_counter() - t0))
+            text = p.communicate(timeout=left)[0]
+            out[tag] = (text, time.perf_counter() - t0)
+            check(p.returncode == 0,
+                  f"{tag} failed ({p.returncode}):\n{text[-3000:]}")
+    finally:
+        for p, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def _report_line(stdout, key):
+    return next((ln[len(key) + 1:] for ln in stdout.splitlines()
+                 if ln.startswith(key)), "")
+
+
+def host_tcp_examples(device):
+    """32b: examples.async_dsgd_mp --transport tcp --ranks 2, the same with
+    --resilient (workers on the card), and examples.elastic_membership on
+    the card, each at its defaults and with its own checks; the three run
+    at once."""
+    mp = ["-m", "bluefog_tpu_torch.examples.async_dsgd_mp", "--transport",
+          "tcp", "--ranks", "2", "--device", device.type]
+    res = _run_together({
+        "32b async_dsgd_mp tcp": (mp, 300),
+        "32b async_dsgd_mp tcp --resilient": (mp + ["--resilient"], 300),
+        "32b elastic_membership": (
+            ["-m", "bluefog_tpu_torch.examples.elastic_membership",
+             "--device", device.type], 300)})
+    out = {}
+    for tag, (stdout, secs) in res.items():
+        key = "ELASTIC_REPORT" if "elastic" in tag else "ASYNC_MP_REPORT"
+        rep = _report_line(stdout, key)
+        check(rep, f"{tag}: no report")
+        if "elastic" in tag:
+            check("elastic_membership: OK" in stdout, f"{tag}: no OK")
+        out[tag[4:]] = {"report": rep, "s": secs}
+        print(f"[32b] {tag[4:]} (on the card): {rep}; {secs:.2f} s")
+    return out
+
+
+def tcp_worker(argv):
+    """One rank process of 32c: ResNet-50 over run_async_dsgd_rank, first
+    over shm, then over tcp, its gradient on the card."""
+    import copy
+
+    rank, n, bdir, dev = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    from bluefog_tpu_torch.examples.synthetic_benchmark import build
+    from bluefog_tpu_torch.runtime.async_windows import (FileBarrier,
+                                                         run_async_dsgd_rank)
+    from bluefog_tpu_torch.topology import ExponentialTwoGraph
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device(dev)
+    trainer = build("resnet50", "none", "exp2", size=n,
+                    batch_size=TCP_BATCH, image_size=224, device=device)
+    params0 = {k: v[rank].detach().clone() for k, v in trainer.params.items()}
+    model = copy.deepcopy(trainer.model)
+    b_r = {k: v[rank] for k, v in trainer.buffers.items()}
+    batch = tuple(t[rank] for t in trainer.batch)
+    for v in trainer.params.values():
+        v.grad = None
+
+    def loss_and_grad(r, step, params):
+        params = {k: v.requires_grad_() for k, v in params.items()}
+        loss = trainer.loss_fn(model, (params, b_r), batch)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        return float(loss.detach()), dict(zip(params, grads))
+
+    loss_and_grad(rank, 0, {k: v.clone() for k, v in params0.items()})
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    # warmed up: wait for the parent's go, so that nothing the parent runs
+    # meanwhile (32b's examples) shares the host with the timed runs
+    open(os.path.join(bdir, f"ready.{rank}"), "w").close()
+    while not os.path.exists(os.path.join(bdir, "go")):
+        time.sleep(0.01)
+    res = {}
+    for transport in ("shm", "tcp"):
+        rep = run_async_dsgd_rank(
+            ExponentialTwoGraph(n), rank, params0, loss_and_grad,
+            barrier=FileBarrier(os.path.join(bdir, transport), n, rank),
+            lr=ASYNC_LR, duration_s=TCP_SECONDS,
+            name=f"smoke_tcp_{transport}_{os.path.basename(bdir)}",
+            transport=transport, tcp_bind="127.0.0.1")
+        if rank == 0:
+            res[transport] = {
+                "steps": rep.steps_per_rank, "wall_s": rep.wall_time_s,
+                "mass": rep.total_mass, "gap": rep.consensus_gap,
+                "phase_s": rep.phase_s[0], "wire_bytes": rep.wire_bytes,
+                "loss": [rep.losses[0][0], rep.losses[0][-1]]}
+    if rank == 0:
+        with open(os.path.join(bdir, "report.json"), "w") as f:
+            json.dump(res, f)
+    print(f"TCP_WORKER_OK {rank}", flush=True)
+    return 0
+
+
+def start_tcp_resnet(device):
+    """32c's two worker processes, started so that their start-up (imports,
+    the model, cuDNN's warm-up) overlaps 32b; they wait for
+    :func:`host_tcp_resnet`'s go before their timed runs."""
+    n = 2
+    repo = os.path.abspath(__file__)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(repo) + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    bdir = tempfile.TemporaryDirectory()
+    procs = [subprocess.Popen(
+        [sys.executable, repo, "--tcp-worker", str(r), str(n), bdir.name,
+         device.type],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env) for r in range(n)]
+    return {"n": n, "procs": procs, "bdir": bdir, "t0": time.perf_counter()}
+
+
+def host_tcp_resnet(started):
+    """32c: ResNet-50 on configs[1]'s Exponential-2 at P = 2 processes
+    time-slicing the card, batch 32 a rank, 224x224, bf16 compute, through
+    run_async_dsgd_rank with TreePacker on the card: TCP_SECONDS over shm,
+    then over tcp, in the same worker processes (started by
+    :func:`start_tcp_resnet`)."""
+    n, procs, bdir, t0 = (started[k] for k in ("n", "procs", "bdir", "t0"))
+    outs = []
+    try:
+        deadline = time.perf_counter() + 300
+        while not all(os.path.exists(os.path.join(bdir.name, f"ready.{r}"))
+                      for r in range(n)):
+            check(all(p.poll() is None for p in procs),
+                  "32c: a worker exited before its runs")
+            check(time.perf_counter() < deadline,
+                  "32c: the workers were not ready within 300 s")
+            time.sleep(0.05)
+        t_go = time.perf_counter()
+        open(os.path.join(bdir.name, "go"), "w").close()
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+        for r, (p, o) in enumerate(zip(procs, outs)):
+            check(p.returncode == 0 and f"TCP_WORKER_OK {r}" in o,
+                  f"32c worker {r} failed ({p.returncode}):\n{o[-4000:]}")
+        with open(os.path.join(bdir.name, "report.json")) as f:
+            res = json.load(f)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        bdir.cleanup()
+    out = {"s": time.perf_counter() - t0,
+           "runs_s": time.perf_counter() - t_go}
+    for transport in ("shm", "tcp"):
+        v = res[transport]
+        steps = v["steps"]
+        img_s = sum(steps) * TCP_BATCH / v["wall_s"]
+        host_ms = {k: s * 1e3 / steps[0] for k, s in v["phase_s"].items()
+                   if k != "harvest"}
+        row = {"steps": steps, "img_s": img_s, "mass_err": abs(v["mass"] - n),
+               "gap": v["gap"], "host_ms": host_ms,
+               "wire_bytes_a_step": v["wire_bytes"] / steps[0],
+               "loss": v["loss"]}
+        out[transport] = row
+        print(f"[32c] ResNet-50 over {transport}, P = {n} processes: steps "
+              f"{steps} in {v['wall_s']:.2f} s, {img_s:.1f} img/s; "
+              f"|sum(p) - n| {row['mass_err']:.3e}; rank 0's step host ms "
+              + ", ".join(f"{k} {x:.1f}" for k, x in host_ms.items())
+              + f"; {row['wire_bytes_a_step'] / 1e6:.1f} MB on the wire a "
+              f"step; loss {v['loss'][0]:.4f} -> {v['loss'][1]:.4f}")
+        check(row["mass_err"] <= 1e-9 * n,
+              f"32c {transport}: mass audit {v['mass']!r}")
+        check(min(steps) >= 2, f"32c {transport}: a rank starved: {steps}")
+        check(math.isfinite(v["loss"][1]), f"32c {transport}: a NaN loss")
+    out["tcp_over_shm"] = out["tcp"]["img_s"] / out["shm"]["img_s"]
+    print(f"[32c] tcp / shm img/s: {out['tcp_over_shm']:.3f}; the runs "
+          f"{out['runs_s']:.1f} s, {out['s']:.1f} s with the workers' start "
+          "(beside 32b)")
+    return out
+
+
+_MUTEX_LEASE_S = 2.0
+SUPERVISE_STEPS = 6
+
+# 32d's lock drill under bfrun -np 2: a child of rank 0 takes
+# win_mutex("smoke") with a 2 s lease and is SIGKILLed holding it (a child,
+# so its death does not stop the launcher's group); rank 1 waits for the
+# lock and prints how long after the holder took it it got it
+_MUTEX_DRILL = r"""
+import os, signal, subprocess, sys, time
+
+mode, d, lease = sys.argv[1], sys.argv[2], float(sys.argv[3])
+held = os.path.join(d, "held")
+if mode == "holder":
+    from bluefog_tpu_torch.parallel import api
+
+    held_lock = api.win_mutex("smoke", lease_s=lease)  # kept: a collected
+    held_lock.__enter__()  # context manager would release the lock
+    with open(held + ".tmp", "w") as f:
+        f.write(repr(time.time()))
+    os.replace(held + ".tmp", held)
+    os.kill(os.getpid(), signal.SIGKILL)
+if os.environ["RANK"] == "0":
+    rc = subprocess.call([sys.executable, __file__, "holder", d, str(lease)])
+    sys.exit(0 if rc == -signal.SIGKILL else 1)
+from bluefog_tpu_torch.parallel import api
+
+while not os.path.exists(held):
+    time.sleep(0.01)
+with open(held) as f:
+    t_held = float(f.read())
+with api.win_mutex("smoke", timeout_s=60.0):
+    t_got = time.time()
+print(f"MUTEX_WAITED {t_got - t_held!r}", flush=True)
+"""
+
+# 32d's supervised script, on the card: a linear regression that
+# checkpoints every step through CheckpointManager, SIGKILLs itself at step
+# 3 of its first life, and resumes from its checkpoint after the restart
+_SUPERVISED = r"""
+import os, signal, sys
+import torch
+from bluefog_tpu_torch.utils.checkpoint import CheckpointManager
+
+d, device, steps = sys.argv[1], torch.device(sys.argv[2]), int(sys.argv[3])
+mgr = CheckpointManager(os.path.join(d, "ckpt"), async_save=False)
+gen = torch.Generator(device=device).manual_seed(5)
+X = torch.randn(256, 16, generator=gen, device=device)
+y = X @ torch.randn(16, generator=gen, device=device)
+state = {"w": torch.zeros(1, 16, device=device)}
+last = mgr.latest_step()
+start = 0
+if last is not None:
+    state = mgr.restore(last, template=state)
+    start = last + 1
+for step in range(start, steps):
+    w = state["w"][0]
+    grad = 2 * X.T @ (X @ w - y) / X.shape[0]
+    state = {"w": (w - 0.1 * grad)[None]}
+    mgr.save(step, state)
+    marker = os.path.join(d, "killed")
+    if step == 3 and not os.path.exists(marker):
+        open(marker, "w").close()
+        os.kill(os.getpid(), signal.SIGKILL)
+loss = float(torch.mean((X @ state["w"][0] - y) ** 2))
+print(f"SUPERVISED_OK resumed_from={last} loss={loss!r}", flush=True)
+"""
+
+
+def host_tcp_faults(device):
+    """32d: faults and membership over TCP, on the card, the four drills at
+    once: a death (3 processes, rank 2 SIGKILLed), a join and a drain
+    (capacity 4), the win_mutex lease steal under bfrun and bfrun
+    --supervise 2."""
+    mp = ["-m", "bluefog_tpu_torch.examples.async_dsgd_mp", "--device",
+          device.type]
+    launch = ["-m", "bluefog_tpu_torch.runtime.launch", "--no-build"]
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        mutex, sup = os.path.join(d, "mutex.py"), os.path.join(d, "sup.py")
+        with open(mutex, "w") as f:
+            f.write(_MUTEX_DRILL)
+        with open(sup, "w") as f:
+            f.write(_SUPERVISED)
+        os.makedirs(os.path.join(d, "m"))
+        os.makedirs(os.path.join(d, "s"))
+        res = _run_together({
+            "32d death": (mp + ["--ranks", "3", "--transport", "tcp",
+                                "--resilient", "--kill-rank", "2",
+                                "--kill-step", "12", "--duration", "4"],
+                          300),
+            "32d win_mutex": (launch + ["-np", "2", mutex, "contend",
+                                        os.path.join(d, "m"),
+                                        str(_MUTEX_LEASE_S)], 120),
+            "32d supervise": (launch + [
+                "-np", "1", "--supervise", "2", "--restart-backoff", "0.5",
+                sup, os.path.join(d, "s"), device.type,
+                str(SUPERVISE_STEPS)], 180),
+            "32d join and drain": (mp + ["--ranks", "4", "--elastic",
+                                         "--duration", "6"], 300)})
+    stdout, secs = res["32d death"]
+    rep = _report_line(stdout, "ASYNC_MP_REPORT")
+    check("dead=[2]" in rep, f"32d death: {rep!r}")
+    out["death"] = {"report": rep, "s": secs}
+    print(f"[32d] a death: 3 processes, rank 2 SIGKILLed at step 12: {rep}; "
+          f"{secs:.2f} s")
+    stdout, secs = res["32d win_mutex"]
+    waited = float(stdout.split("MUTEX_WAITED ")[1].split()[0])
+    out["mutex"] = {"waited_s": waited, "lease_s": _MUTEX_LEASE_S, "s": secs}
+    print(f"[32d] win_mutex under bfrun -np 2: the holder SIGKILLed, the "
+          f"lock stolen {waited:.3f} s after it was taken (lease "
+          f"{_MUTEX_LEASE_S} s); {secs:.2f} s")
+    check(_MUTEX_LEASE_S <= waited < 30.0,
+          f"32d win_mutex: stolen after {waited} s")
+    stdout, secs = res["32d supervise"]
+    line = _report_line(stdout, "SUPERVISED_OK")
+    check("resumed_from=3" in line, f"32d supervise: {line!r}")
+    out["supervise"] = {"report": line, "s": secs}
+    print(f"[32d] bfrun --supervise 2: the script SIGKILLed itself at step "
+          f"3, restarted and resumed: {line}; {secs:.2f} s")
+    stdout, secs = res["32d join and drain"]
+    rep = _report_line(stdout, "ASYNC_MP_REPORT")
+    check("joined=[3] left=[1]" in rep, f"32d join and drain: {rep!r}")
+    out["join_drain"] = {"report": rep, "s": secs}
+    print(f"[32d] a join and a drain: capacity 4, members 0-2, rank 3 "
+          f"joins, rank 1 drains: {rep}; {secs:.2f} s")
+    return out
+
+
+def phase_host_runtime_tcp(device):
+    """Phase 32: 32a-32d.  No TPU kernel lies on this path; K1-K3's
+    counters are read around it and reported."""
+    from bluefog_tpu_torch.ops.deliver_kernel import window_deliver
+
+    t0 = time.perf_counter()
+    counters = [window_deliver, *_slice_kernels()]
+    for k in counters:
+        k.launches = 0
+    out = {"wire": host_wire(device)}
+    torch.cuda.empty_cache()
+    started = start_tcp_resnet(device)
+    try:
+        out["examples"] = host_tcp_examples(device)
+    except BaseException:
+        for p in started["procs"]:
+            p.kill()
+        raise
+    out["resnet"] = host_tcp_resnet(started)
+    out["faults"] = host_tcp_faults(device)
+    out["launches"] = {k.__name__: k.launches for k in counters}
+    out["s"] = time.perf_counter() - t0
+    print(f"[32] kernel launches during phase 32 (none of its path's work is "
+          f"a TPU kernel): {out['launches']}; the phase took {out['s']:.1f} s")
+    return out
+
+
 def main():
     # cuBLAS's deterministic workspace for the deterministic BERT phases,
     # set before any handle exists (the processes of phase 1b inherit it)
@@ -6042,6 +6622,8 @@ def main():
         return mp_worker(sys.argv[2:])
     if len(sys.argv) > 1 and sys.argv[1] == "--mesh-worker":
         return mesh_worker(sys.argv[2:])
+    if len(sys.argv) > 1 and sys.argv[1] == "--tcp-worker":
+        return tcp_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs an NVIDIA GPU", file=sys.stderr)
@@ -6171,6 +6753,8 @@ def main():
                       "seconds": mesh[N_RANKS]["seconds"]}
     torch.cuda.empty_cache()
     host = phase_host_runtime(device, main_res["samples_per_s"])
+    torch.cuda.empty_cache()
+    tcp = phase_host_runtime_tcp(device)
 
     sl = procs[SLICE_PROCESSES]["slice"]
     fa = "jax/experimental/pallas/ops/tpu/flash_attention.py"
@@ -6432,6 +7016,20 @@ def main():
           + f" against {rn['sync_img_s']:.1f} img/s synchronous; sharded "
           f"gossip {host['sharded']['n']:,} params bit-equal "
           f"{host['sharded']['bit_equal']}; phase {host['s']:.1f} s")
+    wr, tr_ = tcp["wire"]["rows"], tcp["resnet"]
+    print("the host runtime across hosts (phase 32): the wire on loopback, "
+          "ResNet-50's f64 vector "
+          + ", ".join(f"{k} {v['ms']:.1f} ms ({v['gb_s']:.2f} GB/s)"
+                      for k, v in wr.items())
+          + f" against a pinned D2H {tcp['wire']['copy_d2h_ms']:.2f} ms; "
+          f"ResNet-50 at P = 2 over shm {tr_['shm']['img_s']:.1f} / tcp "
+          f"{tr_['tcp']['img_s']:.1f} img/s ({tr_['tcp_over_shm']:.3f}x), "
+          f"audits exact; death: {tcp['faults']['death']['report']}; join "
+          f"and drain: {tcp['faults']['join_drain']['report']}; win_mutex "
+          f"stolen after {tcp['faults']['mutex']['waited_s']:.3f} s (lease "
+          f"{tcp['faults']['mutex']['lease_s']} s); supervise: "
+          f"{tcp['faults']['supervise']['report']}; launches "
+          f"{tcp['launches']}; phase {tcp['s']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -603,8 +603,7 @@ def test_winput_async_factory_and_its_errors_match_the_jax_packages():
 
 
 @pytest.mark.parametrize("arg,value,item", [
-    ("resilience", object(), "9b"), ("join_at_s", {1: [0.1]}, "9b"),
-    ("leave_at_s", {1: 0.1}, "9b"), ("snapshot_every", 2, "item 10"),
+    ("snapshot_every", 2, "item 10"),
     ("control", object(), "item 10"), ("fleet", object(), "item 11"),
     ("profile", "/tmp/p", "item 11")])
 def test_arguments_not_ported_yet_raise(arg, value, item):
@@ -612,10 +611,6 @@ def test_arguments_not_ported_yet_raise(arg, value, item):
         aw.run_async_dsgd(ptopo.RingGraph(2), {"w": torch.zeros(2)},
                           lambda r, s, p: (0.0, p), name=_name("np"),
                           **{arg: value})
-    if arg == "resilience":
-        with pytest.raises(NotImplementedError, match=item):
-            aw.run_async_pushsum(ptopo.RingGraph(2), np.zeros((2, 1)),
-                                 resilience=value)
 
 
 @pytest.mark.parametrize("kind", KINDS)

@@ -142,7 +142,11 @@ def test_scan_covers_the_host_runtime():
     for mod in ("runtime/native.py", "runtime/async_windows.py",
                 "utils/timeline.py", "utils/logging.py", "utils/hostbuild.py",
                 "sharding/gossip.py", "examples/async_pushsum.py",
-                "examples/async_dsgd.py", "examples/async_dsgd_mp.py"):
+                "examples/async_dsgd.py", "examples/async_dsgd_mp.py",
+                "runtime/window_server.py", "runtime/wire_codec.py",
+                "runtime/wire_status.py", "runtime/resilience.py",
+                "runtime/membership.py", "runtime/ibfrun.py",
+                "topology/mapping.py", "examples/elastic_membership.py"):
         assert f"bluefog_tpu_torch/{mod}" in files, mod
     text = (REPO / "bluefog_tpu_torch" / "runtime" / "native.py").read_text()
     assert "libbf_runtime" not in text
@@ -159,7 +163,14 @@ def test_async_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
         async_dsgd.main(["--duration", "1"])
     with pytest.raises(RuntimeError, match="cuda"):
         async_dsgd_mp.main(["--worker", "0", "--bdir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="cuda"):
+        async_dsgd_mp.main(["--worker", "0", "--bdir", str(tmp_path),
+                            "--transport", "tcp", "--resilient"])
     assert not list(tmp_path.iterdir())  # raised before any rendezvous
+    from bluefog_tpu_torch.examples import elastic_membership
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        elastic_membership.main([])
 
 
 def test_kernel_build_needs_nvcc():

@@ -209,3 +209,90 @@ def test_auto_detected_rendezvous_failure_stays_single_process():
                  WORLD_SIZE="2", RANK="1"))
     assert "INITIALIZED False" in r.stdout, (r.stdout, r.stderr)
     assert "rendezvous skipped" in r.stderr
+
+
+# ---------------------------------------------------------------------------
+# --supervise, --timeline, --simulate and ibfrun (the JAX package's
+# bfrun-tpu options and ibfrun-tpu, tests/test_launch.py and
+# tests/test_failure.py::TestSupervisor)
+# ---------------------------------------------------------------------------
+
+CRASH_ONCE = (
+    "import os, sys\n"
+    "marker = os.path.join(sys.argv[1], 'crashed.' + os.environ['RANK'])\n"
+    "if os.environ['RANK'] == '1' and not os.path.exists(marker):\n"
+    "    open(marker, 'w').close()\n"
+    "    sys.exit(7)\n"
+    "sys.stdout.write(f\"DONE {os.environ['RANK']}\\n\")\n")
+
+
+def test_supervise_restarts_the_group_until_it_succeeds(tmp_path):
+    script = tmp_path / "crash_once.py"
+    script.write_text(CRASH_ONCE)
+    r = _bfrun(["-np", "2", "--supervise", "2", "--restart-backoff", "0",
+                str(script), str(tmp_path)])
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.count("DONE 1") == 1  # only the second attempt's rank 1
+    assert "restart 1/2" in r.stderr
+
+
+def test_supervise_gives_up_with_the_last_status(tmp_path):
+    script = tmp_path / "always.py"
+    script.write_text("import sys; sys.exit(5)\n")
+    r = _bfrun(["-np", "1", "--supervise", "1", "--restart-backoff=0",
+                str(script)])
+    assert r.returncode == 5, (r.returncode, r.stderr)
+    assert "giving up after 1 restarts" in r.stderr
+    # a crash faster than --min-uptime earns no restart
+    r = _bfrun(["-np", "1", "--supervise", "3", "--restart-backoff", "0",
+                "--min-uptime", "60", str(script)])
+    assert r.returncode == 5 and "not restarting" in r.stderr
+
+
+SIM = (
+    "import json, sys\n"
+    "import torch\n"
+    "import bluefog_tpu_torch as bf\n"
+    "from bluefog_tpu_torch.utils import timeline\n"
+    "ctx = bf.init()\n"
+    "with timeline.timeline_context('step'):\n"
+    "    x = bf.neighbor_allreduce(bf.rank_stack(torch.ones(3)))\n"
+    "timeline.timeline_stop()\n"
+    "print('SIM', ctx.size, ctx.device.type, float(x.sum()))\n")
+
+
+def test_simulate_and_timeline(tmp_path):
+    import json
+
+    script = tmp_path / "sim.py"
+    script.write_text(SIM)
+    trace = tmp_path / "tl.json"
+    r = _bfrun(["-np", "1", "--simulate", "4", "--timeline", str(trace),
+                str(script)])
+    assert r.returncode == 0, r.stderr
+    assert "SIM 4 cpu 12.0" in r.stdout, r.stdout
+    events = json.loads(trace.read_text())
+    assert [(e["name"], e["ph"]) for e in events] == [("step", "B"),
+                                                      ("step", "E")]
+
+
+def test_timeline_path_per_process():
+    assert launch._timeline_path("/t/tl.json", 0, 1) == "/t/tl.json"
+    assert launch._timeline_path("/t/tl.json", 1, 2) == "/t/tl.rank1.json"
+    assert launch._timeline_path("/t/tl", 3, 4) == "/t/tl.rank3"
+    assert launch._without_supervise(
+        ["-np", "2", "--supervise", "3", "--restart-backoff=1",
+         "--min-uptime", "2", "--timeline", "x"]) == [
+        "-np", "2", "--timeline", "x"]
+
+
+@pytest.mark.parametrize("topology,size", [("ring", 4), ("full", 3)])
+def test_ibfrun_session_reads_stdin(topology, size):
+    r = subprocess.run(
+        [sys.executable, "-m", "bluefog_tpu_torch.runtime.ibfrun",
+         "--simulate", str(size), "--topology", topology],
+        input="print('IB', ctx.size, ctx.device.type, "
+              "ctx.topology.name)\n",
+        capture_output=True, text=True, timeout=90, env=_env(), cwd=REPO)
+    assert r.returncode == 0, r.stderr
+    assert f"IB {size} cpu" in r.stdout, (r.stdout, r.stderr)
