@@ -56,6 +56,10 @@ runtime.async_windows (AsyncWindow,             runtime.async_windows
 sharding.gossip (run_sharded_gossip)            sharding.gossip
 examples/async_pushsum.py, async_dsgd.py,       examples.async_pushsum, ...
   async_dsgd_mp.py (shm)
+chaos (spec, injector, bfchaos-tpu)             chaos (python -m ...chaos)
+control (plan, evidence, controller,            control
+  transport, tree)
+metrics.health.MixingTracker                    metrics.health
 ==============================================  ===============================
 
 Ranks are virtual: ``n`` gossip ranks live on one device as the leading axis

@@ -27,7 +27,16 @@ Run on the GPU (the default device; it raises without one)::
 
   python -m bluefog_tpu_torch.examples.async_dsgd [--ranks 8] [--duration 10]
 
-and on the CPU with ``--device cpu``.
+and on the CPU with ``--device cpu``.  Under a chaos spec the rank threads
+die and stall on cue::
+
+  python -m bluefog_tpu_torch.chaos \
+      --spec "rank2:die:at_step=8;rank1:stall:at_step=6:s=1.5" \
+      -- python -m bluefog_tpu_torch.examples.async_dsgd
+
+A killed rank leaves its last will: the mass check is then ``total +
+died == n`` exactly, and the loss and consensus checks are over the
+survivors.
 """
 
 from __future__ import annotations
@@ -123,21 +132,28 @@ def _run(args, dev) -> Dict[str, object]:
     report = opt.run(params0, loss_and_grad, duration_s=args.duration,
                      skew=skew)
 
-    # judge the drained final model (all mass in flight folded in)
-    first = [ls[0] for ls in report.losses]
-    last = []
+    # judge the drained final model (all mass in flight folded in) of every
+    # rank that survived (a chaos-killed rank has none)
+    alive = [r for r in range(n) if report.final_params[r] is not None]
+    first = [ls[0] if ls else float("nan") for ls in report.losses]
+    last = [float("nan")] * n
     with torch.no_grad():
-        for r in range(n):
+        for r in alive:
             x, y = data[r]
-            last.append(float(np.mean(
+            last[r] = float(np.mean(
                 [float(loss_of(report.final_params[r], x[b], y[b]))
-                 for b in range(4)])))
+                 for b in range(4)]))
     drop = [1 - l / f for f, l in zip(first, last)]
-    scale = max(float(v.abs().max()) for v in report.final_params[0].values())
+    scale = max(float(v.abs().max())
+                for v in report.final_params[alive[0]].values())
     print(f"steps/rank: {report.steps_per_rank}")
     print("loss first->last per rank: " +
           " ".join(f"{f:.2f}->{l:.2f}" for f, l in zip(first, last)))
     print(f"total mass: {report.total_mass:.9f} (expect {n})")
+    if report.dead_ranks:
+        print(f"dead ranks {report.dead_ranks}, died mass "
+              f"{report.died_mass!r}; total + died = "
+              f"{report.total_mass + report.died_mass!r}")
     print(f"consensus gap: {report.consensus_gap:.4f} "
           f"(param scale {scale:.2f})")
 
@@ -149,16 +165,18 @@ def _run(args, dev) -> Dict[str, object]:
     # a rank starved by host load takes its model from its neighbours'
     # deposits: its local loss may lag while the consensus checks hold
     med = float(np.median(report.steps_per_rank))
-    active = [r for r in range(n) if report.steps_per_rank[r] >= 0.25 * med]
+    active = [r for r in alive if report.steps_per_rank[r] >= 0.25 * med]
     if min(drop[r] for r in active) < 0.35:
         failures.append("loss did not converge (min active-rank drop "
                         f"{min(drop[r] for r in active):.0%})")
-    if len(active) < n:
-        print(f"note: {n - len(active)} rank(s) starved by host load "
+    if len(active) < len(alive):
+        print(f"note: {len(alive) - len(active)} rank(s) starved by host "
+              "load "
               f"(steps {report.steps_per_rank}); their local-loss check "
               "was waived, consensus checks still apply")
-    if abs(report.total_mass - n) > 1e-9:
-        failures.append(f"mass not conserved: {report.total_mass!r} != {n}")
+    if abs(report.total_mass + report.died_mass - n) > 1e-9:
+        failures.append(f"mass not conserved: {report.total_mass!r} + "
+                        f"{report.died_mass!r} != {n}")
     if report.consensus_gap > 0.25 * scale:
         failures.append("ranks did not reach consensus")
     for f in failures:
@@ -168,7 +186,8 @@ def _run(args, dev) -> Dict[str, object]:
               "converged, mass conserved")
     return {"ok": not failures, "failures": failures,
             "steps_per_rank": report.steps_per_rank, "loss_drop": drop,
-            "total_mass": report.total_mass,
+            "total_mass": report.total_mass, "died_mass": report.died_mass,
+            "dead_ranks": report.dead_ranks,
             "consensus_gap": report.consensus_gap, "param_scale": scale,
             "wall_time_s": report.wall_time_s}
 

@@ -28,13 +28,20 @@ checks its report:
   4. the ranks agree: the consensus gap is below 5% of the parameter scale.
 
 ``--resilient`` (tcp) arms peer-fault tolerance: reconnect and replay,
-and self-healing gossip over a complete graph.  ``--kill-rank R`` makes
-rank R SIGKILL itself at its step ``--kill-step`` (the JAX package drives
-that death through its chaos CLI, which comes with ROADMAP item 10): the
-survivors detect the death through their failing deposit streams (rank 0
-checks that the first tombstone came within ``dead_after_s`` of the
-kill), heal, and rank 0 checks the audit over the survivors exactly
-(``total_mass == baseline_mass``).
+and self-healing gossip over a complete graph.  Pair it with the chaos CLI
+to watch a rank get SIGKILLed mid-run and the survivors finish anyway::
+
+    python -m bluefog_tpu_torch.chaos --spec "rank2:sigkill:at_step=12" \
+        -- python -m bluefog_tpu_torch.examples.async_dsgd_mp --ranks 3 \
+        --transport tcp --resilient
+
+The ranks' loops deliver the spec's death (``BLUEFOG_TPU_CHAOS``, which
+the CLI exports to every worker); the survivors detect it through their
+failing deposit streams (rank 0 checks that the first tombstone came
+within ``dead_after_s`` of the victim's last step), heal, and rank 0
+checks the audit over the survivors exactly (``total_mass ==
+baseline_mass``).  Wire faults (``server:``, ``ack:``, ``client:`` rules)
+act on every rank's streams and server the same way.
 
 ``--elastic`` (implies tcp and ``--resilient``) runs elastic membership
 across processes: ``--ranks`` is the job's capacity, ranks 0 .. N-2
@@ -47,8 +54,8 @@ the audit is exact over the final member set.
 Run::
 
   python -m bluefog_tpu_torch.examples.async_dsgd_mp [--ranks 2] \\
-      [--duration 3] [--transport shm|tcp] [--resilient] \\
-      [--kill-rank R [--kill-step K]] [--elastic] [--device cuda|cpu]
+      [--duration 3] [--transport shm|tcp] [--resilient] [--elastic] \\
+      [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -60,14 +67,25 @@ import subprocess
 import sys
 import tempfile
 import time
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 __all__ = ["main", "worker"]
 
 
+def _chaos_kills() -> Dict[int, int]:
+    """The ranks the chaos spec in the environment SIGKILLs, with their
+    step (empty without a spec)."""
+    from bluefog_tpu_torch import chaos
+
+    inj = chaos.get()
+    return {} if inj is None else {
+        r.rank: r.at_step for r in inj.rules
+        if r.site == "rank" and r.fault == "sigkill"
+        and r.at_step is not None}
+
+
 def worker(rank: int, n: int, bdir: str, duration_s: float, lr: float,
            device: str, transport: str = "shm", resilient: bool = False,
-           kill_rank: Optional[int] = None, kill_step: int = 25,
            elastic: bool = False) -> None:
     import numpy as np
     import torch
@@ -90,17 +108,20 @@ def worker(rank: int, n: int, bdir: str, duration_s: float, lr: float,
 
     params0 = {"w": torch.zeros(16, device=dev),
                "b": torch.zeros((), device=dev)}
+    kills = _chaos_kills()
+    last_step = kills.get(rank, 0) - 1
 
     def loss_and_grad(r, step, params):
-        if r == kill_rank and step == kill_step:
-            # the moment of death, for rank 0's detection latency
-            with open(os.path.join(bdir, f"killed.{r}"), "w") as f:
-                f.write(repr(time.time()))
-            os.kill(os.getpid(), signal.SIGKILL)
         w = params["w"].requires_grad_()
         b = params["b"].requires_grad_()
         loss = torch.mean((Xr @ w + b - yr) ** 2)
         gw, gb = torch.autograd.grad(loss, (w, b))
+        if step == last_step:
+            # the victim's last step before the chaos spec kills it at
+            # the top of the next: the moment rank 0's detection
+            # latency is measured from
+            with open(os.path.join(bdir, f"killed.{r}"), "w") as f:
+                f.write(repr(time.time()))
         return float(loss.detach()), {"w": gw, "b": gb}
 
     # the pipelined tcp transport's sender and ack threads raise every
@@ -157,18 +178,19 @@ def worker(rank: int, n: int, bdir: str, duration_s: float, lr: float,
                   f"baseline={report.baseline_mass!r} "
                   f"joined={report.joined_ranks} left={report.left_ranks} "
                   f"gap={report.consensus_gap!r} transport={transport} "
-                  f"device={dev}")
+                  f"streams={report.stream_stats} device={dev}")
             print("OK — elastic membership over tcp; audit exact over the "
                   "final member set")
-        elif report.dead_ranks or kill_rank is not None:
-            assert report.dead_ranks == [kill_rank], report.dead_ranks
+        elif report.dead_ranks or kills:
+            assert report.dead_ranks == sorted(kills), report.dead_ranks
+            kill_rank = report.dead_ranks[0]
             alive = [r for r in range(n) if r not in report.dead_ranks]
             assert min(steps[r] for r in alive) >= 5, steps
             assert report.baseline_mass is not None, \
                 "the heal rendezvous degraded: no exact baseline"
             assert abs(report.total_mass - report.baseline_mass) \
                 <= 1e-9 * n, (report.total_mass, report.baseline_mass)
-            # detection latency: from the victim's last moment to the
+            # detection latency: from the victim's last step to the
             # first survivor's tombstone
             with open(os.path.join(bdir, f"killed.{kill_rank}")) as f:
                 t_kill = float(f.read())
@@ -187,7 +209,8 @@ def worker(rank: int, n: int, bdir: str, duration_s: float, lr: float,
                   f"baseline={report.baseline_mass!r} "
                   f"dead={report.dead_ranks} detect_s={detect_s!r} "
                   f"gap={report.consensus_gap!r} "
-                  f"transport={transport} device={dev}")
+                  f"transport={transport} streams={report.stream_stats} "
+                  f"device={dev}")
             print(f"OK — survived peer death over {transport}; audit "
                   "exact over the surviving set")
         else:
@@ -207,7 +230,7 @@ def worker(rank: int, n: int, bdir: str, duration_s: float, lr: float,
             print(f"ASYNC_MP_REPORT steps={steps} mass={report.total_mass!r} "
                   f"loss0={l0[0]!r} loss1={l0[-1]!r} "
                   f"gap={report.consensus_gap!r} transport={transport} "
-                  f"device={dev}")
+                  f"streams={report.stream_stats} device={dev}")
             print(f"OK — async DSGD spanned real OS processes over "
                   f"{transport} with no barrier")
     print(f"WORKER_DONE {rank}", flush=True)
@@ -224,10 +247,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--resilient", action="store_true",
                     help="arm peer-fault tolerance (tcp): reconnect and "
                          "replay, self-healing gossip")
-    ap.add_argument("--kill-rank", type=int, default=None,
-                    help="this rank SIGKILLs itself mid-run (needs "
-                         "--resilient; not rank 0, the reporting rank)")
-    ap.add_argument("--kill-step", type=int, default=25)
     ap.add_argument("--elastic", action="store_true",
                     help="rank N-1 joins mid-run and rank 1 drains "
                          "(tcp, resilient; --ranks >= 3)")
@@ -236,23 +255,24 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--bdir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    kills = _chaos_kills()
     if args.elastic:
-        if args.ranks < 3 or args.kill_rank is not None:
-            ap.error("--elastic needs --ranks >= 3 and no --kill-rank")
+        if args.ranks < 3 or kills:
+            ap.error("--elastic needs --ranks >= 3 and no chaos sigkill "
+                     "rule")
         args.transport = "tcp"
         args.resilient = True
     if args.resilient and args.transport != "tcp":
         ap.error("--resilient requires --transport tcp (detection is "
                  "transport-native on the deposit streams)")
-    if args.kill_rank is not None and (
-            not args.resilient or not 0 < args.kill_rank < args.ranks):
-        ap.error("--kill-rank needs --resilient and a rank in "
-                 "1 .. ranks - 1")
+    if kills and (not args.resilient
+                  or not all(0 < r < args.ranks for r in kills)):
+        ap.error("a chaos sigkill rule needs --resilient and its rank in "
+                 "1 .. ranks - 1 (rank 0 is the reporting rank)")
 
     if args.worker is not None:
         worker(args.worker, args.ranks, args.bdir, args.duration, args.lr,
-               args.device, args.transport, args.resilient,
-               args.kill_rank, args.kill_step, args.elastic)
+               args.device, args.transport, args.resilient, args.elastic)
         return 0
 
     repo = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -262,9 +282,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     extra = ["--transport", args.transport]
     if args.resilient:
         extra.append("--resilient")
-    if args.kill_rank is not None:
-        extra += ["--kill-rank", str(args.kill_rank),
-                  "--kill-step", str(args.kill_step)]
     if args.elastic:
         extra.append("--elastic")
     with tempfile.TemporaryDirectory() as bdir:
@@ -292,17 +309,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             print("FAILED: a worker timed out; all workers killed",
                   file=sys.stderr)
             return 1
-    if args.kill_rank is not None:
-        # the victim's death is the drill; the verdict is rank 0's, which
-        # audits the survivors
-        want = [-signal.SIGKILL if r == args.kill_rank else 0
+    if kills:
+        # the victims' deaths are the drill; the verdict is rank 0's,
+        # which audits the survivors
+        want = [-signal.SIGKILL if r in kills else 0
                 for r in range(args.ranks)]
         if rcs != want:
             print(f"FAILED: worker exit codes {rcs}, expected {want}",
                   file=sys.stderr)
             return 1
-        print(f"(rank {args.kill_rank} was SIGKILLed; survivors audited "
-              "clean)")
+        print(f"(rank(s) {sorted(kills)} were SIGKILLed by the chaos spec; "
+              "survivors audited clean)")
     elif any(rcs):
         print(f"FAILED: worker exit codes {rcs}", file=sys.stderr)
         return 1

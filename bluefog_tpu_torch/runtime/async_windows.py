@@ -34,20 +34,27 @@ Win* and its lock/flush epochs).  This module runs that execution model:
   resilience`) and elastic membership (``join_at_s=``/``leave_at_s=`` in
   threads, ``join=``/``leave_after_s=``/``initial_members=`` across
   processes, :mod:`bluefog_tpu_torch.runtime.membership`) in both runners.
+- Chaos (:mod:`bluefog_tpu_torch.chaos`): the rank loops consult
+  ``check_step`` every step (a thread's ``die``, ``stall`` and ``leave``,
+  a process's ``sigkill`` and ``sigstop``) and ``join_times`` at start.
+  A thread runner's ``step_hook`` injects the same faults by hand
+  (:class:`RankKilled`).
+- The communication control plane (``control=``,
+  :mod:`bluefog_tpu_torch.control`) in both runners, and the transport
+  autotuner (``stream_options['transport_tuning']``) over processes.
 
 Deferred, each raising ``NotImplementedError`` that names its ROADMAP item:
-serve-while-training snapshots and the control plane (item 10), the fleet
-health plane and the sampling profiler (item 11).  The JAX package's calls
-into chaos, blackbox, metrics, tracing and lockcheck come back with those
-packages (items 10-11); none of them changes a result.  In their place a
-thread runner's ``step_hook`` injects a rank's stall or death
-(:class:`RankKilled`).
+serve-while-training snapshots (item 10), the fleet health plane and the
+sampling profiler (item 11).  The JAX package's calls into blackbox,
+metrics, tracing and lockcheck come back with those packages (item 11);
+none of them changes a result.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import json
 import os
 import threading
 import time
@@ -57,6 +64,14 @@ from typing import (TYPE_CHECKING, Callable, Dict, List, Optional,
 
 import numpy as np
 
+from bluefog_tpu_torch import chaos as _chaos
+from bluefog_tpu_torch.control import CommController as _CommController
+from bluefog_tpu_torch.control import EvidenceBoard as _EvidenceBoard
+from bluefog_tpu_torch.control import evidence as _ctlev
+from bluefog_tpu_torch.control.transport import (
+    TransportConfig as _TransportConfig, TransportPlan as _TransportPlan,
+    decide_transport_plan as _decide_transport_plan)
+from bluefog_tpu_torch.metrics.health import MixingTracker as _MixingTracker
 from bluefog_tpu_torch.runtime import membership as _mship
 from bluefog_tpu_torch.runtime import native as _native
 from bluefog_tpu_torch.runtime import resilience as _res
@@ -670,9 +685,10 @@ def _create_windows(name: str, slots_per_rank: Sequence[int],
 class RankKilled(Exception):
     """Raised from a thread runner's ``step_hook`` (or a rank's
     ``loss_and_grad``) to kill that rank thread mid-run: the in-process
-    counterpart of a SIGKILLed rank process.  The rank stops without a
-    drain or a final publish; the runner writes its push-sum mass off as
-    ``died_mass``, so the survivors' audit stays exact."""
+    counterpart of a SIGKILLed rank process, as a chaos ``die`` rule's
+    :class:`~bluefog_tpu_torch.chaos.ChaosKill` is.  The rank stops
+    without a drain or a final publish; the runner writes its push-sum
+    mass off as ``died_mass``, so the survivors' audit stays exact."""
 
 
 @dataclass
@@ -731,7 +747,8 @@ def run_async_pushsum(
         ``dead_after_s`` must exceed the slowest rank's per-step sleep.
       step_hook: ``(rank, step) -> None``, called at the top of every
         rank step: it may sleep (a stall) or raise :class:`RankKilled`
-        (a death).  The fault drills' entry point.
+        (a death).  A chaos spec's ``rank<N>:die`` and ``rank<N>:stall``
+        rules act at the same point.
       native: ``False`` runs on the Python twin of the window table.
 
     A rank's step, with no barrier anywhere: consume its landing slots,
@@ -784,6 +801,7 @@ def run_async_pushsum(
             while not stop.is_set():
                 if step_hook is not None:
                     step_hook(r, steps[r])
+                _chaos.check_step(r, steps[r])
                 if board is not None:
                     board.beat(r)
                     dead_now = board.dead_ranks() - {r}
@@ -825,7 +843,7 @@ def run_async_pushsum(
             with est_mu:
                 estimates[r] = x / p
             wins[r].set_self(np.concatenate([x, [p]]))
-        except RankKilled:
+        except (RankKilled, _chaos.ChaosKill):
             # a killed rank: no drain, no publish; being in-process, it
             # leaves a last will of the mass it took down, which makes
             # the survivors' audit exact (total_mass + died_mass == n)
@@ -955,8 +973,17 @@ class DSGDReport:
     left_ranks: List[int] = field(default_factory=list)
     joined_ranks: List[int] = field(default_factory=list)
     # process mode over tcp: bytes the reporting rank's deposit streams
-    # put on the wire
+    # put on the wire; and per rank (the survivors) its streams'
+    # exactly-once bookkeeping: reconnects, batches re-sent and batches
+    # retired by an attach reply (applied, their ack lost), the replayed
+    # duplicates its own server consumed without an apply ("deduped"),
+    # and each peer's ack EWMA in seconds ("ack_ewma_s")
     wire_bytes: int = 0
+    stream_stats: Dict[int, dict] = field(default_factory=dict)
+    # control= runs: the highest-version plan a reporting rank's
+    # controller made, and its number of plan changes
+    control_plan: Optional[object] = None
+    plan_changes: int = 0
 
 
 class DoubleBuffer:
@@ -1106,28 +1133,57 @@ class DoubleBuffer:
             return self._take()
 
 
-def _fold(entries, x, p):
+def _fold(entries, x, p, on_entry=None):
     """Fold staged ``(slot, payload, fresh)`` entries into ``(x, p)`` in
-    their order; returns the new ``p``."""
-    for _k, buf, fresh in entries:
+    their order; returns the new ``p``.  ``on_entry(slot, payload)`` sees
+    each entry before it is folded (the control plane's observations)."""
+    for k, buf, fresh in entries:
         if fresh > 0:
+            if on_entry is not None:
+                on_entry(k, buf)
             x += buf[:-1]
             p += buf[-1]
     return p
 
 
-def _take_and_fold(win, slots, x, p, buf):
+def _take_and_fold(win, slots, x, p, buf, on_entry=None):
     """Serial gossip-IN: read each slot where deposits landed into ``buf``
     (consumed exactly once) and fold it into ``(x, p)``, in slot order;
-    returns the new ``p``.  ``buf`` is scratch of the window's size."""
+    returns the new ``p``.  ``buf`` is scratch of the window's size;
+    ``on_entry`` as in :func:`_fold`."""
     for k in slots:
         if win.fresh(k) == 0:
             continue
         _, fresh = win.read(k, consume=True, out=buf)
         if fresh > 0:
+            if on_entry is not None:
+                on_entry(k, buf)
             x += buf[:-1]
             p += buf[-1]
     return p
+
+
+class _Disagreement:
+    """The local disagreement of one gossip-IN, the control plane's
+    consensus signal: the largest ``||z_j - z||`` over the de-biased
+    neighbour mass ``z_j = x_j / p_j`` folded in, against this rank's
+    ``z = x / p`` before the fold.  Where a caller keeps freshness clocks
+    (``fresh_at``, keyed by source rank), each entry also stamps its
+    source's (``source(slot)``) with the fold's time."""
+
+    def __init__(self, x, p, fresh_at=None, source=None):
+        self._z = x / p
+        self._fresh_at = fresh_at
+        self._source = source
+        self._now = time.perf_counter()
+        self.value: Optional[float] = None
+
+    def __call__(self, k, buf) -> None:
+        if buf[-1] > 0:
+            dj = float(np.linalg.norm(buf[:-1] / buf[-1] - self._z))
+            self.value = dj if self.value is None else max(self.value, dj)
+        if self._fresh_at is not None:
+            self._fresh_at[self._source(k)] = self._now
 
 
 def _landed_mass(win, slots) -> float:
@@ -1154,14 +1210,11 @@ def _stream_context(packer: TreePacker):
     return torch.cuda.stream(torch.cuda.Stream(packer.device))
 
 
-def _check_dsgd_args(*, snapshot_every=0, control=None, fleet=None,
+def _check_dsgd_args(*, snapshot_every=0, fleet=None,
                      profile=None) -> None:
     if snapshot_every:
         raise _not_ported("snapshot_every > 0", "10",
                           "serve-while-training snapshots")
-    if control is not None:
-        raise _not_ported("control=", "10", "the communication control "
-                          "plane")
     if fleet is not None:
         raise _not_ported("fleet=", "11", "the fleet health plane")
     if profile is not None:
@@ -1246,7 +1299,24 @@ def run_async_dsgd(
         current member set at round boundaries
         (:func:`~bluefog_tpu_torch.topology.graphs.replan`, deterministic
         in the member list), and the audit is exact over the churn:
-        ``total_mass + died_mass == baseline_mass``.
+        ``total_mass + died_mass == baseline_mass``.  Chaos churn adds to
+        both: a ``rank<N>:join:after_s=T`` rule is a join offset, and a
+        ``rank<N>:leave:at_step=K`` rule drains the rank at step K.
+      control: the self-tuning communication control plane
+        (:class:`~bluefog_tpu_torch.control.ControlConfig`).  Each rank
+        thread runs a :class:`~bluefog_tpu_torch.control.CommController`
+        fed with the seconds since each in-neighbour's last fresh deposit
+        (the thread analog of the wire's ack EWMA), the local
+        disagreement and a :class:`~bluefog_tpu_torch.metrics.health.
+        MixingTracker`'s excess; every ``evidence_every`` steps, at a
+        round boundary, it publishes its evidence to an in-process
+        :class:`~bluefog_tpu_torch.control.EvidenceBoard`, decides over
+        the board (a killed rank's record is left out) and, when the plan
+        changed, installs the penalized mixing graph and the gossip
+        cadence.  Landing slots are then one a capacity rank (slot index
+        == source rank), stable under any replan.  The audit stays exact
+        through every plan change; the report carries the highest-version
+        plan (``control_plan``) and ``plan_changes``.
       stop_after_steps: end the run (all ranks drain) as soon as any rank
         has taken this many steps.
       overlap: compute/gossip overlap through :class:`DoubleBuffer`: a
@@ -1255,12 +1325,14 @@ def run_async_dsgd(
         in slot order (the serial fold order).
       step_hook: ``(rank, step) -> None`` at the top of every rank step:
         it may sleep (a stall) or raise :class:`RankKilled` (a death).
+        Chaos rules (``rank<N>:die``, ``:stall``, ``:leave``) act at the
+        same point.
       native: ``False`` runs on the Python twin of the window table.
-      snapshot_every > 0, control (ROADMAP item 10), fleet, profile
-        (item 11): not ported yet; each raises ``NotImplementedError``.
+      snapshot_every > 0 (ROADMAP item 10), fleet, profile (item 11): not
+        ported yet; each raises ``NotImplementedError``.
     """
-    _check_dsgd_args(snapshot_every=snapshot_every, control=control,
-                     fleet=fleet, profile=profile)
+    _check_dsgd_args(snapshot_every=snapshot_every, fleet=fleet,
+                     profile=profile)
     n = topology.size
     packer = TreePacker(params0, np.float64)
     d = packer.size
@@ -1274,18 +1346,30 @@ def run_async_dsgd(
     for r, ts in (join_at_s or {}).items():
         seq = [ts] if isinstance(ts, (int, float)) else list(ts)
         joins[int(r)] = sorted(float(t) for t in seq)
+    # chaos churn: a rank<N>:join:after_s rule adds a join offset, and a
+    # rank<N>:leave:at_step rule raises ChaosLeave inside the loop
+    for r in range(n):
+        ct = _chaos.join_times(r)
+        if ct:
+            joins.setdefault(r, []).extend(ct)
+            joins[r].sort()
     leaves = {int(r): float(t) for r, t in (leave_at_s or {}).items()}
-    elastic = bool(joins or leaves)
+    inj = _chaos.get()
+    elastic = bool(joins or leaves) or (
+        inj is not None and any(ru.fault in ("leave", "join")
+                                for ru in inj.rules))
     members0 = frozenset(range(n)) - frozenset(joins)
     if elastic and not members0:
         raise ValueError("every rank has a join schedule; at least one "
                          "initial member must seed the warm-start chain")
 
-    # slot scheme: elastic runs take one landing slot per capacity rank
-    # (slot index == source rank), stable under membership change; fixed
-    # fleets keep the dense in-degree sizing (~log2 n slots a rank instead
-    # of n, a real difference when d is model-sized)
-    cap_slots = elastic
+    # slot scheme: elastic and control-plane runs take one landing slot
+    # per capacity rank (slot index == source rank), stable under
+    # membership change and under controller replans (a penalized graph
+    # has edges the original topology had no slot for); fixed fleets keep
+    # the dense in-degree sizing (~log2 n slots a rank instead of n, a
+    # real difference when d is model-sized)
+    cap_slots = elastic or control is not None
     if cap_slots:
         wins = _create_windows(name, [n] * n, d + 1, native=native)
         slot_of = None
@@ -1318,9 +1402,15 @@ def run_async_dsgd(
         dead_after_s=(resilience.dead_after_s
                       if resilience is not None else 2.0),
         members=members0 if elastic else None)
-        if (resilience is not None or elastic) else None)
+        if (resilience is not None or elastic or control is not None)
+        else None)
     died = [False] * n
     died_mass = [0.0] * n
+    # the control plane: the board every rank's controller publishes to
+    # and decides from, and the per-rank outcomes the report carries
+    ctl_board = _EvidenceBoard() if control is not None else None
+    final_plans: list = [None] * n
+    ctl_changes = [0] * n
 
     # the shared membership truth; each rank re-derives its plan from it
     # at round boundaries, so every loop converges on the same replan
@@ -1361,14 +1451,74 @@ def run_async_dsgd(
         ph = phases[r]
         db = (DoubleBuffer(wins[r], my_slots, d + 1) if overlap else None)
 
-        def consume(x, p, staged=None):
+        # ------------------------------------------ control plane (opt-in)
+        ctl = (_CommController(r, n, config=control)
+               if control is not None else None)
+        tracker: Optional[_MixingTracker] = None
+        tracker_members: Optional[frozenset] = None
+        my_in: List[int] = list(in_nbrs[r])
+        gossip_every = 1
+        # per-peer deposit-staleness clocks, keyed by source rank: the
+        # thread-mode lag signal (seconds since the peer's last fresh
+        # deposit, the in-process analog of the wire's ack EWMA)
+        last_fresh: Dict[int, float] = {}
+
+        def consume(x, p, staged=None, observe=False):
+            watch = None
+            if observe and ctl is not None:
+                watch = _Disagreement(
+                    x, p, last_fresh,
+                    (lambda k: k) if cap_slots else in_nbrs[r].__getitem__)
             if staged is None:
                 # serial path: take the slots where mass landed, in slot
                 # order, into the rank's read buffer
-                return _take_and_fold(wins[r], my_slots, x, p, payload)
-            # the fold of what the harvester staged under compute, in slot
-            # order too: the same operations as the serial fold
-            return _fold(staged, x, p)
+                p = _take_and_fold(wins[r], my_slots, x, p, payload, watch)
+            else:
+                # the fold of what the harvester staged under compute, in
+                # slot order too: the same operations as the serial fold
+                p = _fold(staged, x, p, watch)
+            if watch is not None and watch.value is not None:
+                ctl.note_disagreement(watch.value)
+            return p
+
+        def harvest_evidence_at_round_boundary():
+            """Per-peer observations for this evidence window.  Lag
+            evidence covers only the current in-neighbours (a peer whose
+            edges the plan dropped stops accumulating staleness against
+            ranks it no longer feeds), and observations of ranks outside
+            that surface are forgotten, so a frozen last look at a corpse
+            or a dropped peer is not republished."""
+            ctl.retain_peers(k for k in my_in if k != r)
+            now = time.perf_counter()
+            states = board.states() if board is not None else {}
+            for k in my_in:
+                if k == r:
+                    continue
+                ctl.note_peer(k, lag_s=now - last_fresh.setdefault(k, now),
+                              state=states.get(k))
+
+        def actuate_plan_at_round_boundary(active):
+            """Install the controller's current plan at this round
+            boundary (in-process deposits are synchronous, so nothing of
+            this rank's is in flight) and rebase the mixing tracker on the
+            topology now in effect; returns that topology."""
+            nonlocal tracker, gossip_every, tracker_members
+            plan_topo = ctl.apply_plan(topology=topology, members=active)
+            gossip_every = ctl.plan.gossip_every
+            # the feed-window exponent follows the cadence in effect
+            rpu = max(1, round(control.evidence_every / gossip_every))
+            live = frozenset(active)
+            if tracker is None:
+                tracker = _MixingTracker(plan_topo, rounds_per_update=rpu)
+            else:
+                if tracker_members is not None and live != tracker_members:
+                    # a membership boundary: the previous distance was
+                    # measured over another member set
+                    tracker.reset_measurement()
+                tracker.rebase(plan_topo, rounds_per_update=rpu)
+            tracker_members = live
+            ctl_changes[r] = ctl.plan.version
+            return plan_topo
 
         try:
             with _stream_context(packer):
@@ -1433,6 +1583,11 @@ def run_async_dsgd(
                     while not stop.is_set():
                         if step_hook is not None:
                             step_hook(r, steps[r])
+                        try:
+                            _chaos.check_step(r, steps[r])
+                        except _chaos.ChaosLeave:
+                            want_leave = True
+                            break
                         if (leave_deadline is not None
                                 and time.perf_counter() - t_run0
                                 >= leave_deadline):
@@ -1456,19 +1611,53 @@ def run_async_dsgd(
                                                           _res.JOINING):
                                         board.admit(j)
                             known_active = active
-                            plan = _plan(active)
+                            plan = (actuate_plan_at_round_boundary(active)
+                                    if ctl is not None else _plan(active))
                             my_out = list(plan.out_neighbors(r))
+                            my_in = list(plan.in_neighbors(r))
                             frac = 1.0 / (len(my_out) + 1)
+                        elif (ctl is not None and steps[r] > 0
+                              and steps[r] % control.evidence_every == 0):
+                            # control round boundary: fold this window's
+                            # mixing measurement in, publish evidence,
+                            # decide over the board, and actuate when the
+                            # plan version advanced
+                            harvest_evidence_at_round_boundary()
+                            d_now = ctl.disagreement
+                            if tracker is not None and d_now is not None:
+                                measured = tracker.update(d_now)
+                                excess = None
+                                if (measured is not None
+                                        and tracker.predicted is not None
+                                        and measured < 1.0):
+                                    # interpretable only while gossip
+                                    # contracts; at the SGD equilibrium
+                                    # the growth band governs instead
+                                    excess = measured - tracker.predicted
+                                ctl.note_mixing_excess(excess)
+                            ctl_board.publish(ctl.evidence(steps[r]))
+                            # a corpse's frozen record must not keep
+                            # voting: the thread-mode truth of a death is
+                            # its last will
+                            evs = [ev for ev in ctl_board.snapshot()
+                                   if not died[ev.rank]]
+                            new_plan = ctl.decide(steps[r], evs)
+                            if new_plan.version != ctl_changes[r]:
+                                plan = actuate_plan_at_round_boundary(
+                                    active)
+                                my_out = list(plan.out_neighbors(r))
+                                my_in = list(plan.in_neighbors(r))
+                                frac = 1.0 / (len(my_out) + 1)
                         t0 = time.perf_counter()
                         if db is not None:
                             # round boundary: fold what the harvester
                             # staged under the last compute, re-arm it
                             staged, hidden = db.apply_staged()
-                            p = consume(x, p, staged)
+                            p = consume(x, p, staged, observe=True)
                             db.begin()
                             ph["harvest"] += hidden
                         else:
-                            p = consume(x, p)
+                            p = consume(x, p, observe=True)
                         if elastic:
                             # publish a coherent (x, p): what a joining
                             # peer warm-starts from
@@ -1483,15 +1672,19 @@ def run_async_dsgd(
                         gvec *= lr * p
                         x -= gvec
                         t4 = time.perf_counter()
-                        payload[:-1] = x
-                        payload[-1] = p
-                        payload *= frac
-                        for j in my_out:
-                            wins[j].deposit(
-                                r if cap_slots else slot_of[j][r],
-                                payload, accumulate=True)
-                        x *= frac
-                        p *= frac
+                        if ctl is None or steps[r] % gossip_every == 0:
+                            # the plan's local-SGD cadence: on a step
+                            # that does not gossip the whole (x, p) stays
+                            # local, and mass is trivially conserved
+                            payload[:-1] = x
+                            payload[-1] = p
+                            payload *= frac
+                            for j in my_out:
+                                wins[j].deposit(
+                                    r if cap_slots else slot_of[j][r],
+                                    payload, accumulate=True)
+                            x *= frac
+                            p *= frac
                         t5 = time.perf_counter()
                         ph["consume"] += t1 - t0
                         ph["unpack"] += t2 - t1
@@ -1515,6 +1708,8 @@ def run_async_dsgd(
                         p = consume(x, p)
                         finals[r] = x / p
                         wins[r].set_self(np.concatenate([x, [p]]))
+                        if ctl is not None:
+                            final_plans[r] = ctl.plan
                         return
 
                     # ------------------------------------ graceful drain
@@ -1557,7 +1752,7 @@ def run_async_dsgd(
                     is_member = False
                     # back to the outer loop: a later join offset
                     # re-admits this rank
-        except RankKilled:
+        except (RankKilled, _chaos.ChaosKill):
             # a killed rank: no drain, no final publish; its last will
             # (the mass carried to the grave, the harvester's staged take
             # included) keeps the audit exact
@@ -1627,6 +1822,12 @@ def run_async_dsgd(
             if board is not None else None),
         left_ranks=sorted(left_final),
         joined_ranks=sorted(ever_joined),
+        # the highest-version plan any rank converged on (decisions are
+        # deterministic: ranks differ only in how far their view of the
+        # evidence had propagated when the run ended)
+        control_plan=max((pl for pl in final_plans if pl is not None),
+                         key=lambda pl: pl.version, default=None),
+        plan_changes=max(ctl_changes) if control is not None else 0,
     )
     for w in wins:
         w.free()
@@ -1704,6 +1905,9 @@ class _ShmTransport:
 
     def wire_bytes(self) -> int:
         return 0
+
+    def stream_stats(self) -> Dict[str, object]:
+        return {}
 
     def close(self) -> None:
         pass
@@ -1792,8 +1996,8 @@ class _TcpTransport:
     wire compression (``"f32"``/``"topk"``), opt-in, and off whenever the
     exact push-sum mass audit matters.
 
-    Two keys of ``stream_options`` are consumed here (the rest forward to
-    the per-peer :class:`~bluefog_tpu_torch.runtime.window_server.
+    Three keys of ``stream_options`` are consumed here (the rest forward
+    to the per-peer :class:`~bluefog_tpu_torch.runtime.window_server.
     DepositStream`):
 
     - ``shm=True``: the same-host route.  This rank's own windows go into
@@ -1804,9 +2008,13 @@ class _TcpTransport:
     - ``stripes=N``: one shared
       :class:`~bluefog_tpu_torch.runtime.window_server.
       StripedDepositStream` per peer (N parallel connections).
-
-    ``transport_tuning`` (the closed-loop stripe autotuner) comes with the
-    control plane, ROADMAP item 10."""
+    - ``transport_tuning=True | TransportConfig(...)``: arms the
+      closed-loop stripe and coalescing autotuner.  The runner calls
+      :meth:`retune_transport_at_round_boundary` at its round boundaries,
+      and each peer's plan follows the ack-latency EWMA its stripes
+      collect (without phase evidence until tracing grants it, as for an
+      untraced connection in the JAX package).  Tuning arms a one-stripe
+      pool where ``stripes`` was not given."""
 
     def __init__(self, bind_host: str = "0.0.0.0", *, pipeline: bool = True,
                  wire_codec: Optional[str] = None,
@@ -1815,11 +2023,16 @@ class _TcpTransport:
         from bluefog_tpu_torch.runtime.window_server import WindowServer
 
         self._stream_options = dict(stream_options or {})
-        if self._stream_options.pop("transport_tuning", None) is not None:
-            raise _not_ported("stream_options['transport_tuning']", "10",
-                              "the control plane's transport autotuner")
         self._shm = bool(self._stream_options.pop("shm", False))
         self._n_stripes = int(self._stream_options.pop("stripes", 0))
+        tuning = self._stream_options.pop("transport_tuning", None)
+        self._tuning = (_TransportConfig() if tuning is True
+                        else tuning)  # None or a TransportConfig
+        if self._tuning is not None and self._n_stripes <= 0:
+            # the autotuner's knobs live on the striped stream: arm a
+            # minimal pool it can widen from
+            self._n_stripes = 1
+        self._plans: Dict[int, _TransportPlan] = {}
         self._server = WindowServer()
         self._server.start(bind_host)
         self._pipeline = pipeline
@@ -1827,6 +2040,7 @@ class _TcpTransport:
         self._resilience = resilience
         self._striped: Dict[int, object] = {}  # owner -> striped stream
         self._streams: List = []               # every stream opened
+        self._peer_streams: Dict[int, List] = {}  # owner -> its streams
         self._addrs: Dict[int, Tuple[str, int]] = {}
 
     def create(self, wname: str, n_slots: int, n_elems: int) -> AsyncWindow:
@@ -1898,6 +2112,11 @@ class _TcpTransport:
                         **res_kw, **self._stream_options)
                     self._striped[owner] = st
                     self._streams.append(st)
+                    self._peer_streams.setdefault(owner, []).append(st)
+                    self._plans[owner] = _TransportPlan(
+                        stripes=st.n_stripes,
+                        coalesce_bytes=self._stream_options.get(
+                            "max_batch_bytes", 16 << 20))
                 rw = PipelinedRemoteWindow(self._addrs[owner], wname,
                                            stream=st, sync_retry=sync_retry)
             else:
@@ -1909,6 +2128,7 @@ class _TcpTransport:
                     shm=self._shm or None, sync_retry=sync_retry,
                     **res_kw, **self._stream_options)
                 self._streams.append(rw.stream)
+                self._peer_streams.setdefault(owner, []).append(rw.stream)
         else:
             rw = RemoteWindow(self._addrs[owner], wname)
         return _RemoteHandle(rw, n_slots, n_elems)
@@ -1916,6 +2136,42 @@ class _TcpTransport:
     def wire_bytes(self) -> int:
         """Bytes this rank's deposit streams put on the wire."""
         return int(sum(st.wire_bytes for st in self._streams))
+
+    def stream_stats(self) -> Dict[str, object]:
+        """This rank's streams' reconnects, replayed and retired batches,
+        the duplicates its own server deduped, and each peer's ack-latency
+        EWMA (seconds; the slowest of the peer's streams)."""
+        def total(attr):
+            return int(sum(getattr(st, attr, 0) for st in self._streams))
+
+        ewma = {}
+        for owner, sts in sorted(self._peer_streams.items()):
+            vals = [v for v in (st.ack_ewma() for st in sts) if v is not None]
+            if vals:
+                ewma[owner] = max(vals)
+        return {"reconnects": total("reconnects"),
+                "replayed": total("replayed_batches"),
+                "retired": total("retired_batches"),
+                "deduped": int(self._server.deduped_batches),
+                "ack_ewma_s": ewma}
+
+    def retune_transport_at_round_boundary(self, round_: int) -> None:
+        """The closed-loop transport autotune, called by the DSGD runner
+        at its round boundaries: per peer, the stripe pool's ack-latency
+        EWMA goes through the pure :func:`~bluefog_tpu_torch.control.
+        decide_transport_plan` step, and the plan is actuated only when a
+        hysteresis band was crossed (the no-change case returns the
+        previous plan object itself)."""
+        if self._tuning is None:
+            return
+        for owner, st in self._striped.items():
+            prev = self._plans[owner]
+            plan = _decide_transport_plan(
+                prev, round_, ack_ewma_s=st.ack_ewma(),
+                phase_s=st.phase_ewma(), cfg=self._tuning)
+            if plan is not prev:
+                st.apply_plan(plan)
+                self._plans[owner] = plan
 
     def close(self) -> None:
         for st in self._striped.values():
@@ -1981,8 +2237,9 @@ def run_async_dsgd_rank(
     leave it ``None`` whenever the exact mass audit matters.
     ``stream_options`` forwards DepositStream tuning (``max_in_flight``,
     ``max_queue_items``, ``max_batch_bytes``) and takes ``shm=True`` (the
-    same-host route with TCP fallback) and ``stripes=N`` (see
-    :class:`_TcpTransport`).
+    same-host route with TCP fallback), ``stripes=N`` and
+    ``transport_tuning=True | TransportConfig(...)`` (see
+    :class:`_TcpTransport`; the runner retunes every 16 rounds).
 
     ``resilience`` (tcp only) opts into peer-fault tolerance: deposit
     streams reconnect with bounded backoff and replay their unacked
@@ -2017,16 +2274,55 @@ def run_async_dsgd_rank(
     replan`) at every membership boundary.  Rank 0 must be a stable
     initial member; membership events settle one at a time.
 
+    ``control`` (tcp and ``resilience=``; every rank of the job passes
+    the same config) runs the communication control plane: each process
+    runs a :class:`~bluefog_tpu_torch.control.CommController` fed by its
+    deposit streams' ack EWMA, health states and reconnect counts, the
+    local disagreement and a :class:`~bluefog_tpu_torch.metrics.health.
+    MixingTracker`; every ``evidence_every`` rounds it writes its
+    ``ctlev.<rank>`` record into the barrier directory, decides over the
+    records of the ranks not tombstoned, and at a plan change installs
+    the penalized mixing graph, the gossip cadence and (with
+    ``max_codec_level > 0``, which needs ``wire_codec`` at that ceiling)
+    the wire codec.  Heals and membership changes then route through the
+    plan as well.  A plan moves edges, never mass, so the exact audit
+    holds through it.  Chaos (``BLUEFOG_TPU_CHAOS``) acts here too:
+    ``rank<N>:sigkill``/``:sigstop`` at a step or after a time, and
+    ``rank<N>:leave:at_step`` as a graceful drain (elastic jobs only).
+
     Not ported yet, each raising ``NotImplementedError``:
-    ``snapshot_every > 0`` and ``control`` (ROADMAP Queue 1 item 10),
-    ``fleet`` and ``profile`` (item 11).
+    ``snapshot_every > 0`` (ROADMAP Queue 1 item 10), ``fleet`` and
+    ``profile`` (item 11).
 
     Returns a :class:`DSGDReport` on rank 0 (``losses`` and ``phase_s``
     filled at index ``rank`` only; the other ranks' stay in their
     processes), and ``None`` elsewhere (joiners and leavers included).
     """
-    _check_dsgd_args(snapshot_every=snapshot_every, control=control,
-                     fleet=fleet, profile=profile)
+    _check_dsgd_args(snapshot_every=snapshot_every, fleet=fleet,
+                     profile=profile)
+    if control is not None and transport != "tcp":
+        raise ValueError(
+            "the communication control plane rides the tcp transport's "
+            "telemetry (ack EWMA, heartbeats, reconnect counters); "
+            f"transport={transport!r} has none")
+    if control is not None and resilience is None:
+        raise ValueError(
+            "the communication control plane needs "
+            "resilience=ResilienceConfig(...): heartbeats are what keep "
+            "a penalized (idle) stream's ack EWMA fresh; without them "
+            "the lag evidence freezes at its worst value and hysteresis "
+            "could never release a recovered peer")
+    if control is not None and control.max_codec_level > 0:
+        from bluefog_tpu_torch.control import CODEC_LADDER
+
+        if wire_codec != CODEC_LADDER[control.max_codec_level]:
+            raise ValueError(
+                "control.max_codec_level="
+                f"{control.max_codec_level} needs the streams opened at "
+                f"that ceiling: pass wire_codec="
+                f"{CODEC_LADDER[control.max_codec_level]!r} (the "
+                "controller backs off from the negotiated ceiling; it "
+                "cannot step above it)")
     if transport == "shm":
         tx = _ShmTransport()
     elif transport == "tcp":
@@ -2057,10 +2353,11 @@ def run_async_dsgd_rank(
             raise ValueError("wire_codec= and stream_options= ride the "
                              "pipelined tcp transport")
         d = TreePacker(params0, np.float64).size
-        # elastic jobs take one landing slot per capacity rank (slot ==
-        # source rank, stable under membership change); fixed fleets keep
-        # the dense in-degree sizing
-        if elastic:
+        # elastic and control-plane jobs take one landing slot per
+        # capacity rank (slot == source rank, stable under membership
+        # change and controller replans); fixed fleets keep the dense
+        # in-degree sizing
+        if elastic or control is not None:
             n_slots = topology.size
             db_slots = [k for k in range(n_slots) if k != rank]
         else:
@@ -2090,7 +2387,7 @@ def run_async_dsgd_rank(
             create_window=_create, open_window=_open,
             resilience=resilience if transport == "tcp" else None,
             join=join, leave_after_s=leave_after_s,
-            initial_members=initial_members,
+            initial_members=initial_members, control=control,
             stop_after_steps=stop_after_steps, overlap_buffer=db)
     finally:
         if db is not None:
@@ -2124,22 +2421,34 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
                         lr, duration_s, skew_s, name, poll_interval_s, win,
                         transport, create_window, open_window,
                         resilience=None, join=False, leave_after_s=None,
-                        initial_members=None, stop_after_steps=None,
-                        overlap_buffer=None):
+                        initial_members=None, control=None,
+                        stop_after_steps=None, overlap_buffer=None):
     from bluefog_tpu_torch.utils.logging import log as _log
 
     n = topology.size
     packer = TreePacker(params0, np.float64)
     d = packer.size
     cfg = resilience
+    inj = _chaos.get()
+    chaos_leave = (inj is not None and any(
+        ru.site == "rank" and ru.rank == rank and ru.fault == "leave"
+        for ru in inj.rules))
+    # elasticity is decided by the arguments, which every rank of a job
+    # shares: a chaos leave rule alone cannot flip one process into the
+    # elastic slot scheme while its peers stay dense
     elastic = bool(join or leave_after_s is not None
                    or initial_members is not None)
+    if chaos_leave and not elastic:
+        raise ValueError(
+            "a rankN:leave chaos rule needs an elastic job (every rank "
+            "must run the membership protocol): start the fleet with "
+            "initial_members=/join=/leave_after_s= on all ranks")
     if elastic and cfg is None:
         raise ValueError(
             "elastic membership (join/leave/initial_members) rides the "
             "resilient rendezvous machinery; pass "
             "resilience=ResilienceConfig(...)")
-    if (join or leave_after_s is not None) and rank == 0:
+    if (join or leave_after_s is not None or chaos_leave) and rank == 0:
         raise ValueError("rank 0 is the reporting rank and must be a "
                          "stable initial member (cannot join or leave)")
     members: set = (set(range(n)) if initial_members is None
@@ -2167,11 +2476,24 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
     peers: Dict[int, object] = {}
     ph = dict.fromkeys(("consume", "unpack", "loss_and_grad", "pack",
                         "deposit", "harvest"), 0.0)
+    _chaos.arm(rank)
+
+    # ------------------------------------------- control plane (opt-in)
+    ctl = (_CommController(rank, n, config=control)
+           if control is not None else None)
+    tracker: Optional[_MixingTracker] = None
+    tracker_members: Optional[frozenset] = None
+    gossip_every = 1
+    if ctl is not None:
+        _ctlev.clear_evidence(barrier.path, rank)  # a previous life's
+    # the striped transport's autotuner (tcp with transport_tuning): the
+    # runner drives its closed loop at round boundaries
+    retune = getattr(transport, "retune_transport_at_round_boundary", None)
 
     # slot scheme (the shared arguments make every rank agree): elastic
-    # runs use slot index == source rank over capacity slots; fixed
-    # fleets keep the dense in-neighbour mapping of the topology
-    cap_slots = elastic
+    # and control-plane runs use slot index == source rank over capacity
+    # slots; fixed fleets keep the dense in-neighbour mapping
+    cap_slots = elastic or control is not None
     in_nbrs = list(topology.in_neighbors(rank))
     my_slots = ([k for k in range(n) if k != rank] if cap_slots
                 else list(range(len(in_nbrs))))
@@ -2194,13 +2516,84 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
 
     def _make_plan():
         """The mixing plan over the current member set at this round
-        boundary: a fresh replan for elastic fleets, the renormalising
-        heal for fixed ones.  Deterministic in (members, dead), so every
-        rank that has seen the same records converges on the same matrix
-        with no extra coordination."""
-        if elastic:
-            return _replan(topology, members - dead)
-        return _heal(topology, dead)
+        boundary: the controller's penalized rebuild when the control
+        plane is on (heals and membership changes then keep the plan's
+        penalties), a fresh replan for elastic fleets, the renormalising
+        heal for fixed ones.  Deterministic in (members, dead, CommPlan),
+        so every rank that has seen the same records converges on the
+        same matrix with no extra coordination."""
+        nonlocal tracker, gossip_every, tracker_members
+        if ctl is None:
+            if elastic:
+                return _replan(topology, members - dead)
+            return _heal(topology, dead)
+        plan = ctl.apply_plan(topology=topology, members=members - dead)
+        gossip_every = ctl.plan.gossip_every
+        # the feed-window exponent follows the cadence in effect
+        rpu = max(1, round(control.evidence_every / gossip_every))
+        live = frozenset(members - dead)
+        if tracker is None:
+            tracker = _MixingTracker(plan, rounds_per_update=rpu)
+        else:
+            if tracker_members is not None and live != tracker_members:
+                # a membership boundary: drop the sample taken over
+                # another member set
+                tracker.reset_measurement()
+            tracker.rebase(plan, rounds_per_update=rpu)
+        tracker_members = live
+        return plan
+
+    def _ctl_round_boundary() -> None:
+        """Control-plane work at a round boundary: harvest the streams'
+        telemetry, publish this rank's evidence record, decide over the
+        disseminated records and, when the plan version advanced, install
+        the new penalized mixing plan, cadence and codec before the next
+        round's deposits leave.  A plan moves edges, cadence and codec,
+        never mass, so the exact audit holds through it."""
+        nonlocal my_out, frac
+        # a corpse or a leaver is off this rank's observation surface:
+        # forget its sticky observations, or the frozen last look would
+        # be republished in every record
+        for j in sorted(dead | left):
+            ctl.forget_peer(j)
+        for j, h in sorted(peers.items()):
+            if j in dead or j in left:
+                continue
+            hp = h.health
+            ctl.note_peer(j, lag_s=h.ack_ewma(),
+                          state=hp.state if hp is not None else None,
+                          reconnects_total=h.reconnects)
+        d_now = ctl.disagreement
+        if tracker is not None and d_now is not None:
+            measured = tracker.update(d_now)
+            excess = None
+            if (measured is not None and tracker.predicted is not None
+                    and measured < 1.0):
+                # interpretable only while gossip contracts; at the SGD
+                # equilibrium the growth band governs instead
+                excess = measured - tracker.predicted
+            ctl.note_mixing_excess(excess)
+        _ctlev.write_evidence(barrier.path, ctl.evidence(steps))
+        prev_version = ctl.plan.version
+        # a corpse's stale record must not keep voting: filter by the
+        # tombstone view, which every rank converges on
+        evs = [ev for ev in _ctlev.read_evidence(barrier.path, n)
+               if ev.rank not in dead]
+        new_plan = ctl.decide(steps, evs)
+        if new_plan.version == prev_version:
+            return
+        plan_topo = _make_plan()  # routes through ctl.apply_plan
+        my_out = list(plan_topo.out_neighbors(rank))
+        frac = 1.0 / (len(my_out) + 1)
+        if control.max_codec_level > 0:
+            # retune the wire within the negotiated ceiling
+            for j, h in sorted(peers.items()):
+                if j in dead:
+                    continue
+                try:
+                    h.set_codec(new_plan.codec)
+                except (RuntimeError, OSError, ValueError):
+                    pass  # a dying handle's codec no longer matters
 
     def _local_mass() -> float:
         """Own p plus unconsumed landing-slot mass, valid only while
@@ -2554,7 +2947,8 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
             # every initial member starts with p = 1, so the baseline is
             # exact by construction; admissions re-measure it
             baseline_mass = float(len(members))
-        plan = _make_plan() if elastic else topology
+        plan = (_make_plan() if (elastic or ctl is not None)
+                else topology)
         my_out = list(plan.out_neighbors(rank))
         frac = 1.0 / (len(my_out) + 1)
         for j in my_out:
@@ -2574,6 +2968,11 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
     with _stream_context(packer):
         while (time.perf_counter() - t0 < duration_s
                and (stop_after_steps is None or steps < stop_after_steps)):
+            try:
+                _chaos.check_step(rank, steps)
+            except _chaos.ChaosLeave:
+                _graceful_leave()
+                return None
             if (elastic and leave_after_s is not None
                     and time.perf_counter() - t0 >= leave_after_s):
                 _graceful_leave()
@@ -2589,16 +2988,28 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
                     _heal_and_rebase(newly)
                 if elastic and _poll_membership():
                     break  # a member finished: meet at the stop barrier
+            if ctl is not None and steps > 0 \
+                    and steps % control.evidence_every == 0:
+                _ctl_round_boundary()
+            if retune is not None and steps > 0 and steps % 16 == 0:
+                # the transport autotune at this round boundary, at the
+                # tombstone poll's cadence (the no-change case is a pure
+                # function call a peer)
+                retune(steps)
             ta = time.perf_counter()
+            # the disagreement observation feeds the control evidence
+            watch = _Disagreement(x, p) if ctl is not None else None
             if db is not None:
                 # overlapped gossip-IN: apply the mass harvested under the
                 # previous round's compute, then re-arm the harvester
                 staged, hidden = db.apply_staged()
-                p = _fold(staged, x, p)
+                p = _fold(staged, x, p, watch)
                 db.begin()
                 ph["harvest"] += hidden
             else:
-                p = _take_and_fold(win, my_slots, x, p, payload)
+                p = _take_and_fold(win, my_slots, x, p, payload, watch)
+            if watch is not None and watch.value is not None:
+                ctl.note_disagreement(watch.value)
             if elastic:
                 # a coherent (x, p): what a joining peer warm-starts from
                 _publish_self()
@@ -2612,6 +3023,18 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
             gvec *= lr * p
             x -= gvec
             te = time.perf_counter()
+            if ctl is not None and steps % gossip_every != 0:
+                # the plan's local-SGD cadence: a step that does not
+                # gossip keeps the whole (x, p) local; no split, no
+                # deposits, mass trivially conserved
+                ph["consume"] += tb - ta
+                ph["unpack"] += tc - tb
+                ph["loss_and_grad"] += td - tc
+                ph["pack"] += te - td
+                steps += 1
+                if skew_s > 0 or poll_interval_s > 0:
+                    time.sleep(skew_s + poll_interval_s)
+                continue
             payload[:-1] = x
             payload[-1] = p
             payload *= frac
@@ -2695,6 +3118,15 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
             peers.pop(j, None)
         exact = False
     wire_bytes = transport.wire_bytes()
+    stats = transport.stream_stats()
+    if stats:
+        # every rank's wire bookkeeping reaches the report through the
+        # barrier directory (the other ranks' streams are the ones that
+        # see a faulty peer's server)
+        spath = os.path.join(barrier.path, f"streams.{rank}")
+        with open(spath + ".tmp", "w") as f:
+            json.dump(stats, f)
+        os.replace(spath + ".tmp", spath)
     # no rank deposits after this barrier, so the drain below is exact
     _wait_resilient("stopped")
     wall = time.perf_counter() - t0
@@ -2735,6 +3167,13 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
         finals: list = [None] * n
         for i, r in enumerate(alive):
             finals[r] = packer.unpack(zs[i])
+        stream_stats = {}
+        for r in alive:
+            try:
+                with open(os.path.join(barrier.path, f"streams.{r}")) as f:
+                    stream_stats[r] = json.load(f)
+            except (OSError, ValueError):
+                continue  # the shm transport keeps none
         report = DSGDReport(
             wall_time_s=wall,
             steps_per_rank=steps_all,
@@ -2748,6 +3187,9 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
             left_ranks=sorted(left),
             joined_ranks=sorted(ever_joined),
             wire_bytes=wire_bytes,
+            stream_stats=stream_stats,
+            control_plan=ctl.plan if ctl is not None else None,
+            plan_changes=ctl.plan_changes if ctl is not None else 0,
         )
     # owners unlink only after the audit has read every segment (the
     # caller's finally frees everything this process opened)

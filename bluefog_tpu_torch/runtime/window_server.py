@@ -102,6 +102,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from bluefog_tpu_torch import chaos as _chaos
 from bluefog_tpu_torch.runtime import (native as _native, resilience,
                                        wire_codec, wire_status)
 from bluefog_tpu_torch.runtime.async_windows import (
@@ -445,9 +446,12 @@ class _ApplyWorker:
             # with the connection, the reconnect attach reports the
             # error instead of retiring the batch as a success.
             h._note_applied(seq, first_err)
-            if h.server.take_ack_drop():  # type: ignore[attr-defined]
-                # an injected applied-but-unacked failure: the ambiguity
-                # the stream-epoch replay protocol resolves
+            act = _chaos.fire("ack", peer=self._peer, seq=seq)
+            if ((act is not None and act[0] == "drop")
+                    or h.server.take_ack_drop()):  # type: ignore[attr-defined]
+                # an injected applied-but-unacked failure (a chaos
+                # ``ack:drop`` rule, or the drop_next_acks drill): the
+                # ambiguity the stream-epoch replay protocol resolves
                 for fn in (lambda: self._sock.shutdown(socket.SHUT_RDWR),
                            self._sock.close):
                     try:
@@ -455,6 +459,8 @@ class _ApplyWorker:
                     except OSError:
                         pass
                 return
+            if act is not None and act[0] in ("delay", "stall"):
+                time.sleep(act[1])
             try:
                 # the ack-after-apply ordering under the per-connection
                 # write mutex is the client's flush fence; a peer that
@@ -633,6 +639,7 @@ class _Handler(socketserver.BaseRequestHandler):
                     return False
                 self._recv_name(sock, name_len)
                 self._eat(sock, wire_bytes)
+            self.server.note_dedup()  # type: ignore[attr-defined]
             self._batch_ack(seq, count)
             return True
         jobs: List = []
@@ -697,6 +704,16 @@ class _Handler(socketserver.BaseRequestHandler):
                     return
                 if magic != _MAGIC:
                     return  # not ours; drop the connection
+                act = _chaos.fire("server", op=op,
+                                  peer=self.client_address[0])
+                if act is not None:
+                    if act[0] in ("drop", "truncate"):
+                        # 'truncate' differs from 'drop' only in where it
+                        # cuts: the frame header was consumed, the body
+                        # was not; the client sees a connection that died
+                        # mid-frame either way
+                        return
+                    time.sleep(act[1])  # delay or stall
                 if op in (_OP_SNAPSHOT, _OP_SUBSCRIBE):
                     # the serve-while-training read ops come with ROADMAP
                     # item 10; their bodies are not parsed here, so the
@@ -797,9 +814,22 @@ class _Handler(socketserver.BaseRequestHandler):
                 if rc < 0:
                     self._send(_STATUS.pack(rc))
                     continue
-                self._send_views([_STATUS.pack(rc),
-                                  _SELF_HDR.pack(dtype, n_elems),
-                                  memoryview(out).cast("B")])
+                reply = [_STATUS.pack(rc), _SELF_HDR.pack(dtype, n_elems),
+                         memoryview(out).cast("B")]
+                act = _chaos.fire(
+                    "read", op="get_self" if op == _OP_GET_SELF
+                    else "read_slot", peer=self.client_address[0])
+                if act is not None:
+                    if act[0] in ("delay", "stall"):
+                        time.sleep(act[1])
+                    elif act[0] == "truncate":
+                        # the status and the header, then the cut: the
+                        # reader sees a reply torn mid-frame
+                        self._send_views(reply[:2])
+                        return
+                    else:  # drop
+                        return
+                self._send_views(reply)
         except (ConnectionError, OSError):
             return
 
@@ -825,12 +855,18 @@ class _Server(socketserver.ThreadingTCPServer):
         self._streams_mu = threading.Lock()
         # drain-flagged deposits applied (graceful leavers' handoffs)
         self.drain_deposits = 0
+        # replayed duplicates consumed without an apply (exactly once)
+        self.deduped_batches = 0
         # injected applied-but-unacked failures still to fire
         self._ack_drops = 0
 
     def note_drain(self) -> None:
         with self._conns_mu:
             self.drain_deposits += 1
+
+    def note_dedup(self) -> None:
+        with self._conns_mu:
+            self.deduped_batches += 1
 
     def take_ack_drop(self) -> bool:
         if not self._ack_drops:
@@ -995,6 +1031,12 @@ class WindowServer:
         server applied: the owner-side evidence that a handoff landed."""
         return self._server.drain_deposits if self._server else 0
 
+    @property
+    def deduped_batches(self) -> int:
+        """Replayed batches this server had already applied and consumed
+        without applying again (the server half of exactly once)."""
+        return self._server.deduped_batches if self._server else 0
+
     def drop_next_acks(self, n: int = 1) -> None:
         """Fault drill: apply the next ``n`` deposit batches but cut the
         connection instead of acking them, the applied-but-unacked case
@@ -1034,12 +1076,14 @@ class RemoteWindow:
     wedged owner surfaces as a loud :class:`TimeoutError` naming the op,
     never an indefinitely hung reader thread.  ``retry=`` (``True`` for
     the defaults, or a dict of :class:`~bluefog_tpu.runtime.resilience.
-    Backoff` kwargs) additionally reconnects and retries *idempotent
-    reads* — ``read_self`` and non-consuming ``read`` — under a bounded
-    backoff; a consuming ``read`` and ``deposit`` are never silently
-    re-issued (re-running them is not idempotent: a retried consume
-    whose first reply died would silently drop the consumed mass, and a
-    retried accumulate would double-apply).  When the budget exhausts
+    Backoff` kwargs) additionally reconnects and retries the
+    *idempotent* ops — ``read_self``, a non-consuming ``read`` and an
+    overwriting ``deposit(accumulate=False)``, which writes the same
+    slot to the same value however often it lands — under a bounded
+    backoff; a consuming ``read`` and an accumulating ``deposit`` are
+    never silently re-issued (a retried consume whose first reply died
+    would silently drop the consumed mass, and a retried accumulate
+    would double-apply).  When the budget exhausts
     (or a non-retriable op fails), the error LATCHES like a
     :class:`DepositStream`'s: every later call on this handle raises it
     immediately instead of re-hammering a dead owner."""
@@ -1156,7 +1200,8 @@ class RemoteWindow:
         rc, _ = self._request(_OP_DEPOSIT, slot,
                               _FLAG_ACCUMULATE if accumulate else 0,
                               _DTYPE_IDS[a.dtype], a.size,
-                              memoryview(a).cast("B"))
+                              memoryview(a).cast("B"),
+                              idempotent=not accumulate)
         if rc < 0:
             raise RuntimeError(
                 f"remote deposit into {self.name!r}[{slot}] failed ({rc}): "
@@ -1418,6 +1463,10 @@ class DepositStream:
         # up into one per-peer value (max of stripes)
         self._on_ewma = on_ewma
         self._reconnects = 0
+        # exactly-once bookkeeping of the reconnects: batches the attach
+        # reply retired (applied, their ack lost) and batches re-sent
+        self.retired_batches = 0
+        self.replayed_batches = 0
         # bytes this stream put on the wire
         self.wire_bytes = 0
         # ------------------------------------------------ shm route
@@ -1427,7 +1476,7 @@ class DepositStream:
         self._shm_ok = bool(shm) and _is_local_host(self._addr[0])
         self._shm_wins: Dict[bytes, Optional[object]] = {}
         self._shm_deposits = 0
-        self._sock = self._connect_once(self._timeout_s)
+        self._sock = self._connect_first()
         self._sender = threading.Thread(
             target=self._send_loop, daemon=True,
             name=f"bf-win-send:{self._peer}")
@@ -1438,6 +1487,33 @@ class DepositStream:
         self._acker.start()
 
     # --------------------------------------------------------- connection
+    def _backoff(self) -> "resilience.Backoff":
+        return resilience.Backoff(**{**dict(base_s=0.05, cap_s=2.0,
+                                            factor=2.0, jitter=0.5,
+                                            budget=8),
+                                     **self._reconnect_cfg})
+
+    def _connect_first(self) -> socket.socket:
+        """The first connect.  A resuming stream gives it the reconnect
+        budget, since a lossy link cuts a HELLO or a STREAM_ATTACH as it
+        cuts any later frame; a handshake rejection stays terminal."""
+        try:
+            return self._connect_once(self._timeout_s)
+        except (OSError, ConnectionError) as e:
+            if not self._resume:
+                raise
+            last: BaseException = e
+        bo = self._backoff()
+        for delay in bo:
+            time.sleep(delay)
+            try:
+                return self._connect_once(self._timeout_s)
+            except (OSError, ConnectionError) as e:
+                last = e
+        raise ConnectionError(
+            f"window server at {self._peer} unreachable: connect budget "
+            f"exhausted after {bo.attempts} attempt(s): {last}") from last
+
     def _connect_once(self, timeout_s: float) -> socket.socket:
         """One connect + HELLO (+ STREAM_ATTACH when resuming).  Raises
         on any failure.  On a resumed stream the attach reply retires
@@ -1511,6 +1587,7 @@ class DepositStream:
         were applied but unacked when the old connection died)."""
         with self._cv:
             for s in [s for s in self._inflight if s <= applied_seq]:
+                self.retired_batches += 1
                 entry = self._inflight.pop(s)
                 for it in entry[1] or ():
                     if it.pooled is not None:
@@ -1542,10 +1619,7 @@ class DepositStream:
             self._sock.close()
         except OSError:
             pass
-        bo = resilience.Backoff(**{**dict(base_s=0.05, cap_s=2.0,
-                                          factor=2.0, jitter=0.5,
-                                          budget=8),
-                                   **self._reconnect_cfg})
+        bo = self._backoff()
         for delay in bo:
             if self._wake.wait(delay) or self._closed:
                 return False
@@ -1594,6 +1668,7 @@ class DepositStream:
                 self._cv.notify_all()
             self._hb_last = time.monotonic()
             self._reconnects += 1
+            self.replayed_batches += len(pending)
             if h is not None:
                 h.note_ok()
             return True
@@ -1732,6 +1807,16 @@ class DepositStream:
             # check handles it; the table route cannot
             self._shm_wins[name] = None
             return False
+        act = _chaos.fire("client", peer=self._peer, seq=-1, shm=1)
+        if act is not None:
+            if act[0] in ("delay", "stall"):
+                time.sleep(act[1])
+            else:
+                # drop or truncate: the shm write tore before the atomic
+                # table accumulate, so nothing applied; the deposit is
+                # re-delivered over TCP, still exactly once
+                self._shm_wins[name] = None
+                return False
         try:
             win.deposit_async(slot, arr, accumulate=accumulate,
                               drain=drain)
@@ -1877,8 +1962,23 @@ class DepositStream:
                         time.perf_counter(),
                         items if self._resume else None)
                     self._cv.notify_all()
+                views = self._frame_views(seq, items)
                 try:
-                    _sendmsg_all(self._sock, self._frame_views(seq, items))
+                    act = _chaos.fire("client", peer=self._peer, seq=seq)
+                    if act is not None:
+                        if act[0] in ("delay", "stall"):
+                            time.sleep(act[1])
+                        elif act[0] == "truncate":
+                            # a torn frame on the wire, then the cut: the
+                            # server discards the partial batch and the
+                            # replay delivers it exactly once
+                            _sendmsg_all(self._sock,
+                                         views[:max(2, len(views) // 2)])
+                            raise ConnectionError("chaos: truncated frame")
+                        else:
+                            raise ConnectionError("chaos: dropped "
+                                                  "connection")
+                    _sendmsg_all(self._sock, views)
                 except (OSError, ConnectionError) as e:
                     if self._resume:
                         if self._recover(
@@ -2012,8 +2112,11 @@ class StripedDepositStream:
     max over live stripes: a peer is as slow as its slowest stripe.  Not
     thread-safe for concurrent producers (the contract of one stream).
 
-    The reference's ``apply_plan`` (resizing the pool from the control
-    plane's ``TransportPlan``) comes with ROADMAP item 10."""
+    The stripe count and the per-stripe coalescing cap are the transport
+    autotuner's knobs: :meth:`apply_plan` actuates a
+    :class:`~bluefog_tpu_torch.control.transport.TransportPlan` at a round
+    boundary.  Growing opens fresh stripes; shrinking fences the closing
+    stripes first, so no deposit strands."""
 
     def __init__(self, address: Tuple[str, int],
                  timeout_s: float = 30.0, *, n_stripes: int = 2,
@@ -2025,6 +2128,8 @@ class StripedDepositStream:
         self._timeout_s = float(timeout_s)
         self._kw = dict(stream_kwargs)
         self._max_stripes = max(1, int(max_stripes))
+        self._plan_version = 0
+        self._closed_wire_bytes = 0  # carried by stripes a plan closed
         # written by each stripe's ack thread, read anywhere: per-slot
         # float stores and a max over a snapshot, atomic under the GIL
         self._ewmas: List[Optional[float]] = []
@@ -2059,10 +2164,34 @@ class StripedDepositStream:
         return len(self._stripes)
 
     def apply_plan(self, plan) -> None:
-        raise NotImplementedError(
-            "StripedDepositStream.apply_plan is not ported yet: it comes "
-            "with ROADMAP Queue 1 item 10 (the control plane's "
-            "TransportPlan)")
+        """Actuate a :class:`~bluefog_tpu_torch.control.transport.
+        TransportPlan` at a round boundary: resize the stripe pool and
+        retune every stripe's coalescing cap.  Shrinking fences the
+        closing stripes before closing them, so actuation never strands a
+        deposit and the exact mass audit holds through every retune.
+        Routing is by window name modulo the stripe count, so a window's
+        deposits may move to another stripe at a resize; growing does not
+        fence, so two rounds' deposits into one window can then apply out
+        of order (accumulates commute, and the audit's mass is exact)."""
+        want = max(1, min(int(plan.stripes), self._max_stripes))
+        while len(self._stripes) < want:
+            self._open_stripe()
+        if want < len(self._stripes):
+            for s in self._stripes[want:]:
+                s.flush()
+            for i in range(len(self._stripes) - 1, want - 1, -1):
+                self._closed_wire_bytes += self._stripes[i].wire_bytes
+                self._stripes[i].close()
+                self._ewmas[i] = None
+            del self._stripes[want:]
+        for s in self._stripes:
+            s.set_max_batch_bytes(plan.coalesce_bytes)
+        self._plan_version = int(plan.version)
+
+    @property
+    def plan_version(self) -> int:
+        """Version of the TransportPlan last actuated (0 = launch)."""
+        return self._plan_version
 
     # ------------------------------------------- DepositStream surface
     def deposit_async(self, name: bytes, slot: int, arr: np.ndarray, *,
@@ -2110,8 +2239,17 @@ class StripedDepositStream:
         return sum(s.shm_deposits for s in self._stripes)
 
     @property
+    def retired_batches(self) -> int:
+        return sum(s.retired_batches for s in self._stripes)
+
+    @property
+    def replayed_batches(self) -> int:
+        return sum(s.replayed_batches for s in self._stripes)
+
+    @property
     def wire_bytes(self) -> int:
-        return sum(s.wire_bytes for s in self._stripes)
+        return (self._closed_wire_bytes
+                + sum(s.wire_bytes for s in self._stripes))
 
     @property
     def ack_latencies(self):

@@ -59,6 +59,13 @@ its last line:
    P = 8, one rank a process (PyTorch's one process a GPU layout, m = 1),
    K1's check and times only, runs in phase 30's P = 8 group.  A process
    that fails, or a group that outlives its time limit, fails the phase.
+   The P = 2 and 4 groups and phase 1c's start together (for the script's
+   time limit: on an H100 host whose phase 3 ran at 520 img/s the script
+   took 1,266 s before this): every process starts beside this process's references
+   (its interpreter, imports and gloo group), then waits for its group's
+   release before it touches the card; a group is released after the one
+   before it has finished, and its seconds count from its release.  The
+   references' host times are taken beside the groups' start-up.
 2. K1 against its plain version on the card: ``gossip_mix`` against
    ``gossip_mix_plain`` in f32 and bf16, over Exponential-2(8) and Ring(8), at
    an unaligned length and at the lengths the main path gives it, plus the
@@ -239,8 +246,9 @@ its last line:
    process resuming from a copy of its epoch-2 checkpoint to epoch 3, each
    under deterministic cuDNN: the epoch-3 parameters and momentum
    bit-equal, the saved BatchNorm statistics the rank mean; bytes, save and
-   load ms.  Then
-   ``examples.elastic_resume``, 8 ranks to 4, on K1 (210 launches).
+   load ms.  Both processes run in a thread beside phase 20 (for the
+   script's time limit), whose gates' rates they share the host with.
+   Then ``examples.elastic_resume``, 8 ranks to 4, on K1 (210 launches).
 22. ViT-base/16 at 224 over 8 virtual ranks through ``synthetic_benchmark
    --model vit-base --comm neighbor``: 2 + 3 steps, K1's launches, no K3
    launch (197 tokens take the dense path), img/s and idle share.
@@ -327,7 +335,13 @@ its last line:
    reports tokens/s against this run's one-process form, its collectives'
    calls, bytes and host seconds a step, one collective alone against its
    bytes bound, peak GB a process and K3's launches a process; K3 is held
-   against its twins at every shape the processes handed it.
+   against its twins at every shape the processes handed it.  The three
+   groups start together (cut for the script's time limit when phase 33
+   came): every process starts beside this process's references (its
+   interpreter, imports and gloo group), then waits for its group's
+   release before it touches the card; a group is released after the one
+   before it has finished.  The references' host times and the P = 2
+   group's rates are taken beside the other groups' start-up.
 31. The asynchronous host runtime on one host, no TPU kernel on its path
    (K1-K3's counters are read around it and reported): the port's host
    library built from ``bluefog_tpu_torch/csrc/*.cc``; 31a ``TreePacker``
@@ -339,12 +353,15 @@ its last line:
    defaults, with their checks; 31d ResNet-50 (batch 32 a rank, 224x224,
    bf16) trained through ``DistributedWinPutOptimizer(async_=True)`` by 8
    rank threads on Exponential-2, each on its own CUDA stream, 10 s with
-   ``overlap=False`` and 10 s with ``True``: steps a rank, img/s against
+   ``overlap=False`` and with ``True`` at least 10 s, and long enough for
+   two steps of its slowest rank at 2.5x the serial run's pace (a slower
+   host left a rank one step in 10 s): steps a rank, img/s against
    phase 3's, the mass audit (exact), the consensus gap, a rank step's host
    ms (consume, unpack, ``loss_and_grad``, pack, deposit, and the
    harvester's hidden seconds), peak device GB and host RSS; 31e
    ``examples.async_dsgd_mp --ranks 2`` over shared memory, its workers on
-   the card; 31f ``run_sharded_gossip`` on GPT-small's widths at 2 layers,
+   the card, beside 31f (for the script's time limit); 31f
+   ``run_sharded_gossip`` on GPT-small's widths at 2 layers,
    4 ranks on Ring(4), ``{tp: 2}`` of ``tp_param_rules``, parameters drawn
    on the card, 2 rounds (3 until phase 32 came, cut for the script's
    time limit) with rank 2 healed out before the last: bit-equal to the
@@ -372,10 +389,8 @@ its last line:
    with ``TreePacker`` on the card: ``TCP_SECONDS`` over shm, then over
    tcp, in the same worker processes (``--tcp-worker``): img/s of each and
    their ratio, rank 0's step host ms split as in 31d, bytes on the wire a
-   step, the mass audits exact.  32d, on the card, three drills at once:
-   ``async_dsgd_mp --ranks 3 --resilient --kill-rank 2`` (the survivors
-   declare the corpse dead within ``dead_after_s`` of the kill, heal, and
-   the audit over them equals the post-heal baseline exactly),
+   step, the mass audits exact.  32d, on the card, drills at once (its
+   death drill runs in 33b, under a chaos spec):
    ``win_mutex`` across 2 processes under ``bfrun`` (``_MUTEX_DRILL``: a
    child of rank 0 holds the lock and is SIGKILLed; rank 1 gets it only
    after the 2 s lease), and ``bfrun --supervise 2`` restarting a script
@@ -383,6 +398,50 @@ its last line:
    from its checkpoint to exit 0; then ``--ranks 4 --elastic`` alone
    (rank 3 joins from ``initial_members`` 0-2, rank 1 drains, the audit
    exact).
+33. The communication control plane and chaos, no TPU kernel on the path
+   (K1-K3's counters are read around it).  33a, the control plane at full
+   width: configs[1]'s ResNet-50 at batch 32 a rank, 224x224, bf16
+   compute, ``TreePacker`` on the card, plain SGD at ``ASYNC_LR`` on the
+   de-biased iterate, as 32c; ``CTL_N`` = 4 processes time-slicing the
+   card (``--ctl-worker``, started beside 32d and released together) on
+   Exponential-2(4) over tcp with ``resilience=`` and
+   ``stream_options=dict(max_in_flight=2, max_queue_items=8)``; rank 3's
+   server behind the JAX package's control bench's lossy, slow link
+   (``CTL_SPEC``: 120 ms on 95% of its frames, 1% of them cut).  Two runs
+   in the same processes, each to ``CTL_STEPS`` = 10 steps a rank:
+   ``control=None``, then ``control=ControlConfig(evidence_every=2,
+   cooldown_rounds=4, min_lag_s=0.02)``.  The delay is the bench's: a
+   larger one delays the streams' heartbeats past their silence limits.
+   10 steps (cut from 30 for the script's time limit) give a static run
+   of about 8 s at the 0.81 s a step a probe measured (30 steps in
+   24.25 s) and five evidence windows under control.  Printed for each
+   run: the wall time to the target and img/s, the streams' reconnects,
+   replayed, retired and deduped batches over every rank, each sender's
+   ack EWMA toward rank 3 and toward the others, the audit; under
+   control the final plan (slow set, densify, gossip_every, codec level),
+   the plan changes and the rounds of the first and the last, each
+   rank's last plan, and the plan every process decides from the run's
+   final evidence records.  Checked: both audits exact to 1e-9 n, no
+   death, every rank at its target, every process's plan from the final
+   records byte-identical (sha1), and ``3 in plan.slow or plan_changes
+   >= 1``; the control / static time ratio is reported, not gated.
+   33b, three drills (for the script's time limit the first two run
+   beside 32d; the third runs first in this phase; all reported here)
+   through ``python -m bluefog_tpu_torch.chaos
+   --spec ...``: 32d's death (``async_dsgd_mp --ranks 3 --transport tcp
+   --resilient`` under ``rank2:sigkill:at_step=12``), a lossy link
+   (``--ranks 2`` under ``ack:drop:after_frames=3;client:truncate:
+   after_frames=5;server:drop:rate=0.05:seed=3``: at least one reconnect,
+   at least one replayed, retired or deduped batch, the audit exact) and
+   ``examples.async_dsgd``'s 8 rank threads on the card for 8 s under
+   ``rank2:die:at_step=8;rank1:stall:at_step=6:s=1.5`` (total plus died
+   mass equal to n).  33c, inside 32a beside its server: a
+   ``StripedDepositStream`` over the 8 windows resized by ``apply_plan``
+   1 -> 4 -> 1 stripes, ms a deposit at each and the read-back bit-exact;
+   four accumulating deposits with resizes between them and one flush at
+   the end, every window bit-exact with four deposits (none stranded);
+   the ``TransportPlan`` ``decide_transport_plan`` gives on the live ack
+   EWMA.
 23. Report: a ``kernels:`` line, a line for K1 on this slice's paths and a
    line for the allreduce (not a TPU kernel), the kernels' JSON line (K1,
    K2 and K3's three kernels; K1's entry also carries its one-slot times,
@@ -416,6 +475,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import torch
@@ -2709,6 +2769,9 @@ def mp_worker(argv):
     initialize_cluster()
     import bluefog_tpu_torch as bf
 
+    # started beside this script's references (interpreters, imports, the
+    # gloo group): touch the card only once released
+    _await_go(outdir, MP_TIMEOUT_S)
     t0 = time.perf_counter()
     ctx = bf.init(size=N_RANKS)
     out = {"process": ctx.process_rank, "processes": ctx.process_count,
@@ -2738,11 +2801,23 @@ def mp_worker(argv):
     return 0
 
 
-def _run_processes(procs, what, lengths, win_len, outdir, env_extra=None):
-    """Start ``procs`` processes of this script through the launcher (with
-    ``env_extra`` added to their environment), wait for them (stopping the
-    whole group at the time limit), and return their results in process
-    order; a failed or late process fails the phase."""
+def _await_go(outdir, timeout_s):
+    """Wait for the parent's release of this process's group (the ``go``
+    file in ``outdir``); a parent that never releases it (it failed) ends
+    the wait with an error after ``timeout_s``."""
+    deadline = time.monotonic() + timeout_s
+    while not os.path.exists(os.path.join(outdir, "go")):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{outdir}: never released")
+        time.sleep(0.05)
+
+
+def _start_processes(procs, what, lengths, win_len, outdir, env_extra=None):
+    """Start ``procs`` processes of this script's phase-1b worker through
+    the launcher (with ``env_extra`` added to their environment).  Each
+    waits, once initialized, for :func:`_run_processes` to release it, so
+    that the group's start-up runs beside other work and only its paths
+    run alone."""
     # the library is built (phase 1): the launcher need not look
     cmd = [sys.executable, "-m", "bluefog_tpu_torch.runtime.launch",
            "--no-build", "-np", str(procs), os.path.abspath(__file__),
@@ -2753,12 +2828,32 @@ def _run_processes(procs, what, lengths, win_len, outdir, env_extra=None):
         [os.path.dirname(os.path.abspath(__file__))]
         + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
     env.update(env_extra or {})
-    t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True, env=env,
                             start_new_session=True)
+    return proc, time.perf_counter()
+
+
+def _kill_started(started):
+    """Stop groups started by :func:`_start_processes` that were never
+    collected (a phase failed before their release)."""
+    for proc, _ in started:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+
+
+def _run_processes(procs, outdir, started):
+    """Release a group started by :func:`_start_processes`, wait for it
+    (stopping the whole group at the time limit, counted from its start),
+    and return its results in process order and its seconds from the
+    release; a failed or late process fails the phase."""
+    proc, t_start = started
+    t0 = time.perf_counter()
+    open(os.path.join(outdir, "go"), "w").close()
     try:
-        log, _ = proc.communicate(timeout=MP_TIMEOUT_S)
+        log, _ = proc.communicate(
+            timeout=max(1.0, MP_TIMEOUT_S - (t0 - t_start)))
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         log, _ = proc.communicate()
@@ -2776,43 +2871,70 @@ def _run_processes(procs, what, lengths, win_len, outdir, env_extra=None):
     return res, secs
 
 
-def phase_processes(device, lengths, win_len):
+def phase_processes(device, lengths, win_len, bert_outdir):
     """Phase 1b (see the module docstring): the one-process reference run,
     then P = 2 and 4 processes (all checks), each group started by the
-    launcher (P = 8's K1 check runs in phase 30's P = 8 group)."""
+    launcher (P = 8's K1 check runs in phase 30's P = 8 group).  Phase
+    1c's group starts here too, beside the references; it is returned
+    unreleased, for :func:`phase_bert_processes`."""
     from bluefog_tpu_torch.examples.synthetic_benchmark import build, run
 
     t_phase = time.perf_counter()
-    with deterministic_cudnn():
-        trainer = build("resnet50", "neighbor", "exp2", size=N_RANKS,
-                        batch_size=BATCH, image_size=224, device=device)
-        run(trainer, MP_WARMUP, MP_TIMED)
-    ref = {k: v.detach().cpu() for k, v in trainer.params.items()}
-    del trainer
-    gc.collect()
-    torch.cuda.empty_cache()
-    refs = slice_references(device)
     out = {}
+    started = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for procs in MP_PROCESSES:
-            outdir = os.path.join(tmp, f"P{procs}")
-            os.makedirs(outdir)
-            what = "slice" if procs == SLICE_PROCESSES else "all"
-            res, secs = _run_processes(procs, what, lengths, win_len, outdir)
-            tag = f"[processes P={procs}]"
-            parts = {k: round(max(r["seconds"][k] for r in res), 1)
-                     for k in res[0]["seconds"]}
-            print(f"{tag} {secs:.1f} s for the group ({what}; the slowest "
-                  f"process's seconds after start-up: {parts}); ranks "
-                  f"{[r['ranks'] for r in res]} on {res[0]['device']}")
-            entry = {"k1": report_k1(tag, res, lengths), "seconds": secs}
-            entry.update(_report_processes(tag, procs, res, ref, outdir,
-                                           len(lengths)))
-            if what == "slice":
-                entry["slice"] = _report_slice(tag, procs, res, refs, outdir)
-            out[procs] = entry
+        try:
+            # every group starts now, beside this process's references,
+            # and touches the card only when released, after the group
+            # before it has finished
+            for procs in MP_PROCESSES:
+                outdir = os.path.join(tmp, f"P{procs}")
+                os.makedirs(outdir)
+                what = "slice" if procs == SLICE_PROCESSES else "all"
+                started[procs] = _start_processes(procs, what, lengths,
+                                                  win_len, outdir)
+            started["bert"] = _start_processes(
+                BERT_PROCESSES, "bert", [0], 0, bert_outdir,
+                {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+            with deterministic_cudnn():
+                trainer = build("resnet50", "neighbor", "exp2",
+                                size=N_RANKS, batch_size=BATCH,
+                                image_size=224, device=device)
+                run(trainer, MP_WARMUP, MP_TIMED)
+            ref = {k: v.detach().cpu() for k, v in trainer.params.items()}
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+            refs = slice_references(device)
+            for procs in MP_PROCESSES:
+                outdir = os.path.join(tmp, f"P{procs}")
+                what = "slice" if procs == SLICE_PROCESSES else "all"
+                res, secs = _run_processes(procs, outdir,
+                                           started.pop(procs))
+                out[procs] = _report_group(procs, what, res, secs, ref,
+                                           refs, lengths, outdir)
+        except BaseException:
+            _kill_started(started.values())
+            raise
     print(f"[processes] phase {time.perf_counter() - t_phase:.1f} s")
-    return out
+    return out, started["bert"]
+
+
+def _report_group(procs, what, res, secs, ref, refs, lengths, outdir):
+    """Phase 1b's report of one group (its seconds from its release):
+    printed, checked, returned."""
+    tag = f"[processes P={procs}]"
+    parts = {k: round(max(r["seconds"][k] for r in res), 1)
+             for k in res[0]["seconds"]}
+    print(f"{tag} {secs:.1f} s for the group from its release ({what}; the "
+          f"slowest process's seconds after start-up: {parts}); ranks "
+          f"{[r['ranks'] for r in res]} on {res[0]['device']}")
+    entry = {"k1": report_k1(tag, res, lengths), "seconds": secs}
+    entry.update(_report_processes(tag, procs, res, ref, outdir,
+                                   len(lengths)))
+    if what == "slice":
+        entry["slice"] = _report_slice(tag, procs, res, refs, outdir)
+    return entry
 
 
 def report_k1(tag, res, lengths):
@@ -3402,19 +3524,18 @@ def mp_bert_k1(ctx, sched, length):
             "vec": 4 if rows.aligned and length % 4 == 0 else 1}
 
 
-def phase_bert_processes(outdir):
+def phase_bert_processes(outdir, started):
     """Phase 1c, BERT-large over processes: phase 18's path with the 8
     ranks over 2 processes (each 2 machines of local size 2), 2 + 3 steps
     under deterministic settings, K1's peer launches a step a process, and
     K1's peer form on the machine rows; each process's parameters are saved
-    in ``outdir``, for phase 18 to hold against its one-process run."""
+    in ``outdir``, for phase 18 to hold against its one-process run.  The
+    group was started beside phase 1b (``started``; its two processes of 4
+    BERT-large ranks each hold 29-35 GB at the mix, so they run with
+    expandable segments, which keep the backward's cached blocks from
+    fragmenting what is left of the card)."""
     tag = f"[bert P={BERT_PROCESSES}]"
-    # two processes of 4 BERT-large ranks each hold 29-35 GB at the mix;
-    # expandable segments keep the backward's cached blocks from
-    # fragmenting what is left of the card
-    res, secs = _run_processes(
-        BERT_PROCESSES, "bert", [0], 0, outdir,
-        {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    res, secs = _run_processes(BERT_PROCESSES, outdir, started)
     runs = [r["bert"] for r in res]
     step_ms = [sum(r["step_ms"]) / TIMED for r in runs]
     rate = sum(r["samples"] / (ms / 1e3) for r, ms in zip(runs, step_ms))
@@ -3505,9 +3626,10 @@ RESUME_ARGS = ["--size", str(N_RANKS), "--batch-size", str(BATCH),
                "3", "--warmup-epochs", "1", "--eval-every", "0"]
 
 
-def _imagenet_process(argv):
+def _imagenet_process(argv, procs):
     """``examples.imagenet_resnet`` in a fresh process under deterministic
-    cuDNN (TF32 off, as here); its checkpoint numbers."""
+    cuDNN (TF32 off, as here), appended to ``procs`` while it runs; its
+    checkpoint numbers."""
     code = ("import json, sys, torch\n"
             "torch.backends.cudnn.deterministic = True\n"
             "torch.backends.cudnn.benchmark = False\n"
@@ -3520,41 +3642,88 @@ def _imagenet_process(argv):
     env["PYTHONPATH"] = os.pathsep.join(
         [os.path.dirname(os.path.abspath(__file__))]
         + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
-    proc = subprocess.run([sys.executable, "-c", code] + argv, env=env,
-                          capture_output=True, text=True, timeout=600)
+    proc = subprocess.Popen([sys.executable, "-c", code] + argv, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    procs.append(proc)
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        stdout, stderr = proc.communicate()
     if proc.returncode != 0:
-        print(proc.stdout[-4000:], proc.stderr[-4000:])
+        print(stdout[-4000:], stderr[-4000:])
     check(proc.returncode == 0, f"imagenet_resnet {argv} exited "
           f"{proc.returncode}")
-    line = [ln for ln in proc.stdout.splitlines()
+    line = [ln for ln in stdout.splitlines()
             if ln.startswith("CHECKPOINT ")][-1]
     return json.loads(line[len("CHECKPOINT "):])
 
 
-def phase_checkpoint():
+def start_checkpoint():
+    """Phase 21's two processes, in a thread beside phase 20 (for the
+    script's time limit): ``examples.imagenet_resnet`` for 3 epochs with a
+    checkpoint each, then a fresh process resuming from a copy of its
+    epoch-2 checkpoint.  :func:`phase_checkpoint` waits for them;
+    :func:`stop_checkpoint` stops them."""
+    tmp = tempfile.TemporaryDirectory()
+    job = {"tmp": tmp, "procs": [], "t0": time.perf_counter()}
+
+    def body():
+        try:
+            cut = os.path.join(tmp.name, "cut")
+            straight = os.path.join(tmp.name, "all")
+            job["whole"] = _imagenet_process(
+                RESUME_ARGS + ["--checkpoint-dir", straight], job["procs"])
+            # the resume reads the latest step
+            shutil.copytree(os.path.join(straight, "step_2"),
+                            os.path.join(cut, "step_2"))
+            job["resumed"] = _imagenet_process(
+                RESUME_ARGS + ["--checkpoint-dir", cut, "--resume"],
+                job["procs"])
+        except BaseException as e:
+            job["error"] = e
+        job["s"] = time.perf_counter() - job["t0"]
+
+    job["thread"] = threading.Thread(target=body, daemon=True)
+    job["thread"].start()
+    return job
+
+
+def stop_checkpoint(job):
+    """Stop :func:`start_checkpoint`'s processes (a phase beside them
+    failed)."""
+    for proc in job["procs"]:
+        if proc.poll() is None:
+            proc.kill()
+    job["thread"].join(timeout=30)
+    job["tmp"].cleanup()
+
+
+def phase_checkpoint(job):
     """``examples.imagenet_resnet`` (ResNet-50, 8 ranks x 32 at 64x64) for
     3 epochs with a checkpoint each epoch, then a fresh process resumes
     from a copy of its epoch-2 checkpoint (what an interruption after epoch
-    2 leaves) to epoch 3, each process under deterministic cuDNN: the two
-    epoch-3 checkpoints' parameters and momentum bit-equal, the epoch-2
-    checkpoint's BatchNorm statistics the rank mean; save and load ms and
-    bytes a checkpoint.  Then ``examples.elastic_resume`` from 8 ranks to 4
-    on K1."""
+    2 leaves) to epoch 3, each process under deterministic cuDNN (both run
+    by :func:`start_checkpoint`'s ``job``): the two epoch-3 checkpoints'
+    parameters and momentum bit-equal, the epoch-2 checkpoint's BatchNorm
+    statistics the rank mean; save and load ms and bytes a checkpoint.
+    Then ``examples.elastic_resume`` from 8 ranks to 4 on K1."""
     from bluefog_tpu_torch.examples import elastic_resume
     from bluefog_tpu_torch.ops.gossip_kernel import gossip_mix
     from bluefog_tpu_torch.utils.checkpoint import CheckpointManager
 
     t0 = time.perf_counter()
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
+    job["thread"].join()
+    with job["tmp"] as tmp:
+        if "error" in job:
+            raise job["error"]
+        print(f"[checkpoint] the two imagenet processes took {job['s']:.1f} "
+              f"s, beside phase 20; waited {time.perf_counter() - t0:.1f} s "
+              "for them after it")
         cut, straight = os.path.join(tmp, "cut"), os.path.join(tmp, "all")
-        whole = _imagenet_process(RESUME_ARGS + ["--checkpoint-dir",
-                                                 straight])
-        # the resume reads the latest step
-        shutil.copytree(os.path.join(straight, "step_2"),
-                        os.path.join(cut, "step_2"))
-        resumed = _imagenet_process(RESUME_ARGS + ["--checkpoint-dir", cut,
-                                                   "--resume"])
+        whole, resumed = job["whole"], job["resumed"]
         a = CheckpointManager(cut).restore(3)
         b = CheckpointManager(straight).restore(3)
         mid = CheckpointManager(straight).restore(2)["batch_stats"]
@@ -5367,6 +5536,10 @@ def mesh_worker(argv):
     initialize_cluster()
     import bluefog_tpu_torch as bf
 
+    # started beside the groups before this one (interpreters, imports,
+    # the gloo group): touch the card only once released
+    while not os.path.exists(os.path.join(outdir, "go")):
+        time.sleep(0.05)
     t0 = time.perf_counter()
     ctx = bf.init(size=N_RANKS)
     device = ctx.device
@@ -5405,10 +5578,11 @@ def mesh_worker(argv):
     return 0
 
 
-def _mesh_group(procs, outdir, refdir, lengths):
+def _mesh_start(procs, outdir, refdir, lengths):
     """Start ``procs`` processes of this script's phase-30 worker through
-    the launcher; their results in process order (a failed or late group
-    fails the phase)."""
+    the launcher.  Each waits, once initialized, for the ``go`` file in
+    ``outdir`` (:func:`_mesh_group` writes it), so that a group's start-up
+    runs beside the group before it and only its paths run alone."""
     cmd = [sys.executable, "-m", "bluefog_tpu_torch.runtime.launch",
            "--no-build", "-np", str(procs), os.path.abspath(__file__),
            "--mesh-worker", outdir, refdir, ",".join(map(str, lengths))]
@@ -5419,12 +5593,22 @@ def _mesh_group(procs, outdir, refdir, lengths):
     # P processes share the card's memory: let each one's cached blocks grow
     # in place (the transport's peer memory is its own cudaMalloc)
     env.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
-    t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True, env=env,
                             start_new_session=True)
+    return proc, time.perf_counter()
+
+
+def _mesh_group(procs, outdir, started):
+    """Release a group started by :func:`_mesh_start` and collect its
+    results in process order (a failed or late group fails the phase).
+    Its seconds count from the release."""
+    proc, t_start = started
+    t0 = time.perf_counter()
+    open(os.path.join(outdir, "go"), "w").close()
     try:
-        log, _ = proc.communicate(timeout=MESH_TIMEOUT_S)
+        log, _ = proc.communicate(
+            timeout=max(1.0, MESH_TIMEOUT_S - (t0 - t_start)))
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         log, _ = proc.communicate()
@@ -5478,7 +5662,15 @@ def phase_mesh_processes(device, single, lengths):
     t_phase = time.perf_counter()
     refdir = tempfile.mkdtemp(prefix="bf-mesh-")
     out, shapes = {}, set()
+    started = {}
     try:
+        # every group starts now (interpreters, imports, gloo groups) beside
+        # this process's references; each touches the card only when
+        # released, after the group before it has finished
+        for procs in MESH_GROUPS:
+            outdir = os.path.join(refdir, f"P{procs}")
+            os.makedirs(outdir)
+            started[procs] = _mesh_start(procs, outdir, refdir, lengths)
         out["one_process"] = mesh_references(device, refdir)
         gc.collect()
         torch.cuda.empty_cache()
@@ -5490,8 +5682,7 @@ def phase_mesh_processes(device, single, lengths):
             digests = json.load(f)
         for procs in MESH_GROUPS:
             outdir = os.path.join(refdir, f"P{procs}")
-            os.makedirs(outdir)
-            res, secs = _mesh_group(procs, outdir, refdir, lengths)
+            res, secs = _mesh_group(procs, outdir, started.pop(procs))
             tag = f"[mesh P={procs}]"
             print(f"{tag} {secs:.1f} s for the group; the slowest process's "
                   "seconds after start-up: "
@@ -5524,6 +5715,10 @@ def phase_mesh_processes(device, single, lengths):
                 entry["hybrid"] = _report_mesh_hybrid(tag, res, single)
             out[procs] = entry
     finally:
+        for proc, _ in started.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
         shutil.rmtree(refdir, ignore_errors=True)
     # K3 at every shape the processes handed it, held against the twins here
     out["k3_calls"] = check_k3_calls(shapes, device, "mesh processes")
@@ -5717,7 +5912,8 @@ def _report_mesh_hybrid(tag, res, single):
 
 ASYNC_RANKS = 8
 ASYNC_BATCH = 32                 # a rank, at 224x224 (configs[1])
-ASYNC_SECONDS = 10.0             # each of 31d's two runs
+ASYNC_SECONDS = 10.0             # each of 31d's two runs, at least
+ASYNC_MIN_STEPS = 2              # each rank's steps in each run
 ASYNC_LR = 0.01                  # phase 3's SGD rate (no momentum here)
 SHARD_LAYERS = 2                 # GPT-small's 12 cut for 31f's host vectors
 SHARD_RANKS = 4
@@ -5894,13 +6090,14 @@ def host_resnet_async(device, sync_img_s):
     loss_and_grad(0, 0, {k: v.clone() for k, v in params0.items()})
     torch.cuda.synchronize()
     out = {"batch": ASYNC_BATCH, "sync_img_s": sync_img_s}
+    duration = ASYNC_SECONDS
     for overlap in (False, True):
         opt = DistributedWinPutOptimizer(
             None, topology=ExponentialTwoGraph(ASYNC_RANKS), async_=True,
             lr=ASYNC_LR)
         opt.name = f"smoke_resnet_async_{overlap}_{os.getpid()}"
         torch.cuda.reset_peak_memory_stats()
-        rep = opt.run(params0, loss_and_grad, duration_s=ASYNC_SECONDS,
+        rep = opt.run(params0, loss_and_grad, duration_s=duration,
                       skew=[0.0] * ASYNC_RANKS, overlap=overlap)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         rss, hwm = _host_rss_gb()
@@ -5930,9 +6127,16 @@ def host_resnet_async(device, sync_img_s):
               f"(peak {hwm:.2f}); loss first {np.mean(first):.4f} last "
               f"{np.mean(last):.4f}")
         check(mass_err <= 1e-9, f"31d {tag}: mass audit {rep.total_mass!r}")
-        check(min(steps) >= 2, f"31d {tag}: a rank starved: {steps}")
+        check(min(steps) >= ASYNC_MIN_STEPS,
+              f"31d {tag}: a rank starved: {steps}")
         check(math.isfinite(rep.consensus_gap),
               f"31d {tag}: consensus gap {rep.consensus_gap}")
+        if not overlap:
+            # the overlapped run stepped 1.0-2.3x slower than the serial
+            # one on the H100's host: give its slowest rank time for
+            # ASYNC_MIN_STEPS steps on a slow host too
+            duration = max(ASYNC_SECONDS, ASYNC_MIN_STEPS * 2.5
+                           * rep.wall_time_s / max(min(steps), 1))
         del rep
     check(all(math.isfinite(v) for v in losses_seen),
           "31d: a non-finite loss")
@@ -5941,26 +6145,24 @@ def host_resnet_async(device, sync_img_s):
     return out
 
 
-def host_async_mp(device):
-    """31e: examples.async_dsgd_mp --ranks 2 over shared memory, its two
-    worker processes on the card, with its checks (run in rank 0)."""
-    env = dict(os.environ)
-    repo = os.path.dirname(os.path.abspath(__file__))
-    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
-    t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m",
-                        "bluefog_tpu_torch.examples.async_dsgd_mp",
-                        "--ranks", "2", "--device", device.type],
-                       capture_output=True, text=True,
-                       env=env, timeout=300)
-    secs = time.perf_counter() - t0
-    text = r.stdout + r.stderr
-    check(r.returncode == 0 and "ASYNC_MP_REPORT" in r.stdout,
-          f"31e async_dsgd_mp failed ({r.returncode}):\n{text[-3000:]}")
-    line = next(ln for ln in r.stdout.splitlines()
-                if ln.startswith("ASYNC_MP_REPORT"))
-    print(f"[31e] async_dsgd_mp --ranks 2 (shm, workers on the card): "
-          f"{line[len('ASYNC_MP_REPORT '):]}; {secs:.2f} s")
+ASYNC_MP_JOB = "31e async_dsgd_mp"
+
+
+def async_mp_job(device):
+    """31e as a ``_run_together`` job: examples.async_dsgd_mp --ranks 2
+    over shared memory, its two worker processes on the card, with its
+    checks (run in rank 0).  It runs beside 31f (for the script's time
+    limit)."""
+    return {ASYNC_MP_JOB: (["-m", "bluefog_tpu_torch.examples.async_dsgd_mp",
+                            "--ranks", "2", "--device", device.type], 300)}
+
+
+def host_async_mp(stdout, secs):
+    """31e's report, from :func:`async_mp_job`'s run."""
+    line = _report_line(stdout, "ASYNC_MP_REPORT")
+    check(line, f"31e async_dsgd_mp: no report:\n{stdout[-3000:]}")
+    print(f"[31e] async_dsgd_mp --ranks 2 (shm, workers on the card, beside "
+          f"31f): {line}; {secs:.2f} s")
     return {"report": line, "s": secs}
 
 
@@ -6042,8 +6244,8 @@ def host_sharded_gossip(device):
 
 def phase_host_runtime(device, sync_img_s):
     """Phase 31: the native host runtime built from the checkout, then
-    31a-31f.  No TPU kernel lies on this path; K1-K3's counters are read
-    around it and reported."""
+    31a-31f (31e beside 31f).  No TPU kernel lies on this path; K1-K3's
+    counters are read around it and reported."""
     from bluefog_tpu_torch.ops.deliver_kernel import window_deliver
     from bluefog_tpu_torch.runtime import native
 
@@ -6061,8 +6263,14 @@ def phase_host_runtime(device, sync_img_s):
     out["pushsum"] = host_pushsum()
     out["async_dsgd"] = host_async_dsgd(device)
     out["resnet"] = host_resnet_async(device, sync_img_s)
-    out["mp"] = host_async_mp(device)
-    out["sharded"] = host_sharded_gossip(device)
+    bg = _start_together(async_mp_job(device))
+    try:
+        out["sharded"] = host_sharded_gossip(device)
+    except BaseException:
+        for p, _ in bg[0].values():
+            p.kill()
+        raise
+    out["mp"] = host_async_mp(*_finish_together(bg)[ASYNC_MP_JOB])
     out["launches"] = {k.__name__: k.launches for k in counters}
     out["s"] = time.perf_counter() - t0
     print(f"[31] kernel launches during phase 31 (none of its path's work is "
@@ -6244,6 +6452,7 @@ def host_wire(device):
                           "route")
                 else:
                     check(shm_n == 0, f"32a {way}: an shm deposit")
+        out["retune"] = stripe_retune(addr, prefix, chunks, chunk_readers)
         for r in [reader] + chunk_readers:
             r.close()
         d2h, _ = _copy_ms(2 * WIRE_N, device)  # the same bytes, as f32
@@ -6262,10 +6471,87 @@ def host_wire(device):
     return out
 
 
+def stripe_retune(addr, prefix, chunks, chunk_readers):
+    """33c, beside 32a's server: one StripedDepositStream over the 8
+    windows, its pool resized by apply_plan 1 -> 4 -> 1 stripes.  First
+    the timed pass: at each stripe count WIRE_REPS puts into slot 0, the
+    last timed, each read back bit-exact.  Then the strand check: four
+    accumulating deposits into slot 1 with resizes 1 -> 4 -> 1 -> 4
+    between them and no flush until the end (shrinking fences the closing
+    stripes): slot 1 must hold ``((c + c) + c) + c`` bit for bit, four
+    deposits each.  Last, the
+    TransportPlan that decide_transport_plan gives on the live ack
+    EWMA."""
+    import numpy as np
+
+    from bluefog_tpu_torch.control import (TransportPlan,
+                                           decide_transport_plan)
+    from bluefog_tpu_torch.runtime.window_server import StripedDepositStream
+
+    names = [f"{prefix}:c{i}".encode() for i in range(len(chunks))]
+    st = StripedDepositStream(addr, 120, n_stripes=1)
+    out = {"ms": {}}
+    try:
+        for version, stripes in enumerate((1, 4, 1)):
+            if version:
+                st.apply_plan(TransportPlan(version=version, round=version,
+                                            stripes=stripes))
+            check(st.n_stripes == stripes, f"33c: {st.n_stripes} stripes")
+            for _ in range(WIRE_REPS):
+                t0 = time.perf_counter()
+                for nm, c in zip(names, chunks):
+                    st.deposit_async(nm, 0, c, accumulate=False)
+                st.flush(120)
+                ms = (time.perf_counter() - t0) * 1e3
+            exact = all(
+                r.read(0, len(c), np.float64, consume=True)[0].tobytes()
+                == c.tobytes() for r, c in zip(chunk_readers, chunks))
+            out["ms"][f"{version}:{stripes}"] = ms
+            print(f"[33c] {stripes} stripe(s) (plan version {version}): "
+                  f"{ms:.2f} ms a deposit of "
+                  f"{sum(c.nbytes for c in chunks) / 1e6:.1f} MB, read "
+                  f"back bit-exact {exact}")
+            check(exact, f"33c: the read-back at {stripes} stripes differs")
+        for version, stripes in enumerate((4, 1, 4), start=3):
+            for nm, c in zip(names, chunks):
+                st.deposit_async(nm, 1, c, accumulate=True)
+            st.apply_plan(TransportPlan(version=version, round=version,
+                                        stripes=stripes))
+        for nm, c in zip(names, chunks):
+            st.deposit_async(nm, 1, c, accumulate=True)
+        st.flush(120)
+        stranded = []
+        for i, (r, c) in enumerate(zip(chunk_readers, chunks)):
+            got, fresh = r.read(1, len(c), np.float64, consume=True)
+            want = ((c + c) + c) + c
+            if fresh != 4 or got.tobytes() != want.tobytes():
+                stranded.append((i, fresh))
+        out["stranded"] = stranded
+        ack = st.ack_ewma()
+        plan = decide_transport_plan(TransportPlan(), 16, ack_ewma_s=ack,
+                                     phase_s=st.phase_ewma())
+        out["plan"] = json.loads(plan.to_bytes())
+        out["ack_ewma_s"] = ack
+        print(f"[33c] 4 accumulating deposits with resizes 1 -> 4 -> 1 -> 4 "
+              f"between them, no flush until the end: every window bit-exact "
+              f"with 4 deposits: {not stranded} {stranded}; the live ack "
+              f"EWMA {ack * 1e3 if ack else float('nan'):.2f} ms -> "
+              f"decide_transport_plan {out['plan']}")
+        check(not stranded, f"33c: stranded or wrong windows {stranded}")
+    finally:
+        st.close()
+    return out
+
+
 def _run_together(jobs):
     """Run ``{tag: (argv after the interpreter, timeout s)}`` as concurrent
     processes (each ``python -m ...`` or a script), fail on any non-zero
     exit, and return ``{tag: (stdout, seconds)}``."""
+    return _finish_together(_start_together(jobs))
+
+
+def _start_together(jobs):
+    """The first half of :func:`_run_together`: start the jobs."""
     env = dict(os.environ)
     repo = os.path.dirname(os.path.abspath(__file__))
     env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
@@ -6275,6 +6561,12 @@ def _run_together(jobs):
                                     stderr=subprocess.STDOUT, text=True,
                                     env=env, cwd=repo), timeout)
              for tag, (argv, timeout) in jobs.items()}
+    return procs, t0
+
+
+def _finish_together(started):
+    """The second half of :func:`_run_together`: wait for the jobs."""
+    procs, t0 = started
     out = {}
     try:
         for tag, (p, timeout) in procs.items():
@@ -6321,16 +6613,13 @@ def host_tcp_examples(device):
     return out
 
 
-def tcp_worker(argv):
-    """One rank process of 32c: ResNet-50 over run_async_dsgd_rank, first
-    over shm, then over tcp, its gradient on the card."""
+def _resnet_rank_job(rank, n, dev, bdir):
+    """One rank process's ResNet-50 at batch TCP_BATCH, 224x224, bf16
+    compute (32c and 33a): its parameters and ``loss_and_grad``, warmed
+    up; then it marks itself ready and waits for the parent's go."""
     import copy
 
-    rank, n, bdir, dev = int(argv[0]), int(argv[1]), argv[2], argv[3]
     from bluefog_tpu_torch.examples.synthetic_benchmark import build
-    from bluefog_tpu_torch.runtime.async_windows import (FileBarrier,
-                                                         run_async_dsgd_rank)
-    from bluefog_tpu_torch.topology import ExponentialTwoGraph
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6354,10 +6643,23 @@ def tcp_worker(argv):
     if device.type == "cuda":
         torch.cuda.synchronize()
     # warmed up: wait for the parent's go, so that nothing the parent runs
-    # meanwhile (32b's examples) shares the host with the timed runs
+    # meanwhile (32b's examples, 32d's drills) shares the host with the
+    # timed runs
     open(os.path.join(bdir, f"ready.{rank}"), "w").close()
     while not os.path.exists(os.path.join(bdir, "go")):
         time.sleep(0.01)
+    return params0, loss_and_grad
+
+
+def tcp_worker(argv):
+    """One rank process of 32c: ResNet-50 over run_async_dsgd_rank, first
+    over shm, then over tcp, its gradient on the card."""
+    rank, n, bdir, dev = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    from bluefog_tpu_torch.runtime.async_windows import (FileBarrier,
+                                                         run_async_dsgd_rank)
+    from bluefog_tpu_torch.topology import ExponentialTwoGraph
+
+    params0, loss_and_grad = _resnet_rank_job(rank, n, dev, bdir)
     res = {}
     for transport in ("shm", "tcp"):
         rep = run_async_dsgd_rank(
@@ -6527,11 +6829,13 @@ print(f"SUPERVISED_OK resumed_from={last} loss={loss!r}", flush=True)
 """
 
 
-def host_tcp_faults(device):
-    """32d: faults and membership over TCP, on the card, the four drills at
-    once: a death (3 processes, rank 2 SIGKILLed), a join and a drain
-    (capacity 4), the win_mutex lease steal under bfrun and bfrun
-    --supervise 2."""
+def host_tcp_faults(device, beside=None):
+    """32d: faults and membership over TCP, on the card, the three drills
+    at once: a join and a drain (capacity 4), the win_mutex lease steal
+    under bfrun and bfrun --supervise 2 (the death drill runs in 33b, under
+    a chaos spec).  ``beside`` holds more ``_run_together`` jobs to run at
+    the same time (33b's); their ``(stdout, seconds)`` come back beside
+    32d's results."""
     mp = ["-m", "bluefog_tpu_torch.examples.async_dsgd_mp", "--device",
           device.type]
     launch = ["-m", "bluefog_tpu_torch.runtime.launch", "--no-build"]
@@ -6545,10 +6849,6 @@ def host_tcp_faults(device):
         os.makedirs(os.path.join(d, "m"))
         os.makedirs(os.path.join(d, "s"))
         res = _run_together({
-            "32d death": (mp + ["--ranks", "3", "--transport", "tcp",
-                                "--resilient", "--kill-rank", "2",
-                                "--kill-step", "12", "--duration", "4"],
-                          300),
             "32d win_mutex": (launch + ["-np", "2", mutex, "contend",
                                         os.path.join(d, "m"),
                                         str(_MUTEX_LEASE_S)], 120),
@@ -6557,13 +6857,8 @@ def host_tcp_faults(device):
                 sup, os.path.join(d, "s"), device.type,
                 str(SUPERVISE_STEPS)], 180),
             "32d join and drain": (mp + ["--ranks", "4", "--elastic",
-                                         "--duration", "6"], 300)})
-    stdout, secs = res["32d death"]
-    rep = _report_line(stdout, "ASYNC_MP_REPORT")
-    check("dead=[2]" in rep, f"32d death: {rep!r}")
-    out["death"] = {"report": rep, "s": secs}
-    print(f"[32d] a death: 3 processes, rank 2 SIGKILLed at step 12: {rep}; "
-          f"{secs:.2f} s")
+                                         "--duration", "6"], 300),
+            **(beside or {})})
     stdout, secs = res["32d win_mutex"]
     waited = float(stdout.split("MUTEX_WAITED ")[1].split()[0])
     out["mutex"] = {"waited_s": waited, "lease_s": _MUTEX_LEASE_S, "s": secs}
@@ -6584,12 +6879,14 @@ def host_tcp_faults(device):
     out["join_drain"] = {"report": rep, "s": secs}
     print(f"[32d] a join and a drain: capacity 4, members 0-2, rank 3 "
           f"joins, rank 1 drains: {rep}; {secs:.2f} s")
-    return out
+    return out, {tag: v for tag, v in res.items() if tag in (beside or {})}
 
 
-def phase_host_runtime_tcp(device):
+def phase_host_runtime_tcp(device, start_next=None, beside=None):
     """Phase 32: 32a-32d.  No TPU kernel lies on this path; K1-K3's
-    counters are read around it and reported."""
+    counters are read around it and reported.  ``start_next()`` runs
+    before 32d (phase 33a's workers start beside it); its result is
+    returned beside the phase's."""
     from bluefog_tpu_torch.ops.deliver_kernel import window_deliver
 
     t0 = time.perf_counter()
@@ -6606,10 +6903,353 @@ def phase_host_runtime_tcp(device):
             p.kill()
         raise
     out["resnet"] = host_tcp_resnet(started)
-    out["faults"] = host_tcp_faults(device)
+    nxt = start_next() if start_next is not None else None
+    try:
+        out["faults"], out["beside_32d"] = host_tcp_faults(
+            device, beside=beside)
+    except BaseException:
+        for p in (nxt or {}).get("procs", []):
+            p.kill()
+        raise
     out["launches"] = {k.__name__: k.launches for k in counters}
     out["s"] = time.perf_counter() - t0
     print(f"[32] kernel launches during phase 32 (none of its path's work is "
+          f"a TPU kernel): {out['launches']}; the phase took {out['s']:.1f} s")
+    return out, nxt
+
+
+# ---------------------------------------------------------------------------
+# Phase 33: the communication control plane and chaos on the card
+# ---------------------------------------------------------------------------
+
+CTL_N = 4                        # rank processes of 33a, on configs[1]'s graph
+CTL_STEPS = 10                   # each rank's target (stop_after_steps)
+CTL_SLOW = 3                     # the rank whose server sits behind the link
+# the reference bench's lossy, slow link (benchmarks/control_bench.py)
+CTL_SPEC = ("server:delay:ms=120:rate=0.95:seed=1;"
+            "server:drop:rate=0.01:seed=2")
+CTL_CONFIG = dict(evidence_every=2, cooldown_rounds=4, min_lag_s=0.02)
+CTL_STREAM = dict(max_in_flight=2, max_queue_items=8)
+CTL_CAP_S = 150.0                # each run's duration cap
+CHAOS_DEATH = "rank2:sigkill:at_step=12"
+CHAOS_LOSSY = ("ack:drop:after_frames=3;client:truncate:after_frames=5;"
+               "server:drop:rate=0.05:seed=3")
+CHAOS_THREADS = "rank2:die:at_step=8;rank1:stall:at_step=6:s=1.5"
+CHAOS_THREADS_JOB = "33b threads"
+
+
+def ctl_worker(argv):
+    """One rank process of 33a: ResNet-50 over run_async_dsgd_rank on tcp
+    with resilience=, first with control=None, then with control=, each to
+    CTL_STEPS steps; rank CTL_SLOW's server behind CTL_SPEC.  Every rank
+    writes its plan changes, its last plan and the plan decided from the
+    run's final evidence records; rank 0 the report."""
+    import hashlib
+
+    rank, n, bdir, dev = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    from bluefog_tpu_torch import chaos
+    from bluefog_tpu_torch.control import (CommPlan, ControlConfig,
+                                           controller, decide_plan,
+                                           read_evidence)
+    from bluefog_tpu_torch.runtime.async_windows import (FileBarrier,
+                                                         run_async_dsgd_rank)
+    from bluefog_tpu_torch.runtime.resilience import ResilienceConfig
+    from bluefog_tpu_torch.topology import ExponentialTwoGraph
+
+    params0, loss_and_grad = _resnet_rank_job(rank, n, dev, bdir)
+    # every decision this process's controller takes, with its round
+    changes = []
+    decide = controller.CommController.decide
+
+    def recording_decide(self, round_, evidences):
+        before = self.plan.version
+        plan = decide(self, round_, evidences)
+        if plan.version != before:
+            changes.append([round_, plan.to_bytes().decode()])
+        return plan
+
+    controller.CommController.decide = recording_decide
+    cfg = ControlConfig(**CTL_CONFIG)
+    for mode in ("static", "control"):
+        changes.clear()
+        # each run meets the same fault sequence for the same traffic
+        chaos.configure(CTL_SPEC if rank == CTL_SLOW else None)
+        rdir = os.path.join(bdir, mode)
+        rep = run_async_dsgd_rank(
+            ExponentialTwoGraph(n), rank, params0, loss_and_grad,
+            barrier=FileBarrier(rdir, n, rank), lr=ASYNC_LR,
+            duration_s=CTL_CAP_S, name=f"smoke_ctl_{mode}_"
+            f"{os.path.basename(bdir)}", transport="tcp",
+            tcp_bind="127.0.0.1",
+            # death detection is not under test here: a 204 MB deposit
+            # behind the slow link must not read as a dead peer
+            resilience=ResilienceConfig(suspect_after_s=2.0,
+                                        dead_after_s=20.0,
+                                        barrier_timeout_s=120.0,
+                                        reconnect_budget=8, seed=rank),
+            control=cfg if mode == "control" else None,
+            stop_after_steps=CTL_STEPS, stream_options=dict(CTL_STREAM))
+        mine = {"changes": list(changes)}
+        if mode == "control":
+            # the run is over on every rank (the audit barrier): the
+            # disseminated records are final, and the plan decided from
+            # them is what every rank converges on
+            evs = read_evidence(rdir, n)
+            settled = decide_plan(CommPlan(), 10 ** 6, evs, cfg)
+            mine["settled"] = hashlib.sha1(settled.to_bytes()).hexdigest()
+            mine["settled_plan"] = settled.to_bytes().decode()
+            mine["records"] = [e.to_json() for e in evs]
+        with open(os.path.join(bdir, f"{mode}.{rank}.json"), "w") as f:
+            json.dump(mine, f)
+        if rank == 0:
+            with open(os.path.join(bdir, f"{mode}.report.json"), "w") as f:
+                json.dump({
+                    "steps": rep.steps_per_rank, "wall_s": rep.wall_time_s,
+                    "mass": rep.total_mass, "dead": rep.dead_ranks,
+                    "gap": rep.consensus_gap, "streams": rep.stream_stats,
+                    "plan": (rep.control_plan.to_bytes().decode()
+                             if rep.control_plan is not None else None),
+                    "plan_changes": rep.plan_changes,
+                    "loss": [rep.losses[0][0], rep.losses[0][-1]]}, f)
+    chaos.reset()
+    print(f"CTL_WORKER_OK {rank}", flush=True)
+    return 0
+
+
+def start_control(device):
+    """33a's four worker processes, started beside 32d; they wait for
+    :func:`host_control`'s go before their runs."""
+    repo = os.path.abspath(__file__)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(repo) + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    env.pop("BLUEFOG_TPU_CHAOS", None)
+    bdir = tempfile.TemporaryDirectory()
+    procs = [subprocess.Popen(
+        [sys.executable, repo, "--ctl-worker", str(r), str(CTL_N),
+         bdir.name, device.type],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env) for r in range(CTL_N)]
+    return {"procs": procs, "bdir": bdir, "t0": time.perf_counter()}
+
+
+def host_control(started):
+    """33a: the control plane at full width (see the module docstring)."""
+    import hashlib
+
+    from bluefog_tpu_torch.control import CommPlan, Evidence
+
+    n, procs, bdir = CTL_N, started["procs"], started["bdir"]
+    outs = []
+    try:
+        deadline = time.perf_counter() + 300
+        while not all(os.path.exists(os.path.join(bdir.name, f"ready.{r}"))
+                      for r in range(n)):
+            check(all(p.poll() is None for p in procs),
+                  "33a: a worker exited before its runs")
+            check(time.perf_counter() < deadline,
+                  "33a: the workers were not ready within 300 s")
+            time.sleep(0.05)
+        t_go = time.perf_counter()
+        open(os.path.join(bdir.name, "go"), "w").close()
+        for p in procs:
+            outs.append(p.communicate(timeout=2 * CTL_CAP_S + 120)[0])
+        for r, (p, o) in enumerate(zip(procs, outs)):
+            check(p.returncode == 0 and f"CTL_WORKER_OK {r}" in o,
+                  f"33a worker {r} failed ({p.returncode}):\n{o[-4000:]}")
+
+        def load(name):
+            with open(os.path.join(bdir.name, name)) as f:
+                return json.load(f)
+
+        res = {m: {"report": load(f"{m}.report.json"),
+                   "ranks": [load(f"{m}.{r}.json") for r in range(n)]}
+               for m in ("static", "control")}
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        bdir.cleanup()
+    out = {"start_s": t_go - started["t0"],
+           "runs_s": time.perf_counter() - t_go}
+    for mode in ("static", "control"):
+        rep, ranks = res[mode]["report"], res[mode]["ranks"]
+        steps = rep["steps"]
+        img_s = sum(steps) * TCP_BATCH / rep["wall_s"]
+        streams = rep["streams"]
+        tot = {k: sum(v[k] for v in streams.values())
+               for k in ("reconnects", "replayed", "retired", "deduped")}
+        toward = {r: v["ack_ewma_s"].get(str(CTL_SLOW))
+                  for r, v in streams.items()
+                  if str(CTL_SLOW) in v["ack_ewma_s"]}
+        others = {r: {j: e for j, e in v["ack_ewma_s"].items()
+                      if j != str(CTL_SLOW)} for r, v in streams.items()}
+        row = {"steps": steps, "wall_s": rep["wall_s"], "img_s": img_s,
+               "mass_err": abs(rep["mass"] - n), "dead": rep["dead"],
+               "gap": rep["gap"], "loss": rep["loss"], "streams": tot,
+               "ack_ewma_toward_slow_s": toward,
+               "ack_ewma_other_s": others}
+        if mode == "control":
+            plan = CommPlan.from_bytes(rep["plan"].encode())
+            firsts = [c["changes"][0][0] for c in ranks if c["changes"]]
+            lasts = [c["changes"][-1][0] for c in ranks if c["changes"]]
+            live = [(c["changes"][-1][1] if c["changes"] else None)
+                    for c in ranks]
+            content = {json.dumps({k: v for k, v in json.loads(b).items()
+                                   if k not in ("round", "version")},
+                                  sort_keys=True) if b else None
+                       for b in live}
+            settled = {c["settled"] for c in ranks}
+            lag = {}
+            for rec in ranks[0]["records"]:
+                ev = Evidence.from_json(rec)
+                if CTL_SLOW in ev.lag_s:
+                    lag[ev.rank] = ev.lag_s[CTL_SLOW]
+            row.update(
+                plan={"slow": list(plan.slow), "densify": plan.densify,
+                      "gossip_every": plan.gossip_every,
+                      "codec_level": plan.codec_level,
+                      "version": plan.version, "round": plan.round},
+                plan_changes=rep["plan_changes"],
+                first_change_round=min(firsts) if firsts else None,
+                last_change_round=max(lasts) if lasts else None,
+                changes_a_rank=[len(c["changes"]) for c in ranks],
+                live_final_sha1=[hashlib.sha1(b.encode()).hexdigest()[:12]
+                                 if b else None for b in live],
+                live_final_same_bytes=len(set(live)) == 1,
+                live_final_same_content=len(content) == 1,
+                settled_sha1=sorted(settled),
+                settled_plan=ranks[0]["settled_plan"],
+                evidence_lag_toward_slow_s=lag)
+        out[mode] = row
+        print(f"[33a] ResNet-50, {n} processes over tcp, {mode}: steps "
+              f"{steps} in {rep['wall_s']:.2f} s to the target of "
+              f"{CTL_STEPS}, {img_s:.1f} img/s; |sum(p) - n| "
+              f"{row['mass_err']:.3e}; dead {rep['dead']}; streams (all "
+              f"ranks) {tot}; ack EWMA toward rank {CTL_SLOW} (by sender) "
+              + ", ".join(f"{r}: {v * 1e3:.1f} ms" for r, v in
+                          toward.items())
+              + "; to the others "
+              + ", ".join(f"{r}->{j}: {e * 1e3:.1f} ms"
+                          for r, d in others.items() for j, e in d.items())
+              + f"; loss {rep['loss'][0]:.4f} -> {rep['loss'][1]:.4f}")
+        if mode == "control":
+            print(f"[33a] control: final plan {row['plan']}, plan changes "
+                  f"{row['plan_changes']} (a rank {row['changes_a_rank']}), "
+                  f"first change at round {row['first_change_round']}, "
+                  f"last at {row['last_change_round']}; the ranks' last "
+                  f"plans {row['live_final_sha1']} (same bytes "
+                  f"{row['live_final_same_bytes']}, same content "
+                  f"{row['live_final_same_content']}); decided from the "
+                  f"final records by every process: {row['settled_sha1']} "
+                  f"= {row['settled_plan']}; the records' lag toward rank "
+                  f"{CTL_SLOW}: "
+                  + ", ".join(f"{r}: {v * 1e3:.1f} ms"
+                              for r, v in sorted(lag.items())))
+        check(row["mass_err"] <= 1e-9 * n,
+              f"33a {mode}: mass audit {rep['mass']!r}")
+        check(rep["dead"] == [], f"33a {mode}: dead ranks {rep['dead']}")
+        check(min(steps) >= CTL_STEPS,
+              f"33a {mode}: a rank missed its target: {steps}")
+        check(math.isfinite(rep["loss"][1]), f"33a {mode}: a NaN loss")
+    c = out["control"]
+    check(len(c["settled_sha1"]) == 1,
+          f"33a: the processes decided different plans from the same "
+          f"records: {c['settled_sha1']}")
+    check(CTL_SLOW in c["plan"]["slow"] or c["plan_changes"] >= 1,
+          f"33a: the controller neither penalized rank {CTL_SLOW} nor "
+          f"changed the plan: {c['plan']}")
+    out["control_over_static"] = c["wall_s"] / out["static"]["wall_s"]
+    print(f"[33a] time to the target, control / static: "
+          f"{out['control_over_static']:.3f} ({c['wall_s']:.2f} / "
+          f"{out['static']['wall_s']:.2f} s); the workers' start "
+          f"{out['start_s']:.1f} s (beside 32d), the runs "
+          f"{out['runs_s']:.1f} s")
+    return out
+
+
+def chaos_drill_jobs(device):
+    """33b's three drills under chaos specs (the chaos CLI exports each to
+    its command), as ``_run_together`` jobs: the death of 32d, a lossy link
+    over 2 processes, and the thread runner's death and stall.  The first
+    two run beside 32d, the third alone at the start of phase 33;
+    :func:`host_chaos_drills` checks and reports them."""
+    chaos_cli = ["-m", "bluefog_tpu_torch.chaos", "--spec"]
+    mp = [sys.executable, "-m", "bluefog_tpu_torch.examples.async_dsgd_mp",
+          "--transport", "tcp", "--resilient", "--device", device.type]
+    return {
+        "33b death": (chaos_cli + [CHAOS_DEATH, "--"] + mp
+                      + ["--ranks", "3", "--duration", "3"], 300),
+        "33b lossy link": (chaos_cli + [CHAOS_LOSSY, "--"] + mp
+                           + ["--ranks", "2"], 300),
+        CHAOS_THREADS_JOB: (chaos_cli + [CHAOS_THREADS, "--", sys.executable,
+                                     "-m",
+                                     "bluefog_tpu_torch.examples.async_dsgd",
+                                     "--device", device.type,
+                                     "--duration", "8",
+                                     "--name", f"smoke_chaos_{os.getpid()}"],
+                        300)}
+
+
+def host_chaos_drills(res):
+    """33b: the checks and the report of :func:`chaos_drill_jobs`' runs
+    (``{tag: (stdout, seconds)}``)."""
+    import ast
+
+    out = {}
+    stdout, secs = res["33b death"]
+    rep = _report_line(stdout, "ASYNC_MP_REPORT")
+    check("dead=[2]" in rep, f"33b death: {rep!r}")
+    out["death"] = {"report": rep, "s": secs}
+    print(f"[33b] a death under {CHAOS_DEATH!r}: 3 processes: {rep}; "
+          f"{secs:.2f} s")
+    stdout, secs = res["33b lossy link"]
+    rep = _report_line(stdout, "ASYNC_MP_REPORT")
+    streams = ast.literal_eval(rep.split("streams=")[1].split(" device=")[0])
+    tot = {k: sum(v[k] for v in streams.values())
+           for k in ("reconnects", "replayed", "retired", "deduped")}
+    mass = float(rep.split("mass=")[1].split()[0])
+    out["lossy"] = {"report": rep, "streams": tot, "s": secs}
+    print(f"[33b] a lossy link under {CHAOS_LOSSY!r}: 2 processes: "
+          f"streams {tot}; mass {mass!r}; {secs:.2f} s")
+    check(tot["reconnects"] >= 1, f"33b lossy link: no reconnect: {tot}")
+    check(tot["replayed"] + tot["retired"] + tot["deduped"] >= 1,
+          f"33b lossy link: nothing replayed or deduped: {tot}")
+    check(abs(mass - 2.0) <= 1e-9 * 2, f"33b lossy link: mass {mass!r}")
+    stdout, secs = res[CHAOS_THREADS_JOB]
+    line = next((ln for ln in stdout.splitlines()
+                 if ln.startswith("dead ranks")), "")
+    check(line.startswith("dead ranks [2]"), f"33b threads: {line!r}")
+    total = float(line.rsplit("total + died = ", 1)[1])
+    check(abs(total - 8.0) <= 1e-9 * 8, f"33b threads: total + died = "
+          f"{total!r}")
+    check("OK" in stdout, f"33b threads: the example's checks failed")
+    out["threads"] = {"line": line, "s": secs}
+    print(f"[33b] 8 rank threads under {CHAOS_THREADS!r}: {line}; "
+          f"{secs:.2f} s")
+    return out
+
+
+def phase_control_chaos(device, ctl_started, drills, threads):
+    """Phase 33: 33b's rank-thread drill (``threads``, a ``_run_together``
+    job; 33a's workers wait, ready, meanwhile), 33a, then 33b's report (its
+    drills over processes, ``drills``, ran beside 32d; 33c inside 32a,
+    beside its server).  No TPU kernel lies on this path; K1-K3's counters
+    are read around it."""
+    from bluefog_tpu_torch.ops.deliver_kernel import window_deliver
+
+    t0 = time.perf_counter()
+    counters = [window_deliver, *_slice_kernels()]
+    for k in counters:
+        k.launches = 0
+    drills = {**drills, **_run_together(threads)}
+    out = {"control": host_control(ctl_started)}
+    torch.cuda.empty_cache()
+    out["drills"] = host_chaos_drills(drills)
+    out["launches"] = {k.__name__: k.launches for k in counters}
+    out["s"] = time.perf_counter() - t0
+    print(f"[33] kernel launches during phase 33 (none of its path's work is "
           f"a TPU kernel): {out['launches']}; the phase took {out['s']:.1f} s")
     return out
 
@@ -6624,6 +7264,8 @@ def main():
         return mesh_worker(sys.argv[2:])
     if len(sys.argv) > 1 and sys.argv[1] == "--tcp-worker":
         return tcp_worker(sys.argv[2:])
+    if len(sys.argv) > 1 and sys.argv[1] == "--ctl-worker":
+        return ctl_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs an NVIDIA GPU", file=sys.stderr)
@@ -6659,10 +7301,15 @@ def main():
           f"processes {mp_lengths}")
     del trainer, leaves
     torch.cuda.empty_cache()
-    procs = phase_processes(device, mp_lengths, win_len)
     # phase 1c's processes' parameters wait here for phase 18's run
     bert_dir = tempfile.TemporaryDirectory()
-    bert_procs = phase_bert_processes(bert_dir.name)
+    procs, bert_started = phase_processes(device, mp_lengths, win_len,
+                                          bert_dir.name)
+    try:
+        bert_procs = phase_bert_processes(bert_dir.name, bert_started)
+    except BaseException:
+        _kill_started([bert_started])
+        raise
     trainer = build("resnet50", "neighbor", "exp2", size=N_RANKS,
                     batch_size=BATCH, image_size=224, device=device)
     leaves = list(trainer.params.values())
@@ -6726,8 +7373,14 @@ def main():
     bert = phase_bert(device, bert_dir.name, bert_procs)
     bert_dir.cleanup()
     bert_ft = phase_bert_finetune()
-    gates = phase_gates()
-    ckpt = phase_checkpoint()
+    # phase 21's processes run beside phase 20
+    ckpt_job = start_checkpoint()
+    try:
+        gates = phase_gates()
+    except BaseException:
+        stop_checkpoint(ckpt_job)
+        raise
+    ckpt = phase_checkpoint(ckpt_job)
     vit = phase_vit(device)
 
     # every shape these paths hand K3 is held against the twins after them
@@ -6754,7 +7407,14 @@ def main():
     torch.cuda.empty_cache()
     host = phase_host_runtime(device, main_res["samples_per_s"])
     torch.cuda.empty_cache()
-    tcp = phase_host_runtime_tcp(device)
+    # 33b's drills over processes run beside 32d, its rank threads alone
+    # in phase 33
+    drills = chaos_drill_jobs(device)
+    threads = {CHAOS_THREADS_JOB: drills.pop(CHAOS_THREADS_JOB)}
+    tcp, ctl_started = phase_host_runtime_tcp(
+        device, start_next=lambda: start_control(device), beside=drills)
+    ctl = phase_control_chaos(device, ctl_started, tcp.pop("beside_32d"),
+                              threads)
 
     sl = procs[SLICE_PROCESSES]["slice"]
     fa = "jax/experimental/pallas/ops/tpu/flash_attention.py"
@@ -7024,12 +7684,28 @@ def main():
           + f" against a pinned D2H {tcp['wire']['copy_d2h_ms']:.2f} ms; "
           f"ResNet-50 at P = 2 over shm {tr_['shm']['img_s']:.1f} / tcp "
           f"{tr_['tcp']['img_s']:.1f} img/s ({tr_['tcp_over_shm']:.3f}x), "
-          f"audits exact; death: {tcp['faults']['death']['report']}; join "
+          f"audits exact; join "
           f"and drain: {tcp['faults']['join_drain']['report']}; win_mutex "
           f"stolen after {tcp['faults']['mutex']['waited_s']:.3f} s (lease "
           f"{tcp['faults']['mutex']['lease_s']} s); supervise: "
           f"{tcp['faults']['supervise']['report']}; launches "
           f"{tcp['launches']}; phase {tcp['s']:.1f} s")
+    cc, dr, rt = ctl["control"], ctl["drills"], tcp["wire"]["retune"]
+    print("the control plane and chaos (phase 33): ResNet-50 over "
+          f"{CTL_N} processes to {CTL_STEPS} steps, rank {CTL_SLOW} behind "
+          f"{CTL_SPEC!r}: static {cc['static']['wall_s']:.2f} s "
+          f"({cc['static']['img_s']:.1f} img/s), control "
+          f"{cc['control']['wall_s']:.2f} s ({cc['control']['img_s']:.1f} "
+          f"img/s), ratio {cc['control_over_static']:.3f}; final plan "
+          f"{cc['control']['plan']}, {cc['control']['plan_changes']} "
+          f"change(s), the first at round "
+          f"{cc['control']['first_change_round']}; audits exact; death "
+          f"{dr['death']['report']}; lossy link streams "
+          f"{dr['lossy']['streams']}; threads {dr['threads']['line']}; "
+          f"stripes " + ", ".join(f"{k} {v:.2f} ms"
+                                  for k, v in rt["ms"].items())
+          + f", none stranded; launches {ctl['launches']}; phase "
+          f"{ctl['s']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

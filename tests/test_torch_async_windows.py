@@ -603,8 +603,7 @@ def test_winput_async_factory_and_its_errors_match_the_jax_packages():
 
 
 @pytest.mark.parametrize("arg,value,item", [
-    ("snapshot_every", 2, "item 10"),
-    ("control", object(), "item 10"), ("fleet", object(), "item 11"),
+    ("snapshot_every", 2, "item 10"), ("fleet", object(), "item 11"),
     ("profile", "/tmp/p", "item 11")])
 def test_arguments_not_ported_yet_raise(arg, value, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -234,3 +234,27 @@ def test_launched_processes_default_to_the_card(tmp_path):
         capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert "cuda" in res.stderr
+
+
+def test_scan_covers_chaos_control_and_metrics():
+    """The import scan reaches every module of the chaos, control and
+    metrics packages, and none of them imports JAX or the JAX package when
+    loaded in a fresh interpreter."""
+    files = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    for mod in ("chaos/__init__.py", "chaos/spec.py", "chaos/injector.py",
+                "chaos/cli.py", "chaos/__main__.py", "control/__init__.py",
+                "control/plan.py", "control/evidence.py",
+                "control/controller.py", "control/transport.py",
+                "control/tree.py", "metrics/__init__.py",
+                "metrics/health.py"):
+        assert f"bluefog_tpu_torch/{mod}" in files, mod
+    code = ("import sys\n"
+            "import bluefog_tpu_torch.chaos, bluefog_tpu_torch.control\n"
+            "import bluefog_tpu_torch.metrics.health\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(PYTHONPATH=str(REPO), PATH="/usr/bin:/bin"),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr

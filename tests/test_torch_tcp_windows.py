@@ -160,13 +160,19 @@ def _example(*args, timeout=150):
 
 
 def test_sigkilled_rank_is_healed_out_audit_exact():
-    """One of three rank processes SIGKILLs itself mid-run; the survivors'
-    streams exhaust their reconnect budget, declare it dead, heal, hold
-    the rendezvous, and rank 0's audit over the survivors equals the
-    post-heal baseline exactly (the example asserts it)."""
-    rc, out = _example("--ranks", "3", "--transport", "tcp", "--resilient",
-                       "--kill-rank", "2", "--kill-step", "12",
-                       "--duration", "3")
+    """One of three rank processes is SIGKILLed mid-run by a chaos spec
+    (``python -m bluefog_tpu_torch.chaos``); the survivors' streams
+    exhaust their reconnect budget, declare it dead, heal, hold the
+    rendezvous, and rank 0's audit over the survivors equals the post-heal
+    baseline exactly (the example asserts it)."""
+    out = subprocess.run(
+        [sys.executable, "-m", "bluefog_tpu_torch.chaos", "--spec",
+         "rank2:sigkill:at_step=12", "--", sys.executable, "-m",
+         "bluefog_tpu_torch.examples.async_dsgd_mp", "--device", "cpu",
+         "--ranks", "3", "--transport", "tcp", "--resilient",
+         "--duration", "3"], capture_output=True, text=True, env=_env(),
+        cwd=REPO, timeout=150)
+    rc, out = out.returncode, out.stdout + out.stderr
     assert rc == 0, out
     assert "survived peer death over tcp" in out, out
     assert "dead=[2]" in out, out
@@ -190,11 +196,12 @@ def test_process_runner_argument_checks(tmp_path):
     with pytest.raises(ValueError, match="pipelined tcp"):
         aw.run_async_dsgd_rank(T.RingGraph(2), 0, p0, lag, barrier=b,
                                transport="shm", wire_codec="f32")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        aw.run_async_dsgd_rank(
-            T.RingGraph(2), 0, p0, lag, barrier=b, transport="tcp",
-            tcp_bind="127.0.0.1",
-            stream_options={"transport_tuning": True})
+    # the control plane rides the tcp transport's telemetry
+    from bluefog_tpu_torch.control import ControlConfig
+
+    with pytest.raises(ValueError, match="tcp transport"):
+        aw.run_async_dsgd_rank(T.RingGraph(2), 0, p0, lag, barrier=b,
+                               transport="shm", control=ControlConfig())
     with pytest.raises(ValueError, match="rank 0 is the reporting rank"):
         aw.run_async_dsgd_rank(
             T.RingGraph(2), 0, p0, lag, barrier=b, transport="tcp",
