@@ -54,9 +54,9 @@ a cursor-gap resync) — the read-path fault surface.  The fleet
 simulator interprets the same rules against virtual
 traffic: socket rules hit the simulated host's transport, rank rules
 schedule kills/drains/stalls/joins on the virtual clock.
-(In this package the read, sub and relay sites parse; the read site
-fires at sync reads, and SNAPSHOT, the subscription sender and the
-relay come with the serve-while-training read path.)
+(In this package every read-path site fires: read at sync reads and
+SNAPSHOT replies, sub in the subscription push sender, relay in a
+relay node's land path.)
 
 examples:
   server:drop:after_frames=40      cut a server connection at frame 40

@@ -4,8 +4,7 @@ Counterpart of ``bluefog_tpu/control/tree.py``: the control plane's
 discipline applied to the relay tree.  Telemetry becomes canonical
 evidence, a pure deterministic function folds it into a round-stamped
 :class:`TreePlan` (canonical bytes), and the plan is actuated only at
-round boundaries, by the relay node that comes with the serve-while-
-training read path.
+round boundaries, by :meth:`bluefog_tpu_torch.relay.RelayNode.apply_plan`.
 
 The decision table (hysteresis pairs, cooldown-limited):
 

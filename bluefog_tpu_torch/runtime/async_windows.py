@@ -43,11 +43,17 @@ Win* and its lock/flush epochs).  This module runs that execution model:
   :mod:`bluefog_tpu_torch.control`) in both runners, and the transport
   autotuner (``stream_options['transport_tuning']``) over processes.
 
+- Serve while training (``snapshot_every=``) in both runners: every Nth
+  step a rank publishes its round-stamped ``(x, p, round)`` into the
+  process-global :class:`~bluefog_tpu_torch.serving.snapshots.
+  SnapshotTable` under ``f"{name}:{rank}"``, which any
+  :class:`~bluefog_tpu_torch.runtime.window_server.WindowServer` of the
+  process serves to :mod:`bluefog_tpu_torch.serving` readers.
+
 Deferred, each raising ``NotImplementedError`` that names its ROADMAP item:
-serve-while-training snapshots (item 10), the fleet health plane and the
-sampling profiler (item 11).  The JAX package's calls into blackbox,
-metrics, tracing and lockcheck come back with those packages (item 11);
-none of them changes a result.
+the fleet health plane and the sampling profiler (item 11).  The JAX
+package's calls into blackbox, metrics, tracing and lockcheck come back
+with those packages (item 11); none of them changes a result.
 """
 
 from __future__ import annotations
@@ -75,6 +81,7 @@ from bluefog_tpu_torch.metrics.health import MixingTracker as _MixingTracker
 from bluefog_tpu_torch.runtime import membership as _mship
 from bluefog_tpu_torch.runtime import native as _native
 from bluefog_tpu_torch.runtime import resilience as _res
+from bluefog_tpu_torch.serving import snapshots as _snapshots
 from bluefog_tpu_torch.topology.graphs import heal as _heal
 from bluefog_tpu_torch.topology.graphs import replan as _replan
 from bluefog_tpu_torch.utils import timeline as _timeline
@@ -1212,9 +1219,8 @@ def _stream_context(packer: TreePacker):
 
 def _check_dsgd_args(*, snapshot_every=0, fleet=None,
                      profile=None) -> None:
-    if snapshot_every:
-        raise _not_ported("snapshot_every > 0", "10",
-                          "serve-while-training snapshots")
+    if snapshot_every < 0:
+        raise ValueError(f"snapshot_every must be >= 0, got {snapshot_every}")
     if fleet is not None:
         raise _not_ported("fleet=", "11", "the fleet health plane")
     if profile is not None:
@@ -1328,8 +1334,16 @@ def run_async_dsgd(
         Chaos rules (``rank<N>:die``, ``:stall``, ``:leave``) act at the
         same point.
       native: ``False`` runs on the Python twin of the window table.
-      snapshot_every > 0 (ROADMAP item 10), fleet, profile (item 11): not
-        ported yet; each raises ``NotImplementedError``.
+      snapshot_every: when > 0, every rank publishes a round-stamped
+        snapshot, ``{"x": x, "p": [p], "round": [step]}`` (z = x / p is
+        the rank's model), into the process-global serving table every
+        Nth step under the group ``f"{name}:{r}"``; any ``WindowServer``
+        in this process serves it (:mod:`bluefog_tpu_torch.serving`).  The
+        publish is atomic (double-buffered, swapped under one lock), so
+        readers never see a torn ``(x, p)`` pair, and it only reads: the
+        mass audit is unchanged.  The groups are dropped at the end.
+      fleet, profile (ROADMAP item 11): not ported yet; each raises
+        ``NotImplementedError``.
     """
     _check_dsgd_args(snapshot_every=snapshot_every, fleet=fleet,
                      profile=profile)
@@ -1384,9 +1398,10 @@ def run_async_dsgd(
     steps = [0] * n
     losses: List[List[float]] = [[] for _ in range(n)]
     finals: list = [None] * n
+    phase_keys = ("consume", "unpack", "loss_and_grad", "pack", "deposit",
+                  "harvest") + (("publish",) if snapshot_every else ())
     phases: List[Dict[str, float]] = [
-        dict.fromkeys(("consume", "unpack", "loss_and_grad", "pack",
-                       "deposit", "harvest"), 0.0) for _ in range(n)]
+        dict.fromkeys(phase_keys, 0.0) for _ in range(n)]
     errors: List[BaseException] = []
     x0 = packer.pack(params0)
     if packer.device is not None:
@@ -1686,6 +1701,18 @@ def run_async_dsgd(
                             x *= frac
                             p *= frac
                         t5 = time.perf_counter()
+                        if snapshot_every and steps[r] % snapshot_every == 0:
+                            # serve-while-training publish: the post-step
+                            # (x, p); z = x / p is invariant to the frac
+                            # split, so this is round steps[r]'s model,
+                            # swapped in atomically with its round stamp
+                            # (the in-band `round` leaf lets wire readers
+                            # audit the stamp end to end)
+                            _snapshots.table().publish(
+                                f"{name}:{r}", steps[r],
+                                {"x": x, "p": np.array([p]),
+                                 "round": np.array([float(steps[r])])})
+                            ph["publish"] += time.perf_counter() - t5
                         ph["consume"] += t1 - t0
                         ph["unpack"] += t2 - t1
                         ph["loss_and_grad"] += t3 - t2
@@ -1781,6 +1808,9 @@ def run_async_dsgd(
         raise RuntimeError("async DSGD rank threads failed to stop within "
                            f"{join_budget:.1f}s; aborting without freeing")
     wall = time.perf_counter() - t0
+    if snapshot_every:
+        for r in range(n):
+            _snapshots.table().drop(f"{name}:{r}")
     if errors:
         for w in wins:
             w.free()
@@ -2290,9 +2320,19 @@ def run_async_dsgd_rank(
     ``rank<N>:sigkill``/``:sigstop`` at a step or after a time, and
     ``rank<N>:leave:at_step`` as a graceful drain (elastic jobs only).
 
-    Not ported yet, each raising ``NotImplementedError``:
-    ``snapshot_every > 0`` (ROADMAP Queue 1 item 10), ``fleet`` and
-    ``profile`` (item 11).
+    ``snapshot_every > 0`` publishes this rank's round-stamped ``(x, p,
+    round)`` into the process-global serving table every Nth step (group
+    ``f"{name}:{rank}"``), after any heal, so the published pair is the
+    rank's post-step state; over tcp the rank's own ``WindowServer``
+    serves it to :class:`~bluefog_tpu_torch.serving.client.SnapshotClient`
+    readers and :class:`~bluefog_tpu_torch.serving.subscriber.Subscriber`
+    push channels (over shm, a ``WindowServer`` the caller starts in this
+    process does).  Readers never touch the training loop; the group is
+    dropped when the rank returns.  ``rep.phase_s`` then has a
+    ``publish`` entry.
+
+    Not ported yet, each raising ``NotImplementedError``: ``fleet`` and
+    ``profile`` (ROADMAP Queue 1 item 11).
 
     Returns a :class:`DSGDReport` on rank 0 (``losses`` and ``phase_s``
     filled at index ``rank`` only; the other ranks' stay in their
@@ -2388,10 +2428,13 @@ def run_async_dsgd_rank(
             resilience=resilience if transport == "tcp" else None,
             join=join, leave_after_s=leave_after_s,
             initial_members=initial_members, control=control,
-            stop_after_steps=stop_after_steps, overlap_buffer=db)
+            stop_after_steps=stop_after_steps, overlap_buffer=db,
+            snapshot_every=snapshot_every)
     finally:
         if db is not None:
             db.close()  # idempotent; before the windows are freed
+        if snapshot_every:
+            _snapshots.table().drop(f"{name}:{rank}")
         for w in opened:
             try:
                 w.free()
@@ -2422,7 +2465,8 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
                         transport, create_window, open_window,
                         resilience=None, join=False, leave_after_s=None,
                         initial_members=None, control=None,
-                        stop_after_steps=None, overlap_buffer=None):
+                        stop_after_steps=None, overlap_buffer=None,
+                        snapshot_every=0):
     from bluefog_tpu_torch.utils.logging import log as _log
 
     n = topology.size
@@ -2475,7 +2519,8 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
     self_buf = np.empty(d + 1, np.float64)
     peers: Dict[int, object] = {}
     ph = dict.fromkeys(("consume", "unpack", "loss_and_grad", "pack",
-                        "deposit", "harvest"), 0.0)
+                        "deposit", "harvest")
+                       + (("publish",) if snapshot_every else ()), 0.0)
     _chaos.arm(rank)
 
     # ------------------------------------------- control plane (opt-in)
@@ -3088,6 +3133,15 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
             if failed:
                 _heal_and_rebase(set(failed))
             tf = time.perf_counter()
+            if snapshot_every and steps % snapshot_every == 0:
+                # serve-while-training publish: the retained post-step
+                # (x, p) (z = x / p is invariant to the frac split),
+                # swapped in atomically under its round stamp
+                _snapshots.table().publish(
+                    f"{name}:{rank}", steps,
+                    {"x": x, "p": np.array([p]),
+                     "round": np.array([float(steps)])})
+                ph["publish"] += time.perf_counter() - tf
             ph["consume"] += tb - ta
             ph["unpack"] += tc - tb
             ph["loss_and_grad"] += td - tc

@@ -56,12 +56,29 @@ bodies follow:
                  ``(seq | 0x80000000, 0)`` on the deposit stream's ack
                  channel.  Requires the HEARTBEAT feature bit.
 
-Ops 8 (SNAPSHOT) and 9 (SUBSCRIBE), the serve-while-training read path,
-come with ROADMAP item 10: this server does not grant their feature bits
-and answers them with ``ERR_BAD_OP`` before it drops the connection.  It
-grants neither FEATURE_TRACE (item 11) nor FEATURE_DELTA (item 10); a
-client that asks for the trace bit degrades silently, as against an old
-server.
+  8 SNAPSHOT     group | want_round i64, count u16, then ``count`` leaf
+                 names ``len u16 | name``.  reply status i64 = the round
+                 (or ``-107`` round rolled, ``-108`` no snapshot), then
+                 ``count u16`` and per leaf ``name_len u16, dtype u8,
+                 n_elems i64 | name | payload``: every leaf from one round
+                 of the served :class:`~bluefog_tpu_torch.serving.
+                 snapshots.SnapshotTable`.  Requires FEATURE_SNAPSHOT.
+  9 SUBSCRIBE    group | sub_id u64, epoch u32, every u32, cursor i64.
+                 reply status i64 (0, ``-105`` stale epoch, ``-106`` at the
+                 fan-out limit), then the connection is one-way server
+                 push: frames ``round i64 (-1 = keepalive), skipped u32,
+                 count u16`` and the leaves as in SNAPSHOT.  On
+                 FEATURE_DELTA connections every push carries ``kind u8,
+                 base_round i64`` after that header; kind 10 (DELTA)
+                 frames carry per leaf ``name_len u16, dtype u8, codec u8,
+                 n_elems i64, wire_bytes i64 | name | payload``, the
+                 round-over-round difference (:mod:`bluefog_tpu_torch.
+                 runtime.delta`).  Requires FEATURE_SUBSCRIBE.
+
+The server grants FEATURE_SNAPSHOT, FEATURE_SUBSCRIBE and FEATURE_DELTA,
+but not FEATURE_TRACE (the wire trace context comes with the tracing
+package, ROADMAP item 11): a client that asks for the trace bit degrades
+silently, as against an old server.
 
 Version negotiation is loud, never silent: a v2 server answers a v1-magic
 frame with one ``status = -101`` reply and drops the connection, and
@@ -103,10 +120,11 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from bluefog_tpu_torch import chaos as _chaos
-from bluefog_tpu_torch.runtime import (native as _native, resilience,
-                                       wire_codec, wire_status)
+from bluefog_tpu_torch.runtime import (delta as _delta, native as _native,
+                                       resilience, wire_codec, wire_status)
 from bluefog_tpu_torch.runtime.async_windows import (
     _DTYPES as _DTYPE_IDS, _py_windows)
+from bluefog_tpu_torch.serving import snapshots as _snap
 
 __all__ = ["WindowServer", "RemoteWindow", "PipelinedRemoteWindow",
            "DepositStream", "StripedDepositStream", "stripe_of",
@@ -128,6 +146,19 @@ _ACK = struct.Struct("<Iq")           # seq, status
 _ATTACH = struct.Struct("<QI")        # stream_id, epoch
 _HB = struct.Struct("<I")             # heartbeat seq
 _HB_MARK = 0x8000_0000                # ack-frame seq bit: heartbeat reply
+_SNAP_REQ = struct.Struct("<qH")      # want_round, requested-leaf count
+_LEAF_NAME = struct.Struct("<H")      # one requested leaf name length
+_SNAP_CNT = struct.Struct("<H")       # leaves in a snapshot reply
+_SNAP_LEAF = struct.Struct("<HBq")    # name_len, dtype, n_elems
+_SUB_REQ = struct.Struct("<QIIq")     # sub_id, epoch, every, cursor
+_PUSH = struct.Struct("<qIH")         # round (-1 = keepalive), skipped,
+                                      # leaf count
+_DELTA_HDR = struct.Struct("<Bq")     # frame kind (0 full / 10 delta),
+                                      # base_round: after _PUSH on every
+                                      # push frame of a FEATURE_DELTA
+                                      # connection, keepalives included
+_DELTA_LEAF = struct.Struct("<HBBqq")  # name_len, dtype, codec, n_elems,
+                                       # wire_bytes: one delta leaf entry
 _OP_DEPOSIT = 0
 _OP_GET_SELF = 1
 _OP_READ_SLOT = 2
@@ -136,9 +167,23 @@ _OP_DEPOSIT_BATCH = 4
 _OP_FLUSH = 5
 _OP_STREAM_ATTACH = 6
 _OP_HEARTBEAT = 7
-# the serve-while-training read ops (ROADMAP item 10): refused here
 _OP_SNAPSHOT = 8
 _OP_SUBSCRIBE = 9
+# not a request op: the frame-kind marker of a delta push frame on the
+# SUBSCRIBE push channel (FEATURE_DELTA connections; kind 0 = full)
+_OP_DELTA = 10
+
+# subscription push cadence when nothing is being published: an idle
+# server must look different from a wedged one to the reader's idle
+# timeout (keepalive round = -1)
+_SUB_KEEPALIVE_S = 1.0
+# bounds a SNAPSHOT request can claim before any allocation happens
+_MAX_SNAP_LEAVES = 4096
+_MAX_LEAF_NAME = 4096
+# the largest dense payload one snapshot or push leaf header may claim
+# before the reader allocates: a lying header must never choose the
+# reader's allocation size
+_MAX_LEAF_BYTES = 1 << 31
 
 _FLAG_ACCUMULATE = 1
 _FLAG_DEFERRED_ACK = 2
@@ -155,12 +200,13 @@ FEATURE_CODEC_F32 = 2
 FEATURE_CODEC_TOPK = 4
 FEATURE_HEARTBEAT = 8
 FEATURE_RESUME = 16     # STREAM_ATTACH + idempotent reconnect replay
-FEATURE_SNAPSHOT = 32   # op 8, ROADMAP item 10: not granted here
-FEATURE_SUBSCRIBE = 64  # op 9, ROADMAP item 10: not granted here
+FEATURE_SNAPSHOT = 32   # round-stamped consistent snapshot reads (op 8)
+FEATURE_SUBSCRIBE = 64  # resumable push subscriptions (op 9)
 FEATURE_TRACE = 128     # wire trace context, ROADMAP item 11: not granted
-FEATURE_DELTA = 256     # delta push frames, ROADMAP item 10: not granted
+FEATURE_DELTA = 256     # round-over-round delta push frames (op 10)
 _SERVER_FEATURES = (FEATURE_BATCH | FEATURE_CODEC_F32 | FEATURE_CODEC_TOPK
-                    | FEATURE_HEARTBEAT | FEATURE_RESUME)
+                    | FEATURE_HEARTBEAT | FEATURE_RESUME
+                    | FEATURE_SNAPSHOT | FEATURE_SUBSCRIBE | FEATURE_DELTA)
 
 _CODEC_FEATURE = {wire_codec.CODEC_NONE: 0,
                   wire_codec.CODEC_F32: FEATURE_CODEC_F32,
@@ -179,6 +225,8 @@ _ERR_CODEC = wire_status.ERR_CODEC
 _ERR_TOO_LARGE = wire_status.ERR_TOO_LARGE
 _ERR_STALE_EPOCH = wire_status.ERR_STALE_EPOCH
 _ERR_BUSY = wire_status.ERR_BUSY
+_ERR_ROUND_ROLLED = wire_status.ERR_ROUND_ROLLED
+_ERR_NO_SNAPSHOT = wire_status.ERR_NO_SNAPSHOT
 
 _err_text = wire_status.err_text
 
@@ -471,6 +519,221 @@ class _ApplyWorker:
                 return  # peer gone; the recv loop will notice too
 
 
+def _leaf_views(leaves: List[Tuple[str, np.ndarray]]) -> List:
+    """Encode ``[(name, array), ...]`` as SNAPSHOT/PUSH leaf entries
+    (``_SNAP_LEAF`` + name + payload per leaf).  Callers prepend their own
+    count; the snapshot table holds only wire dtypes (publish validates
+    f32/f64)."""
+    views: List = []
+    for name, arr in leaves:
+        nb = name.encode()
+        views.append(_SNAP_LEAF.pack(len(nb), _DTYPE_IDS[arr.dtype],
+                                     arr.size))
+        views.append(nb)
+        views.append(memoryview(arr).cast("B"))
+    return views
+
+
+def _recv_leaves(sock: socket.socket, count: int) -> Dict[str, np.ndarray]:
+    """Decode ``count`` leaf entries (the :func:`_leaf_views` twin): the
+    one reader for SNAPSHOT replies and subscription push frames.  Claimed
+    lengths are bounded before any allocation; a malformed header raises
+    ``ValueError``, which both clients treat as a dead connection."""
+    leaves: Dict[str, np.ndarray] = {}
+    for _ in range(count):
+        name_len, dtype_id, n_elems = _SNAP_LEAF.unpack(
+            _recv_exact(sock, _SNAP_LEAF.size))
+        if (dtype_id not in _DTYPES or n_elems < 0
+                or name_len > _MAX_LEAF_NAME
+                or n_elems * _DTYPES[dtype_id].itemsize > _MAX_LEAF_BYTES):
+            raise ValueError("snapshot leaf header out of bounds")
+        name = _recv_exact(sock, name_len).decode("utf-8", "replace")
+        out = np.empty(n_elems, _DTYPES[dtype_id])
+        _recv_into(sock, memoryview(out).cast("B"))
+        leaves[name] = out
+    return leaves
+
+
+def _delta_leaf_views(items) -> List:
+    """Encode a :meth:`DeltaEncoder.step` item list as op-10 delta leaf
+    entries (``_DELTA_LEAF`` + name + codec payload per leaf)."""
+    views: List = []
+    for name, dtype, codec, n_elems, payload_views, wire_b in items:
+        nb = name.encode()
+        views.append(_DELTA_LEAF.pack(len(nb), _DTYPE_IDS[dtype], codec,
+                                      n_elems, wire_b))
+        views.append(nb)
+        views.extend(payload_views)
+    return views
+
+
+def _recv_delta_leaves(sock: socket.socket, count: int) -> List:
+    """Decode ``count`` op-10 delta leaf entries (the
+    :func:`_delta_leaf_views` twin) into ``(name, dtype, codec, n_elems,
+    payload)`` tuples for :meth:`DeltaApplier.apply`.  Claimed lengths are
+    bounded before any allocation; a malformed entry raises
+    ``ValueError`` (a dead connection: the cursor never moves on a frame
+    that did not fully parse)."""
+    items: List = []
+    for _ in range(count):
+        name_len, dtype_id, codec, n_elems, wire_b = _DELTA_LEAF.unpack(
+            _recv_exact(sock, _DELTA_LEAF.size))
+        if (dtype_id not in _DTYPES or codec not in wire_codec.CODEC_NAMES
+                or n_elems < 0 or wire_b < 0 or name_len > _MAX_LEAF_NAME
+                or wire_b > wire_codec.wire_bytes_bound(
+                    n_elems, _DTYPES[dtype_id].itemsize)):
+            raise ValueError("delta leaf header out of bounds")
+        name = _recv_exact(sock, name_len).decode("utf-8", "replace")
+        payload = bytearray(wire_b)
+        _recv_into(sock, memoryview(payload))
+        items.append((name, _DTYPES[dtype_id], codec, n_elems,
+                      memoryview(payload)))
+    return items
+
+
+class _SubSender:
+    """Per-subscription background pusher: blocks in the snapshot table's
+    publish wait and pushes the latest due round to its reader.
+
+    The slow-reader policy is skip-to-latest: the sender never queues more
+    than the one snapshot it is serialising, so a reader that cannot keep
+    up receives fewer, newer snapshots (``skipped`` counts the due rounds
+    it missed), and nothing here can hold the training loop back: publish
+    never waits on a subscriber.  A reader that stops draining its socket
+    blocks only this thread in ``sendall``; the next epoch's attach, or
+    the reader's death reaching TCP, tears it down.  Keepalive frames
+    (round = -1) flow when nothing is published, so a live but idle server
+    never trips the reader's silence detector."""
+
+    def __init__(self, handler, sock, wmu, group: str, every: int,
+                 cursor: int, peer: str, sid: int, epoch: int):
+        self._handler = handler
+        self._sock = sock
+        self._wmu = wmu
+        self._group = group
+        self._every = max(1, int(every))
+        # the client-held cursor is the delivery truth: nothing at or
+        # below it is pushed again (no duplicates), and pushes always
+        # carry the latest round above it (no misses)
+        self._last_round = int(cursor)
+        self._peer = peer
+        self.sid = sid
+        self.epoch = epoch
+        self._closed = threading.Event()
+        # delta pushes ride only connections whose HELLO negotiated
+        # FEATURE_DELTA; the encoder is per connection (a reconnect gets a
+        # fresh one, which forces the full-frame anchor after a gap)
+        self._delta_on = bool(handler._delta_granted)
+        self._enc = _delta.DeltaEncoder() if self._delta_on else None
+        # start one generation behind the table: a subscriber attaching
+        # after the latest publish must still receive the current round
+        # when its cursor is below it
+        gen = handler.server.snap_table.generation(group)
+        self._gen = gen - 1 if gen > 0 else 0
+        self._thread = threading.Thread(
+            target=self._loop, daemon=True, name=f"bf-sub:{peer}")
+        self._thread.start()
+
+    def close(self) -> bool:
+        """Stop the sender (idempotent; callable from any thread).
+        Closing the socket kicks a sender blocked mid-``sendall``."""
+        self._closed.set()
+        for fn in (lambda: self._sock.shutdown(socket.SHUT_RDWR),
+                   self._sock.close):
+            try:
+                fn()
+            except OSError:
+                pass
+        if threading.current_thread() is not self._thread:
+            self._thread.join(timeout=5)
+            return not self._thread.is_alive()
+        return True
+
+    def _send(self, views) -> bool:
+        try:
+            with self._wmu:
+                _sendmsg_all(self._sock, views)
+            return True
+        except (OSError, ConnectionError):
+            return False
+
+    def _keepalive_due(self) -> bool:
+        return time.monotonic() - self._last_send >= _SUB_KEEPALIVE_S
+
+    def _ka_views(self) -> List:
+        """A keepalive frame (round = -1), with an empty delta header on
+        FEATURE_DELTA connections so every push frame parses the same
+        way."""
+        views: List = [_PUSH.pack(-1, 0, 0)]
+        if self._delta_on:
+            views.append(_DELTA_HDR.pack(0, -1))
+        return views
+
+    def _payload_views(self, rnd: int, leaves) -> List:
+        """The frame body: dense leaves on plain connections; on
+        FEATURE_DELTA connections the delta header plus either the
+        full-frame anchor or the encoded round-over-round delta, per the
+        server's live :class:`DeltaConfig` (read fresh each push)."""
+        if not self._delta_on:
+            return _leaf_views(leaves)
+        cfg = self._handler.server.delta_cfg
+        kind, base_rnd, items = self._enc.step(rnd, leaves, cfg)
+        if kind == _OP_DELTA:
+            return ([_DELTA_HDR.pack(_OP_DELTA, base_rnd)]
+                    + _delta_leaf_views(items))
+        return [_DELTA_HDR.pack(0, -1)] + _leaf_views(leaves)
+
+    def _loop(self) -> None:
+        tbl = self._handler.server.snap_table
+        self._last_send = time.monotonic()
+        while not self._closed.is_set():
+            gen = tbl.wait_newer(self._group, self._gen,
+                                 timeout_s=_SUB_KEEPALIVE_S)
+            if self._closed.is_set():
+                return
+            if gen is None:
+                if not self._send(self._ka_views()):
+                    return
+                self._last_send = time.monotonic()
+                continue
+            self._gen = gen
+            try:
+                rnd, leaves = tbl.read(self._group)
+            except _snap.SnapshotUnavailable:
+                continue  # dropped between the notify and the read
+            if self._last_round >= 0 and rnd < self._last_round + self._every:
+                # not due yet (the every-Nth-round contract); a steady
+                # stream of publishes that are not due must not starve the
+                # keepalive cadence
+                if self._keepalive_due():
+                    if not self._send(self._ka_views()):
+                        return
+                    self._last_send = time.monotonic()
+                continue
+            skipped = (max(0, (rnd - self._last_round) - self._every)
+                       if self._last_round >= 0 else 0)
+            # the frame body is built once (the delta encoder's error
+            # feedback advances per push)
+            views = ([_PUSH.pack(rnd, skipped, len(leaves))]
+                     + self._payload_views(rnd, leaves))
+            act = _chaos.fire("sub", peer=self._peer, group=self._group)
+            if act is not None:
+                if act[0] in ("delay", "stall"):
+                    time.sleep(act[1])
+                else:
+                    # an injected reader-side outage: cut the push channel
+                    # (after half a frame for 'truncate', the torn frame a
+                    # resuming reader must not consume)
+                    if act[0] == "truncate":
+                        self._send(views[:max(1, len(views) // 2)])
+                    self.close()
+                    return
+            if not self._send(views):
+                return
+            self._last_send = time.monotonic()
+            self._last_round = rnd
+
+
 class _Handler(socketserver.BaseRequestHandler):
     def setup(self):
         self.server.track(self.request)  # type: ignore[attr-defined]
@@ -490,6 +753,11 @@ class _Handler(socketserver.BaseRequestHandler):
         # DepositStream lineage binding (STREAM_ATTACH); None = unbound
         self._stream_sid: Optional[int] = None
         self._stream_epoch = 0
+        # FEATURE_DELTA negotiated on this connection: push frames carry
+        # the delta header and may be op-10 deltas (set at HELLO)
+        self._delta_granted = False
+        # subscription push sender (SUBSCRIBE); None = plain connection
+        self._sub: Optional[_SubSender] = None
 
     def _send(self, data) -> None:
         with self._wmu:
@@ -502,7 +770,26 @@ class _Handler(socketserver.BaseRequestHandler):
     def finish(self):
         if self._worker is not None:
             self._worker.close()
+        if self._sub is not None:
+            self._sub.close()
+            self.server.note_sub(-1)  # type: ignore[attr-defined]
+            self._sub = None
         self.server.untrack(self.request)  # type: ignore[attr-defined]
+
+    def quiesce_sub(self) -> bool:
+        """Fence a superseded SUBSCRIBE connection: close its socket and
+        stop its push sender, so the old epoch can push nothing after the
+        successor's accept reply.  Idempotent against ``finish``."""
+        for fn in (lambda: self.request.shutdown(socket.SHUT_RDWR),
+                   self.request.close):
+            try:
+                fn()
+            except OSError:
+                pass
+        s = self._sub
+        if s is not None:
+            return s.close()
+        return True
 
     def quiesce(self) -> bool:
         """Fence a superseded connection: close its socket and DRAIN its
@@ -685,6 +972,77 @@ class _Handler(socketserver.BaseRequestHandler):
         worker.submit_batch(seq, jobs)
         return True
 
+    def _handle_snapshot(self, sock, name_len: int) -> bool:
+        """One SNAPSHOT request: all requested leaves from one round, or a
+        retriable negative status; returns False to drop the connection
+        (an unparseable request, or an injected read fault)."""
+        group = self._recv_name(sock, name_len).decode("utf-8", "replace")
+        want_round, count = _SNAP_REQ.unpack(
+            _recv_exact(sock, _SNAP_REQ.size))
+        if count > _MAX_SNAP_LEAVES:
+            self._send(_STATUS.pack(_ERR_BAD_OP))
+            return False
+        names: List[str] = []
+        for _ in range(count):
+            (ln,) = _LEAF_NAME.unpack(_recv_exact(sock, _LEAF_NAME.size))
+            if ln > _MAX_LEAF_NAME:
+                self._send(_STATUS.pack(_ERR_BAD_OP))
+                return False
+            names.append(self._recv_name(sock, ln).decode("utf-8", "replace"))
+        try:
+            rnd, leaves = self.server.snap_table.read(  # type: ignore
+                group, names or None,
+                want_round=want_round if want_round >= 0 else -1)
+        except _snap.RoundRolled:
+            self._send(_STATUS.pack(_ERR_ROUND_ROLLED))
+            return True
+        except _snap.SnapshotUnavailable:
+            self._send(_STATUS.pack(_ERR_NO_SNAPSHOT))
+            return True
+        views = ([_STATUS.pack(rnd), _SNAP_CNT.pack(len(leaves))]
+                 + _leaf_views(leaves))
+        act = _chaos.fire("read", op="snapshot",
+                          peer=self.client_address[0])
+        if act is not None:
+            if act[0] in ("delay", "stall"):
+                time.sleep(act[1])
+            elif act[0] == "truncate":
+                # a torn reply frame, then the cut: the client must
+                # detect it and retry a fresh read, never consume the
+                # fragment as a snapshot
+                self._send_views(views[:max(1, len(views) // 2)])
+                return False
+            else:  # drop
+                return False
+        self._send_views(views)
+        return True
+
+    def _handle_subscribe(self, sock, name_len: int) -> bool:
+        """One SUBSCRIBE request: bind this connection as the push channel
+        of a subscriber lineage and start its sender."""
+        group = self._recv_name(sock, name_len).decode("utf-8", "replace")
+        sid, epoch, every, cursor = _SUB_REQ.unpack(
+            _recv_exact(sock, _SUB_REQ.size))
+        if self._sub is not None:
+            # one subscription a connection: a second SUBSCRIBE on the
+            # same socket would interleave two push streams' framing
+            self._send(_STATUS.pack(_ERR_BAD_OP))
+            return False
+        if not self.server.sub_reserve():  # type: ignore[attr-defined]
+            # the tree plan's degree: a relay at its fan-out limit refuses
+            # retriably; the reader backs off or finds a sibling
+            self._send(_STATUS.pack(_ERR_BUSY))
+            return False
+        rc = self.server.attach_sub(sid, epoch, self)  # type: ignore
+        if rc < 0:
+            self.server.note_sub(-1)  # type: ignore[attr-defined]
+            self._send(_STATUS.pack(rc))
+            return False
+        self._send(_STATUS.pack(0))
+        self._sub = _SubSender(self, sock, self._wmu, group, every, cursor,
+                               self.client_address[0], sid=sid, epoch=epoch)
+        return True
+
     def handle(self):
         ops = self.server.ops  # type: ignore[attr-defined]
         sock = self.request
@@ -714,12 +1072,14 @@ class _Handler(socketserver.BaseRequestHandler):
                         # mid-frame either way
                         return
                     time.sleep(act[1])  # delay or stall
-                if op in (_OP_SNAPSHOT, _OP_SUBSCRIBE):
-                    # the serve-while-training read ops come with ROADMAP
-                    # item 10; their bodies are not parsed here, so the
-                    # connection cannot continue
-                    self._send(_STATUS.pack(_ERR_BAD_OP))
-                    return
+                if op == _OP_SNAPSHOT:
+                    if not self._handle_snapshot(sock, name_len):
+                        return
+                    continue
+                if op == _OP_SUBSCRIBE:
+                    if not self._handle_subscribe(sock, name_len):
+                        return
+                    continue
                 if op == _OP_HEARTBEAT:
                     (hb_seq,) = _HB.unpack(_recv_exact(sock, _HB.size))
                     self._send(_ACK.pack((hb_seq & ~_HB_MARK) | _HB_MARK, 0))
@@ -743,6 +1103,7 @@ class _Handler(socketserver.BaseRequestHandler):
                         return
                     granted = features & _SERVER_FEATURES
                     self.server.set_features(self.request, granted)  # type: ignore
+                    self._delta_granted = bool(granted & FEATURE_DELTA)
                     self._send(_STATUS.pack(granted))
                     continue
                 if op == _OP_DEPOSIT_BATCH:
@@ -859,6 +1220,23 @@ class _Server(socketserver.ThreadingTCPServer):
         self.deduped_batches = 0
         # injected applied-but-unacked failures still to fire
         self._ack_drops = 0
+        # subscriber lineage state: sub_id -> [epoch, handler,
+        # last_activity].  The deposit streams' epoch discipline on the
+        # read path: a reconnecting subscriber's newer epoch quiesces the
+        # superseded push sender, so no zombie pushes beside its successor
+        self._subs: Dict[int, list] = {}
+        self._subs_mu = threading.Lock()
+        self._live_subs = 0
+        # the snapshot table this server serves: the process-global one by
+        # default (trainers), a private one for a relay that re-publishes
+        # upstream groups (WindowServer(snapshots=...))
+        self.snap_table: _snap.SnapshotTable = _snap.table()
+        # the live delta cadence and codec of this server's push senders,
+        # swapped whole by the tree plan's actuation at round boundaries;
+        # senders read it fresh per push
+        self.delta_cfg: _delta.DeltaConfig = _delta.DeltaConfig()
+        # fan-out admission limit (None = unlimited): the TreePlan's degree
+        self.sub_limit: Optional[int] = None
 
     def note_drain(self) -> None:
         with self._conns_mu:
@@ -876,6 +1254,51 @@ class _Server(socketserver.ThreadingTCPServer):
                 self._ack_drops -= 1
                 return True
         return False
+
+    def sub_reserve(self) -> bool:
+        """Atomically claim one subscription slot under the fan-out limit
+        (check and increment in one critical section: the children of a
+        dead relay re-parenting at once must not overshoot the degree).
+        The claimer releases with ``note_sub(-1)`` on a later failure or
+        at teardown."""
+        with self._subs_mu:
+            if (self.sub_limit is not None
+                    and self._live_subs >= self.sub_limit):
+                return False
+            self._live_subs += 1
+            return True
+
+    # -------------------------------------------------- subscriber lineage
+    def attach_sub(self, sid: int, epoch: int, handler) -> int:
+        """Bind ``handler`` as the live push connection of subscriber
+        ``sid`` at ``epoch``; quiesces the superseded connection before
+        accepting.  0 on success, ``-105`` when the epoch is not strictly
+        newer."""
+        with self._subs_mu:
+            st = self._subs.get(sid)
+            if st is not None and epoch <= st[0]:
+                return _ERR_STALE_EPOCH
+            old = st[1] if st is not None else None
+        if old is not None and old is not handler:
+            # outside the lock: the quiesce joins the old sender thread
+            old.quiesce_sub()
+        with self._subs_mu:
+            st = self._subs.get(sid)
+            if st is None:
+                if len(self._subs) >= self._MAX_STREAMS:
+                    oldest = min(self._subs, key=lambda k: self._subs[k][2])
+                    del self._subs[oldest]
+                st = self._subs[sid] = [0, None, time.monotonic()]
+            if epoch <= st[0]:
+                return _ERR_STALE_EPOCH  # lost an attach race
+            st[0] = epoch
+            st[1] = handler
+            st[2] = time.monotonic()
+        return 0
+
+    def note_sub(self, delta: int) -> None:
+        with self._subs_mu:
+            self._live_subs = max(0, self._live_subs + delta)
 
     # ------------------------------------------------------ stream lineage
     def attach_stream(self, sid: int, epoch: int, handler) -> int:
@@ -988,24 +1411,29 @@ class WindowServer:
     address to hand to peers is ``.address``.  Serves the native window
     table, or its Python twin under ``BLUEFOG_TPU_TORCH_NO_NATIVE=1``.
 
-    The reference's ``snapshots=`` and ``delta=`` arguments (the
-    SNAPSHOT/SUBSCRIBE read path) come with ROADMAP item 10."""
+    ``snapshots`` selects the :class:`~bluefog_tpu_torch.serving.snapshots.
+    SnapshotTable` this server's SNAPSHOT/SUBSCRIBE ops serve: the
+    process-global table by default; a relay passes its own, so one
+    process can host a trainer's table and a relay's re-published groups
+    on separate ports.  ``delta`` configures the push senders' op-10 delta
+    cadence (:class:`~bluefog_tpu_torch.runtime.delta.DeltaConfig`)."""
 
     def __init__(self, *, snapshots=None, delta=None):
-        if snapshots is not None or delta is not None:
-            raise NotImplementedError(
-                "WindowServer(snapshots=, delta=) is not ported yet: it "
-                "comes with ROADMAP Queue 1 item 10 (the serve-while-"
-                "training read path)")
         self._ops = _table_ops()
         self._server: Optional[_Server] = None
         self._thread: Optional[threading.Thread] = None
+        self._snapshots = snapshots
+        self._delta = delta
 
     def start(self, host: str = "0.0.0.0", port: int = 0) -> Tuple[str, int]:
         if self._server is not None:
             raise RuntimeError("server already running")
         self._server = _Server((host, port), _Handler)
         self._server.ops = self._ops  # type: ignore[attr-defined]
+        if self._snapshots is not None:
+            self._server.snap_table = self._snapshots
+        if self._delta is not None:
+            self._server.delta_cfg = self._delta
         # a short poll: stop() waits for the accept loop's next poll
         self._thread = threading.Thread(
             target=self._server.serve_forever, kwargs={"poll_interval": 0.05},
@@ -1024,6 +1452,29 @@ class WindowServer:
         if host in ("0.0.0.0", "::"):
             host = _routable_host()
         return host, port
+
+    @property
+    def snapshots(self) -> _snap.SnapshotTable:
+        """The snapshot table this server serves."""
+        if self._server is not None:
+            return self._server.snap_table
+        return (self._snapshots if self._snapshots is not None
+                else _snap.table())
+
+    def set_delta(self, cfg: _delta.DeltaConfig) -> None:
+        """Install a new delta cadence (a whole-config swap; push senders
+        read it fresh per push).  The tree control plane calls this at its
+        round-boundary actuation."""
+        self._delta = cfg
+        if self._server is not None:
+            self._server.delta_cfg = cfg
+
+    def set_fanout_limit(self, limit: Optional[int]) -> None:
+        """Cap live subscriptions (None = unlimited): the TreePlan's degree
+        knob; over-limit SUBSCRIBEs are refused retriably (``ERR_BUSY``)."""
+        if self._server is not None:
+            self._server.sub_limit = (None if limit is None
+                                      else max(1, int(limit)))
 
     @property
     def drain_deposits(self) -> int:

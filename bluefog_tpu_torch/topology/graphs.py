@@ -417,7 +417,7 @@ def replan_penalized(topo: Topology, members, *, slow=(),
                      densify: int = 0, name: Optional[str] = None
                      ) -> Topology:
     """The penalized form of :func:`replan` (the communication
-    controller's actuation, which comes with ROADMAP item 10):
+    controller's actuation, :mod:`bluefog_tpu_torch.control`):
     a fresh mixing plan over ``members`` with **per-peer penalties**
     applied — a peer in ``slow`` (a slow rank, a lossy link) keeps only
     its canonical RING edges over the sorted member list, so its degree

@@ -429,7 +429,8 @@ its last line:
    beside 32d; the third runs first in this phase; all reported here)
    through ``python -m bluefog_tpu_torch.chaos
    --spec ...``: 32d's death (``async_dsgd_mp --ranks 3 --transport tcp
-   --resilient`` under ``rank2:sigkill:at_step=12``), a lossy link
+   --resilient --duration 8`` under ``rank2:sigkill:at_step=12``), a lossy
+   link
    (``--ranks 2`` under ``ack:drop:after_frames=3;client:truncate:
    after_frames=5;server:drop:rate=0.05:seed=3``: at least one reconnect,
    at least one replayed, retired or deduped batch, the audit exact) and
@@ -442,6 +443,47 @@ its last line:
    the end, every window bit-exact with four deposits (none stranded);
    the ``TransportPlan`` ``decide_transport_plan`` gives on the live ack
    EWMA.
+34. Serve while training, no TPU kernel on the path (the JAX package's
+   serving tier is host code; K1-K3's counters are read around it).  34a,
+   the replica on the card: 32c's ResNet-50 (configs[1], batch 32 a
+   rank, 224x224, bf16 compute) trained by ``run_async_dsgd_rank`` over
+   tcp at ``SERVE_N`` = 2 processes on Exponential-2(2) (``--serve-
+   worker``, started before 34b, which runs beside their start-up, and
+   released by a go file),
+   plain SGD at ``ASYNC_LR``, ``snapshot_every=1``,
+   ``stop_after_steps=SERVE_STEPS`` = 12.  This process runs a
+   ``ServingReplica`` on rank 0's group (template: ResNet-50's
+   parameters on the card), an auditing ``Subscriber`` holding each
+   frame's in-band ``round`` leaf to its round, a ``RelayNode`` (tier 1,
+   the default ``DeltaConfig``) and a second replica behind it with
+   ``delta=True``; it answers a request (a bf16 forward of a seeded
+   batch of 32 images, timed to a synchronize) whenever the replica's
+   round changes, after ``params()`` (the narrow cast and the copy to
+   the card), and samples the staleness against a ``SnapshotClient``
+   read of the live round, for both replicas.  Checked: the stamp audit
+   with no mismatch over at least 3 frames, at least 3 staleness samples
+   of each replica, strictly increasing rounds at both replicas and the
+   relay, delta frames behind the relay, the delta replica reaching the
+   relay's last round within ``SERVE_DRAIN_S`` after the trainers
+   return, the mass audit exact,
+   every served leaf on the card, a last round's served parameters
+   bit-equal to ``TreePacker.unpack`` of ``x / p`` from a pinned
+   ``SnapshotClient`` read of it, and the last request's logits
+   bit-equal to the model's own forward with those parameters copied in
+   (deterministic cuDNN).  Printed: the step rate against 32c's tcp rate,
+   publish ms a step, a full push's ms and the pinned reads' ms of the
+   204.5 MB vector, ``params()`` and request ms, the staleness of both
+   replicas, the relay's full and delta pushes (bytes, each push's
+   encode and send ms, by wrapping its senders), and the encode's parts
+   at the vector's length (``time_delta_encode``: a trainer's dense
+   step, and the top-k selection on it and on a delta-decoded round).
+   34b, the sharded replica:
+   GPT-small's widths at ``SHARD_LAYERS`` layers, seeded on the card,
+   sharded by ``tp_param_rules`` over ``{tp: 2}``, one group a
+   coordinate packed by a spec-aware ``TreePacker``, published at round
+   5, then one coordinate alone at 6, then the other; the
+   ``ShardedServingReplica`` serves 5 while 6 is incomplete, then 6,
+   each reassembled on the card bit-equal to its round's whole tree.
 23. Report: a ``kernels:`` line, a line for K1 on this slice's paths and a
    line for the allreduce (not a TPU kernel), the kernels' JSON line (K1,
    K2 and K3's three kernels; K1's entry also carries its one-slot times,
@@ -7179,8 +7221,13 @@ def chaos_drill_jobs(device):
     mp = [sys.executable, "-m", "bluefog_tpu_torch.examples.async_dsgd_mp",
           "--transport", "tcp", "--resilient", "--device", device.type]
     return {
+        # 8 s, not the example's 3: on a slow or loaded host the victim's
+        # twelfth step (its first ones pay the process's CUDA set-up) and
+        # the 1 s detection must land before the survivors' last step, or
+        # the death is caught only at the final flush, where no exact
+        # baseline can be rebuilt
         "33b death": (chaos_cli + [CHAOS_DEATH, "--"] + mp
-                      + ["--ranks", "3", "--duration", "3"], 300),
+                      + ["--ranks", "3", "--duration", "8"], 300),
         "33b lossy link": (chaos_cli + [CHAOS_LOSSY, "--"] + mp
                            + ["--ranks", "2"], 300),
         CHAOS_THREADS_JOB: (chaos_cli + [CHAOS_THREADS, "--", sys.executable,
@@ -7254,6 +7301,608 @@ def phase_control_chaos(device, ctl_started, drills, threads):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 34: serve while training, on the card
+# ---------------------------------------------------------------------------
+
+SERVE_N = 2                      # rank processes of 34a (32c's shape)
+SERVE_STEPS = 12                 # each rank's stop_after_steps
+SERVE_CAP_S = 150.0              # the run's duration cap
+SERVE_PIN_LAST = 3               # the last rounds read back pinned (parity)
+SERVE_IDLE_S = 30.0              # the delta subscriptions' silence limit
+SERVE_DRAIN_S = 30.0             # the delta replica's catch-up limit
+
+
+def serve_worker(argv):
+    """One rank process of 34a: 32c's ResNet-50 over run_async_dsgd_rank on
+    tcp with ``snapshot_every=1`` to SERVE_STEPS steps; its own
+    WindowServer serves the snapshots.  Rank 0 writes the report."""
+    rank, n, bdir, dev = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    from bluefog_tpu_torch.runtime.async_windows import (FileBarrier,
+                                                         run_async_dsgd_rank)
+    from bluefog_tpu_torch.topology import ExponentialTwoGraph
+
+    params0, loss_and_grad = _resnet_rank_job(rank, n, dev, bdir)
+    rep = run_async_dsgd_rank(
+        ExponentialTwoGraph(n), rank, params0, loss_and_grad,
+        barrier=FileBarrier(os.path.join(bdir, "run"), n, rank),
+        lr=ASYNC_LR, duration_s=SERVE_CAP_S, name=_serve_name(bdir),
+        transport="tcp", tcp_bind="127.0.0.1", snapshot_every=1,
+        stop_after_steps=SERVE_STEPS)
+    if rank == 0:
+        with open(os.path.join(bdir, "report.json"), "w") as f:
+            json.dump({"steps": rep.steps_per_rank, "wall_s": rep.wall_time_s,
+                       "mass": rep.total_mass, "dead": rep.dead_ranks,
+                       "phase_s": rep.phase_s[0],
+                       "loss": [rep.losses[0][0], rep.losses[0][-1]]}, f)
+    print(f"SERVE_WORKER_OK {rank}", flush=True)
+    return 0
+
+
+def _serve_name(bdir):
+    return f"smoke_serve_{os.path.basename(bdir)}"
+
+
+def start_serving(device):
+    """34a's two worker processes, started beside 34b; they wait, warmed
+    up, for :func:`host_serving`'s go."""
+    repo = os.path.abspath(__file__)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(repo) + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    env.pop("BLUEFOG_TPU_CHAOS", None)
+    bdir = tempfile.TemporaryDirectory()
+    procs = [subprocess.Popen(
+        [sys.executable, repo, "--serve-worker", str(r), str(SERVE_N),
+         bdir.name, device.type],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env) for r in range(SERVE_N)]
+    return {"procs": procs, "bdir": bdir, "t0": time.perf_counter()}
+
+
+def _await_file(path, procs, what, timeout_s=300):
+    deadline = time.perf_counter() + timeout_s
+    while not os.path.exists(path):
+        check(all(p.poll() is None for p in procs),
+              f"{what}: a worker exited early:\n"
+              + "".join((p.stdout.read() or "")[-3000:] for p in procs
+                        if p.poll() is not None))
+        check(time.perf_counter() < deadline,
+              f"{what}: {os.path.basename(path)} not there within "
+              f"{timeout_s} s")
+        time.sleep(0.02)
+
+
+def _recording(sub_or_fn, rounds):
+    """Wrap a subscription's callback (or a table's publish) to record the
+    rounds it sees, in order."""
+    if callable(sub_or_fn):
+        fn = sub_or_fn
+
+        def publish(group, rnd, leaves, **kw):
+            rounds.append(rnd)
+            return fn(group, rnd, leaves, **kw)
+        return publish
+    cb = sub_or_fn._on_snapshot
+
+    def on_snapshot(snap):
+        rounds.append(snap.round)
+        return cb(snap) if cb is not None else None
+    sub_or_fn._on_snapshot = on_snapshot
+    return sub_or_fn
+
+
+def _pushes_of(server):
+    """Record the pushes that ``server``'s subscription senders build and
+    send in this process, one dict a push: its kind (``full`` or
+    ``delta``), round, bytes on the wire, the seconds its body took to
+    build (a delta frame's encode, a full frame's anchor copy) and the
+    seconds its send took.  Wraps the sender class; returns the list and
+    the function that restores the class."""
+    from bluefog_tpu_torch.runtime import window_server as ws
+
+    pushes, pending = [], {}
+    body_of, send_of = ws._SubSender._payload_views, ws._SubSender._send
+
+    def payload_views(sender, rnd, leaves):
+        t = time.perf_counter()
+        body = body_of(sender, rnd, leaves)
+        if sender._handler.server is server._server:
+            delta = (sender._delta_on and
+                     ws._DELTA_HDR.unpack(body[0])[0] == ws._OP_DELTA)
+            pending[sender] = {"kind": "delta" if delta else "full",
+                               "round": rnd,
+                               "encode_s": time.perf_counter() - t}
+        return body
+
+    def send(sender, views):
+        # a push's send follows its body's build; keepalives find nothing
+        push = pending.pop(sender, None)
+        t = time.perf_counter()
+        ok = send_of(sender, views)
+        if push is not None:
+            push["send_s"] = time.perf_counter() - t
+            push["bytes"] = sum(memoryview(v).nbytes for v in views)
+            push["sent"] = ok
+            pushes.append(push)
+        return ok
+
+    def restore():
+        ws._SubSender._payload_views = body_of
+        ws._SubSender._send = send_of
+
+    ws._SubSender._payload_views = payload_views
+    ws._SubSender._send = send
+    return pushes, restore
+
+
+def time_delta_encode(n, seed=34):
+    """The delta encode's parts on this host at 34a's vector length (``n``
+    f64 entries, seeded), under the default ``DeltaConfig``:
+    ``DeltaEncoder.step`` on a trainer's dense round-over-round step, and
+    ``np.argpartition`` of the difference's magnitudes alone (the top-k
+    selection ``wire_codec.encode`` makes) on that step and on the same
+    round as a delta frame decodes it (what a relay re-encodes for its
+    children: the difference is zero off the upstream frame's kept
+    entries).  The relay's own encodes are timed live (``_pushes_of``)."""
+    import numpy as np
+    from bluefog_tpu_torch.runtime import wire_codec
+    from bluefog_tpu_torch.runtime.delta import (DeltaApplier, DeltaConfig,
+                                                 DeltaEncoder)
+
+    cfg = DeltaConfig()
+    rng = np.random.default_rng(seed)
+    x0 = rng.standard_normal(n)
+    x1 = x0 + 0.01 * rng.standard_normal(n)
+
+    def leaves(x, rnd):
+        return [("x", x), ("p", np.ones(1)), ("round", np.full(1, rnd, float))]
+
+    enc = DeltaEncoder()
+    enc.step(0, leaves(x0, 0), cfg)               # the anchor
+    t = time.perf_counter()
+    kind, base, items = enc.step(1, leaves(x1, 1), cfg)
+    out = {"n": n, "dense_ms": (time.perf_counter() - t) * 1e3}
+    check(kind == 10, "34a: the timed encode made no delta frame")
+    del enc
+    app = DeltaApplier("timed")
+    app.anchor(0, dict(leaves(x0, 0)))
+    rec = app.apply(1, base, [
+        (name, dt, codec, n_el, memoryview(b"".join(bytes(v) for v in vs)))
+        for name, dt, codec, n_el, vs, _ in items])
+    del items
+    k = wire_codec.kept(n, cfg.topk_ratio)
+    for tag, x in (("dense", x1), ("decoded", rec["x"])):
+        mag = np.abs(x - x0)
+        out[f"{tag}_zero_share"] = float(np.mean(mag == 0.0))
+        t = time.perf_counter()
+        np.argpartition(mag, n - k)
+        out[f"{tag}_select_ms"] = (time.perf_counter() - t) * 1e3
+    return out
+
+
+def host_serving(device, started, tcp_img_s):
+    """34a (see the module docstring): the replica on the card, following
+    rank 0 of a ResNet-50 that trains while it serves."""
+    import numpy as np
+    from torch.func import functional_call
+
+    from bluefog_tpu_torch.examples.synthetic_benchmark import build
+    from bluefog_tpu_torch.relay import RelayNode
+    from bluefog_tpu_torch.runtime.async_windows import TreePacker
+    from bluefog_tpu_torch.serving import (RoundRolled, ServingReplica,
+                                           SnapshotClient,
+                                           SnapshotUnavailable, Subscriber)
+
+    procs, bdir, t0 = (started[k] for k in ("procs", "bdir", "t0"))
+    n = SERVE_N
+    # the prediction server's model: configs[1]'s ResNet-50, the workers'
+    # seed and layout (build's parameter order is the packer's), one rank
+    trainer = build("resnet50", "none", "exp2", size=1, batch_size=TCP_BATCH,
+                    image_size=224, device=device)
+    model = trainer.model
+    template = {k: v[0].detach() for k, v in trainer.params.items()}
+    buffers = {k: v[0] for k, v in trainer.buffers.items()}
+    images = trainer.batch[0][0]          # a seeded request of 32 images
+    del trainer
+    with torch.no_grad():                 # cuDNN's first-call set-up
+        functional_call(model, (template, buffers), (images,),
+                        {"train": False})
+    torch.cuda.synchronize()
+    group = f"{_serve_name(bdir.name)}:0"
+    outs, closers = [], []
+    restore = None
+    try:
+        for r in range(n):
+            _await_file(os.path.join(bdir.name, f"ready.{r}"), procs, "34a")
+        t_go = time.perf_counter()
+        open(os.path.join(bdir.name, "go"), "w").close()
+        _await_file(os.path.join(bdir.name, "run", "winaddr.0"), procs,
+                    "34a", 120)
+        with open(os.path.join(bdir.name, "run", "winaddr.0")) as f:
+            host, port = f.read().strip().rsplit(":", 1)
+        addr = (host, int(port))
+        audit = {"frames": 0, "mismatches": 0}
+
+        def stamp(snap):
+            audit["frames"] += 1
+            if int(snap.leaves["round"][0]) != snap.round:
+                audit["mismatches"] += 1
+
+        rounds = {"replica": [], "delta_replica": [], "relay": []}
+        auditor = Subscriber(addr, group, every=1, on_snapshot=stamp,
+                             queue_max=1)
+        closers.append(auditor)
+        replica = ServingReplica(addr, group, template, every=1)
+        closers.append(replica)
+        _recording(replica.subscriber, rounds["replica"])
+        # a sender is silent while it encodes a delta of the 204.5 MB
+        # vector (seconds on a loaded host): the delta subscriptions'
+        # silence limit is set above that, or every encode would read as a
+        # dead link and every reconnect would start on a full frame
+        relay = RelayNode(addr, [group], tier=1, idle_timeout_s=SERVE_IDLE_S)
+        closers.append(relay)
+        relay.table.publish = _recording(relay.table.publish, rounds["relay"])
+        pushes, restore = _pushes_of(relay.server)
+        replica2 = ServingReplica(relay.address, group, template, delta=True,
+                                  idle_timeout_s=SERVE_IDLE_S)
+        closers.append(replica2)
+        _recording(replica2.subscriber, rounds["delta_replica"])
+        client = SnapshotClient(addr, group, retry=dict(budget=8, cap_s=0.4))
+        closers.append(client)
+
+        # the prediction server: a request on every new served round
+        params_ms, req_ms, stale, off_card, pull_ms = [], [], [], 0, []
+        stale_delta = []
+        last, pinned, served, errors = -1, None, None, None
+        report = os.path.join(bdir.name, "report.json")
+        deadline = time.perf_counter() + SERVE_CAP_S + 60
+        # serve until rank 0 has reported (its run over, its group gone)
+        while (not os.path.exists(report) and procs[0].poll() is None
+               and time.perf_counter() < deadline):
+            if replica.round <= last:
+                time.sleep(0.005)
+                continue
+            ta = time.perf_counter()
+            rnd, params = replica.params(with_round=True)
+            torch.cuda.synchronize()
+            tb = time.perf_counter()
+            with torch.no_grad():
+                functional_call(model, (params, buffers), (images,),
+                                {"train": False})
+            torch.cuda.synchronize()
+            tc = time.perf_counter()
+            params_ms.append((tb - ta) * 1e3)
+            req_ms.append((tc - tb) * 1e3)
+            off_card += sum(1 for v in params.values() if not v.is_cuda)
+            last, served = rnd, (rnd, params)
+            if errors is None and rnd >= SERVE_STEPS - 1:
+                # the readers' state while the trainer still serves (after
+                # it returns, their reconnects to it fail by design)
+                errors = {k: c.error for k, c in (
+                    ("replica", replica), ("delta_replica", replica2),
+                    ("relay", relay), ("auditor", auditor))}
+            try:
+                live = client.snapshot(names=["round"]).round
+                stale.append(replica.staleness_rounds(live)
+                             if live >= rnd else 0)
+                stale_delta.append(replica2.staleness_rounds(live))
+            except (SnapshotUnavailable, RuntimeError, OSError):
+                pass  # the rank is tearing down its group (counted below)
+            if rnd >= SERVE_STEPS - SERVE_PIN_LAST:
+                # the served round read back whole, pinned: the parity's
+                # reference (the group goes when the rank returns)
+                td = time.perf_counter()
+                try:
+                    snap = client.snapshot(pin_round=rnd)
+                    pull_ms.append((time.perf_counter() - td) * 1e3)
+                    pinned = (rnd, params, snap)
+                except (RoundRolled, SnapshotUnavailable, RuntimeError,
+                        OSError):
+                    pass
+        for p in procs:
+            outs.append(p.communicate(timeout=120)[0])
+        for r, (p, o) in enumerate(zip(procs, outs)):
+            check(p.returncode == 0 and f"SERVE_WORKER_OK {r}" in o,
+                  f"34a worker {r} failed ({p.returncode}):\n{o[-4000:]}")
+        with open(report) as f:
+            rep = json.load(f)
+        # the trainers are gone and the relay keeps its last round: the
+        # delta replica must reach it (its sender encodes the latest due
+        # round after the one in hand).  The encode's parts are timed
+        # meanwhile, beside that sender's encode.
+        t_end = time.perf_counter()
+        encode = {}
+
+        def timed():
+            try:
+                encode.update(time_delta_encode(
+                    sum(v.numel() for v in template.values())))
+            except BaseException as e:
+                encode["error"] = e
+        timer = threading.Thread(target=timed, name="34a-encode")
+        timer.start()
+        while (replica2.round < rounds["relay"][-1]
+               and time.perf_counter() - t_end < SERVE_DRAIN_S):
+            time.sleep(0.02)
+        drain = {"round": replica2.round, "relay": rounds["relay"][-1],
+                 "s": time.perf_counter() - t_end}
+        timer.join()
+        if "error" in encode:
+            raise encode["error"]
+        delta_frames = replica2.subscriber.delta_frames
+        adopted = (replica.adopted, replica2.adopted)
+        resumes = {"replica": replica.subscriber.resumes,
+                   "delta_replica": replica2.subscriber.resumes,
+                   "relay_upstream": relay.subscription(group).resumes,
+                   "auditor": auditor.resumes}
+    finally:
+        if restore is not None:
+            restore()
+        for c in reversed(closers):
+            c.close()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        bdir.cleanup()
+    runs_s = time.perf_counter() - t_go
+
+    check(served is not None, "34a: the replica served nothing")
+    check(pinned is not None, "34a: no pinned read of the last rounds")
+    # the final served parameters against the port's unpack of x / p from
+    # the pinned read of the same round
+    p_rnd, p_params, snap = pinned
+    want = TreePacker(template, np.float64).unpack(
+        snap["x"] / float(snap["p"][0]))
+    unequal = [k for k in template if not torch.equal(p_params[k], want[k])]
+    check(not unequal, f"34a: round {p_rnd}'s served parameters differ from "
+          f"the unpack of the pinned read at {unequal[:3]}")
+    # a request's logits against the same forward from the parameters
+    # copied into the model's own state
+    f_rnd, f_params = served
+    with torch.no_grad(), deterministic_cudnn():
+        got = functional_call(model, (f_params, buffers), (images,),
+                              {"train": False})
+        for k, v in model.named_parameters():
+            v.copy_(f_params[k])
+        for k, v in model.named_buffers():
+            v.copy_(buffers[k])
+        ref = model(images, train=False)
+    check(torch.equal(got, ref), "34a: the request's logits differ from the "
+          "model's own forward with the served parameters")
+    check(got.shape == (TCP_BATCH, 1000) and torch.isfinite(got).all(),
+          f"34a: logits {tuple(got.shape)} not finite")
+    steps = rep["steps"]
+    mass_err = abs(rep["mass"] - n)
+    img_s = sum(steps) * TCP_BATCH / rep["wall_s"]
+    publish_ms = rep["phase_s"]["publish"] * 1e3 / steps[0]
+
+    def by_kind(kind):
+        rows = [p for p in pushes if p["kind"] == kind and p["sent"]]
+        return {"frames": len(rows), "rounds": [p["round"] for p in rows],
+                "mb": (float(np.mean([p["bytes"] for p in rows])) / 1e6
+                       if rows else float("nan")),
+                "encode_ms": [p["encode_s"] * 1e3 for p in rows],
+                "send_ms": [p["send_s"] * 1e3 for p in rows]}
+
+    full, dlt = by_kind("full"), by_kind("delta")
+    push_ms = (float(np.mean(full["send_ms"])) if full["frames"]
+               else float("nan"))
+    out = {"steps": steps, "wall_s": rep["wall_s"], "img_s": img_s,
+           "tcp_img_s": tcp_img_s, "ratio_to_32c": img_s / tcp_img_s,
+           "publish_ms": publish_ms, "mass_err": mass_err,
+           "push_ms": push_ms, "pull_ms": pull_ms,
+           "params_ms": params_ms, "request_ms": req_ms,
+           "request_p50_ms": float(np.median(req_ms)),
+           "request_max_ms": max(req_ms),
+           "params_p50_ms": float(np.median(params_ms)),
+           "stale_worst": max(stale) if stale else float("nan"),
+           "stale_mean": float(np.mean(stale)) if stale else float("nan"),
+           "stale_samples": len(stale), "audit": audit, "rounds": rounds,
+           "delta_stale": stale_delta,
+           "delta_stale_worst": (max(stale_delta) if stale_delta
+                                 else float("nan")),
+           "delta_stale_mean": (float(np.mean(stale_delta)) if stale_delta
+                                else float("nan")),
+           "drain": drain, "encode": encode,
+           "delta_frames": delta_frames, "adopted": adopted,
+           "push": {"full": full, "delta": dlt},
+           "resumes": resumes,
+           "pinned_round": p_rnd, "final_round": f_rnd,
+           "runs_s": runs_s, "s": time.perf_counter() - t0,
+           "loss": rep["loss"]}
+    print(f"[34a] ResNet-50, {n} processes over tcp, snapshot_every=1: steps "
+          f"{steps} in {rep['wall_s']:.2f} s, {img_s:.1f} img/s against "
+          f"32c's tcp {tcp_img_s:.1f} ({out['ratio_to_32c']:.3f}x); rank 0's "
+          f"publish {publish_ms:.1f} ms a step; |sum(p) - n| {mass_err:.3e}; "
+          f"loss {rep['loss'][0]:.4f} -> {rep['loss'][1]:.4f}")
+    print(f"[34a] the replica on the card: {len(req_ms)} requests, params() "
+          f"p50 {out['params_p50_ms']:.1f} ms (max {max(params_ms):.1f}), "
+          f"request (bf16 forward of {TCP_BATCH} images) p50 "
+          f"{out['request_p50_ms']:.2f} ms, max {out['request_max_ms']:.2f} "
+          f"ms; staleness worst {out['stale_worst']} mean "
+          f"{out['stale_mean']:.2f} rounds over {len(stale)} samples; "
+          f"adopted {adopted[0]} (relay's delta replica {adopted[1]}, "
+          f"{delta_frames} delta frames); pinned reads of 204.5 MB "
+          + ", ".join(f"{x:.1f}" for x in pull_ms) + " ms")
+    def ms(xs):
+        return "[" + ", ".join(f"{x:.1f}" for x in xs) + "]"
+
+    print(f"[34a] behind the relay: full pushes {full['frames']} x "
+          f"{full['mb']:.1f} MB (built in {ms(full['encode_ms'])} ms, sent "
+          f"in {ms(full['send_ms'])} ms), delta pushes {dlt['frames']} x "
+          f"{dlt['mb']:.2f} MB of rounds {dlt['rounds']} (encoded in "
+          f"{ms(dlt['encode_ms'])} ms, sent in {ms(dlt['send_ms'])} ms); "
+          f"the delta replica's staleness worst {out['delta_stale_worst']} "
+          f"mean {out['delta_stale_mean']:.2f} rounds over "
+          f"{len(stale_delta)} samples, round {drain['round']} of the "
+          f"relay's {drain['relay']} {drain['s']:.2f} s after the trainers "
+          f"returned")
+    print(f"[34a] the delta encode on this host, {encode['n']:,} f64 "
+          f"entries, default DeltaConfig (beside the relay's last encode): "
+          f"a trainer's dense step {encode['dense_ms']:.1f} ms, its top-k "
+          f"selection alone {encode['dense_select_ms']:.1f} ms "
+          f"({encode['dense_zero_share']:.3f} of the difference zero); the "
+          f"selection on the same round decoded from a delta frame, as a "
+          f"relay re-encodes it, {encode['decoded_select_ms']:.1f} ms "
+          f"({encode['decoded_zero_share']:.3f} zero)")
+    print(f"[34a] rounds replica {rounds['replica']}, relay "
+          f"{rounds['relay']}, delta replica {rounds['delta_replica']}; "
+          f"stamp audit {audit}; resumes {resumes}; round {p_rnd} "
+          f"bit-equal to the pinned "
+          f"read's unpack, round {f_rnd}'s logits bit-equal; "
+          f"{runs_s:.1f} s from the go, {out['s']:.1f} s with the start")
+    check(f_rnd == SERVE_STEPS - 1 and errors is not None
+          and not any(errors.values()),
+          f"34a: served up to round {f_rnd}; reader errors {errors}")
+    check(audit["frames"] >= 3 and audit["mismatches"] == 0,
+          f"34a: round-stamp audit {audit}")
+    check(len(stale) >= 3 and len(stale_delta) >= 3,
+          f"34a: {len(stale)} staleness samples of the replica and "
+          f"{len(stale_delta)} of the delta replica against the live round")
+    check(drain["round"] >= drain["relay"],
+          f"34a: the delta replica stopped at round {drain['round']}, the "
+          f"relay holds {drain['relay']}, {SERVE_DRAIN_S} s after the "
+          f"trainers returned; delta encodes {ms(dlt['encode_ms'])} ms")
+    for k, rr in rounds.items():
+        check(len(rr) >= 2 and rr == sorted(set(rr)),
+              f"34a: {k}'s rounds not strictly increasing: {rr}")
+    check(delta_frames > 0, "34a: the delta replica saw no delta frame")
+    check(mass_err <= 1e-9 * n, f"34a: mass audit {rep['mass']!r}")
+    check(rep["dead"] == [], f"34a: dead ranks {rep['dead']}")
+    check(min(steps) >= SERVE_STEPS - 1, f"34a: a rank starved: {steps}")
+    check(off_card == 0 and all(v.is_cuda for v in f_params.values()),
+          f"34a: {off_card} served leaves off the card")
+    check(math.isfinite(rep["loss"][1]), "34a: a NaN loss")
+    return out
+
+
+def host_sharded_replica(device):
+    """34b: GPT-small's widths at SHARD_LAYERS layers, seeded parameters on
+    the card, sharded by tp_param_rules over {tp: 2}: each coordinate's
+    shard packed by a spec-aware TreePacker and published as its own group
+    at round 5, then one coordinate alone at round 6, then the other.  A
+    ShardedServingReplica serves round 5 while round 6 is incomplete, then
+    round 6, reassembled on the card bit-equal to that round's whole
+    tree."""
+    import numpy as np
+    from bluefog_tpu_torch.parallel import tensor as pt
+    from bluefog_tpu_torch.runtime.async_windows import TreePacker
+    from bluefog_tpu_torch.runtime.window_server import WindowServer
+    from bluefog_tpu_torch.serving import ShardedServingReplica, SnapshotTable
+    from bluefog_tpu_torch.sharding import ShardView, inner_coords
+
+    t0 = time.perf_counter()
+    base = dataclasses.replace(slice_config(), num_layers=SHARD_LAYERS)
+    _, full = _tp_template(base)
+    table = pt.tp_param_rules()
+    specs = {k: table.resolve(k.replace(".", "/"), v.shape)
+             for k, v in full.items()}
+    axes = {"tp": 2}
+    gen = torch.Generator(device=device).manual_seed(34)
+    tree = {k: v.to(device) for k, v in full.items()}
+    noise = {k: 0.02 * torch.randn(v.shape, generator=gen, device=device)
+             for k, v in tree.items()}
+    del full
+
+    def at(rnd):
+        return {k: v + rnd * noise[k] for k, v in tree.items()}
+
+    packers = [TreePacker(tree, np.float64, sharding=ShardView(
+        specs=specs, axes=axes, coord=c)) for c in inner_coords(axes)]
+    tbl = SnapshotTable()
+    srv = WindowServer(snapshots=tbl)
+    addr = srv.start("127.0.0.1")
+    group = f"smoke_shard_{os.getpid()}"
+
+    def publish(rnd, cis):
+        t = at(rnd)
+        for ci in cis:
+            tbl.publish(f"{group}:{ci}", rnd,
+                        {"x": packers[ci].pack(t), "p": np.array([1.0]),
+                         "round": np.array([float(rnd)])})
+
+    rep = None
+    out = {"n": sum(v.numel() for v in tree.values()),
+           "sharded_leaves": sum(1 for s in specs.values()
+                                 if any(e is not None for e in s)),
+           "coords": len(packers)}
+    try:
+        publish(5, range(len(packers)))
+        rep = ShardedServingReplica(addr, group, tree, specs, axes)
+        check(rep.wait_ready(60.0) == 5, "34b: round 5 not served first")
+        publish(6, [0])
+        deadline = time.perf_counter() + 60
+        while (rep.subscribers[0].cursor < 6
+               and time.perf_counter() < deadline):
+            time.sleep(0.01)
+        check(rep.subscribers[0].cursor == 6,
+              "34b: coordinate 0's round 6 never arrived")
+        check(rep.round == 5, f"34b: served round {rep.round} while round 6 "
+              "is incomplete")
+        got5 = rep.params()
+        want5 = at(5)
+        check(all(torch.equal(got5[k], want5[k]) for k in want5),
+              "34b: round 5 reassembled differs from its whole tree")
+        del got5, want5
+        publish(6, [1])
+        deadline = time.perf_counter() + 60
+        while rep.round < 6 and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        check(rep.round == 6, "34b: round 6 never completed")
+        ta = time.perf_counter()
+        got6 = rep.params()
+        torch.cuda.synchronize()
+        out["params_ms"] = (time.perf_counter() - ta) * 1e3
+        want6 = at(6)
+        bad = [k for k in want6 if not torch.equal(got6[k], want6[k])]
+        check(not bad, f"34b: round 6 reassembled differs at {bad[:3]}")
+        check(all(v.is_cuda for v in got6.values()),
+              "34b: reassembled leaves off the card")
+        check(rep.error is None, f"34b: {rep.error}")
+    finally:
+        if rep is not None:
+            rep.close()
+        srv.stop()
+    out["s"] = time.perf_counter() - t0
+    print(f"[34b] ShardedServingReplica on GPT-small's widths at "
+          f"{SHARD_LAYERS} layers ({out['n']:,} parameters, "
+          f"{out['sharded_leaves']} leaves sharded over tp, {out['coords']} "
+          f"coordinate groups): served round 5 while round 6 was incomplete, "
+          f"then round 6, reassembled on the card bit-equal to its whole "
+          f"tree; params() {out['params_ms']:.1f} ms; {out['s']:.1f} s")
+    return out
+
+
+def phase_serving(device, tcp_img_s):
+    """Phase 34: 34a's workers start, 34b runs beside their start-up, then
+    34a.  No TPU kernel lies on this path (the reference's serving tier is
+    host code); K1-K3's counters are read around it and reported."""
+    from bluefog_tpu_torch.ops.deliver_kernel import window_deliver
+
+    t0 = time.perf_counter()
+    counters = [window_deliver, *_slice_kernels()]
+    for k in counters:
+        k.launches = 0
+    started = start_serving(device)
+    try:
+        sharded = host_sharded_replica(device)
+    except BaseException:
+        for p in started["procs"]:
+            p.kill()
+        raise
+    torch.cuda.empty_cache()
+    out = {"replica": host_serving(device, started, tcp_img_s),
+           "sharded": sharded}
+    torch.cuda.empty_cache()
+    out["launches"] = {k.__name__: k.launches for k in counters}
+    out["s"] = time.perf_counter() - t0
+    print(f"[34] kernel launches during phase 34 (none of its path's work is "
+          f"a TPU kernel): {out['launches']}; the phase took {out['s']:.1f} s")
+    return out
+
+
 def main():
     # cuBLAS's deterministic workspace for the deterministic BERT phases,
     # set before any handle exists (the processes of phase 1b inherit it)
@@ -7266,6 +7915,8 @@ def main():
         return tcp_worker(sys.argv[2:])
     if len(sys.argv) > 1 and sys.argv[1] == "--ctl-worker":
         return ctl_worker(sys.argv[2:])
+    if len(sys.argv) > 1 and sys.argv[1] == "--serve-worker":
+        return serve_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs an NVIDIA GPU", file=sys.stderr)
@@ -7415,6 +8066,7 @@ def main():
         device, start_next=lambda: start_control(device), beside=drills)
     ctl = phase_control_chaos(device, ctl_started, tcp.pop("beside_32d"),
                               threads)
+    serve = phase_serving(device, tcp["resnet"]["tcp"]["img_s"])
 
     sl = procs[SLICE_PROCESSES]["slice"]
     fa = "jax/experimental/pallas/ops/tpu/flash_attention.py"
@@ -7706,6 +8358,22 @@ def main():
                                   for k, v in rt["ms"].items())
           + f", none stranded; launches {ctl['launches']}; phase "
           f"{ctl['s']:.1f} s")
+    sv, sh = serve["replica"], serve["sharded"]
+    print("serve while training (phase 34): ResNet-50 at P = 2 over tcp with "
+          f"snapshot_every=1 {sv['img_s']:.1f} img/s against 32c's "
+          f"{sv['tcp_img_s']:.1f} ({sv['ratio_to_32c']:.3f}x), publish "
+          f"{sv['publish_ms']:.1f} ms a step, a full push of the 204.5 MB "
+          f"vector {sv['push_ms']:.1f} ms; the replica on the card: params() "
+          f"p50 {sv['params_p50_ms']:.1f} ms, request p50 "
+          f"{sv['request_p50_ms']:.2f} / max {sv['request_max_ms']:.2f} ms, "
+          f"staleness worst {sv['stale_worst']} mean {sv['stale_mean']:.2f} "
+          f"rounds, stamp audit {sv['audit']}; behind the relay "
+          f"{sv['delta_frames']} delta frames, encoded in "
+          f"{max(sv['push']['delta']['encode_ms'], default=float('nan')):.1f} "
+          f"ms at most, the delta replica's staleness worst "
+          f"{sv['delta_stale_worst']}; sharded replica bit-equal, params() "
+          f"{sh['params_ms']:.1f} ms; launches {serve['launches']}; phase "
+          f"{serve['s']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

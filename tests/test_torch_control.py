@@ -13,8 +13,8 @@ held against the JAX package's.
 2. ``TestTransportAutotune`` and the stripe resize that never strands a
    deposit (``tests/test_transport_fastpath.py``), the latter against a
    port server and a JAX-package server; ``TestTreePlan``'s pure cases
-   (``tests/test_relay.py``); seeded transport and tree evidence decided
-   byte-identically by both packages.
+   (``tests/test_relay.py``) and the relay's plan actuation; seeded
+   transport and tree evidence decided byte-identically by both packages.
 3. ``MixingTracker``: predicted, measured and excess values within 1e-12
    of the reference's on a ring, a healed ring and after a rebase.
 4. Integration (``TestThreadIntegration``): the slow rank penalized with an
@@ -32,6 +32,7 @@ import os
 import random
 import subprocess
 import sys
+import time
 import uuid
 
 import numpy as np
@@ -877,6 +878,55 @@ class TestTreePlan:
                 rp = RCtl.decide_tree_plan(
                     rp, rnd, [RCtl.TreeEvidence(*e) for e in evs], rcfg)
                 assert p.to_bytes() == rp.to_bytes()
+
+    def test_relay_actuates_plan_at_boundary(self):
+        """``RelayNode.apply_plan`` swaps the delta cadence and the fan-out
+        limit between rounds (this test is the round boundary: nothing is
+        in flight), and the pushes after it follow the new cadence."""
+        from bluefog_tpu_torch.control import TreePlan
+        from bluefog_tpu_torch.relay import RelayNode
+        from bluefog_tpu_torch.runtime.window_server import WindowServer
+        from bluefog_tpu_torch.serving.snapshots import SnapshotTable
+        from bluefog_tpu_torch.serving.subscriber import Subscriber
+
+        tbl = SnapshotTable()
+        srv = WindowServer(snapshots=tbl)
+        addr = srv.start("127.0.0.1")
+        g = _name("actuate")
+        x = np.zeros(256)
+        tbl.publish(g, 1, {"x": x, "p": np.array([1.0]),
+                           "round": np.array([1.0])})
+        node = leaf = None
+        try:
+            node = RelayNode(addr, [g], tier=1)
+            node.wait_ready(timeout_s=15)
+            node.apply_plan(TreePlan(version=2, round=1, degree=3, depth=1,
+                                     full_every=2))
+            assert node.server._server.sub_limit == 3
+            assert node.server._server.delta_cfg.full_every == 2
+            # the codec and floor are kept; only the cadence moved
+            assert node.server._server.delta_cfg.codec == "topk"
+            got = []
+            leaf = Subscriber(node.address, g, delta=True, queue_max=64,
+                              on_snapshot=lambda s: got.append(s.round))
+            for rnd in range(2, 8):
+                deadline = time.monotonic() + 10
+                while (not got or got[-1] < rnd - 1) \
+                        and time.monotonic() < deadline:
+                    time.sleep(0.01)
+                tbl.publish(g, rnd, {"x": x + rnd, "p": np.array([1.0]),
+                                     "round": np.array([float(rnd)])})
+            deadline = time.monotonic() + 10
+            while (not got or got[-1] < 7) and time.monotonic() < deadline:
+                time.sleep(0.01)
+            assert got[-1] == 7
+            # full_every=2: every second push of the connection is a delta
+            assert leaf.delta_frames == len(got) // 2
+        finally:
+            for c in (leaf, node):
+                if c is not None:
+                    c.close()
+            srv.stop()
 
 
 # ---------------------------------------------------------------------------

@@ -258,3 +258,44 @@ def test_scan_covers_chaos_control_and_metrics():
                          env=dict(PYTHONPATH=str(REPO), PATH="/usr/bin:/bin"),
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_scan_covers_serving_relay_and_delta():
+    """The import scan reaches every module of the serving and relay
+    packages and ``runtime/delta.py``, and none of them imports JAX or the
+    JAX package when loaded in a fresh interpreter; the relay's command
+    line and the serving example run without it."""
+    files = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    for mod in ("serving/__init__.py", "serving/snapshots.py",
+                "serving/client.py", "serving/subscriber.py",
+                "serving/replica.py", "relay/__init__.py", "relay/node.py",
+                "relay/cli.py", "relay/__main__.py", "runtime/delta.py",
+                "examples/serving_replica.py"):
+        assert f"bluefog_tpu_torch/{mod}" in files, mod
+    code = ("import sys\n"
+            "import bluefog_tpu_torch.serving as s, bluefog_tpu_torch.relay\n"
+            "import bluefog_tpu_torch.runtime.delta\n"
+            "import bluefog_tpu_torch.relay.cli\n"
+            "import bluefog_tpu_torch.examples.serving_replica\n"
+            "s.SnapshotClient, s.Subscriber, s.ServingReplica\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(PYTHONPATH=str(REPO), PATH="/usr/bin:/bin"),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_serving_example_defaults_to_cuda():
+    """``examples/serving_replica.py`` takes ``--device``, default ``cuda``;
+    without a card it raises rather than serving from the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    res = subprocess.run(
+        [sys.executable, "-m", "bluefog_tpu_torch.examples.serving_replica",
+         "--duration", "0.1"], cwd=REPO,
+        env=dict(PYTHONPATH=str(REPO), PATH="/usr/bin:/bin"),
+        capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert "cuda" in res.stderr

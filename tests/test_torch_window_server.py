@@ -8,7 +8,8 @@ server, and a JAX-package client against a port server, with the window
 contents compared bit for bit.  Then the raw-protocol cases on the port's
 server (v1 magic and wrong HELLO versions rejected loudly, codec
 negotiation, per-item error isolation, deferred acks, a fuzz of malformed
-frames, ops 8 and 9 refused with ``ERR_BAD_OP``), the reconnect replay that
+frames, ops 8 and 9 and op-10 push frames answered byte for byte as the
+JAX package's server answers them), the reconnect replay that
 applies once (both ways across the packages), the striped and same-host shm
 routes, and the signature parity of the one-loop-body transports."""
 
@@ -28,6 +29,7 @@ import pytest
 from bluefog_tpu.runtime import async_windows as RA
 from bluefog_tpu.runtime import window_server as RW
 from bluefog_tpu_torch.runtime import async_windows as PA
+from bluefog_tpu_torch.runtime import delta as PD
 from bluefog_tpu_torch.runtime import resilience as PR
 from bluefog_tpu_torch.runtime import window_server as PW
 
@@ -474,7 +476,10 @@ def test_hello_grants_only_the_ported_features():
             (granted,) = PW._STATUS.unpack(_recv_exactly(s, 8))
         assert granted == (PW.FEATURE_BATCH | PW.FEATURE_CODEC_F32
                            | PW.FEATURE_CODEC_TOPK | PW.FEATURE_HEARTBEAT
-                           | PW.FEATURE_RESUME)
+                           | PW.FEATURE_RESUME | PW.FEATURE_SNAPSHOT
+                           | PW.FEATURE_SUBSCRIBE | PW.FEATURE_DELTA)
+        assert granted == 1 | 2 | 4 | 8 | 16 | 32 | 64 | 256
+        assert not granted & PW.FEATURE_TRACE  # tracing: ROADMAP item 11
         # the constants are the reference's, bit for bit
         for f in ("FEATURE_BATCH", "FEATURE_CODEC_F32", "FEATURE_CODEC_TOPK",
                   "FEATURE_HEARTBEAT", "FEATURE_RESUME", "FEATURE_SNAPSHOT",
@@ -488,28 +493,106 @@ def test_hello_grants_only_the_ported_features():
         srv.stop()
 
 
-@pytest.mark.parametrize("op", [8, 9])
-def test_snapshot_and_subscribe_ops_refused(op):
-    """Ops 8 and 9 (the serving read path, ROADMAP item 10) get one
-    ``ERR_BAD_OP`` and the connection drops; the server serves on."""
-    name = _name("wt_op89")
-    win = PA.AsyncWindow(name, 1, 4, np.float64)
-    srv, port = _serve(PW)
+def _read_op_replies(ws_mod, snap_mod, op):
+    """The bytes a server of ``ws_mod`` answers to raw read-path frames:
+    op 8 (SNAPSHOT, whole and by leaf), op 9 (SUBSCRIBE: its status and
+    first push), or op 10 (SUBSCRIBE on a FEATURE_DELTA connection: a full
+    anchor, then a delta push).  Afterwards the server still applies a
+    deposit (a SNAPSHOT connection goes on serving)."""
+    rng = np.random.default_rng(op)
+    x = rng.standard_normal(2000)
+    tbl = snap_mod.SnapshotTable()
+    tbl.publish("g:0", 3, {"x": x, "p": np.array([1.5]),
+                           "round": np.array([3.0])})
+    delta = None
+    if op == 10:
+        from bluefog_tpu.runtime import delta as RD
+
+        cfg = dict(full_every=4, codec="topk", topk_ratio=0.05,
+                   min_delta_elems=64)
+        delta = (PD.DeltaConfig(**cfg) if ws_mod is PW
+                 else RD.DeltaConfig(**cfg))
+    srv = ws_mod.WindowServer(snapshots=tbl, delta=delta)
+    _, port = srv.start("127.0.0.1")
+    name = _name("wt_op8910")
+    win = (PA if ws_mod is PW else RA).AsyncWindow(name, 1, 4, np.float64)
+    out = []
     try:
         with socket.create_connection(("127.0.0.1", port), timeout=10) as s:
-            grp = b"group:0"
-            body = (RW._SNAP_REQ.pack(-1, 0) if op == 8
-                    else RW._SUB_REQ.pack(7, 1, 1, -1))
-            s.sendall(PW._HDR.pack(PW._MAGIC, op, len(grp)) + grp + body)
-            (rc,) = PW._STATUS.unpack(_recv_exactly(s, 8))
-            assert rc == -100, rc
-            assert s.recv(1) == b""
+            want = {8: PW.FEATURE_SNAPSHOT, 9: PW.FEATURE_SUBSCRIBE,
+                    10: PW.FEATURE_SUBSCRIBE | PW.FEATURE_DELTA}[op]
+            s.sendall(PW._HDR.pack(PW._MAGIC, PW._OP_HELLO, 0)
+                      + PW._HELLO.pack(2, want))
+            out.append(_recv_exactly(s, 8))
+            grp = b"g:0"
+            if op == 8:
+                for names in ((), (b"round", b"x")):
+                    req = (PW._HDR.pack(PW._MAGIC, op, len(grp)) + grp
+                           + PW._SNAP_REQ.pack(-1, len(names)))
+                    for nb in names:
+                        req += PW._LEAF_NAME.pack(len(nb)) + nb
+                    s.sendall(req)
+                    (rc,) = PW._STATUS.unpack(_recv_exactly(s, 8))
+                    (cnt,) = PW._SNAP_CNT.unpack(_recv_exactly(s, 2))
+                    body = b""
+                    for _ in range(cnt):
+                        hdr = _recv_exactly(s, PW._SNAP_LEAF.size)
+                        nl, _dt, ne = PW._SNAP_LEAF.unpack(hdr)
+                        body += hdr + _recv_exactly(s, nl + 8 * ne)
+                    out.append((rc, cnt, body))
+            else:
+                s.sendall(PW._HDR.pack(PW._MAGIC, PW._OP_SUBSCRIBE, len(grp))
+                          + grp + PW._SUB_REQ.pack(7, 1, 1, -1))
+                out.append(_recv_exactly(s, 8))
+                for rnd in (3, 4):
+                    if rnd == 4:
+                        tbl.publish("g:0", 4, {
+                            "x": x + 0.01, "p": np.array([1.5]),
+                            "round": np.array([4.0])})
+                    while True:  # skip keepalives (round -1)
+                        hdr = _recv_exactly(s, PW._PUSH.size)
+                        r, _sk, cnt = PW._PUSH.unpack(hdr)
+                        kind = (PW._DELTA_HDR.unpack(_recv_exactly(
+                            s, PW._DELTA_HDR.size))[0] if op == 10 else 0)
+                        if r >= 0:
+                            break
+                    body = b""
+                    for _ in range(cnt):
+                        if kind == PW._OP_DELTA:
+                            h = _recv_exactly(s, PW._DELTA_LEAF.size)
+                            nl, _dt, _c, _ne, wb = PW._DELTA_LEAF.unpack(h)
+                            body += h + _recv_exactly(s, nl + wb)
+                        else:
+                            h = _recv_exactly(s, PW._SNAP_LEAF.size)
+                            nl, _dt, ne = PW._SNAP_LEAF.unpack(h)
+                            body += h + _recv_exactly(s, nl + 8 * ne)
+                    out.append((hdr, kind, body))
+                    if op == 9:
+                        break
         rw = PW.RemoteWindow(("127.0.0.1", port), name)
         assert rw.deposit(0, np.ones(4)) == 1
         rw.close()
     finally:
         srv.stop()
         win.free()
+    return out
+
+
+@pytest.mark.parametrize("op", [8, 9, 10])
+def test_snapshot_and_subscribe_ops_served_as_the_reference(op):
+    """Ops 8 and 9, and op-10 delta pushes, on the port's server: the same
+    replies, byte for byte, as the JAX package's server gives to the same
+    frames over the same snapshot table contents."""
+    from bluefog_tpu.serving import snapshots as RSn
+    from bluefog_tpu_torch.serving import snapshots as PSn
+
+    got = _read_op_replies(PW, PSn, op)
+    want = _read_op_replies(RW, RSn, op)
+    assert got == want
+    granted = PW._STATUS.unpack(got[0])[0]
+    assert granted > 0
+    if op == 10:
+        assert [k for _, k, _ in got[2:]] == [0, PW._OP_DELTA]
 
 
 def test_codec_requires_negotiation():
@@ -975,5 +1058,29 @@ def test_signature_parity(method):
 
 
 def test_window_server_serving_arguments_wait_for_item_10():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        PW.WindowServer(snapshots=object())
+    """Item 10b is ported: ``WindowServer(snapshots=, delta=)`` serves the
+    given table with the given delta cadence, ``set_delta`` and
+    ``set_fanout_limit`` retune a running server, and the reference's
+    signature is kept."""
+    from bluefog_tpu_torch.serving import snapshots as PSn
+
+    tbl = PSn.SnapshotTable()
+    cfg = PD.DeltaConfig(full_every=3)
+    srv = PW.WindowServer(snapshots=tbl, delta=cfg)
+    assert srv.snapshots is tbl
+    srv.start("127.0.0.1")
+    try:
+        assert srv._server.snap_table is tbl
+        assert srv._server.delta_cfg is cfg
+        cfg2 = PD.DeltaConfig(full_every=1)
+        srv.set_delta(cfg2)
+        assert srv._server.delta_cfg is cfg2
+        srv.set_fanout_limit(0)
+        assert srv._server.sub_limit == 1
+        srv.set_fanout_limit(None)
+        assert srv._server.sub_limit is None
+    finally:
+        srv.stop()
+    assert PW.WindowServer().snapshots is PSn.table()
+    assert _params(PW.WindowServer.__init__) == _params(
+        RW.WindowServer.__init__)
