@@ -40,6 +40,7 @@ from bluefog_tpu_torch.runtime.window_server import WindowServer
 from bluefog_tpu_torch.serving.client import Snapshot
 from bluefog_tpu_torch.serving.snapshots import SnapshotTable
 from bluefog_tpu_torch.serving.subscriber import Subscriber
+from bluefog_tpu_torch.tracing import recorder as _tr
 
 __all__ = ["RelayNode"]
 
@@ -153,7 +154,22 @@ class RelayNode:
                             self._uplink_idx % len(self._uplinks)]
                     self._subs[group].reparent(target)
                 return
-        self.table.publish(group, snap.round, snap.leaves)
+        psp = None
+        trec = _tr.get()
+        if trec is not None and snap.trace is not None:
+            # the relay hop parents to the upstream push span, so the
+            # analyzer walks trainer -> relay -> ... -> leaf
+            psp = trec.begin_span(
+                "relay", "relay", parent=snap.trace[1],
+                trace_id=snap.trace[0], round_=max(0, snap.round),
+                group=group, tier=self.tier)
+        try:
+            self.table.publish(group, snap.round, snap.leaves,
+                               trace=(psp.tid, psp.sid)
+                               if psp is not None else None)
+        finally:
+            if psp is not None:
+                psp.finish()
         with self._mu:
             self.landed += 1
 

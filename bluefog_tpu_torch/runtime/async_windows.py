@@ -50,10 +50,16 @@ Win* and its lock/flush epochs).  This module runs that execution model:
   :class:`~bluefog_tpu_torch.runtime.window_server.WindowServer` of the
   process serves to :mod:`bluefog_tpu_torch.serving` readers.
 
-Deferred, each raising ``NotImplementedError`` that names its ROADMAP item:
-the fleet health plane and the sampling profiler (item 11).  The JAX
-package's calls into blackbox, metrics, tracing and lockcheck come back
-with those packages (item 11); none of them changes a result.
+- Causal tracing (:mod:`bluefog_tpu_torch.tracing`): the process rank
+  body's ``round``, ``gossip``, ``compute``, ``control`` and ``publish``
+  spans, stamped with the round, which the deposit streams carry onto the
+  wire; and the sampling profiler (``profile=``,
+  :mod:`bluefog_tpu_torch.profiling`) in both runners.
+
+Deferred, raising ``NotImplementedError`` that names its ROADMAP item: the
+fleet health plane (``fleet=``, item 11).  The JAX package's calls into
+blackbox, metrics and lockcheck come back with those packages (item 11);
+none of them changes a result.
 """
 
 from __future__ import annotations
@@ -78,12 +84,14 @@ from bluefog_tpu_torch.control.transport import (
     TransportConfig as _TransportConfig, TransportPlan as _TransportPlan,
     decide_transport_plan as _decide_transport_plan)
 from bluefog_tpu_torch.metrics.health import MixingTracker as _MixingTracker
+from bluefog_tpu_torch.profiling import sampler as _profiling
 from bluefog_tpu_torch.runtime import membership as _mship
 from bluefog_tpu_torch.runtime import native as _native
 from bluefog_tpu_torch.runtime import resilience as _res
 from bluefog_tpu_torch.serving import snapshots as _snapshots
 from bluefog_tpu_torch.topology.graphs import heal as _heal
 from bluefog_tpu_torch.topology.graphs import replan as _replan
+from bluefog_tpu_torch.tracing import recorder as _tr
 from bluefog_tpu_torch.utils import timeline as _timeline
 
 if TYPE_CHECKING:
@@ -984,7 +992,8 @@ class DSGDReport:
     # exactly-once bookkeeping: reconnects, batches re-sent and batches
     # retired by an attach reply (applied, their ack lost), the replayed
     # duplicates its own server consumed without an apply ("deduped"),
-    # and each peer's ack EWMA in seconds ("ack_ewma_s")
+    # each peer's ack EWMA in seconds ("ack_ewma_s") and, over traced
+    # streams, each peer's {net, queue, apply} EWMA ("phase_s")
     wire_bytes: int = 0
     stream_stats: Dict[int, dict] = field(default_factory=dict)
     # control= runs: the highest-version plan a reporting rank's
@@ -1217,14 +1226,37 @@ def _stream_context(packer: TreePacker):
     return torch.cuda.stream(torch.cuda.Stream(packer.device))
 
 
-def _check_dsgd_args(*, snapshot_every=0, fleet=None,
-                     profile=None) -> None:
+def _emit_round(trec, t0_wall: float, t0_perf: float, step: int,
+                ov: Optional[float]) -> None:
+    """The rank body's ``round`` span, emitted when the round ends (its
+    ``gossip``, ``compute`` and ``publish`` spans nest in it by time);
+    ``overlap`` is the share of the overlapped fold hidden under
+    compute."""
+    trec.emit("round", "dsgd", t0=t0_wall,
+              dur=time.perf_counter() - t0_perf, round_=step, step=step,
+              **({} if ov is None else {"overlap": round(ov, 4)}))
+
+
+def _check_dsgd_args(*, snapshot_every=0, fleet=None) -> None:
     if snapshot_every < 0:
         raise ValueError(f"snapshot_every must be >= 0, got {snapshot_every}")
     if fleet is not None:
         raise _not_ported("fleet=", "11", "the fleet health plane")
-    if profile is not None:
-        raise _not_ported("profile=", "11", "the sampling profiler")
+
+
+def _arm_profiler(profile: Optional[str], rank: int) -> bool:
+    """Arm the sampling profiler for a run: with ``profile=`` a sampler
+    writing ``profile-rank<rank>.jsonl`` into that directory, owned by
+    the caller (True) unless ``BLUEFOG_TPU_PROFILE`` already armed one.
+    Without it, the env-armed profiler (if any) takes this rank, and its
+    exit hook owns the tail flush."""
+    if profile is None:
+        _profiling.set_rank(rank)
+        return False
+    if _profiling.get() is not None:
+        return False
+    _profiling.configure(profile, rank=rank)
+    return True
 
 
 def run_async_dsgd(
@@ -1342,11 +1374,17 @@ def run_async_dsgd(
         publish is atomic (double-buffered, swapped under one lock), so
         readers never see a torn ``(x, p)`` pair, and it only reads: the
         mass audit is unchanged.  The groups are dropped at the end.
-      fleet, profile (ROADMAP item 11): not ported yet; each raises
+      profile: directory for the sampling profiler
+        (:mod:`bluefog_tpu_torch.profiling`): arms a process-wide sampler
+        for the run and writes phase-attributed folded stacks to
+        ``profile-rank0.jsonl`` there (the rank threads share one
+        process, so one file holds every thread's samples).  A profiler
+        that ``BLUEFOG_TPU_PROFILE`` already armed is left alone: the
+        runner only stops what it started.
+      fleet (ROADMAP item 11): not ported yet; raises
         ``NotImplementedError``.
     """
-    _check_dsgd_args(snapshot_every=snapshot_every, fleet=fleet,
-                     profile=profile)
+    _check_dsgd_args(snapshot_every=snapshot_every, fleet=fleet)
     n = topology.size
     packer = TreePacker(params0, np.float64)
     d = packer.size
@@ -1794,6 +1832,7 @@ def run_async_dsgd(
             if db is not None:
                 db.close()  # idempotent; stops the harvester thread
 
+    prof_owned = _arm_profiler(profile, 0)
     threads = [threading.Thread(target=rank_loop, args=(r,), daemon=True)
                for r in range(n)]
     t0 = time.perf_counter()
@@ -1804,6 +1843,8 @@ def run_async_dsgd(
     join_budget = max(skew) * 4 + 30.0  # a rank may be mid-gradient
     for t in threads:
         t.join(timeout=join_budget)
+    if prof_owned:
+        _profiling.reset()  # flushes the tail window before the audit
     if any(t.is_alive() for t in threads):
         raise RuntimeError("async DSGD rank threads failed to stop within "
                            f"{join_budget:.1f}s; aborting without freeing")
@@ -2175,15 +2216,26 @@ class _TcpTransport:
             return int(sum(getattr(st, attr, 0) for st in self._streams))
 
         ewma = {}
+        phases = {}
         for owner, sts in sorted(self._peer_streams.items()):
             vals = [v for v in (st.ack_ewma() for st in sts) if v is not None]
             if vals:
                 ewma[owner] = max(vals)
-        return {"reconnects": total("reconnects"),
-                "replayed": total("replayed_batches"),
-                "retired": total("retired_batches"),
-                "deduped": int(self._server.deduped_batches),
-                "ack_ewma_s": ewma}
+            split = [v for v in (st.phase_ewma() for st in sts)
+                     if v is not None]
+            if split:
+                phases[owner] = {k: max(v[k] for v in split)
+                                 for k in split[0]}
+        out = {"reconnects": total("reconnects"),
+               "replayed": total("replayed_batches"),
+               "retired": total("retired_batches"),
+               "deduped": int(self._server.deduped_batches),
+               "ack_ewma_s": ewma}
+        if phases:
+            # traced streams only: each peer's {net, queue, apply} split
+            # of its ack latency (the slowest of its streams, per phase)
+            out["phase_s"] = phases
+        return out
 
     def retune_transport_at_round_boundary(self, round_: int) -> None:
         """The closed-loop transport autotune, called by the DSGD runner
@@ -2331,15 +2383,23 @@ def run_async_dsgd_rank(
     dropped when the rank returns.  ``rep.phase_s`` then has a
     ``publish`` entry.
 
-    Not ported yet, each raising ``NotImplementedError``: ``fleet`` and
-    ``profile`` (ROADMAP Queue 1 item 11).
+    ``profile`` names a (shared) directory for the sampling profiler
+    (:mod:`bluefog_tpu_torch.profiling`): this process arms a sampler
+    writing phase-attributed folded stacks to ``profile-rank<rank>.jsonl``
+    there and stops it when the rank returns; one armed by
+    ``BLUEFOG_TPU_PROFILE`` is left running.  Merge the files with
+    ``python -m bluefog_tpu_torch.profiling DIR``.  With tracing armed
+    (``BLUEFOG_TPU_TRACE`` or :func:`bluefog_tpu_torch.tracing.configure`)
+    the rank writes ``trace-rank<rank>.jsonl``, flushed when it returns.
+
+    Not ported yet, raising ``NotImplementedError``: ``fleet`` (ROADMAP
+    Queue 1 item 11).
 
     Returns a :class:`DSGDReport` on rank 0 (``losses`` and ``phase_s``
     filled at index ``rank`` only; the other ranks' stay in their
     processes), and ``None`` elsewhere (joiners and leavers included).
     """
-    _check_dsgd_args(snapshot_every=snapshot_every, fleet=fleet,
-                     profile=profile)
+    _check_dsgd_args(snapshot_every=snapshot_every, fleet=fleet)
     if control is not None and transport != "tcp":
         raise ValueError(
             "the communication control plane rides the tcp transport's "
@@ -2375,6 +2435,9 @@ def run_async_dsgd_rank(
         raise ValueError(
             f"transport must be 'shm', 'tcp' or 'tcp-sync', got "
             f"{transport!r}")
+    # the profiler is per process, so each rank writes its own file into
+    # the shared directory
+    prof_owned = _arm_profiler(profile, rank)
     # the transport may hold live resources already (the TCP server's
     # thread and socket start in its constructor): everything from here
     # on, setup failures included, must release them
@@ -2433,8 +2496,14 @@ def run_async_dsgd_rank(
     finally:
         if db is not None:
             db.close()  # idempotent; before the windows are freed
+        if prof_owned:
+            _profiling.reset()  # joins the sampler, flushes the tail
         if snapshot_every:
             _snapshots.table().drop(f"{name}:{rank}")
+        # land this rank's spans before the run returns (the exit hook
+        # flushes too, but one process may run several jobs into one
+        # trace directory); a no-op with tracing off
+        _tr.flush()
         for w in opened:
             try:
                 w.free()
@@ -2521,6 +2590,9 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
     ph = dict.fromkeys(("consume", "unpack", "loss_and_grad", "pack",
                         "deposit", "harvest")
                        + (("publish",) if snapshot_every else ()), 0.0)
+    # one process a rank: pin the trace file's identity before the first
+    # flush names it (a no-op with tracing off)
+    _tr.set_rank(rank)
     _chaos.arm(rank)
 
     # ------------------------------------------- control plane (opt-in)
@@ -2605,9 +2677,15 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
             if j in dead or j in left:
                 continue
             hp = h.health
+            pe = getattr(h, "phase_ewma", None)
+            # phase_s: the traced wire-phase split (net / queue / apply)
+            # of the lag, the slow-link against slow-host evidence; None
+            # when tracing is off or the connection was not granted
+            # FEATURE_TRACE
             ctl.note_peer(j, lag_s=h.ack_ewma(),
                           state=hp.state if hp is not None else None,
-                          reconnects_total=h.reconnects)
+                          reconnects_total=h.reconnects,
+                          phase_s=pe() if pe is not None else None)
         d_now = ctl.disagreement
         if tracker is not None and d_now is not None:
             measured = tracker.update(d_now)
@@ -3035,24 +3113,34 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
                     break  # a member finished: meet at the stop barrier
             if ctl is not None and steps > 0 \
                     and steps % control.evidence_every == 0:
-                _ctl_round_boundary()
+                with _tr.span("control", "dsgd", round_=steps):
+                    _ctl_round_boundary()
             if retune is not None and steps > 0 and steps % 16 == 0:
                 # the transport autotune at this round boundary, at the
                 # tombstone poll's cadence (the no-change case is a pure
                 # function call a peer)
-                retune(steps)
+                with _tr.span("control", "dsgd", round_=steps):
+                    retune(steps)
+            trec = _tr.get()
+            if trec is not None:
+                t_rnd_w = time.time()
             ta = time.perf_counter()
             # the disagreement observation feeds the control evidence
             watch = _Disagreement(x, p) if ctl is not None else None
-            if db is not None:
-                # overlapped gossip-IN: apply the mass harvested under the
-                # previous round's compute, then re-arm the harvester
-                staged, hidden = db.apply_staged()
-                p = _fold(staged, x, p, watch)
-                db.begin()
-                ph["harvest"] += hidden
-            else:
-                p = _take_and_fold(win, my_slots, x, p, payload, watch)
+            ov = None
+            with _tr.span("gossip", "dsgd", round_=steps):
+                if db is not None:
+                    # overlapped gossip-IN: apply the mass harvested under
+                    # the previous round's compute, then re-arm it
+                    staged, hidden = db.apply_staged()
+                    p = _fold(staged, x, p, watch)
+                    tot = hidden + (time.perf_counter() - ta)
+                    ov = hidden / tot if tot > 0 else 0.0
+                    db.begin()
+                    ph["harvest"] += hidden
+                else:
+                    p = _take_and_fold(win, my_slots, x, p, payload,
+                                       watch)
             if watch is not None and watch.value is not None:
                 ctl.note_disagreement(watch.value)
             if elastic:
@@ -3061,7 +3149,8 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
             tb = time.perf_counter()
             tree = packer.unpack(np.divide(x, p, out=zbuf))
             tc = time.perf_counter()
-            loss, grads = loss_and_grad(rank, steps, tree)
+            with _tr.span("compute", "dsgd", round_=steps):
+                loss, grads = loss_and_grad(rank, steps, tree)
             losses.append(float(loss))
             td = time.perf_counter()
             packer.pack(grads, out=gvec)
@@ -3076,6 +3165,8 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
                 ph["unpack"] += tc - tb
                 ph["loss_and_grad"] += td - tc
                 ph["pack"] += te - td
+                if trec is not None:
+                    _emit_round(trec, t_rnd_w, ta, steps, ov)
                 steps += 1
                 if skew_s > 0 or poll_interval_s > 0:
                     time.sleep(skew_s + poll_interval_s)
@@ -3085,43 +3176,48 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
             payload *= frac
             failed: List[int] = []
             withheld = 0
-            for j in my_out:
-                if cfg is not None:
-                    try:
-                        # a replan can add an edge never opened before,
-                        # and the peer may have died since: an open
-                        # failure here is peer evidence, not a crash
-                        h = _ensure_peer(j).health
-                    except (RuntimeError, TimeoutError, OSError):
-                        failed.append(j)
-                        continue
-                    if h is not None:
-                        state = h.poll()
-                        if state == _res.REJOINED:
-                            # the stream reconnected to a peer we had
-                            # given up on mid-round: re-admit at this
-                            # round boundary and resume sending
-                            h.admit()
-                            state = _res.HEALTHY
-                        if state == _res.DEAD:
+            # gossip-OUT under the round's span: deposit_async captures the
+            # thread-local (trace_id, span_id, round) here, so every wire
+            # frame this round sends is causally stamped
+            with _tr.span("gossip", "dsgd", round_=steps):
+                for j in my_out:
+                    if cfg is not None:
+                        try:
+                            # a replan can add an edge never opened
+                            # before, and the peer may have died since:
+                            # an open failure is peer evidence, not a crash
+                            h = _ensure_peer(j).health
+                        except (RuntimeError, TimeoutError, OSError):
                             failed.append(j)
                             continue
-                        if state != _res.HEALTHY:
-                            # SUSPECT: withhold this peer's share instead
-                            # of bleeding mass into a possible corpse;
-                            # any row-stochastic split is unbiased under
-                            # the push-sum weight channel
-                            withheld += 1
-                            continue
-                # fire-and-forget on the pipelined transport: the payload
-                # is snapshotted at enqueue, so its reuse is safe
-                try:
-                    _ensure_peer(j).deposit_async(_slot_in(j), payload,
-                                                  accumulate=True)
-                except (RuntimeError, TimeoutError, OSError):
-                    if cfg is None:
-                        raise
-                    failed.append(j)
+                        if h is not None:
+                            state = h.poll()
+                            if state == _res.REJOINED:
+                                # the stream reconnected to a peer we had
+                                # given up on mid-round: re-admit at this
+                                # round boundary and resume sending
+                                h.admit()
+                                state = _res.HEALTHY
+                            if state == _res.DEAD:
+                                failed.append(j)
+                                continue
+                            if state != _res.HEALTHY:
+                                # SUSPECT: withhold this peer's share
+                                # instead of bleeding mass into a possible
+                                # corpse; any row-stochastic split is
+                                # unbiased under the push-sum weight
+                                withheld += 1
+                                continue
+                    # fire-and-forget on the pipelined transport: the
+                    # payload is snapshotted at enqueue, so its reuse is
+                    # safe
+                    try:
+                        _ensure_peer(j).deposit_async(_slot_in(j), payload,
+                                                      accumulate=True)
+                    except (RuntimeError, TimeoutError, OSError):
+                        if cfg is None:
+                            raise
+                        failed.append(j)
             x *= frac
             p *= frac
             if failed or withheld:
@@ -3137,16 +3233,19 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
                 # serve-while-training publish: the retained post-step
                 # (x, p) (z = x / p is invariant to the frac split),
                 # swapped in atomically under its round stamp
-                _snapshots.table().publish(
-                    f"{name}:{rank}", steps,
-                    {"x": x, "p": np.array([p]),
-                     "round": np.array([float(steps)])})
+                with _tr.span("publish", "dsgd", round_=steps):
+                    _snapshots.table().publish(
+                        f"{name}:{rank}", steps,
+                        {"x": x, "p": np.array([p]),
+                         "round": np.array([float(steps)])})
                 ph["publish"] += time.perf_counter() - tf
             ph["consume"] += tb - ta
             ph["unpack"] += tc - tb
             ph["loss_and_grad"] += td - tc
             ph["pack"] += te - td
             ph["deposit"] += tf - te
+            if trec is not None:
+                _emit_round(trec, t_rnd_w, ta, steps, ov)
             steps += 1
             if skew_s > 0 or poll_interval_s > 0:
                 time.sleep(skew_s + poll_interval_s)

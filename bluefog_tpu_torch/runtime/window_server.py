@@ -75,10 +75,14 @@ bodies follow:
                  round-over-round difference (:mod:`bluefog_tpu_torch.
                  runtime.delta`).  Requires FEATURE_SUBSCRIBE.
 
-The server grants FEATURE_SNAPSHOT, FEATURE_SUBSCRIBE and FEATURE_DELTA,
-but not FEATURE_TRACE (the wire trace context comes with the tracing
-package, ROADMAP item 11): a client that asks for the trace bit degrades
-silently, as against an old server.
+FEATURE_TRACE (128) carries the causal trace context
+(:mod:`bluefog_tpu_torch.tracing`): on a connection whose HELLO granted
+it, every DEPOSIT_BATCH, FLUSH, HEARTBEAT and SNAPSHOT frame carries
+``trace_id u64, span_id u64, round u32`` right after the frame header
+(zeros when no span is active), batch acks grow a ``queue_us u32,
+apply_us u32`` tail, and SUBSCRIBE push frames carry the header after
+``_PUSH``.  A client asks for the bit only while tracing is armed, so a
+stream built with tracing off sends exactly the frames it sent before.
 
 Version negotiation is loud, never silent: a v2 server answers a v1-magic
 frame with one ``status = -101`` reply and drops the connection, and
@@ -125,6 +129,7 @@ from bluefog_tpu_torch.runtime import (delta as _delta, native as _native,
 from bluefog_tpu_torch.runtime.async_windows import (
     _DTYPES as _DTYPE_IDS, _py_windows)
 from bluefog_tpu_torch.serving import snapshots as _snap
+from bluefog_tpu_torch.tracing import recorder as _tr
 
 __all__ = ["WindowServer", "RemoteWindow", "PipelinedRemoteWindow",
            "DepositStream", "StripedDepositStream", "stripe_of",
@@ -159,6 +164,13 @@ _DELTA_HDR = struct.Struct("<Bq")     # frame kind (0 full / 10 delta),
                                       # connection, keepalives included
 _DELTA_LEAF = struct.Struct("<HBBqq")  # name_len, dtype, codec, n_elems,
                                        # wire_bytes: one delta leaf entry
+_TRACE_HDR = struct.Struct("<QQI")    # trace_id, span_id, round: the
+                                      # wire-propagated causal context
+                                      # (FEATURE_TRACE connections only)
+_ACK_TIMES = struct.Struct("<II")     # queue_us, apply_us appended to
+                                      # batch acks on FEATURE_TRACE
+                                      # connections (never to heartbeat
+                                      # acks, which keep the bit31 mark)
 _OP_DEPOSIT = 0
 _OP_GET_SELF = 1
 _OP_READ_SLOT = 2
@@ -172,6 +184,12 @@ _OP_SUBSCRIBE = 9
 # not a request op: the frame-kind marker of a delta push frame on the
 # SUBSCRIBE push channel (FEATURE_DELTA connections; kind 0 = full)
 _OP_DELTA = 10
+
+# client->server ops whose frames carry the trace header on FEATURE_TRACE
+# connections (SUBSCRIBE propagates the other way: the server's push
+# frames carry it instead)
+_TRACED_OPS = frozenset((_OP_DEPOSIT_BATCH, _OP_FLUSH, _OP_HEARTBEAT,
+                         _OP_SNAPSHOT))
 
 # subscription push cadence when nothing is being published: an idle
 # server must look different from a wedged one to the reader's idle
@@ -202,11 +220,12 @@ FEATURE_HEARTBEAT = 8
 FEATURE_RESUME = 16     # STREAM_ATTACH + idempotent reconnect replay
 FEATURE_SNAPSHOT = 32   # round-stamped consistent snapshot reads (op 8)
 FEATURE_SUBSCRIBE = 64  # resumable push subscriptions (op 9)
-FEATURE_TRACE = 128     # wire trace context, ROADMAP item 11: not granted
+FEATURE_TRACE = 128     # wire trace context; an optional want
 FEATURE_DELTA = 256     # round-over-round delta push frames (op 10)
 _SERVER_FEATURES = (FEATURE_BATCH | FEATURE_CODEC_F32 | FEATURE_CODEC_TOPK
                     | FEATURE_HEARTBEAT | FEATURE_RESUME
-                    | FEATURE_SNAPSHOT | FEATURE_SUBSCRIBE | FEATURE_DELTA)
+                    | FEATURE_SNAPSHOT | FEATURE_SUBSCRIBE
+                    | FEATURE_TRACE | FEATURE_DELTA)
 
 _CODEC_FEATURE = {wire_codec.CODEC_NONE: 0,
                   wire_codec.CODEC_F32: FEATURE_CODEC_F32,
@@ -428,10 +447,13 @@ class _ApplyWorker:
             if len(free) < self._MAX_FREE:
                 free.append(buf)
 
-    def submit_batch(self, seq: int, jobs: List) -> None:
+    def submit_batch(self, seq: int, jobs: List, tctx=None) -> None:
         """One wire batch's jobs (('item', …) / ('err', code) entries, in
-        arrival order); blocks when the applier is two frames behind."""
-        self._jobs.put((seq, jobs))
+        arrival order); blocks when the applier is two frames behind.
+        ``tctx`` is the frame's wire-propagated trace context
+        ``(trace_id, span_id, round)`` or None: the owner-side queue-wait,
+        apply and ack spans parent to it."""
+        self._jobs.put((seq, jobs, tctx, time.time(), time.perf_counter()))
 
     def close(self) -> bool:
         """Stop the worker after it drains every queued batch; returns
@@ -461,7 +483,9 @@ class _ApplyWorker:
                 continue
             if batch is None:
                 return
-            seq, jobs = batch
+            seq, jobs, tctx, t_sub_w, t_sub_p = batch
+            t_deq_p = time.perf_counter()
+            queue_s = t_deq_p - t_sub_p
             applied = 0
             first_err = 0
             for job in jobs:
@@ -486,6 +510,17 @@ class _ApplyWorker:
                         first_err = rc
                 else:
                     applied += 1
+            apply_s = time.perf_counter() - t_deq_p
+            trec = _tr.get() if tctx is not None else None
+            if trec is not None:
+                tid_, psid, rnd_ = tctx
+                trec.emit("queue_wait", "tcp_srv", t0=t_sub_w,
+                          dur=queue_s, parent=psid, round_=rnd_,
+                          trace_id=tid_, peer=self._peer, seq=seq)
+                trec.emit("apply", "tcp_srv", t0=t_sub_w + queue_s,
+                          dur=apply_s, parent=psid, round_=rnd_,
+                          trace_id=tid_, peer=self._peer, seq=seq,
+                          items=applied)
             # the stream's applied high-water mark moves before the ack
             # leaves: a reconnecting client must never learn (via
             # STREAM_ATTACH) that an already-applied batch is still
@@ -509,14 +544,28 @@ class _ApplyWorker:
                 return
             if act is not None and act[0] in ("delay", "stall"):
                 time.sleep(act[1])
+            ack = _ACK.pack(seq, first_err or applied)
+            if h._trace_granted:
+                # the extended batch ack: the owner's phase timings ride
+                # back so the sender can split its ack latency into
+                # queue wait and apply without the owner's trace file
+                ack += _ACK_TIMES.pack(
+                    min(0xFFFF_FFFF, int(queue_s * 1e6)),
+                    min(0xFFFF_FFFF, int(apply_s * 1e6)))
+            t_ack_w = time.time()
             try:
                 # the ack-after-apply ordering under the per-connection
                 # write mutex is the client's flush fence; a peer that
                 # stops draining wedges only its own connection
                 with self._wlock:
-                    self._sock.sendall(_ACK.pack(seq, first_err or applied))
+                    self._sock.sendall(ack)
             except OSError:
                 return  # peer gone; the recv loop will notice too
+            if trec is not None:
+                trec.emit("ack", "tcp_srv", t0=t_ack_w,
+                          dur=time.time() - t_ack_w, parent=tctx[1],
+                          round_=tctx[2], trace_id=tctx[0],
+                          peer=self._peer, seq=seq)
 
 
 def _leaf_views(leaves: List[Tuple[str, np.ndarray]]) -> List:
@@ -661,16 +710,20 @@ class _SubSender:
         return time.monotonic() - self._last_send >= _SUB_KEEPALIVE_S
 
     def _ka_views(self) -> List:
-        """A keepalive frame (round = -1), with an empty delta header on
-        FEATURE_DELTA connections so every push frame parses the same
+        """A keepalive frame (round = -1), with an empty trace header on
+        FEATURE_TRACE connections and an empty delta header on
+        FEATURE_DELTA connections, so every push frame parses the same
         way."""
         views: List = [_PUSH.pack(-1, 0, 0)]
+        if self._handler._trace_granted:
+            views.append(_TRACE_HDR.pack(0, 0, 0))
         if self._delta_on:
             views.append(_DELTA_HDR.pack(0, -1))
         return views
 
     def _payload_views(self, rnd: int, leaves) -> List:
-        """The frame body: dense leaves on plain connections; on
+        """The frame body after the trace header: dense leaves on plain
+        connections; on
         FEATURE_DELTA connections the delta header plus either the
         full-frame anchor or the encoded round-over-round delta, per the
         server's live :class:`DeltaConfig` (read fresh each push)."""
@@ -712,24 +765,50 @@ class _SubSender:
                 continue
             skipped = (max(0, (rnd - self._last_round) - self._every)
                        if self._last_round >= 0 else 0)
-            # the frame body is built once (the delta encoder's error
-            # feedback advances per push)
-            views = ([_PUSH.pack(rnd, skipped, len(leaves))]
-                     + self._payload_views(rnd, leaves))
-            act = _chaos.fire("sub", peer=self._peer, group=self._group)
-            if act is not None:
-                if act[0] in ("delay", "stall"):
-                    time.sleep(act[1])
-                else:
-                    # an injected reader-side outage: cut the push channel
-                    # (after half a frame for 'truncate', the torn frame a
-                    # resuming reader must not consume)
-                    if act[0] == "truncate":
-                        self._send(views[:max(1, len(views) // 2)])
-                    self.close()
+            # push-frame trace context: the reader's consume span parents
+            # to this push span, so a delivered snapshot links causally
+            # back to the serving host
+            thdr: List = []
+            psp = None
+            if self._handler._trace_granted:
+                trec = _tr.get()
+                if trec is not None:
+                    # parent to the publish's stored trace context when
+                    # the publisher carried one (a relay hop parents to
+                    # the upstream push this way, so the analyzer walks
+                    # trainer -> relay -> leaf across the whole tree)
+                    ptc = tbl.trace_ctx(self._group)
+                    psp = trec.begin_span(
+                        "push", "tcp_srv", round_=max(0, rnd),
+                        parent=ptc[1] if ptc else 0,
+                        trace_id=ptc[0] if ptc else None,
+                        group=self._group, peer=self._peer,
+                        skipped=skipped)
+                thdr = [_TRACE_HDR.pack(
+                    psp.tid if psp is not None else 0,
+                    psp.sid if psp is not None else 0, max(0, rnd))]
+            try:
+                # the frame body is built once (the delta encoder's error
+                # feedback advances per push)
+                views = ([_PUSH.pack(rnd, skipped, len(leaves))] + thdr
+                         + self._payload_views(rnd, leaves))
+                act = _chaos.fire("sub", peer=self._peer, group=self._group)
+                if act is not None:
+                    if act[0] in ("delay", "stall"):
+                        time.sleep(act[1])
+                    else:
+                        # an injected reader-side outage: cut the push
+                        # channel (after half a frame for 'truncate', the
+                        # torn frame a resuming reader must not consume)
+                        if act[0] == "truncate":
+                            self._send(views[:max(1, len(views) // 2)])
+                        self.close()
+                        return
+                if not self._send(views):
                     return
-            if not self._send(views):
-                return
+            finally:
+                if psp is not None:
+                    psp.finish()
             self._last_send = time.monotonic()
             self._last_round = rnd
 
@@ -753,6 +832,11 @@ class _Handler(socketserver.BaseRequestHandler):
         # DepositStream lineage binding (STREAM_ATTACH); None = unbound
         self._stream_sid: Optional[int] = None
         self._stream_epoch = 0
+        # FEATURE_TRACE negotiated on this connection: frames of the
+        # _TRACED_OPS carry the trace header, batch acks grow the timing
+        # tail, push frames carry the header (set at HELLO, so presence is
+        # deterministic per connection)
+        self._trace_granted = False
         # FEATURE_DELTA negotiated on this connection: push frames carry
         # the delta header and may be op-10 deltas (set at HELLO)
         self._delta_granted = False
@@ -892,20 +976,29 @@ class _Handler(socketserver.BaseRequestHandler):
 
     def _batch_ack(self, seq: int, status: int) -> None:
         """Handler-thread batch ack (the dedup and unparseable-stream
-        paths)."""
-        self._send(_ACK.pack(seq, status))
+        paths): it carries the timing tail on trace connections, so the
+        ack stream parses the same whichever thread acked."""
+        ack = _ACK.pack(seq, status)
+        if self._trace_granted:
+            ack += _ACK_TIMES.pack(0, 0)
+        self._send(ack)
 
-    def _handle_batch(self, ops, sock) -> bool:
+    def _handle_batch(self, ops, sock, tctx=None) -> bool:
         """One DEPOSIT_BATCH frame; returns False to drop the connection
         (only when the stream itself is unrecoverable).  The handler
         thread only validates headers and ``recv_into``s payloads; the
         per-connection :class:`_ApplyWorker` decodes and lands them, so
         receiving item N+1 overlaps applying item N.  The ack is emitted
-        by the worker after the batch's last item applied."""
+        by the worker after the batch's last item applied.  ``tctx`` is
+        the frame's trace context: the owner-side recv span is emitted
+        here, the queue-wait, apply and ack spans by the worker."""
         if self._worker is None:
             self._worker = _ApplyWorker(
                 self, sock, ops, self._wmu, self.client_address[0])
         worker = self._worker
+        trec = _tr.get() if tctx is not None else None
+        t_recv_w = time.time()
+        t_recv_p = time.perf_counter()
         seq, count = _BATCH_HDR.unpack(_recv_exact(sock, _BATCH_HDR.size))
         if self._stream_sid is not None and seq <= self.server.stream_applied(  # type: ignore[attr-defined]
                 self._stream_sid):
@@ -969,13 +1062,22 @@ class _Handler(socketserver.BaseRequestHandler):
             _recv_into(sock, memoryview(buf)[:wire_bytes])
             jobs.append(("item", name_b, slot, flags, dtype_id, codec,
                          n_elems, buf, wire_bytes))
-        worker.submit_batch(seq, jobs)
+        if trec is not None:
+            trec.emit("recv", "tcp_srv", t0=t_recv_w,
+                      dur=time.perf_counter() - t_recv_p,
+                      parent=tctx[1], round_=tctx[2], trace_id=tctx[0],
+                      peer=self.client_address[0], seq=seq, items=count)
+        worker.submit_batch(seq, jobs, tctx)
         return True
 
-    def _handle_snapshot(self, sock, name_len: int) -> bool:
+    def _handle_snapshot(self, sock, name_len: int, tctx=None) -> bool:
         """One SNAPSHOT request: all requested leaves from one round, or a
         retriable negative status; returns False to drop the connection
-        (an unparseable request, or an injected read fault)."""
+        (an unparseable request, or an injected read fault).  ``tctx`` is
+        the reader's trace context: the serve span parents to it, so the
+        read links causally into the reader's trace."""
+        t_serve_w = time.time()
+        t_serve_p = time.perf_counter()
         group = self._recv_name(sock, name_len).decode("utf-8", "replace")
         want_round, count = _SNAP_REQ.unpack(
             _recv_exact(sock, _SNAP_REQ.size))
@@ -1015,6 +1117,13 @@ class _Handler(socketserver.BaseRequestHandler):
             else:  # drop
                 return False
         self._send_views(views)
+        trec = _tr.get() if tctx is not None else None
+        if trec is not None:
+            trec.emit("snapshot_serve", "tcp_srv", t0=t_serve_w,
+                      dur=time.perf_counter() - t_serve_p,
+                      parent=tctx[1], round_=tctx[2], trace_id=tctx[0],
+                      peer=self.client_address[0], group=group,
+                      served_round=rnd)
         return True
 
     def _handle_subscribe(self, sock, name_len: int) -> bool:
@@ -1072,8 +1181,20 @@ class _Handler(socketserver.BaseRequestHandler):
                         # mid-frame either way
                         return
                     time.sleep(act[1])  # delay or stall
+                # wire-propagated trace context: present iff this
+                # connection's HELLO negotiated FEATURE_TRACE and the op
+                # is one of the traced client->server frames (read after
+                # the chaos shim, so an injected 'truncate' still models
+                # "header consumed, body not").  span_id 0 = the sender
+                # had no active span: parse, then ignore.
+                tctx = None
+                if self._trace_granted and op in _TRACED_OPS:
+                    t_id, s_id, t_round = _TRACE_HDR.unpack(
+                        _recv_exact(sock, _TRACE_HDR.size))
+                    if s_id:
+                        tctx = (t_id, s_id, t_round)
                 if op == _OP_SNAPSHOT:
-                    if not self._handle_snapshot(sock, name_len):
+                    if not self._handle_snapshot(sock, name_len, tctx):
                         return
                     continue
                 if op == _OP_SUBSCRIBE:
@@ -1103,11 +1224,12 @@ class _Handler(socketserver.BaseRequestHandler):
                         return
                     granted = features & _SERVER_FEATURES
                     self.server.set_features(self.request, granted)  # type: ignore
+                    self._trace_granted = bool(granted & FEATURE_TRACE)
                     self._delta_granted = bool(granted & FEATURE_DELTA)
                     self._send(_STATUS.pack(granted))
                     continue
                 if op == _OP_DEPOSIT_BATCH:
-                    if not self._handle_batch(ops, sock):
+                    if not self._handle_batch(ops, sock, tctx):
                         return
                     continue
                 if op == _OP_FLUSH:
@@ -1689,10 +1811,10 @@ class RemoteWindow:
 
 class _Item:
     __slots__ = ("name_b", "slot", "flags", "dtype_id", "codec", "n_elems",
-                 "views", "wire_bytes", "pooled")
+                 "views", "wire_bytes", "pooled", "tctx", "t_enq")
 
     def __init__(self, name_b, slot, flags, dtype_id, codec, n_elems,
-                 views, wire_bytes, pooled):
+                 views, wire_bytes, pooled, tctx=None, t_enq=0.0):
         self.name_b = name_b
         self.slot = slot
         self.flags = flags
@@ -1702,6 +1824,8 @@ class _Item:
         self.views = views
         self.wire_bytes = wire_bytes
         self.pooled = pooled  # buffer to return to the pool after send
+        self.tctx = tctx      # (trace_id, span_id, round) of the caller
+        self.t_enq = t_enq    # perf_counter at enqueue (enqueue span)
 
 
 _LOOPBACK_HOSTS = ("127.0.0.1", "::1", "localhost")
@@ -1870,6 +1994,14 @@ class DepositStream:
         # stop-and-wait at frame granularity; several bounded frames in
         # flight keep client send, server recv and server apply overlapped
         self._max_batch_bytes = max(1 << 16, int(max_batch_bytes))
+        # ------------------------------------------------------ tracing
+        # the arming decision is taken once, at construction (when the
+        # codec ceiling is fixed too): a stream built while tracing is
+        # armed asks for FEATURE_TRACE at every HELLO it sends, so replay
+        # frames parse like first sends.  A server that does not grant it
+        # degrades the connection silently, never fails the handshake.
+        self._trace_want = _tr.get() is not None
+        self._trace_on = False
         # --------------------------------------------------- resilience
         self._resume = bool(reconnect)
         self._reconnect_cfg = (dict(reconnect)
@@ -1907,8 +2039,11 @@ class DepositStream:
         # the GIL.
         self._ack_ewma: Optional[float] = None
         self._ack_ewma_alpha = 0.2
-        # per-peer phase EWMAs come from the extended acks of
-        # FEATURE_TRACE connections (ROADMAP item 11): None here
+        # per-peer phase EWMAs (net / owner queue / owner apply seconds)
+        # from the extended batch acks of FEATURE_TRACE connections: the
+        # evidence that tells the control plane a slow link from a slow
+        # host.  None until the first timed ack (or for good, with
+        # tracing off).  Written by the ack thread only.
         self._phase_ewma: Optional[Tuple[float, float, float]] = None
         # striping hook: a StripedDepositStream rolls its stripes' EWMAs
         # up into one per-peer value (max of stripes)
@@ -1984,6 +2119,8 @@ class DepositStream:
                 want |= FEATURE_RESUME
             if self._hb_interval > 0:
                 want |= FEATURE_HEARTBEAT
+            if self._trace_want:
+                want |= FEATURE_TRACE
             _sendmsg_all(sock, [
                 _HDR.pack(_MAGIC, _OP_HELLO, 0),
                 _HELLO.pack(PROTOCOL_VERSION, want)])
@@ -1993,11 +2130,16 @@ class DepositStream:
                     f"window server at {self._peer} rejected the v"
                     f"{PROTOCOL_VERSION} handshake ({granted}): "
                     + _err_text(int(granted)))
-            if want & ~granted:
+            if want & ~granted & ~FEATURE_TRACE:
+                # FEATURE_TRACE is the one optional want: a server that
+                # cannot carry trace headers still serves deposits, and
+                # tracing degrades silently on this connection
                 raise RuntimeError(
                     f"window server at {self._peer} does not support the "
                     f"requested transport features (want {want:#x}, "
                     f"granted {int(granted):#x})")
+            self._trace_on = bool(self._trace_want
+                                  and granted & FEATURE_TRACE)
             if self._resume:
                 self._epoch += 1
                 _sendmsg_all(sock, [
@@ -2043,11 +2185,23 @@ class DepositStream:
                 for it in entry[1] or ():
                     if it.pooled is not None:
                         self._give(it.pooled)
+                if entry[2] is not None:
+                    # applied but unacked, resolved by the attach mark:
+                    # the wire span ends here, marked so the analyzer
+                    # knows its duration includes the outage
+                    entry[2].finish(retired=True)
             self._cv.notify_all()
 
-    def _frame_views(self, seq: int, items: List["_Item"]) -> List:
+    def _frame_views(self, seq: int, items: List["_Item"],
+                     tctx=None) -> List:
         views: List = [_HDR.pack(_MAGIC, _OP_DEPOSIT_BATCH, 0),
                        _BATCH_HDR.pack(seq, len(items))]
+        if self._trace_on:
+            # the wire-propagated causal context: on every batch frame of
+            # a FEATURE_TRACE connection (span_id 0 = no active span: the
+            # server parses, then ignores), right after the frame header
+            tid, sid, rnd = tctx or (0, 0, 0)
+            views.insert(1, _TRACE_HDR.pack(tid, sid, rnd))
         for it in items:
             views.append(_ITEM.pack(
                 len(it.name_b), it.slot, it.flags, it.dtype_id,
@@ -2093,7 +2247,10 @@ class DepositStream:
                 pending = sorted(self._inflight.items())
             try:
                 for seq, entry in pending:
-                    _sendmsg_all(sock, self._frame_views(seq, entry[1]))
+                    wsp = entry[2]
+                    _sendmsg_all(sock, self._frame_views(
+                        seq, entry[1],
+                        wsp.ctx if wsp is not None else None))
             except (OSError, ConnectionError):
                 try:
                     sock.close()
@@ -2138,9 +2295,14 @@ class DepositStream:
         while len(self._hb_sent) > 64:
             self._hb_sent.pop(next(iter(self._hb_sent)))
         self._hb_last = time.monotonic()
+        views: List = [_HDR.pack(_MAGIC, _OP_HEARTBEAT, 0), _HB.pack(seq)]
+        if self._trace_on:
+            # HEARTBEAT is a traced op: the header rides along (empty: an
+            # idle probe has no active span), so the server's frame parse
+            # stays deterministic per connection
+            views.insert(1, _TRACE_HDR.pack(0, 0, 0))
         try:
-            _sendmsg_all(self._sock, [_HDR.pack(_MAGIC, _OP_HEARTBEAT, 0),
-                                      _HB.pack(seq)])
+            _sendmsg_all(self._sock, views)
         except (OSError, ConnectionError) as e:
             if self._resume:
                 return self._recover(f"heartbeat send failed: {e}")
@@ -2182,11 +2344,48 @@ class DepositStream:
         the first ack or heartbeat reply arrives."""
         return self._ack_ewma
 
+    def _note_phases(self, wsp, times, lat: float, seq: int) -> None:
+        """Ack-thread bookkeeping for one traced batch: finish the wire
+        span (with the owner's ``queue_s`` and ``apply_s`` the extended
+        ack carried), emit the ``ack_wait`` child span, and fold the
+        (net, queue, apply) split into the phase EWMA that
+        :meth:`phase_ewma` returns."""
+        extra = {}
+        if times is not None:
+            queue_s, apply_s = times[0] / 1e6, times[1] / 1e6
+            extra = {"queue_s": queue_s, "apply_s": apply_s}
+            net = max(0.0, lat - queue_s - apply_s)
+            prev = self._phase_ewma
+            a = self._ack_ewma_alpha
+            if prev is None:
+                self._phase_ewma = (net, queue_s, apply_s)
+            else:
+                self._phase_ewma = (
+                    a * net + (1.0 - a) * prev[0],
+                    a * queue_s + (1.0 - a) * prev[1],
+                    a * apply_s + (1.0 - a) * prev[2])
+        trec = _tr.get()
+        if trec is not None:
+            # send_s may not be written yet when the ack beat the
+            # sender's bookkeeping after sendall; clamp into [0, lat]
+            send_s = min(lat, float(wsp.fields.get("send_s", 0.0) or 0.0))
+            trec.emit("ack_wait", "tcp", t0=wsp.t0 + send_s,
+                      dur=max(0.0, lat - send_s), parent=wsp.sid,
+                      round_=wsp.round, trace_id=wsp.tid,
+                      peer=self._peer, seq=seq)
+        wsp.finish(**extra)
+
     def phase_ewma(self) -> Optional[Dict[str, float]]:
-        """The wire-phase decomposition (net / owner queue / owner apply)
-        rides the extended acks of FEATURE_TRACE connections, which come
-        with ROADMAP item 11: None here."""
-        return None
+        """This peer's wire-phase EWMA, ``{"net": s, "queue": s, "apply":
+        s}``: its ack latency split into network and front end, the
+        owner's queue wait and the owner's apply (the slow-link against
+        slow-host evidence, :class:`~bluefog_tpu_torch.control.evidence.
+        Evidence` ``phase_s``).  None until a FEATURE_TRACE connection
+        delivered a timed ack."""
+        p = self._phase_ewma
+        if p is None:
+            return None
+        return {"net": p[0], "queue": p[1], "apply": p[2]}
 
     @property
     def reconnects(self) -> int:
@@ -2302,6 +2501,13 @@ class DepositStream:
         if self._shm_ok and self._try_shm_deposit(
                 name, slot, a, accumulate=accumulate, drain=drain):
             return  # applied: nothing in flight, nothing to fence
+        # tracing: capture the caller's active span context here, on the
+        # producer thread; round and parentage then ride the item into
+        # the sender thread and onto the wire
+        trec = _tr.get()
+        tctx = _tr.current_ctx() if trec is not None else None
+        t_snap_w = time.time() if trec is not None else 0.0
+        t_snap_p = time.perf_counter() if trec is not None else 0.0
         pooled = None
         if self._codec == wire_codec.CODEC_NONE:
             if copy:
@@ -2317,7 +2523,16 @@ class DepositStream:
         flags = (_FLAG_ACCUMULATE if accumulate else 0) | (
             _FLAG_DRAIN if drain else 0)
         item = _Item(name, slot, flags, _DTYPE_IDS[a.dtype], self._codec,
-                     a.size, views, wire, pooled)
+                     a.size, views, wire, pooled, tctx=tctx)
+        if trec is not None:
+            item.t_enq = time.perf_counter()
+            trec.emit("snapshot", "tcp", t0=t_snap_w,
+                      dur=item.t_enq - t_snap_p,
+                      parent=tctx[1] if tctx else None,
+                      round_=tctx[2] if tctx else None,
+                      trace_id=tctx[0] if tctx else None,
+                      peer=self._peer, bytes=wire)
+        t0 = time.perf_counter()
         with self._cv:
             while (len(self._queue) >= self._max_queue
                    and self._err is None and not self._closed):
@@ -2328,6 +2543,17 @@ class DepositStream:
                     f"DepositStream to {self._peer} is closed")
             self._queue.append(item)
             self._cv.notify_all()
+        if trec is not None:
+            # the enqueue phase: zero when the queue had room, the
+            # backpressure wait when it did not (the first place a slow
+            # peer takes training-thread time)
+            stalled = time.perf_counter() - t0
+            trec.emit("enqueue", "tcp", t0=time.time() - stalled,
+                      dur=stalled,
+                      parent=tctx[1] if tctx else None,
+                      round_=tctx[2] if tctx else None,
+                      trace_id=tctx[0] if tctx else None,
+                      peer=self._peer)
 
     def flush(self, timeout_s: Optional[float] = None) -> None:
         """Fence: block until every enqueued deposit is acknowledged as
@@ -2407,13 +2633,41 @@ class DepositStream:
                     self._seq += 1
                     seq = self._seq
                     wire_total = sum(i.wire_bytes for i in items)
+                    wsp = None
+                    trec = _tr.get() if self._trace_on else None
+                    if trec is not None:
+                        # the wire span: begun here on the sender thread,
+                        # finished by the ack reader when the owner's ack
+                        # lands; its sid is what the trace header
+                        # carries, so the owner-side recv, queue, apply
+                        # and ack spans parent to it across processes
+                        ictx = next((i.tctx for i in items
+                                     if i.tctx is not None), None)
+                        t_oldest = min(i.t_enq for i in items)
+                        wsp = trec.begin_span(
+                            "wire", "tcp",
+                            parent=ictx[1] if ictx else None,
+                            round_=ictx[2] if ictx else None,
+                            trace_id=ictx[0] if ictx else None,
+                            peer=self._peer, seq=seq, items=len(items),
+                            bytes=wire_total,
+                            dst=items[0].name_b.decode("utf-8", "replace"))
+                        trec.emit("coalesce", "tcp",
+                                  t0=time.time() -
+                                  (time.perf_counter() - t_oldest),
+                                  dur=time.perf_counter() - t_oldest,
+                                  parent=wsp.sid, round_=wsp.round,
+                                  trace_id=wsp.tid, peer=self._peer,
+                                  seq=seq, items=len(items))
                     # items are retained until the ack when reconnect is
                     # on: they are the replay window
                     self._inflight[seq] = (
                         time.perf_counter(),
-                        items if self._resume else None)
+                        items if self._resume else None, wsp)
                     self._cv.notify_all()
-                views = self._frame_views(seq, items)
+                views = self._frame_views(
+                    seq, items, wsp.ctx if wsp is not None else None)
+                t_send0 = time.perf_counter()
                 try:
                     act = _chaos.fire("client", peer=self._peer, seq=seq)
                     if act is not None:
@@ -2437,6 +2691,15 @@ class DepositStream:
                             continue
                         return  # _recover latched the terminal error
                     raise
+                if wsp is not None:
+                    # the frame's time in the socket buffer: lets the ack
+                    # reader split the wire span into send and ack_wait.
+                    # The server can ack while sendall's last syscall is
+                    # still returning, so the ack reader may not see this
+                    # field yet; it then folds the whole latency into
+                    # ack_wait (_note_phases clamps)
+                    wsp.fields["send_s"] = round(
+                        time.perf_counter() - t_send0, 9)
                 self.wire_bytes += wire_total
                 if not self._resume:
                     # without a replay window the snapshots are recycled
@@ -2454,13 +2717,26 @@ class DepositStream:
     def _ack_loop(self) -> None:
         buf = bytearray(_ACK.size)
         mv = memoryview(buf)
+        tbuf = bytearray(_ACK_TIMES.size)
+        tmv = memoryview(tbuf)
         while True:
             with self._cv:
                 sock = self._sock
                 gen = self._sock_gen
+                # the connection's negotiation decides the ack frame size;
+                # read it with the socket, so a reconnect cannot desync
+                # this reader's framing mid-generation
+                t_on = self._trace_on
             try:
                 _recv_into(sock, mv)
                 seq, status = _ACK.unpack(buf)
+                times = None
+                if t_on and not seq & _HB_MARK:
+                    # batch acks on FEATURE_TRACE connections carry the
+                    # owner's (queue_us, apply_us) tail; heartbeat acks
+                    # never do
+                    _recv_into(sock, tmv)
+                    times = _ACK_TIMES.unpack(tbuf)
             except (OSError, ConnectionError, ValueError):
                 if self._closed:
                     return
@@ -2497,6 +2773,8 @@ class DepositStream:
                 self._cv.notify_all()
             if entry is not None:
                 lat = time.perf_counter() - entry[0]
+                if entry[2] is not None:
+                    self._note_phases(entry[2], times, lat, seq)
                 self.ack_latencies.append(lat)
                 self._note_latency(lat)
             if status < 0:
@@ -2671,8 +2949,19 @@ class StripedDepositStream:
         return self._ack_ewma
 
     def phase_ewma(self) -> Optional[Dict[str, float]]:
-        """None: the phase split comes with ROADMAP item 11."""
-        return None
+        """Elementwise max over the stripes' {net, queue, apply} EWMAs:
+        the phase split of the peer's worst case."""
+        out: Optional[Dict[str, float]] = None
+        for s in self._stripes:
+            p = s.phase_ewma()
+            if p is None:
+                continue
+            if out is None:
+                out = dict(p)
+            else:
+                for k, v in p.items():
+                    out[k] = max(out[k], v)
+        return out
 
     @property
     def health(self):
@@ -2809,7 +3098,8 @@ class PipelinedRemoteWindow:
         return self.stream.ack_ewma()
 
     def phase_ewma(self) -> Optional[Dict[str, float]]:
-        """The stream's wire-phase EWMA (None: ROADMAP item 11)."""
+        """The stream's wire-phase EWMA (net / queue / apply; None until
+        a timed ack), see :meth:`DepositStream.phase_ewma`."""
         return self.stream.phase_ewma()
 
     @property

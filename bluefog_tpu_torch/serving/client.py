@@ -33,6 +33,7 @@ import numpy as np
 from bluefog_tpu_torch.runtime import resilience, wire_status
 from bluefog_tpu_torch.serving.snapshots import (RoundRolled,
                                                  SnapshotUnavailable)
+from bluefog_tpu_torch.tracing import recorder as _tr
 
 __all__ = ["Snapshot", "SnapshotClient"]
 
@@ -44,8 +45,8 @@ class Snapshot:
     ``skipped`` is the count of due rounds the sender skipped before this
     delivery (the skip-to-latest backlog, which a relay reports as the
     staleness its tier added); ``trace`` is the upstream push span's
-    ``(trace_id, span_id)`` on FEATURE_TRACE subscriptions (None here:
-    the port's clients do not ask for that feature)."""
+    ``(trace_id, span_id)`` on FEATURE_TRACE subscriptions, so a
+    re-publisher can parent its hop into the trainer's trace."""
 
     group: str
     round: int
@@ -87,6 +88,10 @@ class SnapshotClient:
         self._retry_cfg = (dict(retry) if isinstance(retry, dict)
                            else ({} if retry else None))
         self._sock: Optional[socket.socket] = None
+        # FEATURE_TRACE granted on the current connection: SNAPSHOT
+        # requests then carry the reader's trace context, so the serving
+        # host's serve span parents into this reader's trace
+        self._trace_on = False
 
     # ---------------------------------------------------------- transport
     def _backoff(self) -> resilience.Backoff:
@@ -99,9 +104,13 @@ class SnapshotClient:
         try:
             sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
             sock.settimeout(self._timeout_s)
+            want = ws.FEATURE_SNAPSHOT
+            trace_want = _tr.get() is not None
+            if trace_want:
+                want |= ws.FEATURE_TRACE
             ws._sendmsg_all(sock, [
                 ws._HDR.pack(ws._MAGIC, ws._OP_HELLO, 0),
-                ws._HELLO.pack(ws.PROTOCOL_VERSION, ws.FEATURE_SNAPSHOT)])
+                ws._HELLO.pack(ws.PROTOCOL_VERSION, want)])
             (granted,) = ws._STATUS.unpack(
                 ws._recv_exact(sock, ws._STATUS.size))
             if granted < 0 or not granted & ws.FEATURE_SNAPSHOT:
@@ -109,6 +118,8 @@ class SnapshotClient:
                     f"window server at {self._addr[0]}:{self._addr[1]} "
                     "does not serve round-stamped snapshots "
                     f"(HELLO reply {int(granted)}): older wire version?")
+            self._trace_on = bool(trace_want
+                                  and granted & ws.FEATURE_TRACE)
         except BaseException:
             try:
                 sock.close()
@@ -131,26 +142,36 @@ class SnapshotClient:
         if self._sock is None:
             self._sock = self._connect()
         sock = self._sock
-        req = [ws._HDR.pack(ws._MAGIC, ws._OP_SNAPSHOT, len(self._group_b)),
-               self._group_b, ws._SNAP_REQ.pack(pin_round, len(names or ()))]
-        for n in (names or ()):
-            nb = n.encode()
-            req.append(ws._LEAF_NAME.pack(len(nb)))
-            req.append(nb)
-        ws._sendmsg_all(sock, req)
-        (rc,) = ws._STATUS.unpack(ws._recv_exact(sock, ws._STATUS.size))
-        if rc == wire_status.ERR_ROUND_ROLLED:
-            raise RoundRolled(self.group, pin_round, -1)
-        if rc == wire_status.ERR_NO_SNAPSHOT:
-            raise SnapshotUnavailable(
-                f"server has no snapshot for group {self.group!r} "
-                f"(leaves {list(names) if names else 'all'})")
-        if rc < 0:
-            raise RuntimeError(
-                f"snapshot read of {self.group!r} failed ({rc}): "
-                + wire_status.err_text(int(rc)))
-        (count,) = ws._SNAP_CNT.unpack(ws._recv_exact(sock, ws._SNAP_CNT.size))
-        return Snapshot(self.group, int(rc), ws._recv_leaves(sock, count))
+        with _tr.span("snapshot_read", "tcp", group=self.group,
+                      peer=f"{self._addr[0]}:{self._addr[1]}"):
+            req = [ws._HDR.pack(ws._MAGIC, ws._OP_SNAPSHOT,
+                                len(self._group_b)), self._group_b,
+                   ws._SNAP_REQ.pack(pin_round, len(names or ()))]
+            if self._trace_on:
+                # the reader's causal context rides right after the frame
+                # header: the server's snapshot_serve span parents to
+                # this read span
+                req.insert(1, ws._TRACE_HDR.pack(
+                    *(_tr.wire_ctx() or (0, 0, 0))))
+            for n in (names or ()):
+                nb = n.encode()
+                req.append(ws._LEAF_NAME.pack(len(nb)))
+                req.append(nb)
+            ws._sendmsg_all(sock, req)
+            (rc,) = ws._STATUS.unpack(ws._recv_exact(sock, ws._STATUS.size))
+            if rc == wire_status.ERR_ROUND_ROLLED:
+                raise RoundRolled(self.group, pin_round, -1)
+            if rc == wire_status.ERR_NO_SNAPSHOT:
+                raise SnapshotUnavailable(
+                    f"server has no snapshot for group {self.group!r} "
+                    f"(leaves {list(names) if names else 'all'})")
+            if rc < 0:
+                raise RuntimeError(
+                    f"snapshot read of {self.group!r} failed ({rc}): "
+                    + wire_status.err_text(int(rc)))
+            (count,) = ws._SNAP_CNT.unpack(
+                ws._recv_exact(sock, ws._SNAP_CNT.size))
+            return Snapshot(self.group, int(rc), ws._recv_leaves(sock, count))
 
     # -------------------------------------------------------------- reads
     def snapshot(self, names: Optional[Sequence[str]] = None, *,

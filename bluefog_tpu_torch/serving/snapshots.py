@@ -82,7 +82,7 @@ class _Group:
     """One publisher's double-buffered snapshot slot."""
 
     __slots__ = ("buffers", "rounds", "active", "gen", "write_mu",
-                 "published_at", "created_at")
+                 "published_at", "created_at", "trace")
 
     def __init__(self):
         self.buffers: List[Dict[str, np.ndarray]] = [{}, {}]
@@ -92,6 +92,10 @@ class _Group:
         self.write_mu = threading.Lock()  # serialises publishers
         self.published_at = 0.0
         self.created_at = time.monotonic()  # idle-TTL sweep baseline
+        # (trace_id, span_id) of the latest publish, when the publisher
+        # carried one (a relay hop): the server's push senders parent
+        # their push spans to it, so the analyzer walks the reader tree
+        self.trace: Optional[Tuple[int, int]] = None
 
 
 class SnapshotTable:
@@ -119,8 +123,8 @@ class SnapshotTable:
         loops reuse theirs every step) into the inactive buffer, then the
         active index swaps under the read lock.  A concurrent :meth:`read`
         sees either entirely the previous round or entirely this one.
-        ``trace`` is the reference's trace context, accepted and unused
-        until the tracing package is ported."""
+        ``trace`` is the publisher's ``(trace_id, span_id)``, returned by
+        :meth:`trace_ctx` until the next publish."""
         if not leaves:
             raise ValueError("a snapshot needs at least one leaf")
         g = self._group(group)
@@ -150,6 +154,8 @@ class SnapshotTable:
                 g.active = tgt
                 g.gen += 1
                 g.published_at = time.monotonic()
+                g.trace = ((int(trace[0]), int(trace[1]))
+                           if trace is not None else None)
                 self._cv.notify_all()
 
     # --------------------------------------------------------------- read
@@ -217,10 +223,12 @@ class SnapshotTable:
             return self._groups[group].gen
 
     def trace_ctx(self, group: str) -> Optional[Tuple[int, int]]:
-        """The trace context the latest publish of ``group`` carried: the
-        reference's hook for push spans.  None until the tracing package
-        is ported."""
-        return None
+        """The ``(trace_id, span_id)`` the latest publish of ``group``
+        carried (None when the publisher was untraced): what a push
+        sender parents its push span to."""
+        with self._mu:
+            g = self._groups.get(group)
+            return g.trace if g is not None else None
 
     def groups(self) -> List[str]:
         with self._mu:

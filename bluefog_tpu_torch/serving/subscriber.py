@@ -45,6 +45,7 @@ from typing import Callable, Optional, Tuple
 from bluefog_tpu_torch.runtime import resilience, wire_status
 from bluefog_tpu_torch.runtime.delta import DeltaApplier, DeltaDesync
 from bluefog_tpu_torch.serving.client import Snapshot
+from bluefog_tpu_torch.tracing import recorder as _tr
 
 __all__ = ["Subscriber"]
 
@@ -102,6 +103,10 @@ class Subscriber:
         # desynced delta never advances the cursor
         self._want_delta = bool(delta)
         self._delta_on = False
+        # FEATURE_TRACE granted on the current connection: every push
+        # frame carries a trace header after _PUSH (empty on keepalives),
+        # and the consume span parents to the server's push span
+        self._trace_on = False
         self._applier: Optional[DeltaApplier] = None
         self._sock: Optional[socket.socket] = None
         self.delta_frames = 0
@@ -184,6 +189,9 @@ class Subscriber:
         try:
             sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
             want = ws.FEATURE_SUBSCRIBE
+            trace_want = _tr.get() is not None
+            if trace_want:
+                want |= ws.FEATURE_TRACE
             if self._want_delta:
                 want |= ws.FEATURE_DELTA
             ws._sendmsg_all(sock, [
@@ -196,6 +204,8 @@ class Subscriber:
                     f"window server at {self._addr[0]}:{self._addr[1]} "
                     f"does not serve subscriptions (HELLO reply "
                     f"{int(granted)})")
+            self._trace_on = bool(trace_want
+                                  and granted & ws.FEATURE_TRACE)
             self._delta_on = bool(self._want_delta
                                   and granted & ws.FEATURE_DELTA)
             # a fresh connection gets a fresh reconstruction: its first
@@ -254,17 +264,37 @@ class Subscriber:
         while not self._closed.is_set():
             rnd, skipped, count = ws._PUSH.unpack(
                 ws._recv_exact(sock, ws._PUSH.size))
+            tctx = None
+            if self._trace_on:
+                # trace connections carry the server's push-span context
+                # after every _PUSH header (zeros on keepalives and
+                # untraced pushes): a deterministic parse
+                t_id, s_id, _t_rnd = ws._TRACE_HDR.unpack(
+                    ws._recv_exact(sock, ws._TRACE_HDR.size))
+                if s_id:
+                    tctx = (t_id, s_id)
             kind, base_rnd = 0, -1
             if self._delta_on:
                 # delta connections carry the frame-kind header on every
-                # frame, keepalives included: a deterministic parse
+                # frame, keepalives included, after the trace header
                 kind, base_rnd = ws._DELTA_HDR.unpack(
                     ws._recv_exact(sock, ws._DELTA_HDR.size))
+            t_con_w = time.time()
+            t_con_p = time.perf_counter()
             if kind == ws._OP_DELTA:
                 items = ws._recv_delta_leaves(sock, count)
                 leaves = None
             else:
                 leaves = ws._recv_leaves(sock, count)
+            if tctx is not None:
+                trec = _tr.get()
+                if trec is not None:
+                    # the delivered snapshot links causally back to the
+                    # serving host's push span
+                    trec.emit("consume", "tcp", t0=t_con_w,
+                              dur=time.perf_counter() - t_con_p,
+                              parent=tctx[1], round_=max(0, rnd),
+                              trace_id=tctx[0], group=self.group)
             if rnd < 0:
                 continue  # keepalive
             if rnd <= self.cursor:
@@ -285,7 +315,8 @@ class Subscriber:
                 self._applier.anchor(rnd, leaves)
             self.cursor = rnd
             self._deliver(Snapshot(self.group, rnd, leaves,
-                                   skipped=int(skipped)), skipped)
+                                   skipped=int(skipped), trace=tctx),
+                          skipped)
 
     def _loop(self) -> None:
         bo: Optional[resilience.Backoff] = None

@@ -205,8 +205,8 @@ its last line:
    ``DistributedChocoSGDOptimizer`` (``random_block_k(0.1)``), which
    launches no kernel.
 17. Examples: ``average_consensus`` on its five topologies (50 K1 launches
-   each), ``choco_sgd`` and ``convergence_comparison`` at their defaults,
-   each to its OK, with its seconds.
+   each) and ``choco_sgd`` at its defaults, each to its OK, with its
+   seconds (``convergence_comparison`` runs in phase 20).
 1c. (Run after phase 1b, while this process holds no tensors.) BERT-large
    over processes: phase 18's path with the same 8 ranks over 2 processes,
    each holding 2 machines of local size 2 (``--mp-worker ... bert``), 2 +
@@ -240,7 +240,11 @@ its last line:
    ``examples.cifar_resnet_gate --filters 64`` at 2 epochs (its 6, cut
    when phase 31 came), each
    asserting its target and its parity with the allreduce arm; both arms'
-   accuracy, img/s and seconds, and K1's launches.
+   accuracy, img/s and seconds, and K1's launches.  The mnist gate and
+   phase 17's ``examples.convergence_comparison`` (at its defaults, to its
+   OK, two gossip flavors, one K1 launch a step each) each run in a fresh
+   process beside the cifar gate, which runs here (for the script's time
+   limit: the three share the host, and so their rates).
 21. Checkpoints: ``examples.imagenet_resnet`` (ResNet-50, 8 x 32 at 64x64,
    synthetic data) for 3 epochs with a checkpoint each epoch, and a fresh
    process resuming from a copy of its epoch-2 checkpoint to epoch 3, each
@@ -389,7 +393,8 @@ its last line:
    with ``TreePacker`` on the card: ``TCP_SECONDS`` over shm, then over
    tcp, in the same worker processes (``--tcp-worker``): img/s of each and
    their ratio, rank 0's step host ms split as in 31d, bytes on the wire a
-   step, the mass audits exact.  32d, on the card, drills at once (its
+   step, the mass audits exact; then phase 35's traced run.  32d, on the
+   card, drills at once (its
    death drill runs in 33b, under a chaos spec):
    ``win_mutex`` across 2 processes under ``bfrun`` (``_MUTEX_DRILL``: a
    child of rank 0 holds the lock and is SIGKILLed; rank 1 gets it only
@@ -426,7 +431,8 @@ its last line:
    records byte-identical (sha1), and ``3 in plan.slow or plan_changes
    >= 1``; the control / static time ratio is reported, not gated.
    33b, three drills (for the script's time limit the first two run
-   beside 32d; the third runs first in this phase; all reported here)
+   beside 32d; the third runs alone right after phase 31, before 33a's
+   workers start; all reported here)
    through ``python -m bluefog_tpu_torch.chaos
    --spec ...``: 32d's death (``async_dsgd_mp --ranks 3 --transport tcp
    --resilient --duration 8`` under ``rank2:sigkill:at_step=12``), a lossy
@@ -484,10 +490,28 @@ its last line:
    5, then one coordinate alone at 6, then the other; the
    ``ShardedServingReplica`` serves 5 while 6 is incomplete, then 6,
    each reassembled on the card bit-equal to its round's whole tree.
+35. (Run inside 32c's workers, analyzed right after phase 32.) Causal
+   tracing and the sampling profiler, no TPU kernel on the path: 32c's
+   workers make a third run, ``TCP_SECONDS`` over tcp, with
+   ``tracing.configure(dir, rank=r)`` and ``profile=dir``; K1-K3's
+   counters read 0 in each worker around it and in this process around
+   the analysis.  This process reads the files with the port's analyzer
+   and profile report.  Checked: both ranks' spans load, with their
+   round spans; each round has a critical path and there is a gating
+   edge; every owner-side span (recv, queue_wait, apply, ack) parents to
+   a wire span of the other process; each rank's stream to the other has
+   a ``{net, queue, apply}`` EWMA (``stream_stats["phase_s"]``); the mass
+   audit is exact; the profile holds both ranks, compute and gossip
+   samples, and its top 6 frames each carry a phase label.  Printed: each
+   edge's split of a 204.5 MB deposit (wire, recv, queue_wait, apply,
+   ack, net, and the stream's EWMA), the critical path's edges and
+   gating seconds, the overlap fraction, the profile's top 6 frames, and
+   the traced run's img/s against 32c's untraced tcp run (not checked).
 23. Report: a ``kernels:`` line, a line for K1 on this slice's paths and a
    line for the allreduce (not a TPU kernel), the kernels' JSON line (K1,
    K2 and K3's three kernels; K1's entry also carries its one-slot times,
    its launches on the new paths and its times on the grid and the star),
+   a ``[phases] seconds:`` line (each phase's seconds and the total),
    the card's name and power limit from nvidia-smi, and the result line.
    The JSON line also holds K1's and K2's peer forms
    (``gossip_mix_peer``, ``window_deliver_peer``) at P = 4, with the other
@@ -534,6 +558,23 @@ F64_TOL = 1e-15
 STEP_TOL = 2.0 ** -7          # kernel-path step vs plain-path step
 ALLREDUCE_TOL = 4e-6          # f32 mean of 8 ranks vs the f64 mean
 PUSH_ROUNDS = 6
+# the script's start, for the seconds of each phase (``lap``) and the total
+T0 = time.perf_counter()
+PHASE_S = {}
+_LAST_LAP = [T0]
+
+
+def lap(tag):
+    """Charge the seconds since the last lap to phase ``tag``."""
+    now = time.perf_counter()
+    PHASE_S[tag] = PHASE_S.get(tag, 0.0) + now - _LAST_LAP[0]
+    _LAST_LAP[0] = now
+
+
+def phase_seconds_line():
+    return ("[phases] seconds: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_S.items())
+            + f"; total {time.perf_counter() - T0:.1f} s")
 
 
 def check(cond, msg):
@@ -623,14 +664,48 @@ def _ptxas_report(log):
     return rows, warnings
 
 
+def _plan_leaves():
+    """The main path's rank-stacked parameter leaves as meta tensors, in
+    the trainer's order (``synthetic_benchmark.build`` stacks the model's
+    ``named_parameters``): what the fuse plan reads, from a ResNet-50 made
+    on the host, with no trainer built on the card."""
+    from bluefog_tpu_torch.examples.synthetic_benchmark import MODELS
+
+    spec = MODELS["resnet50"]
+    net = spec.make(torch.bfloat16, torch.Generator().manual_seed(0), 1000,
+                    64, **({"image_size": 224} if spec.sized else {}))
+    return [torch.empty((N_RANKS, *p.shape), dtype=p.dtype, device="meta")
+            for p in net.parameters()]
+
+
 def phase_build():
+    """nvcc builds the kernels; beside it, g++ builds phase 31's native
+    host runtime (``runtime/native.py``), which phase 31 then only loads."""
     from bluefog_tpu_torch.ops import _build
+    from bluefog_tpu_torch.runtime import native
 
     t0 = time.perf_counter()
-    _build.load()
+    host = {}
+
+    def build_host():
+        try:
+            host["path"] = native.build()
+        except BaseException as e:  # noqa: BLE001 (raised below)
+            host["error"] = e
+        host["s"] = time.perf_counter() - t0
+
+    beside = threading.Thread(target=build_host, name="host-runtime-build")
+    beside.start()
+    try:
+        _build.load()
+    finally:
+        beside.join()
     secs = time.perf_counter() - t0
+    if "error" in host:
+        raise host["error"]
     print(f"[build] {', '.join(p.name for p in _build._sources())} -> "
-          f"sm_90a in {secs:.2f} s")
+          f"sm_90a in {secs:.2f} s; beside it the native host runtime "
+          f"{host['path'].name} in {host['s']:.2f} s")
     rows, warnings = _ptxas_report(_build.build_log())
     if not rows:
         print("[build] the library was already built: no ptxas report")
@@ -2123,11 +2198,9 @@ def phase_choco(device, win_len):
 
 def phase_examples():
     """``examples.average_consensus`` on each of its five topologies (one
-    K1 launch a step on each), ``examples.choco_sgd`` and
-    ``examples.convergence_comparison`` (two gossip flavors, one K1 launch a
-    step each), each to its own OK, with its seconds."""
-    from bluefog_tpu_torch.examples import (
-        average_consensus, choco_sgd, convergence_comparison)
+    K1 launch a step on each) and ``examples.choco_sgd``, each to its own
+    OK, with its seconds."""
+    from bluefog_tpu_torch.examples import average_consensus, choco_sgd
     from bluefog_tpu_torch.ops.gossip_kernel import gossip_mix
 
     out = {}
@@ -2155,17 +2228,6 @@ def phase_examples():
     print(f"[examples] choco_sgd: max |w_i - w*| {res['err']:.2e}, spread "
           f"{res['spread']:.2e}, K1 launches {gossip_mix.launches}; "
           f"{out['choco_sgd']:.2f} s")
-    gossip_mix.launches = 0
-    t0 = time.perf_counter()
-    res = convergence_comparison.main([])
-    out["convergence_comparison"] = time.perf_counter() - t0
-    steps = 2 * res["steps"]
-    print(f"[examples] convergence_comparison: accuracies {res['acc']}, K1 "
-          f"launches {gossip_mix.launches} ({steps} expected: exp2 and ring "
-          f"gossip, one fused LeNet buffer a step); "
-          f"{out['convergence_comparison']:.2f} s")
-    check(gossip_mix.launches == steps,
-          f"convergence_comparison launched K1 {gossip_mix.launches} times")
     return out
 
 
@@ -2361,6 +2423,7 @@ def mp_main_path(ctx, outdir):
            "launches": launches, "virtual_launches": virtual,
            "waits_us": waits_us, "handshakes": handshakes,
            "finite": finite, "busy_ms": prof["busy_ms"],
+           "losses": [loss.tolist() for loss in res["losses"]],
            "idle": 1 - prof["busy_ms"] / mean_ms,
            "peak_gb": peak_gb}
     del trainer, leaves, flat
@@ -2942,7 +3005,8 @@ def phase_processes(device, lengths, win_len, bert_outdir):
                 trainer = build("resnet50", "neighbor", "exp2",
                                 size=N_RANKS, batch_size=BATCH,
                                 image_size=224, device=device)
-                run(trainer, MP_WARMUP, MP_TIMED)
+                ref_losses = [loss.tolist() for loss in run(
+                    trainer, MP_WARMUP, MP_TIMED)["losses"]]
             ref = {k: v.detach().cpu() for k, v in trainer.params.items()}
             del trainer
             gc.collect()
@@ -2953,8 +3017,9 @@ def phase_processes(device, lengths, win_len, bert_outdir):
                 what = "slice" if procs == SLICE_PROCESSES else "all"
                 res, secs = _run_processes(procs, outdir,
                                            started.pop(procs))
-                out[procs] = _report_group(procs, what, res, secs, ref,
-                                           refs, lengths, outdir)
+                out[procs] = _report_group(procs, what, res, secs,
+                                           (ref, ref_losses), refs, lengths,
+                                           outdir)
         except BaseException:
             _kill_started(started.values())
             raise
@@ -2964,7 +3029,8 @@ def phase_processes(device, lengths, win_len, bert_outdir):
 
 def _report_group(procs, what, res, secs, ref, refs, lengths, outdir):
     """Phase 1b's report of one group (its seconds from its release):
-    printed, checked, returned."""
+    printed, checked, returned.  ``ref`` is the one-process run's
+    parameters and its losses a step."""
     tag = f"[processes P={procs}]"
     parts = {k: round(max(r["seconds"][k] for r in res), 1)
              for k in res[0]["seconds"]}
@@ -3007,6 +3073,7 @@ def report_k1(tag, res, lengths):
 
 
 def _report_processes(tag, procs, res, ref, outdir, per_step):
+    ref, ref_losses = ref
     main = [r["main"] for r in res]
     for q, r in enumerate(main):
         print(f"{tag} process {q}: step ms "
@@ -3034,18 +3101,25 @@ def _report_processes(tag, procs, res, ref, outdir, per_step):
           f"a {main[0]['pack_bound_ms']:.4f} ms bound (bytes); the one-process"
           f" plan's pack (the fused buffer, then the 8 MiB leaves copied) "
           f"{max(r['split_pack_ms'] for r in main):.4f} ms")
-    worst = 0.0
+    worst, where, unequal = 0.0, "", []
     for q in range(procs):
         got = torch.load(os.path.join(outdir, f"params_{q}.pt"))
         rows = res[q]["ranks"]
         for k, v in got.items():
-            want = ref[k][rows[0]:rows[-1] + 1]
-            d = float((v.double() - want.double()).abs().max())
-            worst = max(worst, d / max(float(want.double().abs().max()),
-                                       1e-12))
+            d = _diff_rel(v, ref[k][rows[0]:rows[-1] + 1])
+            if d:
+                unequal.append(f"{q}:{k}")
+            if d > worst:
+                worst, where = d, f" at process {q}'s {k}"
+    # which step first parted from the one-process run, if one did
+    same_loss = [[r["main"]["losses"][s] == ref_losses[s][
+        r["ranks"][0]:r["ranks"][-1] + 1] for s in range(len(ref_losses))]
+        for r in res]
     print(f"{tag} parameters after {MP_WARMUP + MP_TIMED} steps against the "
-          f"one-process run: max |diff| / max |value| {worst:.3e} (tol "
-          f"{STEP_TOL:.3e})")
+          f"one-process run: max |diff| / max |value| {worst:.3e}{where} (tol "
+          f"{STEP_TOL:.3e}); {len(unequal)} tensor(s) not bit-equal"
+          + (f": {unequal[:12]}" if unequal else "")
+          + f"; losses equal to its, by process and step: {same_loss}")
     check(worst <= STEP_TOL, f"{tag} parameters differ from one process")
     k2 = [r["k2"] for r in res]
     ok = all(c[3] for r in k2 for c in r["checked"])
@@ -3090,6 +3164,16 @@ def _report_processes(tag, procs, res, ref, outdir, per_step):
     }
 
 
+def _diff_rel(got, want):
+    """max |got - want| / max |want| in f64 (host tensors): 0.0 at once
+    when the two are equal, since the f64 copies of a model's state are
+    what costs."""
+    if torch.equal(got, want):
+        return 0.0
+    d = float((got.double() - want.double()).abs().max())
+    return d / max(float(want.double().abs().max()), 1e-12)
+
+
 def _held(got_file, ref, rows):
     """max |diff| / max |value| of the saved state against the reference's
     rows, over every tensor, and whether every tensor is bit-equal."""
@@ -3098,8 +3182,7 @@ def _held(got_file, ref, rows):
     for k, v in got.items():
         want = ref[k][rows[0]:rows[-1] + 1]
         equal = equal and torch.equal(v, want)
-        d = float((v.double() - want.double()).abs().max())
-        worst = max(worst, d / max(float(want.double().abs().max()), 1e-12))
+        worst = max(worst, _diff_rel(v, want))
     return worst, equal
 
 
@@ -3264,18 +3347,20 @@ def _launches_a_step(params, align=False):
 
 def bert_step_parity(trainer, tag):
     """One step through K1 against the same step through the plain fold,
-    from the same state, under deterministic settings.  The state's copies
-    live on the host (BERT-large's parameters and momentum over 8 ranks are
-    21 GB); the parameters after the steps and the losses are compared."""
+    from the same state, under deterministic settings.  The copies stay on
+    the card: the state's (BERT-large's parameters and momentum over 8
+    ranks, 21 GB) beside the K1 step's 47 GB peak, then the K1 step's
+    parameters (10.7 GB) beside the plain step's; the parameters after
+    the steps and the losses are compared."""
     opt = trainer.opt
     state = {k: v.detach() for k, v in trainer.state().items()}
-    snap = {k: v.to("cpu", copy=True) for k, v in state.items()}
+    snap = {k: v.clone() for k, v in state.items()}
     counters = _counters(opt)
     try:
         with deterministic():
             opt.backend = "kernel"
             loss_k = trainer.step()
-            after_k = {k: v.to("cpu", copy=True) for k, v in state.items()
+            after_k = {k: v.clone() for k, v in state.items()
                        if k.startswith("param.")}
             for k, v in state.items():
                 v.copy_(snap[k])
@@ -3287,15 +3372,15 @@ def bert_step_parity(trainer, tag):
     finally:
         opt.backend = "auto"
     worst, equal = 0.0, torch.equal(loss_k, loss_p)
-    for k, v in after_k.items():
+    for k, want in after_k.items():
         got = state[k]
-        want = v.to(got.device)
         equal = equal and torch.equal(got, want)
         d = float((got.double() - want.double()).abs().max())
         worst = max(worst, d / max(float(want.double().abs().max()), 1e-12))
-        del want
+    n_params = len(after_k)
+    del after_k
     loss_d = float((loss_k - loss_p).abs().max())
-    print(f"[{tag}] K1 step vs plain-fold step over {len(after_k)} "
+    print(f"[{tag}] K1 step vs plain-fold step over {n_params} "
           f"parameters: max |diff| / max |value| {worst:.3e}, max loss diff "
           f"{loss_d:.3e}, bit-equal (required): {equal}")
     # bit for bit: a LayerNorm scale of 1.0 moves far less than 2^-7 of
@@ -3479,9 +3564,7 @@ def phase_bert_finetune():
             worst, equal = 0.0, True
             for k, v in params.items():
                 equal = equal and torch.equal(v, first[k])
-                d = float((v.double() - first[k].double()).abs().max())
-                worst = max(worst, d / max(float(first[k].abs().max()),
-                                           1e-12))
+                worst = max(worst, _diff_rel(v, first[k]))
             print(f"[bert-finetune] two-level against one-level after "
                   f"{steps} steps: max |diff| / max |value| {worst:.3e}, "
                   f"bit-equal (required): {equal}")
@@ -3617,30 +3700,97 @@ def phase_bert_processes(outdir, started):
             "seconds": secs, "peak_gb": max(r["peak_gb"] for r in runs)}
 
 
+# an example's main(argv) in a fresh process, TF32 off as in this one: its
+# result, K1's launches in that process and its seconds, as one JSON line
+_EXAMPLE_RUN = (
+    "import importlib, json, sys, time, torch\n"
+    "torch.backends.cudnn.allow_tf32 = False\n"
+    "torch.backends.cuda.matmul.allow_tf32 = False\n"
+    "from bluefog_tpu_torch.ops.gossip_kernel import gossip_mix\n"
+    "mod = importlib.import_module(sys.argv[1])\n"
+    "t0 = time.perf_counter()\n"
+    "res = mod.main(sys.argv[2:])\n"
+    "print('EXAMPLE_RESULT ' + json.dumps({'res': res, 'launches': "
+    "gossip_mix.launches, 's': time.perf_counter() - t0}, default=float))\n")
+
+
+def _start_example(module, argv):
+    """``module``'s ``main(argv)`` in a fresh process, started now;
+    :func:`_example_result` waits for it."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))]
+        + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    return subprocess.Popen([sys.executable, "-c", _EXAMPLE_RUN, module]
+                            + argv, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _example_result(proc, what):
+    """``{"res", "launches", "s"}`` of a :func:`_start_example` process; a
+    failed or late process fails the phase."""
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        stdout, stderr = proc.communicate()
+    if proc.returncode != 0:
+        print(stdout[-4000:], stderr[-4000:])
+    check(proc.returncode == 0, f"{what} exited {proc.returncode}")
+    line = [ln for ln in stdout.splitlines()
+            if ln.startswith("EXAMPLE_RESULT ")][-1]
+    return json.loads(line[len("EXAMPLE_RESULT "):])
+
+
 def phase_gates():
     """``examples.mnist_epoch_gate`` at its defaults and
     ``examples.cifar_resnet_gate --filters 64`` at its defaults but
     ``CIFAR_GATE_EPOCHS``: each gate
     asserts its target and its parity with the allreduce arm; both arms'
     accuracy, steps, img/s and wall-clock, and K1's launches (the gossip
-    arm's fuse plan a step; none in the allreduce arm)."""
-    from bluefog_tpu_torch.examples import cifar_resnet_gate, mnist_epoch_gate
+    arm's fuse plan a step; none in the allreduce arm).  The mnist gate
+    and ``examples.convergence_comparison`` (phase 17's; two gossip
+    flavors, one K1 launch a step each, to its OK) run in fresh processes
+    beside the cifar gate here.  Returns the gates and
+    convergence_comparison's seconds."""
+    from bluefog_tpu_torch.examples import cifar_resnet_gate
     from bluefog_tpu_torch.models import LeNet5
     from bluefog_tpu_torch.ops.gossip_kernel import gossip_mix
 
-    out = {}
-    for name, mod, argv, model in (
-            ("mnist", mnist_epoch_gate, [], LeNet5()),
-            ("cifar", cifar_resnet_gate,
-             ["--filters", "64", "--epochs", str(CIFAR_GATE_EPOCHS)],
-             cifar_resnet_gate.make_model(64))):
-        per_step, _ = _launches_a_step(p[None] for p in model.parameters())
+    procs = {"mnist": _start_example(
+                 "bluefog_tpu_torch.examples.mnist_epoch_gate", []),
+             "convergence_comparison": _start_example(
+                 "bluefog_tpu_torch.examples.convergence_comparison", [])}
+    runs = {}
+    try:
         gc.collect()
         t0 = time.perf_counter()
         gossip_mix.launches = 0
-        res = mod.main(argv)
-        launches = gossip_mix.launches
-        secs = time.perf_counter() - t0
+        res = cifar_resnet_gate.main(["--filters", "64", "--epochs",
+                                      str(CIFAR_GATE_EPOCHS)])
+        runs["cifar"] = {"res": res, "launches": gossip_mix.launches,
+                         "s": time.perf_counter() - t0}
+        for name, proc in procs.items():
+            runs[name] = _example_result(proc, name)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    conv = runs.pop("convergence_comparison")
+    steps = 2 * conv["res"]["steps"]
+    print(f"[examples] convergence_comparison (beside the gates): accuracies "
+          f"{conv['res']['acc']}, K1 launches {conv['launches']} ({steps} "
+          f"expected: exp2 and ring gossip, one fused LeNet buffer a step); "
+          f"{conv['s']:.2f} s")
+    check(conv["launches"] == steps,
+          f"convergence_comparison launched K1 {conv['launches']} times")
+    out = {}
+    for name, model in (("mnist", LeNet5()),
+                        ("cifar", cifar_resnet_gate.make_model(64))):
+        per_step, _ = _launches_a_step(p[None] for p in model.parameters())
+        res, launches, secs = (runs[name][k] for k in ("res", "launches",
+                                                       "s"))
         steps = res["epochs"] * res["steps_per_epoch"]
         print(f"[gate {name}] decentralized acc "
               f"{res['decentralized']['acc']:.4f} "
@@ -3659,8 +3809,8 @@ def phase_gates():
                      "allreduce": res["allreduce"], "epochs": res["epochs"],
                      "steps_per_epoch": res["steps_per_epoch"],
                      "wall_s": secs, "launches": launches}
-        torch.cuda.empty_cache()
-    return out
+    torch.cuda.empty_cache()
+    return out, conv["s"]
 
 
 RESUME_ARGS = ["--size", str(N_RANKS), "--batch-size", str(BATCH),
@@ -6329,7 +6479,7 @@ WIRE_N = 25_557_032              # ResNet-50's f64 window vector, 204 MB
 WIRE_CHUNKS = 8                  # the striped streams' per-coordinate windows
 WIRE_REPS = 2                    # deposits a way and codec, the last timed
 WIRE_TOPK = 0.1
-TCP_SECONDS = 4.0                # each of 32c's two runs
+TCP_SECONDS = 4.0                # each of 32c's runs (and phase 35's)
 TCP_BATCH = 32                   # a rank, at 224x224 (configs[1])
 
 _WIRE_OWNER = r'''
@@ -6695,27 +6845,47 @@ def _resnet_rank_job(rank, n, dev, bdir):
 
 def tcp_worker(argv):
     """One rank process of 32c: ResNet-50 over run_async_dsgd_rank, first
-    over shm, then over tcp, its gradient on the card."""
+    over shm, then over tcp, its gradient on the card; then phase 35's run
+    over tcp with tracing and the sampling profiler on, its trace and
+    profile files under ``bdir``, K1-K3's launch counters read around
+    it."""
     rank, n, bdir, dev = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    from bluefog_tpu_torch import tracing
+    from bluefog_tpu_torch.ops.deliver_kernel import window_deliver
     from bluefog_tpu_torch.runtime.async_windows import (FileBarrier,
                                                          run_async_dsgd_rank)
     from bluefog_tpu_torch.topology import ExponentialTwoGraph
 
     params0, loss_and_grad = _resnet_rank_job(rank, n, dev, bdir)
+    counters = [window_deliver, *_slice_kernels()]
     res = {}
-    for transport in ("shm", "tcp"):
+    for run in ("shm", "tcp", "traced"):
+        kw = {}
+        if run == "traced":
+            for k in counters:
+                k.launches = 0
+            tracing.configure(os.path.join(bdir, "trace"), rank=rank,
+                              job=f"smoke_traced_{os.path.basename(bdir)}")
+            kw["profile"] = os.path.join(bdir, "profile")
         rep = run_async_dsgd_rank(
             ExponentialTwoGraph(n), rank, params0, loss_and_grad,
-            barrier=FileBarrier(os.path.join(bdir, transport), n, rank),
+            barrier=FileBarrier(os.path.join(bdir, run), n, rank),
             lr=ASYNC_LR, duration_s=TCP_SECONDS,
-            name=f"smoke_tcp_{transport}_{os.path.basename(bdir)}",
-            transport=transport, tcp_bind="127.0.0.1")
+            name=f"smoke_tcp_{run}_{os.path.basename(bdir)}",
+            transport="shm" if run == "shm" else "tcp",
+            tcp_bind="127.0.0.1", **kw)
+        if run == "traced":
+            tracing.reset()  # flushes this rank's spans
+            launches = {k.__name__: k.launches for k in counters}
         if rank == 0:
-            res[transport] = {
+            res[run] = {
                 "steps": rep.steps_per_rank, "wall_s": rep.wall_time_s,
                 "mass": rep.total_mass, "gap": rep.consensus_gap,
                 "phase_s": rep.phase_s[0], "wire_bytes": rep.wire_bytes,
-                "loss": [rep.losses[0][0], rep.losses[0][-1]]}
+                "loss": [rep.losses[0][0], rep.losses[0][-1]],
+                "streams": rep.stream_stats}
+    with open(os.path.join(bdir, f"launches.{rank}"), "w") as f:
+        json.dump(launches, f)
     if rank == 0:
         with open(os.path.join(bdir, "report.json"), "w") as f:
             json.dump(res, f)
@@ -6746,9 +6916,11 @@ def host_tcp_resnet(started):
     time-slicing the card, batch 32 a rank, 224x224, bf16 compute, through
     run_async_dsgd_rank with TreePacker on the card: TCP_SECONDS over shm,
     then over tcp, in the same worker processes (started by
-    :func:`start_tcp_resnet`)."""
+    :func:`start_tcp_resnet`); then phase 35's traced run over tcp, whose
+    files stay in ``out["traced"]["dir"]`` for :func:`phase_traced_tcp`."""
     n, procs, bdir, t0 = (started[k] for k in ("n", "procs", "bdir", "t0"))
     outs = []
+    kept = False
     try:
         deadline = time.perf_counter() + 300
         while not all(os.path.exists(os.path.join(bdir.name, f"ready.{r}"))
@@ -6767,14 +6939,22 @@ def host_tcp_resnet(started):
                   f"32c worker {r} failed ({p.returncode}):\n{o[-4000:]}")
         with open(os.path.join(bdir.name, "report.json")) as f:
             res = json.load(f)
+        launches = []
+        for r in range(n):
+            with open(os.path.join(bdir.name, f"launches.{r}")) as f:
+                launches.append(json.load(f))
+        kept = True
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-        bdir.cleanup()
+        if not kept:
+            bdir.cleanup()
     out = {"s": time.perf_counter() - t0,
-           "runs_s": time.perf_counter() - t_go}
+           "runs_s": time.perf_counter() - t_go,
+           "traced": {"dir": bdir, "report": res.pop("traced"),
+                      "launches": launches}}
     for transport in ("shm", "tcp"):
         v = res[transport]
         steps = v["steps"]
@@ -6801,6 +6981,156 @@ def host_tcp_resnet(started):
           f"{out['runs_s']:.1f} s, {out['s']:.1f} s with the workers' start "
           "(beside 32b)")
     return out
+
+
+def _dominant_phase(report, frame):
+    """The phase that holds most of ``frame``'s self samples."""
+    by = {}
+    for ph, folded, cnt in report["stacks"]:
+        if folded.rsplit(";", 1)[-1] == frame:
+            by[ph] = by.get(ph, 0) + int(cnt)
+    return max(by, key=by.get) if by else "other"
+
+
+def phase_traced_tcp(resnet):
+    """Phase 35: 32c's third run (ResNet-50 over tcp at P = 2 for
+    TCP_SECONDS, with ``tracing.configure`` and ``profile=`` in both
+    worker processes), read by the port's trace analyzer and profile
+    report here.  Checks: every rank's spans load, each round has a
+    critical path, every owner-side span's parent is a sender's wire span
+    in the other process, every stream has a phase EWMA, the mass audit is
+    exact, the profile's top frames carry phase labels, and K1-K3's
+    launch counters read 0 in the workers around the run and here around
+    the analysis.  Prints the {net, queue, apply} split of a deposit, the
+    critical path's edges, the overlap fraction, the profile's top 6
+    frames, and the traced run's img/s against 32c's untraced tcp run
+    (printed, not checked: a 4 s run is too noisy for tracing's budget)."""
+    from bluefog_tpu_torch.ops.deliver_kernel import window_deliver
+    from bluefog_tpu_torch.profiling import PHASES
+    from bluefog_tpu_torch.profiling import report as prof_report
+    from bluefog_tpu_torch.tracing import analyze as an
+
+    t0 = time.perf_counter()
+    counters = [window_deliver, *_slice_kernels()]
+    for k in counters:
+        k.launches = 0
+    tr = resnet.pop("traced")
+    n = 2
+    try:
+        v = tr["report"]
+        steps = v["steps"]
+        img_s = sum(steps) * TCP_BATCH / v["wall_s"]
+        out = {"steps": steps, "img_s": img_s, "wall_s": v["wall_s"],
+               "traced_over_untraced": img_s / resnet["tcp"]["img_s"],
+               "mass_err": abs(v["mass"] - n)}
+        check(out["mass_err"] <= 1e-9 * n,
+              f"35: mass audit {v['mass']!r}")
+        check(min(steps) >= 2, f"35: a rank starved: {steps}")
+        check(math.isfinite(v["loss"][1]), "35: a NaN loss")
+        for r, lc in enumerate(tr["launches"]):
+            check(not any(lc.values()),
+                  f"35: rank {r} launched a kernel: {lc}")
+        # every stream's {net, queue, apply} EWMA, from the extended acks
+        phase_s = {}
+        for r in range(n):
+            ph = v["streams"].get(str(r), {}).get("phase_s", {})
+            check(sorted(ph) == [str(1 - r)]
+                  and sorted(ph[str(1 - r)]) == ["apply", "net", "queue"],
+                  f"35: rank {r}'s stream has no phase EWMA: {ph}")
+            phase_s[f"{r}->{1 - r}"] = ph[str(1 - r)]
+        out["phase_ewma_s"] = phase_s
+
+        tdir = os.path.join(tr["dir"].name, "trace")
+        spans = an.load_traces(tdir)
+        ranks = sorted({sp.get("rank") for sp in spans})
+        check(ranks == [0, 1], f"35: spans of ranks {ranks}")
+        for r in range(n):
+            check(any(sp["name"] == "round" and sp["rank"] == r
+                      for sp in spans), f"35: rank {r} has no round span")
+        by_sid = {sp["sid"]: sp for sp in spans}
+        owner = [sp for sp in spans if sp.get("cat") == "tcp_srv"]
+        check(owner, "35: no owner-side span")
+        for sp in owner:
+            par = by_sid.get(sp.get("par"))
+            check(par is not None and par["name"] == "wire"
+                  and par["rank"] != sp["rank"],
+                  f"35: owner-side span {sp['name']} of rank {sp['rank']} "
+                  f"parents to {par and (par['name'], par['rank'])}")
+        rep = an.analyze(tdir, spans=spans)
+        cp = rep["critical_path"]
+        rounds = rep["rounds"]["rounds_observed"]
+        check(rounds >= 2 and cp["chains_walked"] == rounds,
+              f"35: {cp['chains_walked']} critical chains over {rounds} "
+              "rounds")
+        check(cp.get("gating_edge") is not None,
+              f"35: no gating edge: {cp}")
+        wires = [sp for sp in spans if sp["name"] == "wire"
+                 and not sp.get("open")]
+        out.update(spans=len(spans), open_spans=rep["open_spans"],
+                   rounds=rounds, critical_path=cp, edges=rep["edges"],
+                   overlap=rep["overlap_fraction"],
+                   deposit_mb=sum(sp.get("bytes", 0) for sp in wires)
+                   / max(1, len(wires)) / 1e6)
+        for name, er in sorted(rep["edges"].items()):
+            print(f"[35] edge {name}: {er['batches']} batches, a deposit of "
+                  f"{out['deposit_mb']:.1f} MB: wire "
+                  f"{er['wire_mean_s'] * 1e3:.1f} ms = "
+                  + ", ".join(f"{p} {x * 1e3:.1f}"
+                              for p, x in er["phase_mean_s"].items())
+                  + " ms; the stream's EWMA "
+                  + ", ".join(f"{p} {x * 1e3:.1f}"
+                              for p, x in phase_s[name].items()) + " ms")
+        print(f"[35] critical path over {rounds} rounds: gating edge "
+              f"{cp['gating_edge'][0]} -> {cp['gating_edge'][1]} "
+              f"({cp['gating_rounds']} hops, dominant phase "
+              f"{cp.get('dominant_phase')} "
+              f"{cp.get('dominant_frac', float('nan')):.0%}); hops "
+              f"{cp['gate_counts']}, gating seconds "
+              + ", ".join(f"{k} {x:.2f}" for k, x in cp["gate_time_s"].items())
+              + "; overlap fraction "
+              + ", ".join(f"rank {r} {x:.1%}"
+                          for r, x in sorted(out["overlap"].items())))
+
+        prof = prof_report.merge(os.path.join(tr["dir"].name, "profile"))
+        check(prof["samples"] > 0 and prof["ranks"] == [0, 1],
+              f"35: profile samples {prof['samples']} of ranks "
+              f"{prof['ranks']}")
+        check(prof["phases"].get("compute", 0) > 0
+              and prof["phases"].get("gossip", 0) > 0,
+              f"35: no compute or gossip samples: {prof['phases']}")
+        top = [(fr, c, frac, _dominant_phase(prof, fr))
+               for fr, c, frac in prof_report.top_table(prof, 6)]
+        check(len(top) == 6 and all(ph in (*PHASES, "other")
+                                    for *_, ph in top),
+              f"35: top frames {top}")
+        out["profile"] = {"samples": prof["samples"],
+                          "phase_frac": prof["phase_frac"],
+                          "attributed_frac": prof["attributed_frac"],
+                          "top": top,
+                          "compute_top": prof_report.phase_frames(
+                              prof, "compute", 3)}
+        print(f"[35] profile: {prof['samples']} samples, phases "
+              f"{prof['phase_frac']}, attributed "
+              f"{prof['attributed_frac']:.1%}; top 6 frames by self: "
+              + "; ".join(f"{fr} {frac:.1%} ({ph})"
+                          for fr, _, frac, ph in top)
+              + "; compute's top frames "
+              + ", ".join(f"{fr} {c}" for fr, c in out["profile"][
+                  "compute_top"]))
+    finally:
+        tr["dir"].cleanup()
+    out["launches"] = {k.__name__: k.launches for k in counters}
+    check(not any(out["launches"].values()),
+          f"35: kernels launched around the analysis: {out['launches']}")
+    out["s"] = time.perf_counter() - t0
+    print(f"[35] traced tcp run: steps {steps} in {v['wall_s']:.2f} s, "
+          f"{img_s:.1f} img/s, {out['traced_over_untraced']:.3f}x 32c's "
+          f"untraced tcp run in the same workers (not checked); "
+          f"|sum(p) - n| {out['mass_err']:.3e}; {len(spans)} spans; "
+          f"launches {out['launches']} here, "
+          f"{tr['launches']} in the workers; the analysis {out['s']:.1f} s")
+    return out
+
 
 
 _MUTEX_LEASE_S = 2.0
@@ -7215,7 +7545,7 @@ def chaos_drill_jobs(device):
     """33b's three drills under chaos specs (the chaos CLI exports each to
     its command), as ``_run_together`` jobs: the death of 32d, a lossy link
     over 2 processes, and the thread runner's death and stall.  The first
-    two run beside 32d, the third alone at the start of phase 33;
+    two run beside 32d, the third alone right after phase 31;
     :func:`host_chaos_drills` checks and reports them."""
     chaos_cli = ["-m", "bluefog_tpu_torch.chaos", "--spec"]
     mp = [sys.executable, "-m", "bluefog_tpu_torch.examples.async_dsgd_mp",
@@ -7279,18 +7609,21 @@ def host_chaos_drills(res):
 
 
 def phase_control_chaos(device, ctl_started, drills, threads):
-    """Phase 33: 33b's rank-thread drill (``threads``, a ``_run_together``
-    job; 33a's workers wait, ready, meanwhile), 33a, then 33b's report (its
-    drills over processes, ``drills``, ran beside 32d; 33c inside 32a,
-    beside its server).  No TPU kernel lies on this path; K1-K3's counters
-    are read around it."""
+    """Phase 33: 33a, then 33b's report: its drills over processes
+    (``drills``) ran beside 32d, its rank-thread drill (``threads``, its
+    ``_run_together`` result) alone right after phase 31, before 33a's
+    workers started (beside those four processes, each holding ResNet-50
+    on the card, its ranks made 2-4x fewer steps and missed the example's
+    loss drop in two of three runs); 33c ran inside 32a, beside its
+    server.  No
+    TPU kernel lies on this path; K1-K3's counters are read around it."""
     from bluefog_tpu_torch.ops.deliver_kernel import window_deliver
 
     t0 = time.perf_counter()
     counters = [window_deliver, *_slice_kernels()]
     for k in counters:
         k.launches = 0
-    drills = {**drills, **_run_together(threads)}
+    drills = {**drills, **threads}
     out = {"control": host_control(ctl_started)}
     torch.cuda.empty_cache()
     out["drills"] = host_chaos_drills(drills)
@@ -7935,9 +8268,9 @@ def main():
           f"{torch.cuda.get_device_name(0)}; TF32 off for cuDNN and matmul")
 
     phase_build()
-    trainer = build("resnet50", "neighbor", "exp2", size=N_RANKS,
-                    batch_size=BATCH, image_size=224, device=device)
-    leaves = list(trainer.params.values())
+    lap("1")
+    # the plan needs only the parameters' shapes: no trainer on the card
+    leaves = _plan_leaves()
     groups, big = fuse_plan(leaves)
     main_lengths = ([sum(leaves[i][0].numel() for i in idx)
                      for idx in groups.values()]
@@ -7950,21 +8283,26 @@ def main():
           f"leaves; fuse plan = {len(groups)} fused buffer(s) + {len(big)} "
           f"leaves >= 8 MiB -> per-rank lengths {main_lengths}; across "
           f"processes {mp_lengths}")
-    del trainer, leaves
-    torch.cuda.empty_cache()
+    plan_leaves = [(v.shape, v.dtype) for v in leaves]
+    del leaves
     # phase 1c's processes' parameters wait here for phase 18's run
     bert_dir = tempfile.TemporaryDirectory()
     procs, bert_started = phase_processes(device, mp_lengths, win_len,
                                           bert_dir.name)
+    lap("1b")
     try:
         bert_procs = phase_bert_processes(bert_dir.name, bert_started)
     except BaseException:
         _kill_started([bert_started])
         raise
+    lap("1c")
     trainer = build("resnet50", "neighbor", "exp2", size=N_RANKS,
                     batch_size=BATCH, image_size=224, device=device)
     leaves = list(trainer.params.values())
+    check([(v.shape, v.dtype) for v in leaves] == plan_leaves,
+          "the fuse plan's leaves are not the trainer's")
     k1 = phase_k1(device, main_lengths)
+    lap("2")
     main_launches, main_res = phase_main_path(
         trainer, {gossip_mix: len(main_lengths)}, "main",
         f"ResNet-50 x {N_RANKS} virtual ranks, exp2, batch {BATCH}/rank, "
@@ -7974,8 +8312,10 @@ def main():
     phase_host_breakdown(trainer, "main")
     del trainer, leaves
     torch.cuda.empty_cache()
+    lap("3")
 
     k2, k2_acc, k2_push = phase_k2(device, win_len)
+    lap("4")
     torch.cuda.empty_cache()
     trainer = build("resnet50", "winput", "exp2", size=N_RANKS,
                     batch_size=BATCH, image_size=224, device=device)
@@ -8001,38 +8341,56 @@ def main():
     update_ms = phase_window_update(window)
     del trainer, window
     torch.cuda.empty_cache()
+    lap("5")
     push_launches = phase_pushsum(device, win_len)
+    lap("6")
 
     k3 = phase_k3(device)
+    lap("7")
     # phase 24 here, beside phase 7: later in the script torch.profiler's
     # traces of these calls came back empty (an H100 run, after phase 22)
     k3_shapes = phase_k3_shapes(device)
     torch.cuda.empty_cache()
+    lap("24")
     k3_launches = phase_gpt(device)
+    lap("8")
 
     allreduce = phase_allreduce(device, main_lengths)
+    lap("9")
     hier = phase_hierarchical(device, main_lengths)
+    lap("10")
     phase_imagenet(main_lengths)
+    lap("11")
     phase_mnist()
+    lap("12")
 
     routing = phase_routing(device, main_lengths)
+    lap("13")
     dynamic = phase_dynamic(device, main_lengths)
+    lap("14")
     tracking = phase_tracking(device, main_lengths)
+    lap("15")
     choco = phase_choco(device, win_len)
+    lap("16")
     examples = phase_examples()
+    lap("17")
 
     bert = phase_bert(device, bert_dir.name, bert_procs)
     bert_dir.cleanup()
+    lap("18")
     bert_ft = phase_bert_finetune()
+    lap("19")
     # phase 21's processes run beside phase 20
     ckpt_job = start_checkpoint()
     try:
-        gates = phase_gates()
+        gates, examples["convergence_comparison"] = phase_gates()
     except BaseException:
         stop_checkpoint(ckpt_job)
         raise
     ckpt = phase_checkpoint(ckpt_job)
+    lap("20-21")
     vit = phase_vit(device)
+    lap("22")
 
     # every shape these paths hand K3 is held against the twins after them
     k3_paths = {}
@@ -8043,6 +8401,7 @@ def main():
         with k3_calls(seen):
             k3_paths[tag] = phase(device)
         k3_paths[tag + "_k3_calls"] = check_k3_calls(seen, device, tag)
+    lap("25-29")
     seq, tensor, hybrid, moe, longctx = (
         k3_paths[t] for t in ("seq", "tp", "hybrid", "moe", "longcontext"))
     seen = set()
@@ -8056,17 +8415,26 @@ def main():
     procs[N_RANKS] = {"k1": mesh[N_RANKS]["k1"],
                       "seconds": mesh[N_RANKS]["seconds"]}
     torch.cuda.empty_cache()
+    lap("30")
     host = phase_host_runtime(device, main_res["samples_per_s"])
     torch.cuda.empty_cache()
-    # 33b's drills over processes run beside 32d, its rank threads alone
-    # in phase 33
+    lap("31")
+    # 33b's rank-thread drill alone now, before 33a's workers start beside
+    # 32d; its drills over processes run beside 32d
     drills = chaos_drill_jobs(device)
-    threads = {CHAOS_THREADS_JOB: drills.pop(CHAOS_THREADS_JOB)}
+    threads = _run_together({CHAOS_THREADS_JOB:
+                             drills.pop(CHAOS_THREADS_JOB)})
+    lap("33")
     tcp, ctl_started = phase_host_runtime_tcp(
         device, start_next=lambda: start_control(device), beside=drills)
+    lap("32")
+    traced = phase_traced_tcp(tcp["resnet"])
+    lap("35")
     ctl = phase_control_chaos(device, ctl_started, tcp.pop("beside_32d"),
                               threads)
+    lap("33")
     serve = phase_serving(device, tcp["resnet"]["tcp"]["img_s"])
+    lap("34")
 
     sl = procs[SLICE_PROCESSES]["slice"]
     fa = "jax/experimental/pallas/ops/tpu/flash_attention.py"
@@ -8374,6 +8742,22 @@ def main():
           f"{sv['delta_stale_worst']}; sharded replica bit-equal, params() "
           f"{sh['params_ms']:.1f} ms; launches {serve['launches']}; phase "
           f"{serve['s']:.1f} s")
+    cp = traced["critical_path"]
+    print("causal tracing and the profiler (phase 35): 32c's ResNet-50 over "
+          f"tcp traced and profiled, {traced['img_s']:.1f} img/s "
+          f"({traced['traced_over_untraced']:.3f}x untraced), a "
+          f"{traced['deposit_mb']:.1f} MB deposit's split "
+          + "; ".join(f"{k} " + ", ".join(f"{p} {x * 1e3:.1f}"
+                                            for p, x in v.items()) + " ms"
+                      for k, v in traced["phase_ewma_s"].items())
+          + f"; gating edge {cp['gating_edge']} "
+          f"({cp.get('dominant_phase')}), overlap "
+          + ", ".join(f"{x:.1%}" for _, x in sorted(traced["overlap"].items()))
+          + "; top frames "
+          + ", ".join(f"{fr} ({ph})" for fr, _, _, ph in
+                      traced["profile"]["top"][:3])
+          + f"; launches {traced['launches']}; analysis {traced['s']:.1f} s")
+    print(phase_seconds_line())
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

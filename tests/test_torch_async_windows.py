@@ -22,7 +22,8 @@
   deterministic and within 1e-6 of the JAX package's; all with and
   without ``overlap``;
 - the ``async_=True`` factory and its errors against the JAX package's,
-  and the arguments not ported yet raising ``NotImplementedError``.
+  ``fleet=`` (not ported yet) raising ``NotImplementedError``, and
+  ``profile=`` writing its samples.
 
 The JAX package's leaves flatten in sorted key order, the port's in
 insertion (module) order, so leaves are compared by name.
@@ -604,7 +605,19 @@ def test_winput_async_factory_and_its_errors_match_the_jax_packages():
 
 @pytest.mark.parametrize("arg,value,item", [
     ("fleet", object(), "item 11"), ("profile", "/tmp/p", "item 11")])
-def test_arguments_not_ported_yet_raise(arg, value, item):
+def test_arguments_not_ported_yet_raise(arg, value, item, tmp_path):
+    """``fleet=`` still raises, naming its ROADMAP item.  ``profile=`` is
+    ported (the case keeps its id): the run is accepted and writes its
+    samples into the directory it names, here under ``tmp_path``."""
+    if arg == "profile":
+        d = tmp_path / "p"
+        rep = aw.run_async_dsgd(
+            ptopo.RingGraph(2), {"w": torch.zeros(2)},
+            lambda r, s, p: (0.0, p), name=_name("np"), duration_s=10.0,
+            stop_after_steps=5, profile=str(d))
+        assert rep.total_mass == pytest.approx(2.0, abs=1e-12)
+        assert (d / "profile-rank0.jsonl").exists()
+        return
     with pytest.raises(NotImplementedError, match=item):
         aw.run_async_dsgd(ptopo.RingGraph(2), {"w": torch.zeros(2)},
                           lambda r, s, p: (0.0, p), name=_name("np"),

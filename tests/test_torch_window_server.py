@@ -477,9 +477,11 @@ def test_hello_grants_only_the_ported_features():
         assert granted == (PW.FEATURE_BATCH | PW.FEATURE_CODEC_F32
                            | PW.FEATURE_CODEC_TOPK | PW.FEATURE_HEARTBEAT
                            | PW.FEATURE_RESUME | PW.FEATURE_SNAPSHOT
-                           | PW.FEATURE_SUBSCRIBE | PW.FEATURE_DELTA)
-        assert granted == 1 | 2 | 4 | 8 | 16 | 32 | 64 | 256
-        assert not granted & PW.FEATURE_TRACE  # tracing: ROADMAP item 11
+                           | PW.FEATURE_SUBSCRIBE | PW.FEATURE_TRACE
+                           | PW.FEATURE_DELTA)
+        assert granted == 1 | 2 | 4 | 8 | 16 | 32 | 64 | 128 | 256
+        # every feature the reference server grants, and no other
+        assert PW._SERVER_FEATURES == RW._SERVER_FEATURES
         # the constants are the reference's, bit for bit
         for f in ("FEATURE_BATCH", "FEATURE_CODEC_F32", "FEATURE_CODEC_TOPK",
                   "FEATURE_HEARTBEAT", "FEATURE_RESUME", "FEATURE_SNAPSHOT",
@@ -487,7 +489,8 @@ def test_hello_grants_only_the_ported_features():
                   "PROTOCOL_VERSION", "_MAGIC", "_FLAG_DRAIN"):
             assert getattr(PW, f) == getattr(RW, f), f
         for st in ("_HDR", "_BODY", "_STATUS", "_SELF_HDR", "_HELLO",
-                   "_BATCH_HDR", "_ITEM", "_ACK", "_ATTACH", "_HB"):
+                   "_BATCH_HDR", "_ITEM", "_ACK", "_ATTACH", "_HB",
+                   "_TRACE_HDR", "_ACK_TIMES"):
             assert getattr(PW, st).format == getattr(RW, st).format, st
     finally:
         srv.stop()
