@@ -59,7 +59,10 @@ examples/async_pushsum.py, async_dsgd.py,       examples.async_pushsum, ...
 chaos (spec, injector, bfchaos-tpu)             chaos (python -m ...chaos)
 control (plan, evidence, controller,            control
   transport, tree)
-metrics.health.MixingTracker                    metrics.health
+metrics (registry, comm, export, health, dash)  metrics
+blackbox (recorder, dump, merge)                blackbox
+utils.lockcheck, tracing, profiling             utils.lockcheck, tracing, ...
+utils.inspect (collective census, flops)        utils.inspect
 ==============================================  ===============================
 
 Ranks are virtual: ``n`` gossip ranks live on one device as the leading axis
@@ -120,9 +123,12 @@ _EXPORTS = {
     "bluefog_tpu_torch.utils.failure": (
         "HangError", "Heartbeat", "run_supervised",
     ),
+    "bluefog_tpu_torch.metrics": (
+        "metrics_active", "metrics_start", "metrics_stop",
+    ),
 }
 _WHERE = {name: mod for mod, names in _EXPORTS.items() for name in names}
-__all__ = ["topology", *_WHERE]
+__all__ = ["blackbox", "metrics", "topology", *_WHERE]
 
 
 def __getattr__(name):

@@ -100,7 +100,7 @@ class Injector:
     # ------------------------------------------------------------ triggers
     def _record(self, rule: Rule, idx: int, **ctx) -> None:
         # the flight-recorder event and the injection counter of the JAX
-        # package come with the port's metrics and blackbox
+        # package are ROADMAP item 11a-iii
         self._fired[idx] += 1
 
     def fire(self, site: str, **ctx) -> Optional[Tuple]:

@@ -396,7 +396,7 @@ class CommController:
         plan = decide_plan(self.plan, int(round_), evidences, self.cfg)
         if plan.version != self.plan.version:
             # the plan-change counter and flight-recorder event of the JAX
-            # package come with the port's metrics and blackbox
+            # package are ROADMAP item 11a-iii
             self.plan_changes += 1
         self.plan = plan
         return plan

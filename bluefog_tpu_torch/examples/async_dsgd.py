@@ -44,6 +44,8 @@ from __future__ import annotations
 import argparse
 import copy
 import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -120,12 +122,25 @@ def _run(args, dev) -> Dict[str, object]:
         grads = torch.autograd.grad(loss, list(params.values()))
         return float(loss.detach()), dict(zip(params.keys(), grads))
 
+    # one step of every rank, each in a thread of its own, before the
+    # budget starts: a fresh process's first steps load cuDNN and cuBLAS
+    # and create their handles in each thread, seconds of the budget on a
+    # loaded host (a finished thread's handles go back to torch's pool,
+    # where the rank threads take them up); map re-raises a failure
+    t_warm = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=n) as ex:
+        list(ex.map(lambda r: loss_and_grad(
+            r, 0, {k: v.clone() for k, v in params0.items()}), range(n)))
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    warm_s = time.perf_counter() - t_warm
+
     opt = DistributedWinPutOptimizer(None, topology=ExponentialTwoGraph(n),
                                      async_=True, lr=args.lr)
     opt.name = args.name
     print(f"async DSGD: {n} rank threads, LeNet-5, exp2 topology, "
           f"rank-dependent compute skew, {args.duration:.0f}s budget, "
-          f"device={dev}")
+          f"device={dev}; warm-up {warm_s:.2f} s before the budget")
     # rank-dependent extra time per step (the gradient costs about the same
     # everywhere, so the skew must dominate it to be observable)
     skew = [0.3 * r / max(n - 1, 1) for r in range(n)]
@@ -187,7 +202,7 @@ def _run(args, dev) -> Dict[str, object]:
     return {"ok": not failures, "failures": failures,
             "steps_per_rank": report.steps_per_rank, "loss_drop": drop,
             "total_mass": report.total_mass, "died_mass": report.died_mass,
-            "dead_ranks": report.dead_ranks,
+            "dead_ranks": report.dead_ranks, "warm_s": warm_s,
             "consensus_gap": report.consensus_gap, "param_scale": scale,
             "wall_time_s": report.wall_time_s}
 

@@ -353,14 +353,20 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run(trainer: Trainer, warmup: int, iters: int) -> Dict[str, object]:
+def run(trainer: Trainer, warmup: int, iters: int,
+        labels: Optional[Dict[str, str]] = None) -> Dict[str, object]:
     """``warmup`` untimed steps, then ``iters`` steps each timed on the host
     clock up to a device synchronize.  Returns the per-step losses
     (``(n,)`` numpy arrays), the timed steps' milliseconds, and samples
-    (images or sequences) per second over all ranks."""
+    (images or sequences) per second over all ranks.  With metrics on,
+    each timed step sets ``bf_bench_examples_per_sec_per_chip`` (labelled
+    by ``labels``) and appends one snapshot line (``metrics.step``)."""
+    from bluefog_tpu_torch import metrics
+
     dev = trainer.device
     losses: List[np.ndarray] = []
     step_ms: List[float] = []
+    samples = trainer.batch[0].shape[0] * trainer.batch[0].shape[1]
     for i in range(warmup + iters):
         _sync(dev)
         t0 = time.perf_counter()
@@ -368,8 +374,13 @@ def run(trainer: Trainer, warmup: int, iters: int) -> Dict[str, object]:
         _sync(dev)
         if i >= warmup:
             step_ms.append((time.perf_counter() - t0) * 1e3)
+            if metrics.metrics_active():
+                # one card holds this process's ranks: its rate is theirs
+                metrics.comm.set("bf_bench_examples_per_sec_per_chip",
+                                 samples / (step_ms[-1] / 1e3),
+                                 **(labels or {}))
+                metrics.step(i - warmup)
         losses.append(loss.cpu().numpy())
-    samples = trainer.batch[0].shape[0] * trainer.batch[0].shape[1]
     rate = samples / (np.mean(step_ms) / 1e3) if step_ms else float("nan")
     return {"losses": losses, "step_ms": step_ms, "samples_per_s": rate}
 
@@ -453,7 +464,8 @@ def _main(args, procs: int) -> Dict[str, object]:
                     dtype=torch.float32 if args.fp32 else torch.bfloat16,
                     seed=args.seed, device=args.device,
                     local_size=args.local_size)
-    res = run(trainer, args.warmup, args.iters)
+    res = run(trainer, args.warmup, args.iters,
+              labels={"model": args.model, "comm": args.comm})
     tokens = MODELS[args.model].tokens
     unit = "seq" if tokens else "img"
     seq = trainer.batch[0].shape[2] if tokens else 1

@@ -1,28 +1,53 @@
-"""Measured against predicted mixing contraction.
+"""Decentralization-specific health gauges.
 
-Counterpart of ``bluefog_tpu/metrics/health.py::MixingTracker``.  The
-paper's trade (arXiv:2111.04287) is wall-clock speed against a bounded
-consensus error; :class:`MixingTracker` makes the gossip side observable:
-it compares the measured per-round contraction ``d_t / d_{t-1}`` of the
-consensus distance against the spectral-gap prediction ``|lambda_2(W)|``
-of the topology in effect.  A measured rate persistently above the
-prediction means gossip is not delivering the contraction the topology
-was provisioned for (skew, drops, a wedged transport); the control plane
-reads the difference as its densify evidence.
+Counterpart of ``bluefog_tpu/metrics/health.py``.  The paper's trade
+(arXiv:2111.04287) is wall-clock speed against a bounded consensus error;
+these gauges make both sides observable at runtime:
 
-The tracker's gauges (``bf_mixing_contraction_*``, ``bf_mixing_excess``,
-``bf_consensus_distance``) come with the port's metrics registry; the
-values are the JAX package's, in numpy f64.
+- **Consensus distance** ``||x_i - x_bar||_2``: how far ranks have drifted
+  apart.  :func:`consensus_distance` is the device form over rank-stacked
+  tensors (the JAX package's is the in-``shard_map`` form over a mesh
+  axis): a ``(m,)`` tensor the caller fetches when it wants it.
+  :func:`consensus_distance_stacked` is the host/numpy form.
+- **Mixing contraction**: :class:`MixingTracker` compares the measured
+  per-round contraction ``d_t / d_{t-1}`` against the spectral-gap
+  prediction ``|lambda_2(W)|`` of the topology in effect.  A measured
+  rate persistently above the prediction means gossip is not delivering
+  the contraction the topology was provisioned for (skew, drops, a wedged
+  transport); the control plane reads the difference as its densify
+  evidence.
+- **Heartbeat age**: seconds since the training loop last beat the
+  :class:`~bluefog_tpu_torch.utils.failure.Heartbeat`, a callback gauge
+  evaluated at snapshot time, so a scrape sees staleness grow during a
+  hang, before the watchdog fires.
+
+Values are the JAX package's, in numpy f64; the gauges
+(``bf_consensus_distance``, ``bf_mixing_contraction_*``,
+``bf_mixing_excess``, ``bf_heartbeat_age_seconds``) keep its names.
 """
 
 from __future__ import annotations
 
 import math
+import time
 from typing import Optional
 
 import numpy as np
 
-__all__ = ["MixingTracker", "spectral_gap"]
+from bluefog_tpu_torch.metrics import registry as _reg
+
+__all__ = [
+    "consensus_distance",
+    "consensus_distance_stacked",
+    "record_consensus",
+    "MixingTracker",
+    "spectral_gap",
+    "watch_heartbeat",
+    "unwatch_heartbeat",
+]
+
+_PREDICTED_HELP = ("|lambda_2(W)|^rounds_per_update — static "
+                   "spectral-gap bound at the feed cadence")
 
 
 def spectral_gap(w) -> float:
@@ -36,6 +61,88 @@ def spectral_gap(w) -> float:
         return 1.0
     mods = np.sort(np.abs(np.linalg.eigvals(w)))[::-1]
     return float(1.0 - mods[1])
+
+
+def consensus_distance(x):
+    """Per-rank consensus distance ``||x_i - x_bar||_2`` over a pytree of
+    rank-stacked tensors (leading axis = the ranks), where ``x_bar`` is
+    the mean over all ranks: a ``(m,)`` f32 tensor on the leaves' device,
+    one entry per rank row the caller holds.  Over several processes the
+    mean covers every process's ranks (the port's :func:`~bluefog_tpu_torch.
+    ops.collectives.allreduce`, recorded by no metric or recorder hook, as
+    the JAX package's ``pmean`` records none).  Nothing is fetched: the
+    caller reads the result when it wants it and records it with
+    :func:`record_consensus`."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from bluefog_tpu_torch.blackbox import recorder as _bb
+    from bluefog_tpu_torch.metrics import comm as _mt
+    from bluefog_tpu_torch.ops.collectives import allreduce
+
+    sq = None
+    for leaf in pytree.tree_leaves(x):
+        if not isinstance(leaf, torch.Tensor) or leaf.dim() < 1:
+            continue
+        lf = leaf.float()
+        with _mt.suppress_comm_metrics(), _bb.suppress_blackbox():
+            mean = allreduce(lf)
+        d = (lf - mean).reshape(lf.shape[0], -1)
+        contrib = (d * d).sum(dim=1)
+        sq = contrib if sq is None else sq + contrib
+    if sq is None:
+        raise ValueError("consensus_distance needs at least one "
+                         "rank-stacked tensor leaf")
+    return sq.sqrt()
+
+
+def consensus_distance_stacked(tree) -> float:
+    """Host-side max-over-ranks consensus distance of a rank-stacked tree
+    (every array leaf carries a leading rank axis), in numpy f64."""
+    sq: Optional[np.ndarray] = None
+    for leaf in _leaves(tree):
+        arr = _as_numpy(leaf)
+        if arr.ndim < 1:
+            continue
+        n = arr.shape[0]
+        flat = arr.reshape(n, -1)
+        d = flat - flat.mean(axis=0, keepdims=True)
+        contrib = np.sum(d * d, axis=1)
+        sq = contrib if sq is None else sq + contrib
+    if sq is None:
+        return 0.0
+    return float(np.sqrt(sq).max())
+
+
+def _leaves(tree):
+    from torch.utils import _pytree as pytree
+
+    return [l for l in pytree.tree_leaves(tree)
+            if hasattr(l, "dtype") or isinstance(l, np.ndarray)]
+
+
+def _as_numpy(leaf) -> np.ndarray:
+    if hasattr(leaf, "detach"):
+        leaf = leaf.detach().cpu()
+        if not leaf.dtype.is_floating_point or leaf.element_size() < 4:
+            leaf = leaf.double()
+        leaf = leaf.numpy()
+    return np.asarray(leaf, dtype=np.float64)
+
+
+def record_consensus(value: float, **labels) -> float:
+    """Record a consensus-distance sample (the gauge holds the latest
+    value; a histogram keeps the distribution for p50/p99).  Returns
+    ``value`` so it chains inside expressions; no-op when metrics are
+    off."""
+    reg = _reg.current()
+    v = float(value)
+    if reg is not None:
+        reg.gauge(
+            "bf_consensus_distance",
+            "max over ranks of ||x_i - mean(x)||_2").set(v, **labels)
+        reg.histogram("bf_consensus_distance_hist").observe(v, **labels)
+    return v
 
 
 class MixingTracker:
@@ -93,6 +200,10 @@ class MixingTracker:
         per_round = self._predict(schedule)
         if per_round is not None:
             self.predicted = per_round ** self._rounds_per_update
+        reg = _reg.current()
+        if reg is not None and self.predicted is not None:
+            reg.gauge("bf_mixing_contraction_predicted",
+                      _PREDICTED_HELP).set(self.predicted, **self.labels)
         return self.predicted
 
     def reset_measurement(self) -> None:
@@ -130,8 +241,47 @@ class MixingTracker:
         contraction ratio (None on the first sample or after a zero or
         non-finite predecessor)."""
         d = float(distance)
+        record_consensus(d, **self.labels)
         measured: Optional[float] = None
         prev, self._prev = self._prev, d
         if prev is not None and prev > 0 and math.isfinite(prev):
             measured = d / prev
+            reg = _reg.current()
+            if reg is not None:
+                reg.gauge(
+                    "bf_mixing_contraction_measured",
+                    "per-round consensus-distance ratio d_t / d_{t-1}",
+                ).set(measured, **self.labels)
+                if self.predicted is not None:
+                    # re-export the baseline too: metrics may have been
+                    # enabled after construction, and an excess alarm
+                    # without its predicted companion reads as noise
+                    reg.gauge("bf_mixing_contraction_predicted",
+                              _PREDICTED_HELP).set(self.predicted,
+                                                   **self.labels)
+                    reg.gauge(
+                        "bf_mixing_excess",
+                        "measured minus predicted contraction",
+                    ).set(measured - self.predicted, **self.labels)
         return measured
+
+
+def watch_heartbeat(heartbeat, name: str = "train") -> None:
+    """Export ``bf_heartbeat_age_seconds{thread=<name>}`` as a callback
+    gauge reading the heartbeat's last-beat monotonic stamp at snapshot
+    time.  No-op when metrics are off; safe to call again after a restart
+    (the same label set re-registers the callback)."""
+    reg = _reg.current()
+    if reg is None:
+        return
+    reg.gauge_fn(
+        "bf_heartbeat_age_seconds",
+        lambda: time.monotonic() - heartbeat._last,
+        help="seconds since the training loop last beat the watchdog",
+        thread=name)
+
+
+def unwatch_heartbeat(name: str = "train") -> None:
+    reg = _reg.current()
+    if reg is not None:
+        reg.remove_gauge_fn("bf_heartbeat_age_seconds", thread=name)

@@ -44,6 +44,18 @@ one-slot schedule of the pairing on K1's peer form; ``neighbor_allgather``
 hands each owned rank its in-neighbours' rows as they arrived; and
 ``send_weights`` (the plain route) has each receiver scale the rows it got
 by their senders' weights, as the sender would have before shipping.
+
+Observability, as in the JAX package and with its names: each gossip and
+reduction call records its round in the metrics registry
+(``bf_comm_rounds_total``, ``_bytes_total``, ``_messages_total``, and
+``bf_comm_pallas_chunks_total`` on K1's route; see
+:mod:`bluefog_tpu_torch.metrics.comm` for the per-rank convention and the
+``backend`` labels), opens and closes its timeline span
+(:func:`~bluefog_tpu_torch.utils.timeline.device_stage`), and with
+``BLUEFOG_TPU_BLACKBOX=jit`` records a ``collective_begin``/``_end`` pair
+in the flight recorder.  Every hook is a host call made from shapes; with
+metrics, timeline and recorder off each costs an attribute load or an
+environment read, and none changes a result.
 """
 
 from __future__ import annotations
@@ -57,10 +69,14 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from bluefog_tpu_torch.blackbox import recorder as _bb
+from bluefog_tpu_torch.metrics import comm as _mt
+from bluefog_tpu_torch.metrics import registry as _mreg
 from bluefog_tpu_torch.ops import gossip_kernel as _k1
 from bluefog_tpu_torch.ops import transport as _T
 from bluefog_tpu_torch.topology.graphs import Topology
 from bluefog_tpu_torch.topology.schedule import GossipSchedule, build_schedule
+from bluefog_tpu_torch.utils import timeline as _tl
 
 __all__ = ["fuse_apply", "fuse_plan", "neighbor_allreduce",
            "neighbor_allreduce_dynamic", "neighbor_allreduce_aperiodic",
@@ -152,6 +168,73 @@ def fuse_apply(fn, x, *, threshold_bytes=8 << 20, stage: bool = True,
     return pytree.tree_unflatten(out, spec)
 
 
+# ---------------------------------------------------------------------------
+# Observability hooks of one collective call
+# ---------------------------------------------------------------------------
+
+
+def _rows(x) -> int:
+    """The rank rows a rank-stacked tree holds (its leading axis)."""
+    leaves = pytree.tree_leaves(x)
+    return int(leaves[0].shape[0]) if leaves else 0
+
+
+def _rank_bytes(x) -> int:
+    """Bytes of one rank's value of a rank-stacked tree."""
+    m = _rows(x)
+    return _mt.tree_bytes(x) // m if m else 0
+
+
+def _round_begin(op: str, x, *, stage: Optional[str] = None,
+                 category: str = "gossip", step: Optional[int] = None,
+                 **fields):
+    """Start-of-call hooks of a collective: its timeline span opens, it
+    takes its collective id (always, so ids stay aligned across processes
+    whatever each records), and with the recorder's per-call events armed
+    its ``collective_begin`` is recorded with the JAX package's fields
+    (``op``, ``cid``, the given ones, the bytes of one rank's value).
+    Returns the token :func:`_round_end` takes."""
+    if stage is not None:
+        _tl.device_stage(x, stage, phase="B", category=category)
+    cid = _bb.next_collective_id(op)
+    bb = None
+    if _bb.jit_enabled():
+        bb = {"op": op, "cid": cid, **fields, "bytes": _rank_bytes(x)}
+        _bb.traced_event(x, "collective_begin", fields=bb,
+                         traced=None if step is None else {"step": step})
+    return bb, step, stage, category
+
+
+def _round_end(out, token):
+    """Return-time hooks: the ``collective_end`` (materialized when the
+    call's card work completes; see :mod:`bluefog_tpu_torch.blackbox.
+    recorder`) and the span's close."""
+    bb, step, stage, category = token
+    if bb is not None:
+        _bb.traced_event(out, "collective_end", fields=bb,
+                         traced=None if step is None else {"step": step})
+    if stage is not None:
+        _tl.device_stage(out, stage, phase="E", category=category)
+    return out
+
+
+def _record_round(x, *, op: str, slots: int, route: str, schedule: str = "",
+                  leaves: Optional[int] = None, chunked: bool = False,
+                  extra: Optional[Dict[str, object]] = None) -> None:
+    """One round of every rank row ``x`` holds (the JAX package's
+    ``record_collective`` at the same call): each rank ships its value
+    once a slot, one transfer a leaf (``leaves``, default ``x``'s), and on
+    K1's route (``chunked``) one launch a leaf, which never splits one."""
+    if _mreg.current() is None:
+        return
+    n = _mt.tree_leaf_count(x) if leaves is None else leaves
+    _mt.record_collective(
+        x, op=op, bytes_per_round=_rank_bytes(x) * slots,
+        messages_per_round=n * slots, schedule=schedule,
+        backend=_mt.backend_label(route), chunks=n if chunked else 0,
+        ranks=_rows(x), extra=extra)
+
+
 @functools.lru_cache(maxsize=256)
 def _lowered(topology: Topology) -> GossipSchedule:
     # topologies hash by identity: repeated calls with one Topology object
@@ -236,6 +319,19 @@ def neighbor_allreduce(x, schedule, *, self_weight=None, recv_weights=None,
     the payload travels in the wire dtype (bf16 for bf16 leaves, else f32).
     """
     sched = _as_schedule(schedule)
+    token = _round_begin("neighbor_allreduce", x, stage="bf.neighbor_allreduce",
+                         schedule=sched.name)
+    out, route = _neighbor_allreduce(x, sched, self_weight, recv_weights,
+                                     send_weights, backend)
+    _record_round(x, op="neighbor_allreduce", slots=sched.num_slots,
+                  route=route, schedule=sched.name,
+                  chunked=route == "kernel")
+    return _round_end(out, token)
+
+
+def _neighbor_allreduce(x, sched, self_weight, recv_weights, send_weights,
+                        backend):
+    """:func:`neighbor_allreduce`'s computation; returns ``(out, route)``."""
     tr = _T.active()
     if tr is not None:
         return _neighbor_allreduce_procs(tr, x, sched, self_weight,
@@ -267,7 +363,7 @@ def neighbor_allreduce(x, schedule, *, self_weight=None, recv_weights=None,
                 sched, leaf.device, self_weight, recv_weights,
                 dtype=_acc_dtype(leaf.dtype))
             outs.append(_plain_leaf(leaf, sw, rw, src, send_w=send_w))
-    return pytree.tree_unflatten(outs, spec)
+    return pytree.tree_unflatten(outs, spec), backend
 
 
 def _owned_tables(tr, sched, device, self_weight=None, recv_weights=None,
@@ -286,7 +382,8 @@ def _neighbor_allreduce_procs(tr, x, sched, self_weight, recv_weights,
     """``neighbor_allreduce`` on this process's owned rows: the rows the
     owned ranks read arrive through the transport, then K1's peer form
     (``'kernel'``) or its plain twin folds them; with ``send_weights``
-    :func:`_plain_leaf` folds them, as in one process."""
+    :func:`_plain_leaf` folds them, as in one process.  Returns ``(out,
+    route)``."""
     if send_weights is not None:
         if backend == "kernel":
             raise NotImplementedError(
@@ -303,17 +400,17 @@ def _neighbor_allreduce_procs(tr, x, sched, self_weight, recv_weights,
                 f"axis {m} of the schedule's {sched.size}, got shape "
                 f"{tuple(leaf.shape)}")
     if not leaves:
-        return x
+        return x, backend
     dev = leaves[0].device
     if send_weights is not None:
         send_w = _send_table(send_weights, sched, dev)
         return pytree.tree_unflatten(
             _plain_procs(tr, leaves, sched, lambda acc: _owned_tables(
                 tr, sched, dev, self_weight, recv_weights, dtype=acc),
-                send_w), spec)
+                send_w), spec), backend
     sw, rw = _owned_tables(tr, sched, dev, self_weight, recv_weights)
     return pytree.tree_unflatten(
-        _mix_procs(tr, leaves, sched, sw, rw, backend), spec)
+        _mix_procs(tr, leaves, sched, sw, rw, backend), spec), backend
 
 
 def _mix_procs(tr, leaves, sched, sw, rw, backend):
@@ -452,6 +549,17 @@ def sharded_neighbor_allreduce(x, schedule, axis_name: str = "bf", *,
         saved += nbytes * (shard_size_ratio(spec, axes) - 1)
     sharded_neighbor_allreduce.last_wire = (shard * sched.num_slots,
                                             saved * sched.num_slots)
+    if _mreg.current() is not None and leaves:
+        # per mesh position this process holds, as the JAX package's
+        # callback fires once per device of the hybrid mesh
+        devs = int(np.prod(leaves[0].shape[:lead], dtype=np.int64))
+        counters = [("bf_sharded_bytes_total",
+                     float(shard * sched.num_slots * devs))]
+        if saved:
+            counters.append(("bf_gather_bytes_saved_total",
+                             float(saved * sched.num_slots * devs)))
+        _mt.count(out, counters, labels={
+            "leaf": "<spmd>", "axis": "+".join(sorted(axes)) if axes else ""})
     return out
 
 
@@ -510,8 +618,26 @@ def neighbor_allreduce_dynamic(x, schedules, step: int, *,
     if len(schedules) == 0:
         raise ValueError("schedules must hold at least one Topology or "
                          "GossipSchedule")
-    return neighbor_allreduce(x, schedules[int(step) % len(schedules)],
-                              backend=backend)
+    if len(schedules) == 1:
+        return neighbor_allreduce(x, schedules[0], backend=backend)
+    step = int(step)
+    sched = _as_schedule(schedules[step % len(schedules)])
+    # one round a call, labelled by the period and carrying the step, as
+    # the JAX package hoists its records out of the switch: the inner
+    # call's own hooks are suppressed
+    label = f"dynamic[{len(schedules)}]"
+    token = _round_begin("neighbor_allreduce_dynamic", x,
+                         stage="bf.neighbor_allreduce", step=step,
+                         schedule=label)
+    with _tl.suppress_device_stage(), _mt.suppress_comm_metrics(), \
+            _bb.suppress_blackbox():
+        out = neighbor_allreduce(x, sched, backend=backend)
+    # the label names the route the period resolves to (its first phase's,
+    # as the JAX package's record does), never the literal 'auto'
+    route = _k1.resolve_backend(backend, _as_schedule(schedules[0]))
+    _record_round(x, op="neighbor_allreduce_dynamic", slots=sched.num_slots,
+                  route=route, schedule=label)
+    return _round_end(out, token)
 
 
 def _host_matrix(mixing_matrix) -> np.ndarray:
@@ -606,7 +732,8 @@ def neighbor_allreduce_aperiodic(x, mixing_matrix, *,
         return x
     sw, rw, src, sched = _aperiodic_tables(w.tobytes(), n,
                                            str(leaves[0].device))
-    if max_rotations is not None and rw.shape[1] > int(max_rotations):
+    overflow = max_rotations is not None and rw.shape[1] > int(max_rotations)
+    if overflow:
         outs = [torch.full_like(leaf, float("nan")) for leaf in leaves]
     elif tr is None:
         outs = [_kernel_leaf(leaf, sw, rw, src) for leaf in leaves]
@@ -614,6 +741,14 @@ def neighbor_allreduce_aperiodic(x, mixing_matrix, *,
         start = tr.start(n)
         outs = _mix_procs(tr, leaves, sched, sw[start:start + rows],
                           rw[start:start + rows].contiguous(), "kernel")
+    # the active rotations are what crosses (the JAX package's capped form
+    # counts its power-of-two hops; here every active rotation is one K1
+    # slot, and an overflowing call ships nothing)
+    cap = "" if max_rotations is None else (
+        f",cap={min(int(max_rotations), n - 1)}")
+    _record_round(x, op="neighbor_allreduce_aperiodic",
+                  slots=0 if overflow else sched.num_slots, route="kernel",
+                  schedule=f"aperiodic[n={n}{cap}]", chunked=not overflow)
     return pytree.tree_unflatten(outs, spec)
 
 
@@ -688,9 +823,12 @@ def allreduce(x, *, average: bool = True):
                 s = (s.float() / n).to(leaf.dtype)
         return _to_ranks(s.to(leaf.dtype), rows)
 
+    token = _round_begin("allreduce", x)
     spec, wholes, rows = _gathered(x)
-    return pytree.tree_unflatten([one(w, r) for w, r in zip(wholes, rows)],
-                                 spec)
+    out = pytree.tree_unflatten([one(w, r) for w, r in zip(wholes, rows)],
+                                spec)
+    _record_round(x, op="allreduce", slots=1, route="plain")
+    return _round_end(out, token)
 
 
 def allgather(x, *, axis: int = 0, tiled: bool = False):
@@ -927,7 +1065,21 @@ def _machine_fold_procs(tr, avg, shipped, sched, self_weight, recv_weights,
 
 def _hierarchical(x, machine_schedule, local_size, self_weight, recv_weights,
                   backend, round_local_sum):
+    """The hierarchical gossip with its hooks: every lane ships the local
+    average once a machine slot, as the JAX package accounts it."""
+    op = ("hierarchical_neighbor_allreduce" if round_local_sum
+          else "hierarchical_neighbor_allreduce_2d")
     msched = _as_schedule(machine_schedule)
+    token = _round_begin(op, x, stage=f"bf.{op}", schedule=msched.name)
+    out, route = _hierarchical_mix(x, msched, local_size, self_weight,
+                                   recv_weights, backend, round_local_sum)
+    _record_round(x, op=op, slots=msched.num_slots, route=route,
+                  schedule=msched.name)
+    return _round_end(out, token)
+
+
+def _hierarchical_mix(x, msched, local_size, self_weight, recv_weights,
+                      backend, round_local_sum):
     backend = _k1.resolve_backend(backend, msched)
     # this process's machines: all of them in one process
     n_machines = _T.owned_rows(msched.size)
@@ -964,7 +1116,8 @@ def _hierarchical(x, machine_schedule, local_size, self_weight, recv_weights,
         return out.unsqueeze(1).expand(n_machines, local_size, out.shape[1]
                                        ).reshape(leaf.shape).contiguous()
 
-    return pytree.tree_unflatten([one(leaf) for leaf in leaves], spec)
+    return pytree.tree_unflatten([one(leaf) for leaf in leaves],
+                                 spec), backend
 
 
 def hierarchical_neighbor_allreduce(x, machine_schedule, *, local_size: int,

@@ -51,6 +51,8 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from bluefog_tpu_torch.metrics import comm as _mt
+from bluefog_tpu_torch.metrics import registry as _mreg
 from bluefog_tpu_torch.ops import gossip_kernel as _k1
 from bluefog_tpu_torch.ops import transport as _T
 from bluefog_tpu_torch.ops.collectives import _acc_dtype, _as_schedule
@@ -301,9 +303,30 @@ def choco_gossip(x, state: ChocoState, schedule, *, compressor: Compressor,
                                       * hs2.to(acc))).to(leaf.dtype)
         new_x.append(x2)
         new_nbrs.append(torch.stack(hn2, dim=1) if hn2 else hn)
+    _record_choco(leaves, sched, compressor, rows)
     unf = functools.partial(pytree.tree_unflatten, treespec=spec)
     return unf(new_x), ChocoState(unf(new_self), unf(new_nbrs),
                                   int(state.round) + 1)
+
+
+def _record_choco(leaves, sched: GossipSchedule, compressor: Compressor,
+                  rows: int) -> None:
+    """Wire accounting of one CHOCO round, the JAX package's: each rank
+    ships every leaf's compressed innovation (``wire_ratio`` x its dense
+    bytes) once a slot, and the achieved compression ratio is a gauge."""
+    if _mreg.current() is None or not leaves:
+        return
+    dense = sum(l[0].numel() * l.element_size() for l in leaves)
+    wire = sum(compressor.wire_ratio(l) * l[0].numel() * l.element_size()
+               for l in leaves)
+    if dense:
+        _mt.set("bf_compression_ratio", wire / dense,
+                compressor=compressor.name)
+    _mt.record_collective(
+        None, op="choco_gossip", bytes_per_round=wire * sched.num_slots,
+        messages_per_round=len(leaves) * sched.num_slots,
+        schedule=sched.name, backend=_mt.backend_label("plain"),
+        ranks=rows, extra={"compressor": compressor.name})
 
 
 @functools.lru_cache(maxsize=64)

@@ -35,6 +35,9 @@ result: the 4 MiB payload cap (``DEFAULT_AUTO_MAX_BYTES``), which sizes a
 window to TPU VMEM (on the card every window with a slot takes K2 whatever
 its size), and the collective-id bases with their CRC32 claim table, which keep
 barrier semaphores apart on the TPU.
+
+Each wrapper counts its calls in :data:`CALLS` (whichever route runs
+them) beside its kernel launches (``.launches``).
 """
 
 from __future__ import annotations
@@ -44,6 +47,10 @@ import torch
 from bluefog_tpu_torch.ops.gossip_kernel import (
     BACKENDS, _vector_width, auto_gossip_backend, slot_tables)
 from bluefog_tpu_torch.topology.schedule import GossipSchedule
+
+#: calls of each wrapper, whichever route ran them (the launches are
+#: each wrapper's ``.launches``)
+CALLS: Dict[str, int] = {"window_deliver": 0, "window_deliver_peer": 0}
 
 __all__ = [
     "auto_window_backend",
@@ -148,6 +155,7 @@ def window_deliver(x: torch.Tensor, bufs: torch.Tensor,
     payload that overlaps ``bufs``.  A CPU tensor runs the plain version.
     Any other device raises.  With no slots or an empty row nothing is
     launched."""
+    CALLS["window_deliver"] += 1
     _check(x, bufs, recv_src, mask)
     if x.dtype not in KERNEL_DTYPES:
         raise TypeError(f"x must be float32, bfloat16, float16 or float64, "
@@ -242,6 +250,7 @@ def window_deliver_peer(x: torch.Tensor, targets, dst_weight: float = 1.0,
     ``window_deliver_peer.launches``; a table without addresses, or a launch
     error, raises.  A CPU tensor runs the plain version.  Any other device
     raises.  With no delivery or an empty row nothing is launched."""
+    CALLS["window_deliver_peer"] += 1
     _check_peer(x, targets)
     if x.device.type == "cpu":
         window_deliver_peer_plain(x, targets, dst_weight,

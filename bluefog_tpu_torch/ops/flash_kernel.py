@@ -38,14 +38,22 @@ counts it in its ``copies`` (the model's views take none).
 :class:`FlashAttention` is the ``torch.autograd.Function`` whose forward is
 the forward wrapper and whose backward launches dQ (with ``di``) and then
 dK/dV.  :func:`flash_attention` is the library's entry point.
+
+Each wrapper counts its calls in :data:`CALLS` (whichever route runs
+them) beside its kernel launches (``.launches``).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
+
+#: calls of each wrapper, whichever route ran them (the launches are
+#: each wrapper's ``.launches``)
+CALLS: Dict[str, int] = {"flash_forward": 0, "flash_backward_dkv": 0,
+                         "flash_backward_dq": 0}
 
 __all__ = [
     "BUILT",
@@ -228,6 +236,7 @@ def flash_forward(q, k, v, *, causal: bool, scale: float
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The forward kernel: ``(o, l, m)`` (see :func:`flash_forward_plain`,
     which CPU tensors take)."""
+    CALLS["flash_forward"] += 1
     _check(q, k, v)
     if not _on_card(q, "flash_forward"):
         return flash_forward_plain(q, k, v, causal=causal, scale=scale)
@@ -260,6 +269,7 @@ def flash_backward_dkv(q, k, v, do, l, m, di, *, causal: bool, scale: float
     """The dK/dV kernel: ``l`` and ``m`` from :func:`flash_forward`, ``di =
     sum(o * do, -1)`` in f32 from :func:`flash_backward_dq` (see
     :func:`flash_backward_dkv_plain`, which CPU tensors take)."""
+    CALLS["flash_backward_dkv"] += 1
     _check(q, k, v, ("do", do))
     _check_rows(q, ("l", l), ("m", m), ("di", di))
     if not _on_card(q, "flash_backward_dkv"):
@@ -292,6 +302,7 @@ def flash_backward_dq(q, k, v, do, l, m, o, *, causal: bool, scale: float
     ``di = sum(o * do, -1)`` in f32, which :func:`flash_backward_dkv` takes
     (``l`` and ``m`` as there; CPU tensors take
     :func:`flash_backward_dq_plain`)."""
+    CALLS["flash_backward_dq"] += 1
     _check(q, k, v, ("do", do), ("o", o))
     _check_rows(q, ("l", l), ("m", m))
     if not _on_card(q, "flash_backward_dq"):

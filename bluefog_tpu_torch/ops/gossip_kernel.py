@@ -18,16 +18,24 @@ into this process, or this process's own), named by a
 :class:`~bluefog_tpu_torch.ops.transport.PeerRows` table.  Its plain twin
 :func:`gossip_mix_peer_plain` gathers the rows into an ``(m, K, L)`` tensor
 and folds them in slot order, with the rounding of both other forms.
+
+Each wrapper counts its calls in :data:`CALLS` (whichever route runs
+them) beside its kernel launches (``.launches``), for
+:func:`~bluefog_tpu_torch.utils.inspect.collective_census`.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
 from bluefog_tpu_torch.topology.schedule import GossipSchedule
+
+#: calls of each wrapper, whichever route ran them (the launches are
+#: each wrapper's ``.launches``)
+CALLS: Dict[str, int] = {"gossip_mix": 0, "gossip_mix_peer": 0}
 
 __all__ = [
     "auto_gossip_backend",
@@ -181,6 +189,7 @@ def gossip_mix(x: torch.Tensor, sw: torch.Tensor, rw: torch.Tensor,
     A CUDA tensor launches the kernel on the current stream and adds one to
     ``gossip_mix.launches``; a launch error raises.  A CPU tensor runs the
     plain version.  Any other device raises."""
+    CALLS["gossip_mix"] += 1
     _check(x, sw, rw, recv_src)
     if x.device.type == "cpu":
         return gossip_mix_plain(x, sw, rw, recv_src)
@@ -265,6 +274,7 @@ def gossip_mix_peer(x_self: torch.Tensor, sw: torch.Tensor, rw: torch.Tensor,
     table of row addresses, and adds one to ``gossip_mix_peer.launches``; a
     table without addresses, or a launch error, raises.  A CPU tensor runs
     the plain version.  Any other device raises."""
+    CALLS["gossip_mix_peer"] += 1
     _check_peer(x_self, sw, rw, rows)
     if x_self.device.type == "cpu":
         return gossip_mix_peer_plain(x_self, sw, rw, rows)

@@ -48,8 +48,13 @@ leaf is, by the one rule table that places the parameters and the optimizer
 state.  Its leaves are then stacked ``(n, *inner, *shard)`` (each rank's
 whole mesh in its row), and a put or accumulate moves each shard to the
 same coordinate of the neighbour meshes through K2, as it moves any row.
-Not ported: the timeline, blackbox and metrics hooks (with the
-observability slice).
+
+Every delivery records its round in the metrics registry as the JAX
+package's does (op ``win_put``/``win_accumulate``/``win_get``, labelled by
+the window: each rank ships the window's value once a slot, one transfer a
+leaf), opens and closes its ``bf.<op>`` timeline span, and with
+``BLUEFOG_TPU_BLACKBOX=jit`` records a ``collective_begin``/``_end`` pair;
+``win_update`` counts ``bf_window_update_rounds_total``.
 """
 
 from __future__ import annotations
@@ -65,7 +70,11 @@ from torch.utils import _pytree as pytree
 from bluefog_tpu_torch.ops import deliver_kernel as _k2
 from bluefog_tpu_torch.ops import gossip_kernel as _k1
 from bluefog_tpu_torch.ops import transport as _T
-from bluefog_tpu_torch.ops.collectives import _acc_dtype, _as_schedule
+from bluefog_tpu_torch.metrics import comm as _mt
+from bluefog_tpu_torch.ops.collectives import (_acc_dtype, _as_schedule,
+                                               _record_round, _round_begin,
+                                               _round_end)
+from bluefog_tpu_torch.utils import timeline as _tl
 from bluefog_tpu_torch.topology.schedule import GossipSchedule
 
 __all__ = [
@@ -323,13 +332,27 @@ def win_free(state: WindowState) -> None:
 
 
 def _deliver(state: WindowState, payload: Dict[torch.dtype, torch.Tensor], *,
-             accumulate: bool, dst_weight=1.0,
-             backend: str = "auto") -> WindowState:
+             accumulate: bool, dst_weight=1.0, backend: str = "auto",
+             op: str = "win_put") -> WindowState:
     """Land ``dst_weight * payload`` (one ``(n, L)`` buffer per dtype) in the
     receivers' slots, and ``dst_weight * p`` in ``p``'s slots when the window
-    carries it."""
+    carries it; ``op`` names the call in its hooks."""
     sched = state.spec.schedule
     route = _k2.resolve_window_backend(backend, sched)
+    token = _round_begin(op, payload, stage=f"bf.{op}", category="window",
+                         window=state.spec.name)
+    _deliver_rows(state, payload, accumulate, dst_weight, route)
+    _record_round(payload, op=op, slots=sched.num_slots, route=route,
+                  schedule=sched.name, leaves=len(state.layout.leaves),
+                  extra={"window": state.spec.name})
+    # the end materializes with the landing buffers' writes
+    _round_end(state.peers, token)
+    return state
+
+
+def _deliver_rows(state: WindowState, payload, accumulate: bool, dst_weight,
+                  route: str) -> WindowState:
+    sched = state.spec.schedule
     if sched.num_slots == 0:
         return state  # no in-edges anywhere: nothing lands
     w = float(dst_weight)
@@ -387,6 +410,10 @@ def _deliver_procs(tr, state: WindowState, payload, accumulate: bool,
     return state
 
 
+def _owned_rows_of(state: WindowState) -> int:
+    return int(next(iter(state.bufs.values())).shape[0])
+
+
 def _owned(t: torch.Tensor, sched: GossipSchedule) -> torch.Tensor:
     """A table over the schedule's ranks cut to this process's rows (all of
     them in one process)."""
@@ -439,14 +466,15 @@ def win_accumulate(state: WindowState, x, *, dst_weight=1.0,
     """Like :func:`win_put`, but adds into the landing buffers
     (``MPI_Accumulate(MPI_SUM)``), in the window's dtype."""
     return _deliver(state, _prepare_payload(state, x), accumulate=True,
-                    dst_weight=dst_weight, backend=backend)
+                    dst_weight=dst_weight, backend=backend,
+                    op="win_accumulate")
 
 
 @torch.no_grad()
 def win_get(state: WindowState) -> WindowState:
     """Pull each in-neighbour's published value (its self buffer, and ``p``)
     into the matching landing slot."""
-    return _deliver(state, state.bufs, accumulate=False)
+    return _deliver(state, state.bufs, accumulate=False, op="win_get")
 
 
 def _merge(own: torch.Tensor, peers: torch.Tensor, sw: torch.Tensor,
@@ -481,11 +509,19 @@ def win_update(state: WindowState, *, self_weight=None, recv_weights=None):
         sw, rw = _owned(sw, sched), _owned(rw, sched)
         own.copy_(_merge(own, peers, sw, torch.where(live, rw, 0)))
 
+    _tl.device_stage(state.bufs, "bf.win_update", phase="B",
+                     category="window")
     with _reading(state):
         for dt, buf in state.bufs.items():
             merge(buf, state.peers[dt])
         if state.assoc_self is not None:
             merge(state.assoc_self[:, None], state.assoc_peers[:, :, None])
+    # no wire transfer: the merge rounds let deposit volume be read per
+    # consume (bytes an update = deposit bytes / update rounds)
+    _mt.inc("bf_window_update_rounds_total", _owned_rows_of(state),
+            op="win_update", window=state.spec.name)
+    _tl.device_stage(state.bufs, "bf.win_update", phase="E",
+                     category="window")
     return state.self_buf, state
 
 

@@ -74,6 +74,9 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from bluefog_tpu_torch.blackbox import recorder as _bb
+from bluefog_tpu_torch.metrics import comm as _mt
+from bluefog_tpu_torch.metrics import registry as _mreg
 from bluefog_tpu_torch.ops import collectives as C
 from bluefog_tpu_torch.ops import compression as CP
 from bluefog_tpu_torch.ops import transport as T
@@ -352,9 +355,25 @@ class DecentralizedOptimizer(_Wrapped):
             self.base.step()
             for p, d in zip(params, change):
                 p.add_(d)
+        self._record_step(comm)
         self.count += 1
         self.comm_count += int(comm)
         return loss
+
+    def _record_step(self, comm: bool) -> None:
+        """The JAX package's per-step hooks: ``bf_optimizer_steps_total``
+        and ``bf_optimizer_comm_rounds_total`` (skipped local-SGD rounds
+        add zero) for every rank row, and with the recorder's per-call
+        events armed an ``optimizer_step`` event carrying the step."""
+        ct = self.communication_type.value
+        if _mreg.current() is not None:
+            rows = self._params()[0].shape[0]
+            _mt.count(None, [("bf_optimizer_steps_total", rows),
+                             ("bf_optimizer_comm_rounds_total",
+                              rows * int(comm))],
+                      {"opt": ct, "atc": str(bool(self.atc)).lower()})
+        _bb.traced_event(None, "optimizer_step", fields={"opt": ct},
+                         traced={"step": self.count})
 
     def state_dict(self):
         out = {"base": self.base.state_dict(), "count": self.count,

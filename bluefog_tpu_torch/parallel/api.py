@@ -40,6 +40,7 @@ from bluefog_tpu_torch.ops import transport as _T
 from bluefog_tpu_torch.ops import windows as _W
 from bluefog_tpu_torch.parallel.context import get_context
 from bluefog_tpu_torch.topology.schedule import GossipSchedule
+from bluefog_tpu_torch.utils import lockcheck as _lc
 
 __all__ = ["rank_stack", "rank_shard", "neighbor_allreduce", "neighbor_allreduce_aperiodic",
            "neighbor_allgather",
@@ -332,10 +333,10 @@ def wait_all_host_ops(timeout_s=None):
 # ---------------------------------------------------------------------------
 
 _win_mutexes: dict = {}
-_win_mutexes_guard = threading.Lock()
+_win_mutexes_guard = _lc.lock("parallel.api._win_mutexes_guard")
 _dist_held = threading.local()  # per-thread reentrancy counts per name
 _store_cache: list = []
-_store_guard = threading.Lock()
+_store_guard = _lc.lock("parallel.api._store_guard")
 
 _WIN_MUTEX_PREFIX = "bluefog_tpu/win_mutex/"
 # break subkeys live in a disjoint prefix: a lock key derived from a window
@@ -481,7 +482,8 @@ def win_mutex(name: str = "win", *, for_self: bool = True, ranks=None,
     store = _coordination_store()
     if store is None:
         with _win_mutexes_guard:
-            lock = _win_mutexes.setdefault(name, threading.RLock())
+            lock = _win_mutexes.setdefault(
+                name, _lc.rlock("parallel.api._win_mutexes[]"))
         with lock:
             yield
         return

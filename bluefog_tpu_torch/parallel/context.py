@@ -203,6 +203,14 @@ def init(*, topology: Optional[Topology] = None,
         machine_schedule=build_schedule(mtopo) if mtopo is not None else None,
         process_rank=proc, process_count=procs, transport=tr)
     _transport.activate(tr)
+    # arm the flight recorder's crash dumps (excepthooks, fatal signals,
+    # faulthandler, atexit-after-exception) at bring-up: the watchdog
+    # dumps on its own, but a rank dying of an uncaught exception must
+    # leave its recorder behind too.  No-op when BLUEFOG_TPU_BLACKBOX=0;
+    # idempotent.
+    from bluefog_tpu_torch import blackbox
+
+    blackbox.install()
     return _CTX
 
 

@@ -52,6 +52,7 @@ import torch
 from torch.utils import _pytree as pytree
 from torch.utils.checkpoint import checkpoint
 
+from bluefog_tpu_torch.metrics import comm as _mt
 from bluefog_tpu_torch.parallel import axes as ax
 from bluefog_tpu_torch.parallel.axes import Axis
 from bluefog_tpu_torch.sharding.rules import PartitionSpec, named_tree_map
@@ -159,6 +160,16 @@ def _rows(leaves, rows):
             for leaf in leaves]
 
 
+def _bubble_gauge(schedule: str, stages: int, micro: int) -> None:
+    """The schedule's idle fraction ``(S - 1) / (M + S - 1)``, a property
+    of ``(S, M)``, as the gauge ``bf_pipeline_bubble_fraction``: capacity
+    planning sees how much of the pipeline microbatching recovers (no-op
+    when metrics are off)."""
+    _mt.set("bf_pipeline_bubble_fraction",
+            (stages - 1) / (micro + stages - 1), schedule=schedule,
+            stages=stages, micro=micro)
+
+
 def pipeline_train_step_1f1b(stage_fn: Callable, stage_params, microbatches,
                              targets, loss_fn: Callable, *, axis: Axis,
                              head_params=None,
@@ -177,6 +188,7 @@ def pipeline_train_step_1f1b(stage_fn: Callable, stage_params, microbatches,
     (stage 0's), else None."""
     _check_axis(axis)
     n_stages, n_micro = axis.size, microbatches.shape[0]
+    _bubble_gauge("1f1b", n_stages, n_micro)
     held, crossing = axis.local_ranks(), axis.spans_processes
     slots = min(n_stages, n_micro)
     head_params = {} if head_params is None else head_params
@@ -278,6 +290,7 @@ def pipeline_train_step_gpipe(stage_fn: Callable, stage_params, microbatches,
     stage parameters as explicit inputs), so only each stage's inputs stay
     live."""
     _check_axis(axis)
+    _bubble_gauge("gpipe", axis.size, microbatches.shape[0])
     head_params = {} if head_params is None else head_params
     leaves, spec = pytree.tree_flatten(stage_params)
     h_leaves, h_spec = pytree.tree_flatten(head_params)

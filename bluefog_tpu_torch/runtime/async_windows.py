@@ -56,10 +56,16 @@ Win* and its lock/flush epochs).  This module runs that execution model:
   wire; and the sampling profiler (``profile=``,
   :mod:`bluefog_tpu_torch.profiling`) in both runners.
 
+- Observability, with the JAX package's names: the windows' deposit and
+  read counters, the runners' round, membership and overlap metrics
+  (:mod:`bluefog_tpu_torch.metrics`), the flight recorder's per-round
+  ``collective`` begin/end, ``optimizer_step`` and membership events
+  (:mod:`bluefog_tpu_torch.blackbox`), and named locks for the lock-order
+  tripwire (:mod:`bluefog_tpu_torch.utils.lockcheck`); none of them
+  changes a result.
+
 Deferred, raising ``NotImplementedError`` that names its ROADMAP item: the
-fleet health plane (``fleet=``, item 11).  The JAX package's calls into
-blackbox, metrics and lockcheck come back with those packages (item 11);
-none of them changes a result.
+fleet health plane (``fleet=``, item 11).
 """
 
 from __future__ import annotations
@@ -77,12 +83,14 @@ from typing import (TYPE_CHECKING, Callable, Dict, List, Optional,
 import numpy as np
 
 from bluefog_tpu_torch import chaos as _chaos
+from bluefog_tpu_torch.blackbox import recorder as _bb
 from bluefog_tpu_torch.control import CommController as _CommController
 from bluefog_tpu_torch.control import EvidenceBoard as _EvidenceBoard
 from bluefog_tpu_torch.control import evidence as _ctlev
 from bluefog_tpu_torch.control.transport import (
     TransportConfig as _TransportConfig, TransportPlan as _TransportPlan,
     decide_transport_plan as _decide_transport_plan)
+from bluefog_tpu_torch.metrics import comm as _mt
 from bluefog_tpu_torch.metrics.health import MixingTracker as _MixingTracker
 from bluefog_tpu_torch.profiling import sampler as _profiling
 from bluefog_tpu_torch.runtime import membership as _mship
@@ -92,6 +100,7 @@ from bluefog_tpu_torch.serving import snapshots as _snapshots
 from bluefog_tpu_torch.topology.graphs import heal as _heal
 from bluefog_tpu_torch.topology.graphs import replan as _replan
 from bluefog_tpu_torch.tracing import recorder as _tr
+from bluefog_tpu_torch.utils import lockcheck as _lc
 from bluefog_tpu_torch.utils import timeline as _timeline
 
 if TYPE_CHECKING:
@@ -148,7 +157,7 @@ class _PyWinTable:
     only), used when the caller asks for it."""
 
     def __init__(self):
-        self._mu = threading.Lock()
+        self._mu = _lc.lock("runtime.async_windows._PyWinTable._mu")
         self._wins: Dict[str, dict] = {}
 
     def create(self, name, n_slots, n_elems, dtype):
@@ -157,8 +166,10 @@ class _PyWinTable:
                 return -2
             self._wins[name] = {
                 "self": np.zeros(n_elems, dtype),
-                "self_mu": threading.Lock(),
-                "slots": [{"mu": threading.Lock(),
+                "self_mu": _lc.lock(
+                    "runtime.async_windows._PyWinTable.self_mu"),
+                "slots": [{"mu": _lc.lock(
+                    "runtime.async_windows._PyWinTable.slot_mu"),
                            "buf": np.zeros(n_elems, dtype),
                            "deposits": 0, "fresh": 0}
                           for _ in range(n_slots)],
@@ -236,7 +247,7 @@ class _PyWinTable:
 
 
 _py_table: Optional[_PyWinTable] = None
-_py_table_mu = threading.Lock()
+_py_table_mu = _lc.lock("runtime.async_windows._py_table_mu")
 
 
 def _py_windows() -> _PyWinTable:
@@ -354,6 +365,15 @@ class AsyncWindow:
                     1 if accumulate else 0)
         if v < 0:
             raise RuntimeError(f"deposit into {self.name!r}[{slot}] failed")
+        # per-window deposit volume and count: the "bytes gossiped" of the
+        # asynchronous execution model (no-ops with metrics off), and the
+        # recorder's last deposits before a wedge
+        nbytes = a.size * a.dtype.itemsize
+        _mt.inc("bf_window_deposit_bytes_total", nbytes, window=self.name,
+                transport="shm" if self.shm else "local")
+        _mt.inc("bf_window_deposits_total", 1.0, window=self.name, op=op)
+        _bb.record("window_deposit", window=self.name, slot=slot,
+                   bytes=nbytes, op=op)
         return int(v)
 
     def deposit_async(self, slot: int, arr: np.ndarray, *,
@@ -364,8 +384,12 @@ class AsyncWindow:
         transport.  In-process and shm deposits have landed when the call
         returns, so this is the synchronous deposit; ``copy`` and
         ``drain`` (a graceful leaver's handoff, a wire flag on the TCP
-        transport) change nothing here."""
-        del copy, drain
+        transport) change nothing here but its record."""
+        del copy
+        if drain:
+            _mt.inc("bf_drain_deposits_total", 1.0, peer="local")
+            _bb.record("drain_deposit", window=self.name, slot=slot,
+                       peer="local")
         return self.deposit(slot, arr, accumulate=accumulate)
 
     def flush(self, timeout_s: Optional[float] = None) -> None:
@@ -414,6 +438,14 @@ class AsyncWindow:
                     1 if consume else 0)
         if fresh < 0:
             raise RuntimeError(f"read of {self.name!r}[{slot}] failed")
+        # deposit staleness: the fresh count of each read, and the stale
+        # consumes (0 fresh: the rank outruns its in-neighbours)
+        _mt.observe("bf_window_fresh_per_read", float(fresh),
+                    window=self.name)
+        if consume and fresh == 0:
+            _mt.inc("bf_window_stale_reads_total", 1.0, window=self.name)
+        _bb.record("window_read", window=self.name, slot=slot,
+                   fresh=int(fresh), consume=consume)
         return out, int(fresh)
 
     def fresh(self, slot: int) -> int:
@@ -464,7 +496,7 @@ class AsyncWindow:
 # loops do not multiply idle threads.
 _CAST_WORKERS = min(8, os.cpu_count() or 1)
 _cast_pool_obj = None
-_cast_pool_mu = threading.Lock()
+_cast_pool_mu = _lc.lock("runtime.async_windows._cast_pool_mu")
 
 
 def _cast_pool():
@@ -798,7 +830,7 @@ def run_async_pushsum(
     stop = threading.Event()
     steps = [0] * n
     estimates = x0.copy()
-    est_mu = threading.Lock()
+    est_mu = _lc.lock("runtime.async_windows.run_async_pushsum.est_mu")
     errors: List[BaseException] = []
     board = (_res.HealthBoard(n, suspect_after_s=resilience.suspect_after_s,
                               dead_after_s=resilience.dead_after_s)
@@ -1038,10 +1070,11 @@ class DoubleBuffer:
         self._slots = [int(s) for s in slots]
         self._n = int(n_elems)
         self._poll_s = float(poll_s)
-        self._mu = threading.Lock()
+        self._mu = _lc.lock("runtime.async_windows.DoubleBuffer._mu")
         # _sweep_mu serialises sweeps against pause(): pause clears the arm
         # flag, then takes it, so on return no sweep runs and none starts
-        self._sweep_mu = threading.Lock()
+        self._sweep_mu = _lc.lock(
+            "runtime.async_windows.DoubleBuffer._sweep_mu")
         self._stage: Dict[int, np.ndarray] = {}   # per slot, kept
         self._fresh: Dict[int, int] = {}          # slots holding mass
         self._scratch: Optional[np.ndarray] = None
@@ -1468,7 +1501,7 @@ def run_async_dsgd(
     # the shared membership truth; each rank re-derives its plan from it
     # at round boundaries, so every loop converges on the same replan
     # with no coordination beyond this set
-    mem_mu = threading.Lock()
+    mem_mu = _lc.lock("runtime.async_windows.run_async_dsgd.mem_mu")
     members = set(members0)
     left_final: set = set()
     ever_joined: set = set()
@@ -1476,14 +1509,19 @@ def run_async_dsgd(
     plan_cache: Dict[frozenset, Topology] = {}
 
     def _plan(active: frozenset) -> Topology:
+        # the gauge tracks the current set even when the plan is a cache
+        # hit (a flapping member returns to a set already seen)
+        _mt.set("bf_members", float(len(active)))
         with mem_mu:
             cached = plan_cache.get(active)
         if cached is not None:
             return cached
+        t0p = time.perf_counter()
         if elastic:
             plan = _replan(topology, active)
         else:
             plan = _heal(topology, frozenset(range(n)) - active)
+        _mt.observe("bf_replan_seconds", time.perf_counter() - t0p)
         with mem_mu:
             plan_cache[active] = plan
         return plan
@@ -1496,6 +1534,7 @@ def run_async_dsgd(
         gvec = np.empty(d, np.float64)
         zbuf = np.empty(d, np.float64)
         payload = np.empty(d + 1, np.float64)
+        rec = _bb.get()  # flight recorder (None when off)
         my_joins = list(joins.get(r, []))
         is_member = r in members0
         leave_deadline = leaves.get(r)
@@ -1594,6 +1633,7 @@ def run_async_dsgd(
                         # round-consistent.
                         if board is not None:
                             board.mark_joining(r)
+                        t_warm = time.perf_counter()
                         z = None
                         deadline = time.perf_counter() + max(duration_s,
                                                              5.0)
@@ -1624,6 +1664,10 @@ def run_async_dsgd(
                             # a member re-joining after a graceful leave
                             # closed its harvester: a fresh one
                             db = DoubleBuffer(wins[r], my_slots, d + 1)
+                        warm = time.perf_counter() - t_warm
+                        _mt.observe("bf_join_warmstart_seconds", warm)
+                        _bb.record("peer_join", peer=f"rank{r}", rank=r,
+                                   warmstart_s=round(warm, 6))
                         # publish at once: a second joiner may warm from
                         # this rank before its first full round
                         wins[r].set_self(np.concatenate([x, [p]]))
@@ -1701,12 +1745,26 @@ def run_async_dsgd(
                                 my_out = list(plan.out_neighbors(r))
                                 my_in = list(plan.in_neighbors(r))
                                 frac = 1.0 / (len(my_out) + 1)
+                        # per-round recorder markers: a begin without
+                        # its end in a dump names the round the loop
+                        # wedged in
+                        if rec is not None:
+                            rec.begin("collective",
+                                      key=("async_dsgd", r, steps[r]),
+                                      op="async_dsgd_round",
+                                      cid="async_dsgd_round",
+                                      step=steps[r], rank=r, peers=my_out)
                         t0 = time.perf_counter()
                         if db is not None:
                             # round boundary: fold what the harvester
-                            # staged under the last compute, re-arm it
+                            # staged under the last compute, re-arm it;
+                            # the hidden share is bf_overlap_fraction
                             staged, hidden = db.apply_staged()
                             p = consume(x, p, staged, observe=True)
+                            tot = hidden + (time.perf_counter() - t0)
+                            if tot > 0:
+                                _mt.set("bf_overlap_fraction",
+                                        hidden / tot, rank=str(r))
                             db.begin()
                             ph["harvest"] += hidden
                         else:
@@ -1751,6 +1809,18 @@ def run_async_dsgd(
                                 {"x": x, "p": np.array([p]),
                                  "round": np.array([float(steps[r])])})
                             ph["publish"] += time.perf_counter() - t5
+                        if rec is not None:
+                            rec.end("collective",
+                                    key=("async_dsgd", r, steps[r]),
+                                    op="async_dsgd_round",
+                                    cid="async_dsgd_round",
+                                    step=steps[r], rank=r)
+                            rec.record("optimizer_step", step=steps[r],
+                                       rank=r, loss=float(loss))
+                        # the round's wall clock from its boundary (the
+                        # skew sleep after it is not counted)
+                        _mt.observe("bf_round_seconds",
+                                    time.perf_counter() - t0, rank=str(r))
                         ph["consume"] += t1 - t0
                         ph["unpack"] += t2 - t1
                         ph["loss_and_grad"] += t3 - t2
@@ -1813,6 +1883,12 @@ def run_async_dsgd(
                         left_final.add(r)
                     if board is not None:
                         board.mark_left(r)
+                    else:
+                        _bb.record("peer_leave", peer=f"rank{r}", rank=r,
+                                   step=steps[r])
+                    with mem_mu:
+                        n_mem = len(members)
+                    _mt.set("bf_members", float(n_mem))
                     finals[r] = None
                     is_member = False
                     # back to the outer loop: a later join offset
@@ -1949,6 +2025,13 @@ class FileBarrier:
         t0 = time.perf_counter()
         while missing_ranks():
             if time.perf_counter() - t0 > timeout_s:
+                # rank numbers, not paths: the cross-rank merge names the
+                # absent rank, and the event makes the timeout part of the
+                # incident record before the raise unwinds this process
+                _bb.record("barrier_timeout", stage=stage,
+                           missing_ranks=missing_ranks(), rank=self.rank,
+                           waited_s=round(time.perf_counter() - t0, 3),
+                           dir=self.path)
                 raise TimeoutError(
                     f"barrier {stage!r} timed out after {timeout_s:.0f}s "
                     f"on rank {self.rank}; missing rank(s) "
@@ -2586,6 +2669,11 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
     zbuf = np.empty(d, np.float64)
     payload = np.empty(d + 1, np.float64)
     self_buf = np.empty(d + 1, np.float64)
+    # this process's flight recorder (None when off), named by its rank so
+    # a shared incident directory gets blackbox-rank<r>.jsonl per rank
+    rec = _bb.get()
+    if rec is not None and rec.rank is None:
+        rec.rank = rank
     peers: Dict[int, object] = {}
     ph = dict.fromkeys(("consume", "unpack", "loss_and_grad", "pack",
                         "deposit", "harvest")
@@ -2640,11 +2728,16 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
         so every rank that has seen the same records converges on the
         same matrix with no extra coordination."""
         nonlocal tracker, gossip_every, tracker_members
+        t0p = time.perf_counter()
         if ctl is None:
-            if elastic:
-                return _replan(topology, members - dead)
-            return _heal(topology, dead)
+            plan = (_replan(topology, members - dead) if elastic
+                    else _heal(topology, dead))
+            _mt.observe("bf_replan_seconds", time.perf_counter() - t0p)
+            _mt.set("bf_members", float(len(members - dead)))
+            return plan
         plan = ctl.apply_plan(topology=topology, members=members - dead)
+        _mt.observe("bf_replan_seconds", time.perf_counter() - t0p)
+        _mt.set("bf_members", float(len(members - dead)))
         gossip_every = ctl.plan.gossip_every
         # the feed-window exponent follows the cadence in effect
         rpu = max(1, round(control.evidence_every / gossip_every))
@@ -2771,6 +2864,9 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
         pending = set(newly)
         while pending:
             for j in sorted(pending):
+                _bb.record("peer_dead", peer=f"rank{j}", rank=rank,
+                           step=steps)
+                _mt.set("bf_peer_state", float(_res.DEAD), peer=f"rank{j}")
                 _tombstone(j)
             dead.update(pending)
             barrier.exclude |= pending
@@ -2803,6 +2899,8 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
             _log.warn("rank %d: heal rendezvous %r degraded (%s: %s); "
                       "continuing without an exact baseline", rank, stage,
                       type(e).__name__, e)
+        _bb.record("peer_dead_healed", rank=rank, dead=sorted(dead),
+                   step=steps, exact=exact)
 
     # ------------------------------------------------ elastic membership
     def _admit_joiner(j: int, token: str) -> None:
@@ -2811,6 +2909,8 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
         mass files) re-establishes the exact baseline over the grown
         member set; the joiner's fresh ``p = 1`` enters the books here."""
         nonlocal my_out, frac, baseline_mass, exact
+        _bb.record("peer_join", peer=f"rank{j}", rank=rank, step=steps)
+        _mt.set("bf_peer_state", float(_res.JOINING), peer=f"rank{j}")
         transport.collect(barrier, [j])
         members.add(j)
         dead.discard(j)
@@ -2836,6 +2936,9 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
             _log.warn("rank %d: join rendezvous %r degraded (%s: %s); "
                       "continuing without an exact baseline", rank, stage,
                       type(e).__name__, e)
+        _mt.set("bf_peer_state", float(_res.HEALTHY), peer=f"rank{j}")
+        _bb.record("peer_admitted", peer=f"rank{j}", rank=rank, step=steps,
+                   exact=exact)
 
     def _release_leaver(j: int, token: str) -> None:
         """A ``leaving.<j>`` record appeared: fence our stream to the
@@ -2845,6 +2948,7 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
         unchanged: the leaver's mass moved into member windows."""
         nonlocal my_out, frac, exact
         stage = f"leave-{j}-{token}"
+        _bb.record("peer_leaving", peer=f"rank{j}", rank=rank, step=steps)
         try:
             h = peers.get(j)
             if h is not None:
@@ -2861,6 +2965,9 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
         left.add(j)
         barrier.exclude.add(j)
         peers.pop(j, None)  # the caller's finally closes it
+        _mt.set("bf_peer_state", float(_res.LEFT), peer=f"rank{j}")
+        _bb.record("peer_leave", peer=f"rank{j}", rank=rank, step=steps,
+                   exact=exact)
         plan = _make_plan()
         my_out = list(plan.out_neighbors(rank))
         frac = 1.0 / (len(my_out) + 1)
@@ -2901,6 +3008,7 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
         nonlocal x, p
         token = _mship.new_token()
         stage = f"leave-{rank}-{token}"
+        _bb.record("leave_begin", rank=rank, step=steps)
         # our regular deposits must be applied before the members fence
         for jj in sorted(k for k in peers if k in members - dead):
             peers[jj].flush(cfg.barrier_timeout_s)
@@ -2933,6 +3041,8 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
         _mship.write_record(barrier.path, "left", rank, token)
         _mship.clear_record(barrier.path, "leaving", rank)
         barrier.wait(stage + "-fin", timeout_s=cfg.barrier_timeout_s)
+        _mt.inc("bf_leaves_total", 1.0)
+        _bb.record("leave_done", rank=rank, handed_to=tgt, step=steps)
 
     def _wait_resilient(stage: str) -> None:
         """A barrier that learns its exclusion set: when ranks die between
@@ -2996,8 +3106,9 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
         # warm start from a member's window: one read_self of its
         # published (x, p), round-consistent by construction (published
         # under the window's self mutex).  No checkpoint file is read.
-        z = None
-        ws_deadline = time.perf_counter() + cfg.barrier_timeout_s
+        z = src = None
+        t_ws = time.perf_counter()
+        ws_deadline = t_ws + cfg.barrier_timeout_s
         while z is None and time.perf_counter() < ws_deadline:
             for nb in sorted(members):
                 try:
@@ -3006,6 +3117,7 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
                     continue
                 if s[-1] > 0.0:
                     z = s[:-1] / s[-1]
+                    src = nb
                     break
             if z is None:
                 time.sleep(0.01)
@@ -3017,6 +3129,10 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
                 "with initial_members=, so members publish?)")
         x = np.asarray(z, np.float64).copy()
         p = 1.0  # a fresh push-sum weight: mass enters the system here
+        warm_s = time.perf_counter() - t_ws
+        _mt.observe("bf_join_warmstart_seconds", warm_s)
+        _bb.record("join_warmstart", rank=rank, source=src,
+                   warmstart_s=round(warm_s, 6))
         # announce, then meet the members at the admission rendezvous
         token = _mship.new_token()
         members.add(rank)
@@ -3082,6 +3198,18 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
         self_buf[-1] = p
         win.set_self(self_buf)
 
+    def _end_round(loss, ta: float) -> None:
+        """The round's recorder end and ``optimizer_step``, and its wall
+        clock from the boundary as ``bf_round_seconds``."""
+        if rec is not None:
+            rec.end("collective", key=("async_dsgd_mp", rank, steps),
+                    op="async_dsgd_round", cid="async_dsgd_round",
+                    step=steps, rank=rank)
+            rec.record("optimizer_step", step=steps, rank=rank,
+                       loss=float(loss))
+        _mt.observe("bf_round_seconds", time.perf_counter() - ta,
+                    rank=str(rank))
+
     if elastic:
         # the initial snapshot, so a joiner can warm-start even before
         # this rank's first full round lands
@@ -3124,6 +3252,10 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
             trec = _tr.get()
             if trec is not None:
                 t_rnd_w = time.time()
+            if rec is not None:
+                rec.begin("collective", key=("async_dsgd_mp", rank, steps),
+                          op="async_dsgd_round", cid="async_dsgd_round",
+                          step=steps, rank=rank, peers=my_out)
             ta = time.perf_counter()
             # the disagreement observation feeds the control evidence
             watch = _Disagreement(x, p) if ctl is not None else None
@@ -3136,6 +3268,7 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
                     p = _fold(staged, x, p, watch)
                     tot = hidden + (time.perf_counter() - ta)
                     ov = hidden / tot if tot > 0 else 0.0
+                    _mt.set("bf_overlap_fraction", ov, rank=str(rank))
                     db.begin()
                     ph["harvest"] += hidden
                 else:
@@ -3165,6 +3298,7 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
                 ph["unpack"] += tc - tb
                 ph["loss_and_grad"] += td - tc
                 ph["pack"] += te - td
+                _end_round(loss, ta)
                 if trec is not None:
                     _emit_round(trec, t_rnd_w, ta, steps, ov)
                 steps += 1
@@ -3244,6 +3378,7 @@ def _run_dsgd_rank_body(topology, rank, params0, loss_and_grad, *, barrier,
             ph["loss_and_grad"] += td - tc
             ph["pack"] += te - td
             ph["deposit"] += tf - te
+            _end_round(loss, ta)
             if trec is not None:
                 _emit_round(trec, t_rnd_w, ta, steps, ov)
             steps += 1

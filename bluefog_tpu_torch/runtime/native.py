@@ -26,6 +26,7 @@ from pathlib import Path
 from typing import Callable, Optional
 
 from bluefog_tpu_torch.utils import hostbuild
+from bluefog_tpu_torch.utils import lockcheck as _lc
 
 __all__ = ["build", "load", "enabled", "TimelineWriter", "Engine",
            "PyEngine", "engine", "NO_NATIVE_ENV"]
@@ -46,7 +47,7 @@ CXX_FLAGS = ["-std=c++17", "-O2", "-fPIC", "-shared", "-pthread", "-Wall",
 LINK = ["-lrt"]
 
 _lib: Optional[ctypes.CDLL] = None
-_load_lock = threading.Lock()
+_load_lock = _lc.lock("runtime.native._load_lock")
 
 _CALLBACK_T = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_void_p)
 
@@ -192,7 +193,7 @@ class TimelineWriter:
 # process-global (one background thread, one handle space), so the Python
 # bookkeeping that keeps ctypes trampolines alive and carries captured
 # exceptions is process-global too.
-_handles_lock = threading.Lock()
+_handles_lock = _lc.lock("runtime.native._handles_lock")
 _handles: dict = {}  # handle -> (trampoline, holder)
 
 
@@ -293,7 +294,7 @@ class PyEngine:
     def __init__(self):
         self._q: _queue.Queue = _queue.Queue()
         self._results: dict = {}
-        self._cv = threading.Condition()
+        self._cv = _lc.condition("runtime.native.PyEngine._cv")
         self._next = 0
         self._stop = False
         self._thread = threading.Thread(
@@ -381,7 +382,7 @@ class PyEngine:
         t.join(timeout=5)
 
 
-_engine_lock = threading.Lock()
+_engine_lock = _lc.lock("runtime.native._engine_lock")
 _ENGINE = None
 _PY_ENGINE: Optional[PyEngine] = None
 

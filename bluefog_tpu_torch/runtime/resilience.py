@@ -55,6 +55,9 @@ import threading
 import time
 from typing import Callable, Dict, Iterator, List, Optional, Set, Tuple
 
+from bluefog_tpu_torch.blackbox import recorder as _bb
+from bluefog_tpu_torch.metrics import comm as _mt
+from bluefog_tpu_torch.utils import lockcheck as _lc
 
 __all__ = [
     "HEALTHY",
@@ -88,6 +91,13 @@ LEFT = 5
 
 STATE_NAMES = {HEALTHY: "healthy", SUSPECT: "suspect", DEAD: "dead",
                REJOINED: "rejoined", JOINING: "joining", LEFT: "left"}
+
+# flight-recorder event of each transition into a state (HEALTHY's
+# depends on where it came from; see PeerHealth._set)
+_STATE_EVENT = {SUSPECT: "peer_suspect", DEAD: "peer_dead",
+                REJOINED: "peer_rejoin", JOINING: "peer_join",
+                LEFT: "peer_leave"}
+
 
 class BudgetExhausted(RuntimeError):
     """A :class:`Backoff`'s retry budget (or deadline) ran out."""
@@ -208,6 +218,16 @@ class _HealthCore:
         self.state = new
         self.transitions.append((self._clock(), old, new))
         del self.transitions[:-64]  # bounded forensics, newest kept
+        ev = _STATE_EVENT.get(new)
+        if ev is None and new == HEALTHY:
+            if old in (DEAD, REJOINED):
+                ev = "peer_rejoin"
+            elif old == SUSPECT:
+                ev = "peer_recovered"
+        if ev is not None:
+            _bb.record(ev, peer=self.label, from_state=STATE_NAMES[old],
+                       to_state=STATE_NAMES[new], **fields)
+        _mt.set("bf_peer_state", float(new), peer=self.label)
 
     # ------------------------------------------------------------ evidence
     def note_ok(self) -> int:
@@ -303,7 +323,7 @@ class HealthBoard:
         from the start; the rest begin LEFT — capacity reserved for
         later joiners, never promoted to SUSPECT/DEAD by their silence.
         Default: every slot is a member (the fixed-fleet behavior)."""
-        self._mu = threading.Lock()
+        self._mu = _lc.lock("runtime.resilience.HealthBoard._mu")
         self._cores = [
             _HealthCore(f"rank{r}", suspect_after_s, dead_after_s, clock)
             for r in range(n_ranks)

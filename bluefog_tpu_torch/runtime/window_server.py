@@ -124,12 +124,16 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from bluefog_tpu_torch import chaos as _chaos
+from bluefog_tpu_torch.blackbox import recorder as _bb
+from bluefog_tpu_torch.metrics import comm as _mt
+from bluefog_tpu_torch.metrics import registry as _mreg
 from bluefog_tpu_torch.runtime import (delta as _delta, native as _native,
                                        resilience, wire_codec, wire_status)
 from bluefog_tpu_torch.runtime.async_windows import (
     _DTYPES as _DTYPE_IDS, _py_windows)
 from bluefog_tpu_torch.serving import snapshots as _snap
 from bluefog_tpu_torch.tracing import recorder as _tr
+from bluefog_tpu_torch.utils import lockcheck as _lc
 
 __all__ = ["WindowServer", "RemoteWindow", "PipelinedRemoteWindow",
            "DepositStream", "StripedDepositStream", "stripe_of",
@@ -429,7 +433,7 @@ class _ApplyWorker:
         self._jobs: "_q.Queue" = _q.Queue(maxsize=2)
         self._closed = False
         self._free: Dict[int, List[np.ndarray]] = {}
-        self._free_mu = threading.Lock()
+        self._free_mu = _lc.lock("runtime.window_server._ApplyWorker._free_mu")
         self._thread = threading.Thread(
             target=self._loop, daemon=True, name=f"bf-win-apply:{peer}")
         self._thread.start()
@@ -521,6 +525,9 @@ class _ApplyWorker:
                           dur=apply_s, parent=psid, round_=rnd_,
                           trace_id=tid_, peer=self._peer, seq=seq,
                           items=applied)
+            _mt.inc("bf_tcp_batches_total", 1.0, peer=self._peer)
+            _bb.record("tcp_batch_deposit", seq=seq, applied=applied,
+                       err=first_err, peer=self._peer)
             # the stream's applied high-water mark moves before the ack
             # leaves: a reconnecting client must never learn (via
             # STREAM_ATTACH) that an already-applied batch is still
@@ -816,6 +823,7 @@ class _SubSender:
 class _Handler(socketserver.BaseRequestHandler):
     def setup(self):
         self.server.track(self.request)  # type: ignore[attr-defined]
+        _bb.record("tcp_connect", peer=self.client_address[0])
         # reusable per-connection receive/decode scratch (grown once per
         # high-water mark, then no allocation on the hot path)
         self._pay: Dict[int, np.ndarray] = {}     # dtype id -> raw buffer
@@ -827,7 +835,7 @@ class _Handler(socketserver.BaseRequestHandler):
         self._deferred_err = 0
         # replies can come from two threads once a batch stream starts
         # (handler: sync ops; apply worker: batch acks): serialise writes
-        self._wmu = threading.Lock()
+        self._wmu = _lc.lock("runtime.window_server._Handler._wmu")
         self._worker: Optional[_ApplyWorker] = None  # created on 1st batch
         # DepositStream lineage binding (STREAM_ATTACH); None = unbound
         self._stream_sid: Optional[int] = None
@@ -852,6 +860,7 @@ class _Handler(socketserver.BaseRequestHandler):
             _sendmsg_all(self.request, views)
 
     def finish(self):
+        _bb.record("tcp_disconnect", peer=self.client_address[0])
         if self._worker is not None:
             self._worker.close()
         if self._sub is not None:
@@ -969,9 +978,23 @@ class _Handler(socketserver.BaseRequestHandler):
                 return _ERR_CODEC
         rc = ops.deposit(name_b, slot, arr,
                          bool(flags & _FLAG_ACCUMULATE))
-        if rc >= 0 and flags & _FLAG_DRAIN:
-            # a graceful leaver handed its push-sum mass to this owner
-            self.server.note_drain()  # type: ignore[attr-defined]
+        if rc >= 0:
+            nbytes = n_elems * _DTYPES[dtype_id].itemsize
+            window = name_b.decode("utf-8", "replace")
+            peer = self.client_address[0]
+            _mt.inc("bf_tcp_deposit_bytes_total", nbytes, window=window,
+                    peer=peer)
+            _mt.inc("bf_tcp_deposits_total", 1.0, peer=peer)
+            _bb.record("tcp_deposit", slot=slot, bytes=nbytes, window=window,
+                       peer=peer)
+            if flags & _FLAG_DRAIN:
+                # a graceful leaver handed its push-sum mass to this
+                # owner: recorded where the receiving side's forensics
+                # look
+                self.server.note_drain()  # type: ignore[attr-defined]
+                _mt.inc("bf_drain_deposits_total", 1.0, peer=peer)
+                _bb.record("drain_deposit", slot=slot, window=window,
+                           peer=peer)
         return rc
 
     def _batch_ack(self, seq: int, status: int) -> None:
@@ -1020,6 +1043,10 @@ class _Handler(socketserver.BaseRequestHandler):
                 self._recv_name(sock, name_len)
                 self._eat(sock, wire_bytes)
             self.server.note_dedup()  # type: ignore[attr-defined]
+            _mt.inc("bf_tcp_deduped_batches_total", 1.0,
+                    peer=self.client_address[0])
+            _bb.record("tcp_dedup_batch", seq=seq, items=count,
+                       peer=self.client_address[0])
             self._batch_ack(seq, count)
             return True
         jobs: List = []
@@ -1236,6 +1263,8 @@ class _Handler(socketserver.BaseRequestHandler):
                     rc = self._deferred_err or self._deferred_applied
                     self._deferred_err = 0
                     self._deferred_applied = 0
+                    _bb.record("tcp_flush", peer=self.client_address[0],
+                               status=rc)
                     self._send(_STATUS.pack(rc))
                     continue
                 name = self._recv_name(sock, name_len)
@@ -1327,7 +1356,7 @@ class _Server(socketserver.ThreadingTCPServer):
         super().__init__(*args, **kwargs)
         self._conns: set = set()
         self._features: Dict[int, int] = {}  # id(sock) -> granted mask
-        self._conns_mu = threading.Lock()
+        self._conns_mu = _lc.lock("runtime.window_server._Server._conns_mu")
         # DepositStream lineage state: stream_id -> [epoch, applied_seq,
         # handler, last_activity, first_err].  Survives connection churn:
         # the applied high-water mark is what makes replay after a
@@ -1335,7 +1364,8 @@ class _Server(socketserver.ThreadingTCPServer):
         # rejected deposit loud even when the connection died before its
         # negative ack got out.
         self._streams: Dict[int, list] = {}
-        self._streams_mu = threading.Lock()
+        self._streams_mu = _lc.lock(
+            "runtime.window_server._Server._streams_mu")
         # drain-flagged deposits applied (graceful leavers' handoffs)
         self.drain_deposits = 0
         # replayed duplicates consumed without an apply (exactly once)
@@ -1347,7 +1377,7 @@ class _Server(socketserver.ThreadingTCPServer):
         # read path: a reconnecting subscriber's newer epoch quiesces the
         # superseded push sender, so no zombie pushes beside its successor
         self._subs: Dict[int, list] = {}
-        self._subs_mu = threading.Lock()
+        self._subs_mu = _lc.lock("runtime.window_server._Server._subs_mu")
         self._live_subs = 0
         # the snapshot table this server serves: the process-global one by
         # default (trainers), a private one for a relay that re-publishes
@@ -1691,6 +1721,7 @@ class RemoteWindow:
     def _fail(self, msg: str) -> None:
         if self._err is None:
             self._err = msg
+        _bb.record("tcp_sync_error", window=self.name, error=msg[:200])
 
     def _raise_if_err(self) -> None:
         if self._err is not None:
@@ -1741,6 +1772,9 @@ class RemoteWindow:
             bo = resilience.read_backoff(self._retry_cfg)
             last: BaseException = first
             for delay in bo:
+                _bb.record("torn_read_retry", window=self.name,
+                           op=op_desc, error=str(last)[:200])
+                _mt.inc("bf_read_retries_total", 1.0, op=op_desc)
                 time.sleep(delay)
                 try:
                     self._reconnect()
@@ -1779,6 +1813,7 @@ class RemoteWindow:
             raise RuntimeError(
                 f"remote deposit into {self.name!r}[{slot}] failed ({rc}): "
                 + _err_text(rc))
+        _mt.inc("bf_tcp_single_deposits_total", 1.0)
         return rc
 
     def read_self(self, n_elems: int, dtype=np.float64) -> np.ndarray:
@@ -1910,6 +1945,10 @@ class _LocalWindowRef:
         if v < 0:
             raise RuntimeError(
                 f"deposit into {self.name!r}[{slot}] failed")
+        if drain:
+            _mt.inc("bf_drain_deposits_total", 1.0, peer="local")
+            _bb.record("drain_deposit", window=self.name, slot=slot,
+                       peer="local")
         return int(v)
 
 
@@ -2018,10 +2057,11 @@ class DepositStream:
         # stable lineage id + per-connection epoch (see STREAM_ATTACH)
         self._stream_id = int.from_bytes(os.urandom(8), "little") or 1
         self._epoch = 0
+        self._flushes = 0  # the recorder's flush span keys
         self._sock_gen = 0
         self._conn_broken = False
         self._wake = threading.Event()  # interrupts backoff sleeps on close
-        self._cv = threading.Condition()
+        self._cv = _lc.condition("runtime.window_server.DepositStream._cv")
         self._queue: collections.deque = collections.deque()
         # seq -> (t_send, retained items | None); items are retained until
         # the ack only when reconnect is on: they are the replay window
@@ -2060,6 +2100,9 @@ class DepositStream:
         # capability (shm-backed windows on the owner) is probed at the
         # first deposit and latched, see _shm_window
         self._shm_ok = bool(shm) and _is_local_host(self._addr[0])
+        if shm and not self._shm_ok:
+            _bb.record("shm_fallback", peer=self._peer, window="*",
+                       reason="peer host is not local")
         self._shm_wins: Dict[bytes, Optional[object]] = {}
         self._shm_deposits = 0
         self._sock = self._connect_first()
@@ -2220,12 +2263,16 @@ class DepositStream:
         h = self.health
         if h is not None:
             h.note_failure()
+        _bb.record("tcp_reconnect", peer=self._peer, reason=reason[:200],
+                   inflight=len(self._inflight))
         try:
             self._sock.close()
         except OSError:
             pass
         bo = self._backoff()
         for delay in bo:
+            _mt.observe("bf_reconnect_backoff_seconds", delay,
+                        peer=self._peer)
             if self._wake.wait(delay) or self._closed:
                 return False
             try:
@@ -2277,6 +2324,12 @@ class DepositStream:
             self._hb_last = time.monotonic()
             self._reconnects += 1
             self.replayed_batches += len(pending)
+            _mt.inc("bf_reconnects_total", 1.0, peer=self._peer)
+            if pending:
+                _mt.inc("bf_replayed_batches_total", float(len(pending)),
+                        peer=self._peer)
+            _bb.record("tcp_reconnected", peer=self._peer,
+                       epoch=self._epoch, replayed=len(pending))
             if h is not None:
                 h.note_ok()
             return True
@@ -2337,6 +2390,8 @@ class DepositStream:
         self._ack_ewma = ewma
         if self._on_ewma is not None:
             self._on_ewma(ewma)
+        else:
+            _mt.set("bf_peer_ack_ewma_seconds", ewma, peer=self._peer)
 
     def ack_ewma(self) -> Optional[float]:
         """EWMA (seconds) over this peer's deposit-ack latencies and
@@ -2435,10 +2490,13 @@ class DepositStream:
             else:
                 win = AsyncWindow(name.decode(), attach=True,
                                   attach_timeout_s=1.0)
-        except Exception:  # noqa: BLE001 — any capability failure
+        except Exception as e:  # noqa: BLE001 — any capability failure
             # (owner's windows not shm-backed, stale geometry) means
             # TCP, never an error
             self._shm_ok = False
+            _bb.record("shm_fallback", peer=self._peer,
+                       window=name.decode("utf-8", "replace"),
+                       reason=f"{type(e).__name__}: {e}"[:200])
         self._shm_wins[name] = win
         return win
 
@@ -2456,6 +2514,9 @@ class DepositStream:
             # geometry mismatch: the wire path's per-item dtype/size
             # check handles it; the table route cannot
             self._shm_wins[name] = None
+            _bb.record("shm_fallback", peer=self._peer,
+                       window=name.decode("utf-8", "replace"),
+                       reason="dtype/size mismatch")
             return False
         act = _chaos.fire("client", peer=self._peer, seq=-1, shm=1)
         if act is not None:
@@ -2466,14 +2527,21 @@ class DepositStream:
                 # table accumulate, so nothing applied; the deposit is
                 # re-delivered over TCP, still exactly once
                 self._shm_wins[name] = None
+                _bb.record("shm_fallback", peer=self._peer,
+                           window=name.decode("utf-8", "replace"),
+                           reason=f"chaos:{act[0]}")
                 return False
         try:
             win.deposit_async(slot, arr, accumulate=accumulate,
                               drain=drain)
-        except Exception:  # noqa: BLE001 — fall back, exactly once
+        except Exception as e:  # noqa: BLE001 — fall back, exactly once
             self._shm_wins[name] = None
+            _bb.record("shm_fallback", peer=self._peer,
+                       window=name.decode("utf-8", "replace"),
+                       reason=f"{type(e).__name__}: {e}"[:200])
             return False
         self._shm_deposits += 1
+        _mt.inc("bf_shm_deposits_total", 1.0, peer=self._peer)
         return True
 
     @property
@@ -2543,11 +2611,17 @@ class DepositStream:
                     f"DepositStream to {self._peer} is closed")
             self._queue.append(item)
             self._cv.notify_all()
+        stalled = time.perf_counter() - t0
+        if stalled > 0.005:
+            # backpressure made the training thread wait: the signal a
+            # wedged or slow peer gives first
+            _mt.inc("bf_tcp_queue_stalls_total", 1.0, peer=self._peer)
+            _bb.record("tcp_queue_stall", peer=self._peer,
+                       waited_s=round(stalled, 6))
         if trec is not None:
             # the enqueue phase: zero when the queue had room, the
             # backpressure wait when it did not (the first place a slow
             # peer takes training-thread time)
-            stalled = time.perf_counter() - t0
             trec.emit("enqueue", "tcp", t0=time.time() - stalled,
                       dur=stalled,
                       parent=tctx[1] if tctx else None,
@@ -2560,11 +2634,19 @@ class DepositStream:
         applied by the serving host (or raise the transport error).  After
         ``flush`` returns, an owner-side read observes all of this
         stream's earlier deposits."""
+        self._flushes += 1
+        key = (self._peer, self._flushes)
+        _bb.begin("tcp_flush", key=key, peer=self._peer)
+        t0 = time.perf_counter()
         with self._cv:
             ok = self._cv.wait_for(
                 lambda: self._err is not None or (
                     not self._queue and not self._inflight),
                 timeout=timeout_s)
+        waited = time.perf_counter() - t0
+        _bb.end("tcp_flush", key=key, peer=self._peer,
+                waited_s=round(waited, 6))
+        _mt.observe("bf_tcp_flush_seconds", waited, peer=self._peer)
         self._raise_if_err()
         if not ok:
             raise TimeoutError(
@@ -2611,6 +2693,7 @@ class DepositStream:
                         if not self._heartbeat():
                             return
                     continue
+                t_win = time.perf_counter()
                 with self._cv:
                     while (len(self._inflight) >= self._max_in_flight
                            and self._err is None and not self._closed
@@ -2622,6 +2705,7 @@ class DepositStream:
                         return
                     if self._conn_broken:
                         continue  # the outer loop recovers first
+                    win_stalled = time.perf_counter() - t_win
                     items = []
                     nbytes = 0
                     while self._queue and (
@@ -2665,6 +2749,13 @@ class DepositStream:
                         time.perf_counter(),
                         items if self._resume else None, wsp)
                     self._cv.notify_all()
+                if win_stalled > 0.005:
+                    # the in-flight window was full: the peer acks slower
+                    # than this rank sends
+                    _mt.inc("bf_tcp_window_stalls_total", 1.0,
+                            peer=self._peer)
+                    _bb.record("tcp_window_stall", peer=self._peer,
+                               waited_s=round(win_stalled, 6))
                 views = self._frame_views(
                     seq, items, wsp.ctx if wsp is not None else None)
                 t_send0 = time.perf_counter()
@@ -2709,6 +2800,7 @@ class DepositStream:
                         for it in items:
                             if it.pooled is not None:
                                 self._give(it.pooled)
+                self._note_batch(items, wire_total)
         except Exception as e:  # noqa: BLE001 — nothing may kill the
             # sender silently: a dead sender with _err unset would block
             # every later flush() at the audit fence with no diagnostic
@@ -2760,7 +2852,10 @@ class DepositStream:
             if seq & _HB_MARK:
                 t0 = self._hb_sent.pop(seq & ~_HB_MARK, None)
                 if t0 is not None:
-                    self._note_latency(time.perf_counter() - t0)
+                    rtt = time.perf_counter() - t0
+                    _mt.observe("bf_peer_heartbeat_rtt_seconds", rtt,
+                                peer=self._peer)
+                    self._note_latency(rtt)
                 if self.health is not None:
                     self.health.note_ok()
                 continue
@@ -2777,6 +2872,10 @@ class DepositStream:
                     self._note_phases(entry[2], times, lat, seq)
                 self.ack_latencies.append(lat)
                 self._note_latency(lat)
+                _mt.observe("bf_tcp_ack_latency_seconds", lat,
+                            peer=self._peer)
+                _mt.set("bf_tcp_inflight_batches",
+                        float(len(self._inflight)), peer=self._peer)
             if status < 0:
                 self._fail(f"peer rejected a batched deposit ({status}): "
                            + _err_text(int(status)))
@@ -2790,6 +2889,27 @@ class DepositStream:
                 self._err = msg
             self._queue.clear()
             self._cv.notify_all()
+        _bb.record("tcp_pipeline_error", peer=self._peer, error=msg)
+
+    def _note_batch(self, items, wire_total: int) -> None:
+        """A batch left on the wire: its counts, wire and dense bytes (the
+        codec's ratio, when one is on) and the in-flight depth."""
+        if _mreg.current() is None:
+            return
+        dense_total = sum(i.n_elems * _DTYPES[i.dtype_id].itemsize
+                          for i in items)
+        codec = wire_codec.CODEC_NAMES[self._codec]
+        _mt.inc("bf_tcp_pipelined_batches_total", 1.0, peer=self._peer)
+        _mt.inc("bf_tcp_pipelined_items_total", float(len(items)),
+                peer=self._peer)
+        _mt.inc("bf_tcp_wire_bytes_total", wire_total, peer=self._peer,
+                codec=codec)
+        _mt.inc("bf_tcp_dense_bytes_total", dense_total, peer=self._peer)
+        _mt.set("bf_tcp_inflight_batches", float(len(self._inflight)),
+                peer=self._peer)
+        if dense_total and self._codec != wire_codec.CODEC_NONE:
+            _mt.set("bf_compression_ratio", wire_total / dense_total,
+                    compressor="wire_" + codec, transport="tcp")
 
     def close(self) -> None:
         """Close the stream.  Does not flush: callers owning an exactness

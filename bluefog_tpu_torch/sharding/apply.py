@@ -13,9 +13,9 @@ Counterpart of ``bluefog_tpu/sharding/apply.py``, in two halves of the
   slice of every leaf, and its inverse, the full tree reassembled from every
   coordinate's shard tree.  Both take numpy arrays or torch tensors.
 
-Plus the wire accounting of shard-local gossip (:func:`tree_wire_bytes`).
-The reference's metric counters (``record_shard_savings``) come with the
-port's metrics package.
+Plus the wire accounting of shard-local gossip (:func:`tree_wire_bytes`,
+and :func:`record_shard_savings` on the metrics registry's
+``bf_sharded_bytes_total{leaf,axis}`` and ``bf_gather_bytes_saved_total``).
 """
 
 from __future__ import annotations
@@ -30,13 +30,16 @@ from torch.utils import _pytree as pytree
 from bluefog_tpu_torch.sharding.mesh import (ShardView, inner_coords,
                                              shard_shape, shard_slices,
                                              shard_size_ratio, spec_leaves)
-from bluefog_tpu_torch.sharding.rules import PartitionSpec, spec_entry_axes
+from bluefog_tpu_torch.metrics import comm as _mt
+from bluefog_tpu_torch.sharding.rules import (PartitionSpec, named_leaves,
+                                              spec_entry_axes)
 
 __all__ = [
     "make_shard_and_gather_fns",
     "shard_tree",
     "gather_tree",
     "reassemble_vectors",
+    "record_shard_savings",
     "tree_wire_bytes",
 ]
 
@@ -275,3 +278,26 @@ def tree_wire_bytes(tree, specs, axes: Mapping[str, int]
         full_b += full
         shard_b += full // shard_size_ratio(spec, axes)
     return shard_b, full_b
+
+
+def record_shard_savings(tree, specs, axes: Mapping[str, int], *,
+                         deposits: int = 1) -> Tuple[int, int]:
+    """Account one (or ``deposits``) shard-local deposits of ``tree`` on
+    the wire-savings counters; returns ``(shard_bytes, saved_bytes)`` per
+    deposit.  Labels: ``leaf`` = the leaf's tree path, ``axis`` = the
+    joined mentioned axes ('' for replicated leaves)."""
+    specs_flat = spec_leaves(specs, tree)
+    shard_total = saved_total = 0
+    for (name, leaf), spec in zip(named_leaves(tree), specs_flat):
+        full = int(np.prod(_shape(leaf), dtype=np.int64)) * _itemsize(leaf)
+        shard = full // shard_size_ratio(spec, axes)
+        axis = "+".join(ax for entry in tuple(spec)
+                        for ax in spec_entry_axes(entry))
+        _mt.inc("bf_sharded_bytes_total", float(shard * deposits),
+                leaf=name, axis=axis)
+        if full > shard:
+            _mt.inc("bf_gather_bytes_saved_total",
+                    float((full - shard) * deposits), leaf=name, axis=axis)
+        shard_total += shard
+        saved_total += full - shard
+    return shard_total, saved_total

@@ -21,9 +21,10 @@ operations in the same order per element as the gathered run:
 bit-equal.  The rounds are deterministic and synchronous (every rank
 deposits, then every rank consumes), which makes that claim testable; the
 asynchronous execution model is
-:func:`bluefog_tpu_torch.runtime.async_windows.run_async_dsgd`.  The JAX
-package's ``record_shard_savings`` waits for the metrics package (ROADMAP
-Queue 1 item 11); the report carries the same byte counts.
+:func:`bluefog_tpu_torch.runtime.async_windows.run_async_dsgd`.  The run's
+deposits are accounted on the metrics registry
+(:func:`~bluefog_tpu_torch.sharding.apply.record_shard_savings`), and the
+report carries the same byte counts.
 """
 
 from __future__ import annotations
@@ -34,7 +35,10 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 
 from bluefog_tpu_torch.runtime.async_windows import AsyncWindow, TreePacker
-from bluefog_tpu_torch.sharding.apply import gather_tree, tree_wire_bytes
+from bluefog_tpu_torch.blackbox import recorder as _bb
+from bluefog_tpu_torch.sharding.apply import (gather_tree,
+                                              record_shard_savings,
+                                              tree_wire_bytes)
 from bluefog_tpu_torch.sharding.mesh import ShardView, inner_coords
 from bluefog_tpu_torch.sharding.rules import RuleTable
 from bluefog_tpu_torch.topology.graphs import Topology, heal as _heal
@@ -143,6 +147,8 @@ def run_sharded_gossip(
         for k in range(rounds):
             if heal_after is not None and k == heal_after and dead:
                 healed = _heal(topology, frozenset(dead))
+                _bb.record("sharded_gossip_heal", round=k,
+                           dead=sorted(dead))
                 live = [r for r in range(n) if r not in dead]
                 my_out = [list(healed.out_neighbors(r)) for r in range(n)]
             # deposit phase: same shard to same shard, shard-sized wire
@@ -200,6 +206,8 @@ def run_sharded_gossip(
             params[r] = gather_tree(template, specs, axes, shard_trees)
 
         shard_b, full_b = tree_wire_bytes(template, specs, axes)
+        if deposits:
+            record_shard_savings(template, specs, axes, deposits=deposits)
         return ShardedGossipReport(
             rounds=rounds,
             params=params,

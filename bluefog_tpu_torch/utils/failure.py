@@ -20,13 +20,20 @@ every thread's stack, then escalates:
 
 :func:`run_supervised` (``bfrun --supervise N``) is the recovery half: it
 re-runs a failed script with a bounded backoff, and the script resumes from
-its latest checkpoint.  The reference's hooks into its flight recorder and
-metrics (``incident_dir=``) come with those subsystems (ROADMAP item 11).
+its latest checkpoint.  With ``incident_dir`` it keeps each attempt's
+flight-recorder dumps (:mod:`bluefog_tpu_torch.blackbox`) apart.
+
+On a missed deadline the watchdog first counts the hang
+(``bf_hangs_total{action}``, when metrics are on) and dumps the flight
+recorder (reason ``heartbeat_timeout``, with the last-beat step), before
+it escalates: once the process is killed or the loop unwinds, the
+recorder is gone.
 """
 
 from __future__ import annotations
 
 import ctypes
+import json
 import logging
 import os
 import signal
@@ -36,6 +43,10 @@ import threading
 import time
 import traceback
 from typing import Callable, List, Optional, Sequence
+
+from bluefog_tpu_torch import blackbox as _bb
+from bluefog_tpu_torch.metrics import comm as _mcomm
+from bluefog_tpu_torch.metrics import health as _health
 
 __all__ = ["HangError", "Heartbeat", "run_supervised"]
 
@@ -113,6 +124,7 @@ class Heartbeat:
         self._last = time.monotonic()
         self._beats += 1
         self._step = step
+        _bb.record("heartbeat_beat", step=step)
 
     @property
     def beats(self) -> int:
@@ -126,6 +138,10 @@ class Heartbeat:
         self._monitor = threading.Thread(
             target=self._run, name="bf-heartbeat", daemon=True)
         self._monitor.start()
+        # the heartbeat's age as a callback gauge (read at snapshot time,
+        # so a scrape sees staleness grow during a hang, before the
+        # watchdog fires); no-op when metrics are off
+        _health.watch_heartbeat(self, name=self._target.name)
         return self
 
     def stop(self) -> None:
@@ -133,6 +149,7 @@ class Heartbeat:
         if self._monitor is not None:
             self._monitor.join(timeout=5.0)
             self._monitor = None
+        _health.unwatch_heartbeat(name=self._target.name)
 
     def __enter__(self):
         return self.start()
@@ -147,6 +164,13 @@ class Heartbeat:
             if silent_for < self.timeout_s:
                 continue
             self.hangs_detected += 1
+            _mcomm.inc("bf_hangs_total", 1.0, action=self.action)
+            _bb.dump("heartbeat_timeout", extra={
+                "last_step": self._step,
+                "silent_for_s": round(silent_for, 3),
+                "beats": self._beats,
+                "action": self.action,
+            })
             log.error(
                 "heartbeat: no progress for %.1fs (last step %r): hang "
                 "detected.\n%s", silent_for, self._step, _dump_stacks())
@@ -192,6 +216,24 @@ class Heartbeat:
         os.kill(os.getpid(), signal.SIGKILL)
 
 
+def _collect_incident(incident_dir: str, attempt: int, returncode: int,
+                      uptime: float) -> None:
+    """Layer attempt ``attempt``'s dumps into ``restart-<attempt>/`` and
+    append its durable restart marker to ``supervisor.jsonl`` (the
+    supervisor's own recorder is never dumped, so the marker lives in the
+    incident tree, where the merge CLI reports it)."""
+    moved = _bb.collect_attempt(incident_dir, attempt)
+    if moved:
+        log.info("supervisor: collected %d blackbox file(s) into "
+                 "%s/restart-%d", moved, incident_dir, attempt)
+    os.makedirs(incident_dir, exist_ok=True)
+    with open(os.path.join(incident_dir, "supervisor.jsonl"), "a") as f:
+        f.write(json.dumps({
+            "supervisor_restart": True, "attempt": attempt,
+            "returncode": returncode, "uptime_s": round(uptime, 3),
+            "time": time.time()}) + "\n")
+
+
 def run_supervised(
     argv: Sequence[str],
     *,
@@ -222,14 +264,16 @@ def run_supervised(
     restarts at once.
 
     Returns 0, or the last exit status once the restarts are spent.
-    ``incident_dir`` (the flight recorder's dumps across restarts) comes
-    with ROADMAP item 11 and raises ``NotImplementedError``."""
+
+    ``incident_dir``: flight-recorder forensics across restarts.  The
+    child inherits it as ``BLUEFOG_TPU_BLACKBOX_DIR`` (so its watchdog and
+    crash dumps land there), and between attempts the supervisor moves the
+    dump files into ``restart-<n>/`` and appends a restart marker to
+    ``supervisor.jsonl``, so a later attempt cannot overwrite the evidence
+    of an earlier one: the whole tree is one incident that ``python -m
+    bluefog_tpu_torch.blackbox`` reads recursively."""
     from bluefog_tpu_torch.runtime.resilience import Backoff
 
-    if incident_dir is not None:
-        raise NotImplementedError(
-            "run_supervised(incident_dir=) is not ported yet: it comes "
-            "with ROADMAP Queue 1 item 11 (the flight recorder)")
     backoff = None
     if restart_backoff_s > 0:
         backoff = Backoff(base_s=restart_backoff_s,
@@ -237,6 +281,12 @@ def run_supervised(
                           jitter=restart_jitter,
                           budget=max_restarts + 1,
                           seed=restart_backoff_seed)
+    if incident_dir is not None:
+        env = dict(env if env is not None else os.environ)
+        # an explicit incident_dir wins over an ambient
+        # BLUEFOG_TPU_BLACKBOX_DIR, or the children dump where the
+        # supervisor does not collect
+        env["BLUEFOG_TPU_BLACKBOX_DIR"] = incident_dir
     restarts = 0
     while True:
         t0 = time.monotonic()
@@ -245,6 +295,8 @@ def run_supervised(
         if proc.returncode == 0:
             return 0
         restarts += 1
+        if incident_dir is not None:
+            _collect_incident(incident_dir, restarts, proc.returncode, uptime)
         if restarts > max_restarts:
             log.error("supervisor: giving up after %d restarts (last rc %d)",
                       max_restarts, proc.returncode)

@@ -180,6 +180,15 @@ def _brief_stack() -> List[str]:
             for f in traceback.extract_stack(limit=8)[:-3]]
 
 
+def _record_cycle(hit: dict, **extra) -> None:
+    """The forensic record of a violation: a ``lock_order_cycle`` event in
+    the flight recorder, so a dump taken after it names the inversion."""
+    from bluefog_tpu_torch.blackbox import recorder as _bb
+
+    _bb.record("lock_order_cycle", held=hit["held"], wanted=hit["wanted"],
+               thread=hit["thread"], **extra)
+
+
 def _note_blocking_acquire(wanted: "_TrackedLock") -> None:
     """Record edges held->wanted; raise on a cycle-closing edge."""
     held = _held()
@@ -213,6 +222,7 @@ def _note_blocking_acquire(wanted: "_TrackedLock") -> None:
                            "stack": _brief_stack()}
                     _violations.append(hit)
     if hit is not None:
+        _record_cycle(hit)
         if _raise_on_cycle:
             raise LockOrderViolation(
                 f"lock-order cycle: thread {hit['thread']!r} holds "
@@ -233,6 +243,7 @@ def _note_self_deadlock(wanted: "_TrackedLock") -> None:
            "self_deadlock": True, "stack": _brief_stack()}
     with _meta:
         _violations.append(hit)
+    _record_cycle(hit, self_deadlock=True)
     raise LockOrderViolation(
         f"self-deadlock: thread {me!r} already holds non-reentrant lock "
         f"{wanted.name!r} and is blocking on it again — this can never "

@@ -24,8 +24,12 @@ Two span flavours:
   crossed intervals.  The ids are assigned here for both writers; the
   native writer puts the async events in lane 0 (chrome groups them by id).
 
-Not ported: ``device_stage`` (events from inside a compiled program) comes
-with the metrics and tracing packages.
+:func:`device_stage` marks a collective call's start (``phase='B'``) and
+return (``'E'``) as an async span, and records a ``device_stage`` event in
+the flight recorder.  The JAX package fires it from inside the compiled
+step once the data exists; the port runs eagerly, so the span covers the
+host's side of the call, and on the card the kernels may still run after
+its end (``torch.profiler`` shows them).
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 from bluefog_tpu_torch.runtime import native as _native
+from bluefog_tpu_torch.utils import lockcheck as _lc
 
 __all__ = [
     "Timeline",
@@ -51,6 +56,8 @@ __all__ = [
     "timeline_context",
     "timeline_active",
     "current",
+    "device_stage",
+    "suppress_device_stage",
 ]
 
 _OPEN_PER_KEY = 256
@@ -71,8 +78,8 @@ class Timeline:
                  native: Optional[bool] = None):
         self.path = path
         self._events: List[dict] = []
-        self._lock = threading.Lock()
-        self._io_lock = threading.Lock()
+        self._lock = _lc.lock("utils.timeline.Timeline._lock")
+        self._io_lock = _lc.lock("utils.timeline.Timeline._io_lock")
         self._wrote_header = False
         self._finalized = False
         self._closed = False
@@ -162,6 +169,21 @@ class Timeline:
         if self._native is not None:
             self._native.end_async(name.encode(), category.encode(), aid)
         return aid
+
+    def open_spans(self) -> List[dict]:
+        """Async spans begun but not yet ended: the blackbox dump's "what
+        was in flight" view of the timeline.  Timeout acquire: the dump
+        path runs from fatal-signal handlers on the thread they
+        interrupt, and an empty list beats a wedged dump."""
+        if not self._lock.acquire(timeout=1.0):
+            return []
+        try:
+            return [{"name": name, "cat": cat, "tid": tid, "id": aid,
+                     "flavor": "async"}
+                    for (name, cat, tid), q in self._open_async.items()
+                    for aid in q]
+        finally:
+            self._lock.release()
 
     def instant(self, name: str, category: str = "marker"):
         if self._closed:
@@ -292,3 +314,39 @@ def timeline_context(name: str, category: str = "activity"):
         yield
     finally:
         timeline_end_activity(name, category)
+
+
+_suppress_stage = threading.local()
+
+
+@contextlib.contextmanager
+def suppress_device_stage():
+    """:func:`device_stage` is the identity inside this block: a wrapper
+    that runs an inner collective (the dynamic gossip's taken schedule)
+    keeps one span, its own."""
+    prev = getattr(_suppress_stage, "on", False)
+    _suppress_stage.on = True
+    try:
+        yield
+    finally:
+        _suppress_stage.on = prev
+
+
+def device_stage(x, name: str, *, phase: str = "B",
+                 category: str = "gossip"):
+    """Open (``phase='B'``) or close (``'E'``) ``name``'s async span in the
+    active timeline, once per call, and record a ``device_stage`` event in
+    the flight recorder when it is on.  Returns ``x`` unchanged; the
+    identity when no timeline is active."""
+    if phase not in ("B", "E"):
+        raise ValueError(f"phase must be 'B' or 'E', got {phase!r}")
+    tl = _get()
+    if tl is None or getattr(_suppress_stage, "on", False):
+        return x
+    (tl.begin_async if phase == "B" else tl.end_async)(name, category)
+    from bluefog_tpu_torch.blackbox import recorder as _bb
+
+    rec = _bb.get()
+    if rec is not None:
+        rec.record("device_stage", name=name, phase=phase, rank=0)
+    return x

@@ -440,7 +440,8 @@ its last line:
    (``--ranks 2`` under ``ack:drop:after_frames=3;client:truncate:
    after_frames=5;server:drop:rate=0.05:seed=3``: at least one reconnect,
    at least one replayed, retired or deduped batch, the audit exact) and
-   ``examples.async_dsgd``'s 8 rank threads on the card for 8 s under
+   ``examples.async_dsgd``'s 8 rank threads on the card for 8 s (each
+   rank's first step warmed in a thread before the budget) under
    ``rank2:die:at_step=8;rank1:stall:at_step=6:s=1.5`` (total plus died
    mass equal to n).  33c, inside 32a beside its server: a
    ``StripedDepositStream`` over the 8 windows resized by ``apply_plan``
@@ -507,6 +508,33 @@ its last line:
    ack, net, and the stream's EWMA), the critical path's edges and
    gating seconds, the overlap fraction, the profile's top 6 frames, and
    the traced run's img/s against 32c's untraced tcp run (not checked).
+36. Metrics and the flight recorder (no new kernel; K1 and K2 run with
+   their counters armed).  36a, right after phase 3 on its trainer
+   (ResNet-50 x 8 ranks, K1): after one untimed step, blocks of
+   ``OBS_STEPS`` steps, each from one snapshot of the trainer's state,
+   under deterministic algorithms, the arms in turns (``OBS_ORDER``: off,
+   metrics, jit, jit, metrics, off): metrics off; ``metrics_start()`` (a
+   JSONL file, one ``metrics.step`` line a step); metrics and
+   ``BLUEFOG_TPU_BLACKBOX=jit``.
+   Checked: every block's state bit-equal to the first's; K1 launches
+   the same count a step in each block; ``bf_comm_bytes_total`` equals steps x slots x the
+   fused buffers' bytes, and the rounds, messages and chunk counters
+   their closed forms (one round a rank a step, as the JAX package's
+   callback counts once per device); ``collective_census`` of one step
+   equals K1's launch delta; the JSONL reads back through ``python -m
+   bluefog_tpu_torch.metrics.dash``; a ``blackbox.dump`` after a
+   synchronize holds one begin/end pair per gossip call and no open
+   round, and the merge finds no hang.  Printed: each arm's host step ms,
+   and the host microseconds of one step's hooks alone in each arm.
+   36b, in 32c's workers after phase 35's run: one ``OBS_SECONDS`` run
+   over tcp with metrics on and the recorder in its default host mode
+   (32c's three runs have it off, ``BLUEFOG_TPU_BLACKBOX=0``).  Checked:
+   each rank's sent deposits (the stream's items) equal its rounds, their
+   dense bytes the items x the vector's bytes, and the other rank's
+   server counted the same deposits and bytes; each worker dumped, and
+   ``python -m bluefog_tpu_torch.blackbox`` on the incident diagnoses no
+   hang.  Printed: the run's img/s, and the recorder's host cost a
+   deposit (its events a deposit x a record's measured microseconds).
 23. Report: a ``kernels:`` line, a line for K1 on this slice's paths and a
    line for the allreduce (not a TPU kernel), the kernels' JSON line (K1,
    K2 and K3's three kernels; K1's entry also carries its one-slot times,
@@ -1069,6 +1097,229 @@ def phase_host_breakdown(trainer, tag, steps=3):
               f"{total - t['base'] - t['combine']:.2f} "
               f"+ SGD step {t['base']:.2f} + combine {t['combine']:.2f}"
               f"{window}; {_probe_text(row)}")
+
+
+OBS_STEPS = 2         # phase 36a: steps a block, two blocks an arm
+OBS_ORDER = ("off", "metrics", "jit", "jit", "metrics", "off")
+OBS_SECONDS = 2.0     # phase 36b: the observed run over tcp
+
+
+def _cli_json(module, *args):
+    """``python -m module args... --json`` in a fresh interpreter; its
+    parsed output."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__)) + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    proc = subprocess.run([sys.executable, "-m", module, *args, "--json"],
+                          capture_output=True, text=True, timeout=120,
+                          env=env)
+    check(proc.returncode == 0,
+          f"{module} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return json.loads(proc.stdout)
+
+
+@contextlib.contextmanager
+def _metrics_held_off():
+    """Metrics off inside (the hooks see no registry), the live registry
+    back after, its counts kept: 36a's off blocks sit between its on
+    blocks."""
+    from bluefog_tpu_torch.metrics import registry as mreg
+
+    held = mreg._REGISTRY, mreg._STOPPED
+    mreg._REGISTRY, mreg._STOPPED = None, True
+    try:
+        yield
+    finally:
+        mreg._REGISTRY, mreg._STOPPED = held
+
+
+def _hook_us(trainer, n_bufs, reps=2000):
+    """Host microseconds of one main-path step's hooks alone, with metrics
+    off, on, and on with the per-call recorder: the gossip call's begin,
+    round record and end, and the optimizer's step record, on a tree of
+    the step's ``n_bufs`` fused buffers.  The hooks read shapes only, so
+    small buffers on the trainer's device cost what the step's do."""
+    from bluefog_tpu_torch import blackbox, metrics
+    from bluefog_tpu_torch.ops import collectives as C
+
+    opt = trainer.opt
+    sched = opt.schedule
+    x = {"fused": {str(i): torch.empty(N_RANKS, 4, device=trainer.device)
+                   for i in range(n_bufs)}}
+
+    def step_hooks():
+        token = C._round_begin("neighbor_allreduce", x,
+                               stage="bf.neighbor_allreduce",
+                               schedule=sched.name)
+        C._record_round(x, op="neighbor_allreduce", slots=sched.num_slots,
+                        route="kernel", schedule=sched.name, chunked=True)
+        C._round_end(x, token)
+        opt._record_step(True)
+
+    prev_mode = os.environ.pop("BLUEFOG_TPU_BLACKBOX", None)
+    out = {}
+    try:
+        for arm in ("off", "metrics", "jit"):
+            if arm == "metrics":
+                metrics.metrics_start()
+            if arm == "jit":
+                os.environ["BLUEFOG_TPU_BLACKBOX"] = "jit"
+                blackbox.reset()
+                blackbox.configure(rank=0)
+            step_hooks()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                step_hooks()
+            out[arm] = (time.perf_counter() - t0) / reps * 1e6
+    finally:
+        metrics.metrics_stop()
+        os.environ.pop("BLUEFOG_TPU_BLACKBOX", None)
+        if prev_mode is not None:
+            os.environ["BLUEFOG_TPU_BLACKBOX"] = prev_mode
+        blackbox.reset()
+    print(f"[36a] one step's hooks alone ({reps} reps, {n_bufs} fused "
+          "buffers): " + ", ".join(f"{k} {v:.1f} us" for k, v in out.items()))
+    return out
+
+
+def phase_observed_main(trainer, main_lengths):
+    """36a: the main path's steps with metrics off, on, and on with the
+    flight recorder's per-call events, each block of ``OBS_STEPS`` from one
+    snapshot, the arms interleaved (``OBS_ORDER``); see the module
+    docstring.  Returns each arm's host step ms and the counters."""
+    from bluefog_tpu_torch import blackbox, metrics
+    from bluefog_tpu_torch.blackbox import merge
+    from bluefog_tpu_torch.ops.gossip_kernel import gossip_mix
+    from bluefog_tpu_torch.utils.inspect import collective_census
+
+    opt = trainer.opt
+    sched = opt.schedule
+    state, snap = _snapshot(trainer)
+    counters = _counters(opt)
+    n_bufs = len(main_lengths)
+    fused_bytes = sum(p.numel() * p.element_size()
+                      for p in trainer.params.values())
+    out = tempfile.TemporaryDirectory()
+    jsonl = os.path.join(out.name, "metrics.jsonl")
+    prev_mode = os.environ.get("BLUEFOG_TPU_BLACKBOX")
+    arms = {arm: {"ms": [], "launches": 0} for arm in OBS_ORDER}
+    ref, steps_recorded = None, 0
+    try:
+        with deterministic():
+            # one untimed step first: the first steps under deterministic
+            # algorithms pick their kernels; and the arms take turns (run
+            # in one order on an H100's host, each later arm read 6-15%
+            # faster than the one before it)
+            trainer.step()
+            reg = metrics.metrics_start(jsonl)
+            blackbox.reset()
+            blackbox.configure(rank=0)
+            for arm in OBS_ORDER:
+                for k, v in state.items():
+                    v.copy_(snap[k])
+                _restore(opt, counters)
+                if arm == "jit":
+                    os.environ["BLUEFOG_TPU_BLACKBOX"] = "jit"
+                else:
+                    os.environ.pop("BLUEFOG_TPU_BLACKBOX", None)
+                gossip_mix.launches = 0
+                with (_metrics_held_off() if arm == "off"
+                      else contextlib.nullcontext()):
+                    for _ in range(OBS_STEPS):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        trainer.step()
+                        torch.cuda.synchronize()
+                        arms[arm]["ms"].append(
+                            (time.perf_counter() - t0) * 1e3)
+                        if arm != "off":
+                            metrics.step(steps_recorded)
+                            steps_recorded += 1
+                arms[arm]["launches"] += gossip_mix.launches
+                if ref is None:
+                    ref = {k: v.clone() for k, v in state.items()}
+                else:
+                    same = [k for k, v in state.items()
+                            if not torch.equal(v, ref[k])]
+                    check(not same, f"36a: a {arm} block's state differs "
+                          f"from the first off block's in {same[:4]}")
+                check(gossip_mix.launches == n_bufs * OBS_STEPS,
+                      f"36a {arm}: K1 launched {gossip_mix.launches} times "
+                      f"in {OBS_STEPS} steps, expected {n_bufs} a step")
+            os.environ["BLUEFOG_TPU_BLACKBOX"] = "jit"
+            pending = blackbox.get().settle()
+            torch.cuda.synchronize()
+            dump = blackbox.dump("phase36a", directory=out.name)
+            # the census, on the metrics-and-recorder state, of one more
+            # step; the arms were compared above
+            before = gossip_mix.launches
+            census = collective_census(trainer.step)
+            delta = gossip_mix.launches - before
+            snapm = reg.snapshot()
+            metrics.metrics_stop()
+    finally:
+        if prev_mode is None:
+            os.environ.pop("BLUEFOG_TPU_BLACKBOX", None)
+        else:
+            os.environ["BLUEFOG_TPU_BLACKBOX"] = prev_mode
+        blackbox.reset()
+        for k, v in state.items():
+            v.copy_(snap[k])
+        _restore(opt, counters)
+    # the counters over the on blocks and the census step
+    on_steps = OBS_STEPS * sum(arm != "off" for arm in OBS_ORDER)
+    jit_calls = OBS_STEPS * OBS_ORDER.count("jit")
+    steps = on_steps + 1
+    lbl = (f'{{backend="pallas",op="neighbor_allreduce",'
+           f'schedule="{sched.name}"}}')
+    want = {
+        "bf_comm_rounds_total": steps * N_RANKS,
+        "bf_comm_bytes_total": steps * sched.num_slots * fused_bytes,
+        "bf_comm_messages_total": steps * N_RANKS * n_bufs * sched.num_slots,
+        "bf_comm_pallas_chunks_total": steps * N_RANKS * n_bufs,
+    }
+    for name, v in want.items():
+        got = snapm.get(name + lbl)
+        print(f"[36a] {name}{lbl} {got} = {v} (closed form)")
+        check(got == v, f"36a: {name} {got}, closed form {v}")
+    check(census["calls"] == {"neighbor_allreduce": 1}
+          and census["kernels"]["gossip_mix"]["launches"] == delta == n_bufs,
+          f"36a: census {census} against K1's launch delta {delta}")
+    rows = {r["series"]: r for r in _cli_json(
+        "bluefog_tpu_torch.metrics.dash", jsonl)}
+    brow = rows["bf_comm_bytes_total" + lbl]
+    check(brow["total"] == want["bf_comm_bytes_total"]
+          and brow["points"] == on_steps,
+          f"36a: the dash read {brow} from the JSONL")
+    lines = [json.loads(l) for l in open(dump) if l.strip()]
+    evs = [l["event"] for l in lines if "event" in l]
+    begins = [e for e in evs if e["kind"] == "collective_begin"]
+    ends = [e for e in evs if e["kind"] == "collective_end"]
+    (spans,) = [l["open_spans"] for l in lines if "open_spans" in l]
+    check(len(begins) == len(ends) == jit_calls
+          and all(e["op"] == "neighbor_allreduce" for e in begins)
+          and not spans,
+          f"36a: the dump holds {len(begins)} begins, {len(ends)} ends, "
+          f"{len(spans)} open spans for {jit_calls} gossip calls")
+    report = merge.diagnose(merge.load_incident(out.name))
+    check(not report["stuck_rounds"] and not report["suspect_ranks"],
+          f"36a: the merge found a hang: {report}")
+    out.cleanup()
+    hooks_us = _hook_us(trainer, n_bufs)
+    mean = {k: sum(v["ms"]) / len(v["ms"]) for k, v in arms.items()}
+    print(f"[36a] ResNet-50 x {N_RANKS} ranks, blocks of {OBS_STEPS} steps "
+          f"in the order {OBS_ORDER}, bit-equal states, K1 {n_bufs} launches"
+          f" a step in each block; host step ms: " + "; ".join(
+              f"{k} {[round(t, 2) for t in v['ms']]} (mean {mean[k]:.2f})"
+              for k, v in arms.items())
+          + f"; metrics / off {mean['metrics'] / mean['off']:.4f}, jit / off"
+          f" {mean['jit'] / mean['off']:.4f}; {pending} end(s) pending at "
+          f"the dump's settle before the synchronize; census {census}")
+    return {"ms": {k: v["ms"] for k, v in arms.items()},
+            "mean_ms": mean, "hooks_us": hooks_us,
+            "launches": {k: v["launches"] for k, v in arms.items()},
+            "census": census, "counters": {k + lbl: snapm[k + lbl]
+                                           for k in want}}
 
 
 def _bound(n_bytes, n_flops, flops_per_s=F32_FLOPS_PER_S):
@@ -6843,13 +7094,61 @@ def _resnet_rank_job(rank, n, dev, bdir):
     return params0, loss_and_grad
 
 
+def _record_us(reps=20000):
+    """A flight-recorder record's host microseconds on this host (a
+    throwaway recorder, the event a deposit's size)."""
+    from bluefog_tpu_torch.blackbox import recorder
+
+    rec = recorder.FlightRecorder(capacity=4096)
+    t0 = time.perf_counter()
+    for i in range(reps):
+        rec.record("tcp_deposit", slot=0, bytes=204456264, window="w",
+                   peer="127.0.0.1")
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
+def observed_run(rank, n, bdir, params0, loss_and_grad):
+    """36b in one 32c worker: an ``OBS_SECONDS`` run over tcp with metrics
+    on and the recorder in its default host mode; then this rank's dump
+    into ``bdir/incident`` and its counters into ``observed.<rank>``."""
+    from bluefog_tpu_torch import blackbox, metrics
+    from bluefog_tpu_torch.runtime.async_windows import (FileBarrier,
+                                                         run_async_dsgd_rank)
+    from bluefog_tpu_torch.topology import ExponentialTwoGraph
+
+    os.environ["BLUEFOG_TPU_BLACKBOX"] = "1"
+    blackbox.reset()
+    reg = metrics.metrics_start()
+    rep = run_async_dsgd_rank(
+        ExponentialTwoGraph(n), rank, params0, loss_and_grad,
+        barrier=FileBarrier(os.path.join(bdir, "observed"), n, rank),
+        lr=ASYNC_LR, duration_s=OBS_SECONDS,
+        name=f"smoke_tcp_observed_{os.path.basename(bdir)}",
+        transport="tcp", tcp_bind="127.0.0.1")
+    snap = reg.snapshot()
+    events = len(blackbox.get().events())
+    path = blackbox.dump("phase36b", directory=os.path.join(bdir,
+                                                            "incident"))
+    metrics.metrics_stop()
+    vec_bytes = (sum(v.numel() for v in params0.values()) + 1) * 8
+    out = {"snap": snap, "events": events, "dump": path,
+           "record_us": _record_us(), "vec_bytes": vec_bytes}
+    if rep is not None:
+        out.update(steps=rep.steps_per_rank, wall_s=rep.wall_time_s,
+                   mass=rep.total_mass)
+    with open(os.path.join(bdir, f"observed.{rank}"), "w") as f:
+        json.dump(out, f)
+
+
 def tcp_worker(argv):
     """One rank process of 32c: ResNet-50 over run_async_dsgd_rank, first
     over shm, then over tcp, its gradient on the card; then phase 35's run
     over tcp with tracing and the sampling profiler on, its trace and
     profile files under ``bdir``, K1-K3's launch counters read around
-    it."""
+    it; then 36b's run (:func:`observed_run`).  The flight recorder is off
+    in the first three runs."""
     rank, n, bdir, dev = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    os.environ["BLUEFOG_TPU_BLACKBOX"] = "0"
     from bluefog_tpu_torch import tracing
     from bluefog_tpu_torch.ops.deliver_kernel import window_deliver
     from bluefog_tpu_torch.runtime.async_windows import (FileBarrier,
@@ -6886,6 +7185,7 @@ def tcp_worker(argv):
                 "streams": rep.stream_stats}
     with open(os.path.join(bdir, f"launches.{rank}"), "w") as f:
         json.dump(launches, f)
+    observed_run(rank, n, bdir, params0, loss_and_grad)
     if rank == 0:
         with open(os.path.join(bdir, "report.json"), "w") as f:
             json.dump(res, f)
@@ -6990,6 +7290,76 @@ def _dominant_phase(report, frame):
         if folded.rsplit(";", 1)[-1] == frame:
             by[ph] = by.get(ph, 0) + int(cnt)
     return max(by, key=by.get) if by else "other"
+
+
+def _sum_series(snap, name, skip=None):
+    """The sum of a family's series in a snapshot (those whose labels hold
+    ``skip`` left out)."""
+    return sum(v for k, v in snap.items()
+               if k.split("{", 1)[0] == name
+               and (skip is None or skip not in k))
+
+
+def phase_observed_tcp(resnet):
+    """36b's analysis: the two workers' counters and dumps from their
+    observed run over tcp (see the module docstring)."""
+    t0 = time.perf_counter()
+    bdir = resnet["traced"]["dir"].name
+    n = 2
+    obs = []
+    for r in range(n):
+        with open(os.path.join(bdir, f"observed.{r}")) as f:
+            obs.append(json.load(f))
+    rows = []
+    for r, o in enumerate(obs):
+        snap, peer = o["snap"], obs[1 - r]["snap"]
+        vec = o["vec_bytes"]
+        rounds = snap[f'bf_round_seconds_count{{rank="{r}"}}']
+        items = _sum_series(snap, "bf_tcp_pipelined_items_total")
+        dense = _sum_series(snap, "bf_tcp_dense_bytes_total")
+        shm = _sum_series(snap, "bf_shm_deposits_total")
+        # the other rank's server: this rank's deposits into its data
+        # window (rank 0's meta window takes small ones of its own)
+        landed = _sum_series(peer, "bf_tcp_deposit_bytes_total",
+                             skip=":meta")
+        per_dep = o["events"] / max(items, 1)
+        rows.append({"rounds": rounds, "items": items, "dense": dense,
+                     "landed": landed, "shm": shm, "events": o["events"],
+                     "record_us": o["record_us"],
+                     "recorder_us_a_deposit": per_dep * o["record_us"]})
+        print(f"[36b] rank {r}: {rounds:.0f} rounds, {items:.0f} deposits "
+              f"sent over tcp ({shm:.0f} over shm), {dense:,.0f} dense bytes"
+              f" = {items:.0f} x {vec:,} expected; the other rank's server "
+              f"took {landed:,.0f} bytes into its data window; {o['events']}"
+              f" recorder events ({per_dep:.1f} a deposit) at "
+              f"{o['record_us']:.2f} us a record")
+        check(shm == 0 and items == rounds,
+              f"36b rank {r}: {items} deposits for {rounds} rounds")
+        check(dense == items * vec and landed == items * vec,
+              f"36b rank {r}: bytes {dense} sent / {landed} landed for "
+              f"{items} deposits of {vec}")
+        check(o["dump"] and os.path.exists(o["dump"]),
+              f"36b rank {r} wrote no dump")
+    report = _cli_json("bluefog_tpu_torch.blackbox",
+                       os.path.join(bdir, "incident"), "--expect-ranks",
+                       str(n))
+    check(not report["stuck_rounds"] and not report["missing_ranks"]
+          and not report["suspect_ranks"],
+          f"36b: the merge diagnosed a hang: {report}")
+    o0 = obs[0]
+    check(abs(o0["mass"] - n) <= 1e-9 * n, f"36b: mass audit {o0['mass']}")
+    img_s = sum(o0["steps"]) * TCP_BATCH / o0["wall_s"]
+    out = {"img_s": img_s, "tcp_img_s": resnet["tcp"]["img_s"],
+           "steps": o0["steps"], "ranks": rows,
+           "s": time.perf_counter() - t0}
+    print(f"[36b] observed run over tcp, P = {n}: steps {o0['steps']} in "
+          f"{o0['wall_s']:.2f} s, {img_s:.1f} img/s against 32c's tcp run's "
+          f"{resnet['tcp']['img_s']:.1f} (metrics and recorder off; not "
+          f"checked: a {OBS_SECONDS:.0f} s run); the merge: no hang, ranks "
+          f"{report['present_ranks']}; recorder host cost a deposit "
+          + ", ".join(f"rank {r} {x['recorder_us_a_deposit']:.1f} us"
+                      for r, x in enumerate(rows)))
+    return out
 
 
 def phase_traced_tcp(resnet):
@@ -7602,9 +7972,12 @@ def host_chaos_drills(res):
     check(abs(total - 8.0) <= 1e-9 * 8, f"33b threads: total + died = "
           f"{total!r}")
     check("OK" in stdout, f"33b threads: the example's checks failed")
-    out["threads"] = {"line": line, "s": secs}
-    print(f"[33b] 8 rank threads under {CHAOS_THREADS!r}: {line}; "
-          f"{secs:.2f} s")
+    steps = next((ln for ln in stdout.splitlines()
+                  if ln.startswith("steps/rank")), "")
+    warm = stdout.split("warm-up ", 1)[1].split(" s ", 1)[0]
+    out["threads"] = {"line": line, "s": secs, "warm_s": float(warm)}
+    print(f"[33b] 8 rank threads under {CHAOS_THREADS!r}: {line}; {steps}; "
+          f"warm-up {warm} s before the budget; {secs:.2f} s")
     return out
 
 
@@ -8310,9 +8683,11 @@ def main():
     k1_launches = main_launches["gossip_mix"]
     phase_step_parity(trainer, "parity")
     phase_host_breakdown(trainer, "main")
+    lap("3")
+    observed = phase_observed_main(trainer, main_lengths)
     del trainer, leaves
     torch.cuda.empty_cache()
-    lap("3")
+    lap("36")
 
     k2, k2_acc, k2_push = phase_k2(device, win_len)
     lap("4")
@@ -8428,6 +8803,8 @@ def main():
     tcp, ctl_started = phase_host_runtime_tcp(
         device, start_next=lambda: start_control(device), beside=drills)
     lap("32")
+    observed_tcp = phase_observed_tcp(tcp["resnet"])
+    lap("36")
     traced = phase_traced_tcp(tcp["resnet"])
     lap("35")
     ctl = phase_control_chaos(device, ctl_started, tcp.pop("beside_32d"),
@@ -8757,6 +9134,22 @@ def main():
           + ", ".join(f"{fr} ({ph})" for fr, _, _, ph in
                       traced["profile"]["top"][:3])
           + f"; launches {traced['launches']}; analysis {traced['s']:.1f} s")
+    om, ot = observed["mean_ms"], observed_tcp
+    print("metrics and the flight recorder (phase 36): ResNet-50 x "
+          f"{N_RANKS} ranks host step ms off {om['off']:.2f}, metrics "
+          f"{om['metrics']:.2f} ({om['metrics'] / om['off']:.4f}x), metrics "
+          f"+ per-call recorder {om['jit']:.2f} ({om['jit'] / om['off']:.4f}"
+          f"x), states bit-equal, K1 {observed['launches']} launches; "
+          "one step's hooks alone "
+          + ", ".join(f"{k} {v:.1f} us" for k, v in
+                      observed["hooks_us"].items())
+          + "; "
+          f"counters at their closed forms; over tcp at P = 2 "
+          f"{ot['img_s']:.1f} img/s observed against {ot['tcp_img_s']:.1f} "
+          f"unobserved, the recorder "
+          + ", ".join(f"{x['recorder_us_a_deposit']:.1f}"
+                      for x in ot["ranks"])
+          + " us a deposit; no hang in either incident")
     print(phase_seconds_line())
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(

@@ -272,8 +272,10 @@ def test_simulate_and_timeline(tmp_path):
     assert r.returncode == 0, r.stderr
     assert "SIM 4 cpu 12.0" in r.stdout, r.stdout
     events = json.loads(trace.read_text())
-    assert [(e["name"], e["ph"]) for e in events] == [("step", "B"),
-                                                      ("step", "E")]
+    # the gossip call's own span (device_stage), inside the user's
+    assert [(e["name"], e["ph"]) for e in events] == [
+        ("step", "B"), ("bf.neighbor_allreduce", "b"),
+        ("bf.neighbor_allreduce", "e"), ("step", "E")]
 
 
 def test_timeline_path_per_process():

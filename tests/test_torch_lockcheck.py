@@ -10,9 +10,9 @@ against the JAX package's (``bluefog_tpu/utils/lockcheck.py``), following
   ``BLUEFOG_TPU_LOCKCHECK=1`` (or ``warn``, ``0``) runs checked or not
   with no code change.
 
-Left out: ``test_cycle_records_blackbox_event`` (the flight recorder is
-not ported yet, ROADMAP item 11a-ii) and ``TestRuntimeUnderTripwire``
-(no ported module takes its locks from lockcheck yet, item 11a-ii).
+``test_cycle_records_blackbox_event`` and ``TestRuntimeUnderTripwire``'s
+thread DSGD case are in ``tests/test_torch_blackbox.py``; its serving
+case is ROADMAP item 11a-iii.
 """
 
 import subprocess
@@ -46,10 +46,10 @@ def _multinode_cycles(lc):
 def _state(lc):
     """The observable table of a module: edges with their flags, cycles,
     and violations without the thread names and stacks that differ by
-    process history.  The JAX package records a cycle in its flight
+    process history.  Each package records a cycle in its flight
     recorder while the offending locks are held, which adds edges into
-    the recorder's own locks (``blackbox.*``); the port has no flight
-    recorder yet, so those edges are set aside."""
+    the recorder's own locks (``blackbox.*``), and which of them depends
+    on whether the recorder existed yet, so those edges are set aside."""
     edges = {k: {f: v for f, v in e.items() if f not in ("thread", "stack")}
              for k, e in lc.edges().items()
              if not k[1].startswith("blackbox.")}

@@ -4,6 +4,7 @@ schedules (seeded jitter, budgets, deadlines, worst-case totals), and the
 step equal; plus ``heal`` and ``ResilienceConfig``, the ``FileBarrier``
 exclusion set and the supervisor's backoff."""
 
+import json
 import os
 import sys
 import time
@@ -215,6 +216,12 @@ def test_supervisor_gives_up_and_honours_min_uptime(tmp_path):
     assert run_supervised([sys.executable, str(script2), str(marker)],
                           max_restarts=3, min_uptime_s=60.0,
                           restart_backoff_s=0.0) == 7
-    with pytest.raises(NotImplementedError, match="item 11"):
-        run_supervised([sys.executable, str(script)],
-                       incident_dir=str(tmp_path))
+    # incident_dir: every failed attempt leaves its restart marker
+    incident = tmp_path / "incident"
+    assert run_supervised([sys.executable, str(script)], max_restarts=1,
+                          restart_backoff_s=0.0,
+                          incident_dir=str(incident)) == 5
+    marks = [json.loads(line) for line in
+             (incident / "supervisor.jsonl").read_text().splitlines()]
+    assert [(m["attempt"], m["returncode"]) for m in marks] == [(1, 5),
+                                                                (2, 5)]
